@@ -1,0 +1,97 @@
+"""Clamped trilinear samplers — the plain PyTorch gather core of the port.
+
+``sample3`` is the exact clamped-index trilinear of
+``gpufluidsimulation_tpu.core.interp.sample3``: every corner index is
+clamped to the field (the reference's ``boundedAt``), and the blend order
+is x, then y, then z. ``trilerp_grid`` is the same sampler in grid units
+(index coordinates on the field's own lattice); the CUDA kernels under
+``csrc/`` evaluate exactly these operations in the same order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_MAC_OFFS = ((-0.5, 0.0, 0.0), (0.0, -0.5, 0.0), (0.0, 0.0, -0.5))
+
+
+def div_scalar(x, s: float):
+    """x / s in IEEE division. PyTorch's CUDA division by a host scalar
+    multiplies by the reciprocal instead, which can differ in the last
+    bit from the kernels' division; a device 0-dim divisor keeps the
+    plain versions bit-comparable on the card."""
+    if x.is_cuda:
+        return x / torch.full((), s, dtype=x.dtype, device=x.device)
+    return x / s
+
+
+def _axis_corners(g, n):
+    i0f = torch.floor(g)
+    f = g - i0f
+    i0 = i0f.long()
+    return i0.clamp(0, n - 1), (i0 + 1).clamp(0, n - 1), f
+
+
+def trilerp_grid(field, gx, gy, gz):
+    """Trilinear sample of `field` at grid coordinates (index units on the
+    field's lattice) with per-corner index clamping."""
+    nx, ny, nz = field.shape
+    ia, ib, fx = _axis_corners(gx, nx)
+    ja, jb, fy = _axis_corners(gy, ny)
+    ka, kb, fz = _axis_corners(gz, nz)
+    flat = field.reshape(-1)
+
+    def at(i, j, k):
+        return flat[(i * ny + j) * nz + k]
+
+    c00 = (1 - fx) * at(ia, ja, ka) + fx * at(ib, ja, ka)
+    c10 = (1 - fx) * at(ia, jb, ka) + fx * at(ib, jb, ka)
+    c01 = (1 - fx) * at(ia, ja, kb) + fx * at(ib, ja, kb)
+    c11 = (1 - fx) * at(ia, jb, kb) + fx * at(ib, jb, kb)
+    c0 = (1 - fy) * c00 + fy * c10
+    c1 = (1 - fy) * c01 + fy * c11
+    return (1 - fz) * c0 + fz * c1
+
+
+def sample3(field, px, py, pz, h, off):
+    """Trilinear sample at world positions; the field's lattice is
+    (i + off)*h per axis (``off`` in units of h)."""
+    return trilerp_grid(
+        field,
+        div_scalar(px, h) - off[0],
+        div_scalar(py, h) - off[1],
+        div_scalar(pz, h) - off[2],
+    )
+
+
+def mac_velocity_3d(u, v, w, px, py, pz, h):
+    """The 3D MAC velocity at world positions (each component sampled on
+    its own staggered lattice)."""
+    return (sample3(u, px, py, pz, h, _MAC_OFFS[0]),
+            sample3(v, px, py, pz, h, _MAC_OFFS[1]),
+            sample3(w, px, py, pz, h, _MAC_OFFS[2]))
+
+
+def mac_velocity_grid(u, v, w, gx, gy, gz):
+    """MAC velocity at cell-lattice grid coordinates (g = p/h): the
+    staggered component of each field sits half a cell lower, so its own
+    grid coordinate is g + 0.5 on that axis."""
+    return (trilerp_grid(u, gx + 0.5, gy, gz),
+            trilerp_grid(v, gx, gy + 0.5, gz),
+            trilerp_grid(w, gx, gy, gz + 0.5))
+
+
+def mac_velocity_at_c_3d(u, v, w):
+    """MAC velocity at the cell-center lattice: static face averages."""
+    return (0.5 * (u[:-1] + u[1:]),
+            0.5 * (v[:, :-1] + v[:, 1:]),
+            0.5 * (w[:, :, :-1] + w[:, :, 1:]))
+
+
+def clamp_pos_3d(px, py, pz, h, ni, nj, nk, lo=1.0, hi=1.0):
+    """Clamp world positions to [lo*h, L - hi*h] per axis."""
+    return (
+        px.clamp(lo * h, ni * h - hi * h),
+        py.clamp(lo * h, nj * h - hi * h),
+        pz.clamp(lo * h, nk * h - hi * h),
+    )

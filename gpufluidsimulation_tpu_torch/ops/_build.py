@@ -1,0 +1,150 @@
+"""nvcc build and ctypes loader for the hand-written kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled on first use into its own shared
+library with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -fmad=false
+         -shared -Xcompiler -fPIC -o _build/<name>-<digest>.so csrc/<name>.cu
+
+``-fmad=false`` keeps every multiply and add separately rounded, as the
+plain PyTorch versions compute them, so the card's kernels can be held
+against their plain versions to a few ulp; fast math is never enabled.
+The library name carries a digest of the sources and flags, so an edited
+kernel is rebuilt and a stale library is never loaded. ``build`` starts
+one nvcc per source at once and waits for all of them.
+
+Kernels take pointers and the stream as ``c_void_p`` and return
+``cudaGetLastError()`` after the launch; ``check`` raises on nonzero.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _digest(name: str) -> str:
+    h = hashlib.sha1()
+    for path in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
+def lib_path(name: str) -> Path:
+    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+
+
+def build(names=SOURCES, verbose: bool = False) -> dict[str, str]:
+    """Compile every missing library in `names`, all nvcc processes at
+    once. Returns nvcc's output per name (register/spill report when
+    `verbose`). Raises with nvcc's errors if any build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    procs = {}
+    for name in names:
+        out = lib_path(name)
+        if out.exists() and not verbose:
+            continue
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    logs, failed = {}, []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        logs[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            Path(tmp).unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return logs
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function `symbol` of library `name` (built if missing) with
+    its argument types declared; it returns a cudaError_t as int."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        path = lib_path(name)
+        if not path.exists():
+            build([name])
+        lib = _LIBS[name] = ctypes.CDLL(str(path))
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t) -> ctypes.c_void_p:
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def on_card(t, name: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (take the plain version); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.is_cuda:
+        return True
+    raise ValueError(f"{name}: unsupported device {t.device}")
+
+
+def require(t, name: str, shape=None, ndim=None) -> None:
+    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape`."""
+    import torch
+
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: expected {ndim} dims, got {t.dim()}")

@@ -1,0 +1,176 @@
+"""3D map marches and the 27-point extrema clamp.
+
+Counterpart of ``gpufluidsimulation_tpu.ops.advect`` (3D BiMocq subset).
+The CFL substep loops run on the host: ``cfldt`` arrives as a float32 host
+value (one device sync per step, in the solver) and the substep schedule
+repeats the JAX ``lax.while_loop`` arithmetic in ``np.float32`` — in
+float64 the count of substeps can differ, and then the maps differ.
+
+Positions inside a march are cell-lattice grid coordinates (p/h); each
+substep is one launch of the ``rk3_substep`` or ``dmc_substep`` kernel
+(``ops/interp_fast.py``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from gpufluidsimulation_tpu_torch.core import interp
+from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+# a flow whose CFL substep count exceeds this is not a flow the step can
+# follow (velocities have blown up); raise instead of looping for hours
+MAX_SUBSTEPS = 10_000
+
+
+def substeps(cfldt, total):
+    """The float32 substep schedule of the JAX march loops: starting at
+    t = 0, sub = min(cfldt, total - t) and t += sub while t < total."""
+    total = np.float32(total)
+    cfl = np.float32(max(np.float32(float(cfldt)), np.float32(1e-30)))
+    if not np.isfinite(cfl):
+        raise FloatingPointError(f"non-finite CFL substep {cfl}")
+    t = np.float32(0.0)
+    out = []
+    while t < total:
+        sub = np.float32(min(cfl, np.float32(total - t)))
+        out.append(sub)
+        t = np.float32(t + sub)
+        if len(out) > MAX_SUBSTEPS:
+            raise FloatingPointError(
+                f"more than {MAX_SUBSTEPS} CFL substeps (cfldt={cfl})")
+    return out
+
+
+def _sh(sub, h, sign=1.0):
+    """Signed substep over h in float32, as the JAX kernels receive it."""
+    return np.float32(np.float32(sign) * np.float32(sub)) / np.float32(h)
+
+
+# ---------------------------------------------------------------------------
+# RK3 tracing (Ralston's third-order scheme)
+# ---------------------------------------------------------------------------
+
+
+def _clamp_grid(grid, lo=1.0, hi=1.0):
+    return (float(lo), float(grid.ni - hi), float(lo), float(grid.nj - hi),
+            float(lo), float(grid.nk - hi))
+
+
+def trace_rk3_3d(grid, u, v, w, dt, px, py, pz, lo=1.0, hi=1.0):
+    """One RK3 step of world positions by `dt`, clamped to
+    [lo*h, L - hi*h] per axis."""
+    h = grid.h
+    pos = torch.stack([interp.div_scalar(p, h) for p in (px, py, pz)])
+    out = interp_fast.rk3_substep(u, v, w, pos, _sh(abs(dt), h,
+                                                    1.0 if dt >= 0 else -1.0),
+                                  _clamp_grid(grid, lo, hi))
+    return out[0] * h, out[1] * h, out[2] * h
+
+
+def trace_3d(grid, u, v, w, cfldt, dt, px, py, pz, from_identity=False):
+    """CFL-substepped RK3 trace of world positions by `dt` (signed).
+    ``from_identity=True`` asserts the positions are the cell lattice;
+    the march then starts from the exact integer lattice (the JAX
+    package's identity peel, whose stage 1 is the face average)."""
+    h = grid.h
+    sign = 1.0 if dt >= 0 else -1.0
+    if from_identity:
+        dev = px.device
+        ni, nj, nk = grid.shape_c
+        ar = [torch.arange(n, dtype=torch.float32, device=dev) for n in (ni, nj, nk)]
+        pos = torch.stack([ar[0][:, None, None].expand(ni, nj, nk),
+                           ar[1][None, :, None].expand(ni, nj, nk),
+                           ar[2][None, None, :].expand(ni, nj, nk)])
+    else:
+        pos = torch.stack([interp.div_scalar(p, h) for p in (px, py, pz)])
+    clamp = _clamp_grid(grid)
+    for sub in substeps(cfldt, abs(dt)):
+        pos = interp_fast.rk3_substep(u, v, w, pos, _sh(sub, h, sign), clamp)
+    return pos[0] * h, pos[1] * h, pos[2] * h
+
+
+def update_forward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
+                          from_identity=False):
+    """Forward-map march X <- trace(X, +dt); outside the interior band
+    (interior_mask('c', 2, 3)) the old map is kept."""
+    mx, my, mz = map_xyz
+    ox, oy, oz = trace_3d(grid, u, v, w, cfldt, dt, mx, my, mz,
+                          from_identity=from_identity)
+    mask = grid.interior_mask("c", lo=2, hi=3, device=mx.device)
+    return (torch.where(mask, ox, mx), torch.where(mask, oy, my),
+            torch.where(mask, oz, mz))
+
+
+# ---------------------------------------------------------------------------
+# DMC backward-map march
+# ---------------------------------------------------------------------------
+
+
+def dmc_displacements_3d(grid, u, v, w, substep):
+    """Signed DMC exponential-step displacements (grid cells) at the cell
+    lattice for one substep."""
+    return interp_fast.dmc_displacements(
+        u, v, w, float(_sh(substep, grid.h)),
+        interp_fast.dmc_threshold(grid.h))
+
+
+def dmc_backward_identity_3d(grid, u, v, w, substep):
+    """One DMC substep applied to the identity backward map, plain torch:
+    sampling the identity at the new position is the position itself
+    clamped to the lattice-value range [0, (n-1)h]."""
+    h = grid.h
+    du, dv, dw = dmc_displacements_3d(grid, u, v, w, substep)
+    px, py, pz = grid.node_coords("c", device=u.device)
+    nx_ = (px - du * h).clamp(0.0, (grid.ni - 1) * h)
+    ny_ = (py - dv * h).clamp(0.0, (grid.nj - 1) * h)
+    nz_ = (pz - dw * h).clamp(0.0, (grid.nk - 1) * h)
+    mask = grid.interior_mask("c", lo=2, hi=3, device=u.device)
+    return (torch.where(mask, nx_, px), torch.where(mask, ny_, py),
+            torch.where(mask, nz_, pz))
+
+
+def dmc_backward_step_3d(grid, u, v, w, map_x, map_y, map_z, substep):
+    """One DMC substep of the 3D backward map (world coordinates)."""
+    out = interp_fast.dmc_substep(
+        u, v, w, torch.stack([map_x, map_y, map_z]),
+        float(_sh(substep, grid.h)), interp_fast.dmc_threshold(grid.h))
+    return out[0], out[1], out[2]
+
+
+def update_backward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
+                           from_identity=False):
+    """CFL-substepped backward-map update. ``from_identity=True`` asserts
+    the incoming map is the identity: substep 1 is then the gather-free
+    identity peel in plain torch, the rest are ``dmc_substep`` launches."""
+    subs = substeps(cfldt, dt)
+    thresh = interp_fast.dmc_threshold(grid.h)
+    if from_identity and subs:
+        maps = torch.stack(dmc_backward_identity_3d(grid, u, v, w, subs[0]))
+        subs = subs[1:]
+    else:
+        maps = torch.stack(list(map_xyz))
+    for sub in subs:
+        maps = interp_fast.dmc_substep(u, v, w, maps,
+                                       float(_sh(sub, grid.h)), thresh)
+    return maps[0], maps[1], maps[2]
+
+
+# ---------------------------------------------------------------------------
+# Extrema clamping
+# ---------------------------------------------------------------------------
+
+
+def clamp_extrema_neighborhood(before, after):
+    """27-point neighbourhood clamp of `after` to the min/max of `before`
+    (SAME window), interior nodes only."""
+    if before.dim() != 3:
+        raise NotImplementedError("the port's extrema clamp is 3D only")
+    x = before[None, None]
+    mx = torch.nn.functional.max_pool3d(x, 3, stride=1, padding=1)[0, 0]
+    mn = -torch.nn.functional.max_pool3d(-x, 3, stride=1, padding=1)[0, 0]
+    clamped = torch.minimum(torch.maximum(after, mn), mx)
+    out = after.clone()
+    out[1:-1, 1:-1, 1:-1] = clamped[1:-1, 1:-1, 1:-1]
+    return out

@@ -1,0 +1,186 @@
+"""The port's map marches and extrema clamp against the JAX package.
+
+The JAX side runs its production numerics on the CPU: the fused Pallas
+DMC and RK3 kernels in interpret mode under
+``EngineMode(fast_interp=True, interp_interpret=True)``. The port runs its
+plain versions (CPU tensors). Both march the same float32 substep
+schedule (3 substeps here). Tolerances: the window kernels work in
+padded window-local coordinates and hat weights, the port in cell-lattice
+grid coordinates with clamped trilerps; positions agree to float32
+round-off of ~20-cell coordinates carried through 3 substeps, measured
+up to 7e-7 world (6e-5 cells); the bound is 2e-6 world (1.6e-4 cells).
+The non-identity map is displaced by at most 0.3 cells so that the JAX
+window kernels stay inside their reach contract (beyond it they clip taps
+and report it through interp_overflow; the port has no such clipping).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpufluidsimulation_tpu import config
+from gpufluidsimulation_tpu.core import grids as jgrids
+from gpufluidsimulation_tpu.ops import advect as jadvect
+from gpufluidsimulation_tpu_torch.core import grids
+from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
+
+SHAPE = (16, 20, 24)
+H = 0.2 / SHAPE[0]
+DT = 8.0 / SHAPE[0]
+FAST = config.EngineMode(fast_interp=True, interp_interpret=True)
+POS_ATOL = 2e-6
+
+
+def _smooth(shape, seed, amp):
+    rng = np.random.default_rng(seed)
+    idx = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in shape],
+                      indexing="ij")
+    f = np.zeros(shape)
+    for _ in range(2):
+        k = rng.uniform(0.5, 2.0, 3) * 2 * np.pi / np.array(shape)
+        f += np.sin(sum(kk * ii for kk, ii in zip(k, idx))
+                    + rng.uniform(0, 2 * np.pi))
+    return (amp * f / 2).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _setup():
+    jg = jgrids.Grid3D(*SHAPE, H)
+    tg = grids.Grid3D(*SHAPE, H)
+    vel = [_smooth(s, i, 0.06) for i, s in
+           enumerate((jg.shape_u, jg.shape_v, jg.shape_w))]
+    maxvel = max(float(np.abs(a).max()) for a in vel)
+    cfldt = np.float32(np.float32(H) / np.float32(maxvel))
+    ident = [np.asarray(p) for p in jg.node_coords("c")]
+    # a developed map: identity displaced smoothly by up to 0.3 cells,
+    # inside the JAX window kernels' reach contract
+    maps = [(p + _smooth(p.shape, 10 + i, 0.3 * H)).astype(np.float32)
+            for i, p in enumerate(ident)]
+    return jg, tg, vel, cfldt, ident, maps
+
+
+def test_substep_schedule_matches_while_loop():
+    _, _, _, cfldt, _, _ = _setup()
+    subs = advect.substeps(cfldt, DT)
+    assert len(subs) == 3
+    t = np.float32(0)
+    for s in subs:
+        t = np.float32(t + s)
+    assert t >= np.float32(DT)
+    # a cfldt that divides dt leaves no sliver substep
+    assert len(advect.substeps(np.float32(0.25), 0.5)) == 2
+
+
+@pytest.mark.parametrize("from_identity", [True, False])
+def test_backward_map_matches_jax(from_identity):
+    jg, tg, vel, cfldt, ident, maps = _setup()
+    start = ident if from_identity else maps
+    with config.engine_mode_scope(FAST):
+        want = jadvect.update_backward_map_3d(
+            jg, *(jnp.asarray(a) for a in vel),
+            tuple(jnp.asarray(m) for m in start), jnp.float32(cfldt), DT,
+            from_identity=from_identity)
+    got = advect.update_backward_map_3d(
+        tg, *map(_t, vel), tuple(map(_t, start)), cfldt, DT,
+        from_identity=from_identity)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=POS_ATOL)
+    moved = max(float(np.abs(a.numpy() - s).max()) for a, s in zip(got, start))
+    assert moved > 0.5 * H     # the march really displaced the map
+
+
+@pytest.mark.parametrize("from_identity", [True, False])
+def test_forward_map_matches_jax(from_identity):
+    jg, tg, vel, cfldt, ident, maps = _setup()
+    start = ident if from_identity else maps
+    with config.engine_mode_scope(FAST):
+        want = jadvect.update_forward_map_3d(
+            jg, *(jnp.asarray(a) for a in vel),
+            tuple(jnp.asarray(m) for m in start), jnp.float32(cfldt), DT,
+            from_identity=from_identity)
+    got = advect.update_forward_map_3d(
+        tg, *map(_t, vel), tuple(map(_t, start)), cfldt, DT,
+        from_identity=from_identity)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=POS_ATOL)
+    moved = max(float(np.abs(a.numpy() - s).max()) for a, s in zip(got, start))
+    assert moved > 0.5 * H
+
+
+def test_identity_peel_and_displacements_match_jax():
+    """The XLA identity peel and the DMC displacements are the same float32
+    arithmetic on both sides; 1 - exp(-q) cancels for small q, so an ulp
+    of exp (XLA's and PyTorch's differ) grows to ~3e-5 relative in the
+    displacement (measured 2.3e-5 cells): bounds 1e-4 cells, 1e-6 world."""
+    jg, tg, vel, cfldt, _, _ = _setup()
+    jvel = [jnp.asarray(a) for a in vel]
+    want = jadvect.dmc_backward_identity_3d(jg, *jvel, jnp.float32(cfldt))
+    got = advect.dmc_backward_identity_3d(tg, *map(_t, vel), cfldt)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-6)
+    want = jadvect.dmc_displacements_3d(jg, *jvel, jnp.float32(cfldt))
+    got = advect.dmc_displacements_3d(tg, *map(_t, vel), cfldt)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-4)
+
+
+def test_dmc_step_matches_jax_exact_path():
+    """One DMC substep of a displaced map against the JAX XLA step
+    (exact gathers). That step writes the exponential update in world
+    units as (1 - exp(-a*dt))*vel/a: the cancellation of 1 - exp for
+    small a*dt rounds differently from the kernel's form, up to ~1e-3
+    cells (measured 8.6e-6 world); bound 2e-5 world."""
+    jg, tg, vel, cfldt, _, maps = _setup()
+    with config.engine_mode_scope(config.EngineMode(fast_interp=False)):
+        want = jadvect.dmc_backward_step_3d(
+            jg, *(jnp.asarray(a) for a in vel),
+            *(jnp.asarray(m) for m in maps), jnp.float32(cfldt))
+    got = advect.dmc_backward_step_3d(tg, *map(_t, vel), *map(_t, maps),
+                                      cfldt)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=2e-5)
+
+
+def test_trace_rk3_step_matches_jax_exact_path():
+    jg, tg, vel, cfldt, _, maps = _setup()
+    dt = float(cfldt)
+    with config.engine_mode_scope(config.EngineMode(fast_interp=False)):
+        want = jadvect.trace_rk3_3d(*(jnp.asarray(a) for a in vel), H, dt,
+                                    *(jnp.asarray(m) for m in maps))
+    got = advect.trace_rk3_3d(tg, *map(_t, vel), dt, *map(_t, maps))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=POS_ATOL)
+
+
+@pytest.mark.parametrize("shape", [SHAPE, (17, 20, 24)])
+def test_clamp_extrema_neighborhood_matches_jax(shape):
+    before = _smooth(shape, 5, 1.0) + np.random.default_rng(6).standard_normal(
+        shape).astype(np.float32) * 0.1
+    after = before + np.random.default_rng(7).standard_normal(
+        shape).astype(np.float32) * 0.5
+    want = jadvect.clamp_extrema_neighborhood(jnp.asarray(before),
+                                              jnp.asarray(after))
+    got = advect.clamp_extrema_neighborhood(_t(before), _t(after))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_marches_on_cpu_launch_no_kernel():
+    _, tg, vel, cfldt, ident, _ = _setup()
+    counts = (interp_fast.rk3_substep.launches,
+              interp_fast.dmc_substep.launches)
+    advect.update_backward_map_3d(tg, *map(_t, vel), tuple(map(_t, ident)),
+                                  cfldt, DT, from_identity=True)
+    advect.update_forward_map_3d(tg, *map(_t, vel), tuple(map(_t, ident)),
+                                 cfldt, DT, from_identity=True)
+    assert (interp_fast.rk3_substep.launches,
+            interp_fast.dmc_substep.launches) == counts == (0, 0)

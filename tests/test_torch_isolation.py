@@ -1,0 +1,111 @@
+"""The port stands alone: no JAX, no import of the JAX package, and its
+kernel wrappers take the plain path on CPU tensors without launching."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+from gpufluidsimulation_tpu_torch.ops import stencil_kernels
+
+REPO = Path(__file__).resolve().parent.parent
+PORT = REPO / "gpufluidsimulation_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "gpufluidsimulation_tpu")
+WRAPPERS = (interp_fast.trilerp_sample, interp_fast.rk3_substep,
+            interp_fast.dmc_substep, stencil_kernels.jacobi_diffuse)
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_port_import_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "from gpufluidsimulation_tpu_torch.scenes.scenes3d import "
+        "vortex_collision_config\n"
+        "from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D\n"
+        "from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme\n"
+        "from gpufluidsimulation_tpu_torch import convert\n"
+        "cfg = vortex_collision_config(ni=8, nj=8, nk=8, "
+        "scheme=Scheme.BIMOCQ, dt=1.0)\n"
+        "s = Smoke3D(cfg, device='cpu')\n"
+        "st = s.step(s.init_state())\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok', st.frame)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok 1"
+
+
+def test_wrappers_take_plain_path_on_cpu():
+    n = 8
+    u = torch.rand(n + 1, n, n) * 0.1
+    v = torch.rand(n, n + 1, n) * 0.1
+    w = torch.rand(n, n, n + 1) * 0.1
+    grid = torch.stack(torch.meshgrid(
+        *[torch.arange(n, dtype=torch.float32)] * 3, indexing="ij"))
+    before = [fn.launches for fn in WRAPPERS]
+    h = 0.2 / n
+    out = interp_fast.trilerp_sample(u[None], *(grid * h), h,
+                                     ((0.0, 0.0, 0.0),), dual=True)
+    assert out.shape == (1, n, n, n)
+    out = interp_fast.rk3_substep(u, v, w, grid, 0.5,
+                                  (1.0, n - 1.0) * 3)
+    assert out.shape == grid.shape
+    out = interp_fast.dmc_substep(u, v, w, grid * h, 0.5, 1e-6)
+    assert out.shape == grid.shape
+    out = stencil_kernels.jacobi_diffuse(u, u, 3, 0.1)
+    assert out.shape == u.shape
+    assert [fn.launches for fn in WRAPPERS] == before == [0, 0, 0, 0]
+
+
+def test_wrappers_refuse_other_devices():
+    t = torch.empty(1, 4, 4, 4, device="meta")
+    p = torch.empty(4, 4, 4, device="meta")
+    with pytest.raises(ValueError):
+        interp_fast.trilerp_sample(t, p, p, p, 1.0, ((0.0, 0.0, 0.0),))
+    with pytest.raises(ValueError):
+        stencil_kernels.jacobi_diffuse(p, p, 1, 0.1)
+    with pytest.raises(ValueError):
+        _build.require(torch.zeros(3), "x")
+
+
+def test_build_flags_and_sources():
+    """Every kernel source exists and is built for sm_90a without fast
+    math; the library name follows the source contents."""
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    for name in _build.SOURCES:
+        src = _build.CSRC / f"{name}.cu"
+        assert src.exists()
+        assert "Replaces the TPU kernel" in src.read_text()
+        assert _build.lib_path(name).name.startswith(name + "-")
