@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # full run: 256^3 main path, 8 steps
-    python3 chip_smoke.py --n 64     # smaller main path (faster check)
+    python3 chip_smoke.py            # full run: 256^3 paths
+    python3 chip_smoke.py --n 64 --kernel-n 64 --obstacle-n 64
+                                     # every phase at a small size
     python3 chip_smoke.py --profile out/profile.txt
-                                     # also write a per-kernel time table
-                                     # of 2 main-path steps to that file
+                                     # also write per-kernel time tables of
+                                     # 2 steps of the main path and of the
+                                     # obstacle path to that file
 
 Phases, each of which fails loudly (non-zero exit, no result line):
- 1. print the card's name and power limit; build the four CUDA kernels
+ 1. print the card's name and power limit; build the six CUDA kernels
     from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once;
- 2. at the main path's 256^3 shapes, hold each kernel against its plain
-    PyTorch version on the same inputs and time both with CUDA events;
- 3. slice parity: 3 steps of the port at 32^3 on the card (kernels)
-    against the port on the CPU (plain versions) from one numpy state;
+ 2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers), hold
+    each kernel against its plain PyTorch version on the same inputs and
+    time both with CUDA events;
+ 3. parity on the card (kernels) against the port on the CPU (plain
+    versions): 3 steps of the vortex step and of the moving-obstacle step
+    at 32^3 from one numpy state, and one MG-PCG solve;
  4. the main path: the 3D BiMocq vortex-collision step as bench.py builds
     it (n^3, dt = 8/n, two recentred emitters), 1 warm-up step and
     `--steps` timed steps, every kernel's launch count reset before and
-    read after, rho_max in (0, 10] and every field finite.
+    read after, rho_max in (0, 10] and every field finite;
+ 5. the obstacle path: the moving-obstacle scene (buoyant plume, sweeping
+    sphere, masked MG-PCG) at n^3 with dt = 1.6/n, warmed up until the
+    plume passes CFL 1 (so that both map marches substep), then timed
+    steps with the launch counts reset before and read after;
+ 6. the vortex path with the MG-PCG projection (spectral solve off).
 Then it prints one JSON line with every kernel's numbers and, last, the
 device line. It never imports JAX or the JAX package.
 """
@@ -25,6 +34,7 @@ device line. It never imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import subprocess
@@ -246,10 +256,104 @@ def kernel_phase(n, seed):
                   "(_jacobi_diffuse_kernel, pallas_call :264)"))
     log(f"[kernels] jacobi_diffuse (one sweep): {k_ms:.4f} ms (plain "
         f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
+    results.update(smoother_phase(n, rng, dev, compare))
     return results
 
 
-def bench_config(n, steps_dt=None):
+def smoother_phase(n, rng, dev, compare):
+    """Phase 2, the two red-black Gauss-Seidel smoothers: every mode
+    against the plain version, the one-sweep call timed against its
+    bound (each input read once, the output written once, per full
+    red+black sweep)."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+    from gpufluidsimulation_tpu_torch.scenes.scenes3d import (
+        moving_obstacle_config)
+    from gpufluidsimulation_tpu_torch.solvers import smoke3d
+
+    results = {}
+    variants = []
+    for shape in ((n, n, n), (100, 200, 200)):
+        b = smooth(shape, rng, 1.0, dev)
+        x = smooth(shape, rng, 1.0, dev)
+        tag = "x".join(str(s) for s in shape)
+        for bc, iters, reverse, from_zero in (
+                ("dirichlet", 1, False, False), ("neumann", 1, False, False),
+                ("dirichlet", 2, False, True), ("neumann", 2, True, False)):
+            x0 = None if from_zero else x
+            label = (f"{tag} {bc} iters={iters}"
+                     + (" reverse" if reverse else "")
+                     + (" x=None" if from_zero else ""))
+            got = sk.rbgs_smooth(x0, b, bc, iters, reverse=reverse)
+            want = sk.rbgs_smooth_plain(x0, b, bc, iters, reverse)
+            tol = 1e-6 * max(1.0, float(want.abs().max()))
+            err = compare(f"rbgs_smooth {label}", got, want, tol)
+            if from_zero:
+                zeros = sk.rbgs_smooth(torch.zeros_like(b), b, bc, iters,
+                                       reverse=reverse)
+                if not torch.equal(got, zeros):
+                    raise AssertionError(f"rbgs_smooth {label}: x=None is "
+                                         "not bitwise the explicit zeros")
+            k_ms = cuda_time(lambda: sk.rbgs_smooth(
+                x0, b, bc, iters, reverse=reverse), 20)
+            p_ms = cuda_time(lambda: sk.rbgs_smooth_plain(
+                x0, b, bc, iters, reverse), 3, 1)
+            inputs = 1 if from_zero else 2
+            b_ms, b_by = bound_ms(4 * (inputs + 1) * b.numel(),
+                                  b.numel() * 2 * iters * 8)
+            variants.append(dict(variant=label, max_abs_err=err, tol=tol,
+                                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                                 bound_by=b_by, library_ms=None))
+            log(f"[kernels] rbgs_smooth {label}: {k_ms:.4f} ms (plain "
+                f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
+    results["rbgs_smooth"] = dict(
+        variants[0], variants=variants,
+        replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:93 "
+                  "(_rbgs_kernel, pallas_call :179)"))
+
+    # masked: the obstacle scene's own flags at n^3, frame 0
+    cfg = moving_obstacle_config(ni=n, nj=n, nk=n)
+    flags = smoke3d._update_boundary(
+        cfg, cfg.grid, 0, cfg.dt,
+        smoke3d.boundary_base_flags(cfg.grid, dev))[0]
+    shape = tuple(flags.shape)
+    b = smooth(shape, rng, 1.0, dev)
+    x = smooth(shape, rng, 1.0, dev)     # nonzero on non-fluid cells too
+    variants = []
+    for iters, reverse, from_zero in ((1, False, False), (2, False, True),
+                                      (2, True, False)):
+        x0 = None if from_zero else x
+        label = (f"iters={iters}" + (" reverse" if reverse else "")
+                 + (" x=None" if from_zero else ""))
+        got = sk.masked_rbgs_smooth(x0, b, flags, iters, reverse=reverse)
+        want = sk.masked_rbgs_smooth_plain(x0, b, flags, iters, reverse)
+        tol = 1e-6 * max(1.0, float(want.abs().max()))
+        err = compare(f"masked_rbgs_smooth {label}", got, want, tol)
+        if from_zero and not torch.equal(got, sk.masked_rbgs_smooth(
+                torch.zeros_like(b), b, flags, iters, reverse=reverse)):
+            raise AssertionError(f"masked_rbgs_smooth {label}: x=None is "
+                                 "not bitwise the explicit zeros")
+        k_ms = cuda_time(lambda: sk.masked_rbgs_smooth(
+            x0, b, flags, iters, reverse=reverse), 20)
+        p_ms = cuda_time(lambda: sk.masked_rbgs_smooth_plain(
+            x0, b, flags, iters, reverse), 3, 1)
+        inputs = 1 if from_zero else 2
+        b_ms, b_by = bound_ms((4 * (inputs + 1) + 1) * b.numel(),
+                              b.numel() * 2 * iters * 14)
+        variants.append(dict(variant=label, max_abs_err=err, tol=tol,
+                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None))
+        log(f"[kernels] masked_rbgs_smooth {label}: {k_ms:.4f} ms (plain "
+            f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
+    results["masked_rbgs_smooth"] = dict(
+        variants[0], variants=variants,
+        replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:311 "
+                  "(_masked_rbgs_kernel, pallas_call :385)"))
+    return results
+
+
+def bench_config(n, **overrides):
     """The main-path configuration as bench.py builds it."""
     from gpufluidsimulation_tpu_torch.scenes.scenes3d import (
         vortex_collision_config)
@@ -262,131 +366,295 @@ def bench_config(n, steps_dt=None):
             Emitter3D(center=(0.04, 0.10, 0.10), radius=0.015, sign=1.0),
             Emitter3D(center=(0.16, 0.101, 0.10), radius=0.015, sign=-1.0),
         ),
-        proj_tol=1e-4, proj_max_iters=30,
+        proj_tol=1e-4, proj_max_iters=30, **overrides,
     )
+
+
+def obstacle_config(n):
+    """The moving-obstacle configuration as scripts/bench_matrix.py builds
+    it: the packaged scene at n^3, dt = 1.6/n, MG-PCG to 1e-4 in at most
+    40 iterations."""
+    from gpufluidsimulation_tpu_torch.scenes.scenes3d import (
+        moving_obstacle_config)
+
+    return moving_obstacle_config(ni=n, nj=n, nk=n, proj_tol=1e-4,
+                                  proj_max_iters=40)
 
 
 FIELDS = ("u", "v", "w", "rho", "T", "u_init", "v_init", "w_init")
 
 
-def parity_phase(n=32, steps=3):
-    """Phase 3: the port on the card against the port on the CPU."""
-    from gpufluidsimulation_tpu_torch import convert
-    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+def parity_phase(cfg, label, steps=3):
+    """Phase 3: `steps` steps of the port on the card against the port on
+    the CPU from one numpy state. With boundaries the flags must be
+    identical and the CG iteration counts equal."""
+    import torch
 
-    cfg = bench_config(n)
-    gpu = Smoke3D(cfg)
-    cpu = Smoke3D(cfg, device="cpu")
+    from gpufluidsimulation_tpu_torch import convert
+    from gpufluidsimulation_tpu_torch.solvers import smoke3d
+
+    gpu = smoke3d.Smoke3D(cfg)
+    cpu = smoke3d.Smoke3D(cfg, device="cpu")
     start = convert.state_to_numpy(cpu.init_state())
     sg = convert.state_from_numpy(start, cfg, gpu.device)
     sc = convert.state_from_numpy(start, cfg, "cpu")
     worst = {}
+    iters = []
     for k in range(steps):
         sg = gpu.step(sg)
         sc = cpu.step(sc)
         if sg.substeps != sc.substeps:
             raise AssertionError(f"parity step {k}: substeps {sg.substeps} "
                                  f"(card) != {sc.substeps} (cpu)")
+        if cfg.boundaries:
+            if sg.proj_iters != sc.proj_iters:
+                raise AssertionError(
+                    f"parity step {k}: proj_iters {sg.proj_iters} (card) != "
+                    f"{sc.proj_iters} (cpu)")
+            fg, fc = (smoke3d._update_boundary(
+                cfg, cfg.grid, k, cfg.dt,
+                smoke3d.boundary_base_flags(cfg.grid, dev))[0]
+                for dev in (gpu.device, "cpu"))
+            if not torch.equal(fg.cpu(), fc):
+                raise AssertionError(f"parity step {k}: flags differ")
+        iters.append(sg.proj_iters)
     a, b = convert.state_to_numpy(sg), convert.state_to_numpy(sc)
     for key in FIELDS:
         err = float(np.abs(a[key].astype(np.float64) - b[key]).max())
         scale = max(1.0, float(np.abs(b[key]).max()))
         worst[key] = err
         # fp32 with another summation order (cuBLAS vs CPU BLAS in the
-        # spectral transforms): the 2e-3 fidelity bound of
+        # dense contractions, the CG dots): the 2e-3 fidelity bound of
         # tests/test_fidelity3d.py, relative to the field's scale
         if not np.isfinite(err) or err > 2e-3 * scale:
-            raise AssertionError(f"parity {key}: card vs cpu {err}")
-    log(f"[parity] {n}^3, {steps} steps, card vs cpu max abs err: "
-        + json.dumps(worst))
+            raise AssertionError(f"parity {label} {key}: card vs cpu {err}")
+    n = cfg.ni
+    log(f"[parity] {label} {n}^3, {steps} steps, proj_iters {iters}, card "
+        "vs cpu max abs err (bound 2e-3 of scale): " + json.dumps(worst))
     return worst
 
 
-def main_phase(n, steps, profile):
-    """Phase 4: the main path through the entry points, launches counted."""
+def mgpcg_parity_phase(n=32, seed=1):
+    """Phase 3: one MG-PCG solve of a seeded right-hand side, card
+    against CPU: same iteration count, p within 1e-4 of its scale."""
     import torch
 
+    from gpufluidsimulation_tpu_torch.ops import poisson
+
+    b = np.random.default_rng(seed).standard_normal((n, n, n)).astype(
+        np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        ctx = poisson.MGContext((n, n, n), "dirichlet", dev)
+        out[dev] = poisson.mgpcg(torch.from_numpy(b).to(dev), ctx, 1e-5, 40)
+    (pg, ig, rg, _), (pc, ic, rc, _) = out["cuda"], out["cpu"]
+    err = float((pg.cpu() - pc).abs().max())
+    tol = 1e-4 * float(pc.abs().max())
+    log(f"[parity] mgpcg {n}^3: iters card {ig} cpu {ic}, res card "
+        f"{float(rg):.3e} cpu {float(rc):.3e}, p max_abs_err={err:.3e} "
+        f"tol={tol:.1e}")
+    if ig != ic or not ig < 40 or not err <= tol:
+        raise AssertionError("mgpcg: card and cpu disagree")
+
+
+KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
+           "rbgs_smooth", "masked_rbgs_smooth")
+
+
+def wrappers():
     from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
-    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
 
-    kernels = {"trilerp_sample": interp_fast.trilerp_sample,
-               "rk3_substep": interp_fast.rk3_substep,
-               "dmc_substep": interp_fast.dmc_substep,
-               "jacobi_diffuse": stencil_kernels.jacobi_diffuse}
-    solver = Smoke3D(bench_config(n))
-    state = solver.init_state()
+    return {name: getattr(interp_fast, name, None)
+            or getattr(stencil_kernels, name) for name in KERNELS}
+
+
+def timed_steps(solver, steps, expect, warm=lambda state: True,
+                max_warmup=150):
+    """Drive one path: from the initial state, warm-up steps until
+    `warm(state)` (at least one, at most `max_warmup`), then reset every
+    launch count, run and time `steps` steps with CUDA events and read the
+    counts; fail if a kernel of `expect` never launched or a field is not
+    finite. The state lives only here, so the peak memory is one path's."""
+    import torch
+
+    fns = wrappers()
     t0 = time.time()
-    state = solver.step(state)      # warm-up (emission, first launches)
+    state = solver.step(solver.init_state())
+    warmup_steps = 1
+    while warmup_steps < max_warmup and not warm(state):
+        state = solver.step(state)
+        warmup_steps += 1
     torch.cuda.synchronize()
-    warm_s = time.time() - t0
-
+    warmup_s = time.time() - t0
+    gc.collect()                    # earlier phases' tensors are not this path's
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in kernels.values():
+    held = torch.cuda.memory_allocated()   # the state and what is cached
+    for fn in fns.values():
         fn.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    subs = []
+    per_step = []
     t0 = time.time()
     start.record()
     for _ in range(steps):
         state = solver.step(state)
-        subs.append(state.substeps)
+        per_step.append(dict(substeps=state.substeps,
+                             proj_iters=state.proj_iters))
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.time() - t0) / steps * 1e3
     dev_ms = start.elapsed_time(end) / steps
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    peak = torch.cuda.max_memory_allocated()
-
-    missing = [k for k, c in launches.items() if c == 0]
+    launches = {k: fn.launches for k, fn in fns.items()}
+    missing = [k for k in expect if launches[k] == 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}")
-    rho_max = float(state.rho.max())
-    if not 0.0 < rho_max <= 10.0:
-        raise AssertionError(f"implausible rho_max={rho_max}")
+        raise AssertionError(f"the path never launched {missing}")
     for key in FIELDS:
         if not bool(torch.isfinite(getattr(state, key)).all()):
             raise AssertionError(f"non-finite {key}")
-    res = dict(n=n, steps=steps, ms_per_step=dev_ms, host_ms_per_step=host_ms,
-               mcells_per_s=n ** 3 / 1e6 / (dev_ms / 1e3),
-               warmup_s=warm_s, substeps=subs, rho_max=rho_max,
-               cfl=state.cfl, proj_iters=state.proj_iters,
-               proj_res=float(state.proj_res), launches=launches,
-               peak_mem_gib=peak / 2 ** 30)
+    n = solver.cfg.ni
+    res = dict(n=n, steps=steps, warmup_steps=warmup_steps,
+               warmup_s=warmup_s, ms_per_step=dev_ms, host_ms_per_step=host_ms,
+               mcells_per_s=solver.cfg.ni * solver.cfg.nj * solver.cfg.nk
+               / 1e6 / (dev_ms / 1e3),
+               substeps=[p["substeps"] for p in per_step],
+               proj_iters=[p["proj_iters"] for p in per_step],
+               proj_res=float(state.proj_res), cfl=state.cfl,
+               rho_max=float(state.rho.max()), launches=launches,
+               peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               held_before_gib=held / 2 ** 30)
+    return state, res
+
+
+def main_phase(n, steps, profile):
+    """Phase 4: the main path through the entry points, launches counted."""
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+
+    solver = Smoke3D(bench_config(n))
+    state, res = timed_steps(solver, steps, KERNELS[:4])
+    if not 0.0 < res["rho_max"] <= 10.0:
+        raise AssertionError(f"implausible rho_max={res['rho_max']}")
     log("[main] " + json.dumps(res))
     if profile:
-        profile_steps(solver, state, profile)
-    return launches
+        profile_steps(solver, state, profile, "main path", "w",
+                      res["ms_per_step"])
+    return res["launches"]
 
 
-def profile_steps(solver, state, path, steps=2):
-    """Device time by kernel name over `steps` main-path steps, written
-    to `path`."""
+def obstacle_phase(n, steps, profile):
+    """Phase 5: the moving-obstacle scene at full width. The plume starts
+    at rest; warm-up steps run until it passes CFL 1, so that the timed
+    steps substep both map marches as the developed flow does."""
+    from gpufluidsimulation_tpu_torch.ops import forces, poisson
+    from gpufluidsimulation_tpu_torch.solvers import smoke3d
+
+    cfg = obstacle_config(n)
+    solver = smoke3d.Smoke3D(cfg)
+    state, res = timed_steps(
+        solver, steps,
+        ("masked_rbgs_smooth", "rk3_substep", "dmc_substep",
+         "trilerp_sample", "jacobi_diffuse"),
+        warm=lambda state: state.substeps >= 2)
+    if max(res["proj_iters"]) >= cfg.proj_max_iters:
+        raise AssertionError(f"projection hit its iteration limit: "
+                             f"{res['proj_iters']}")
+    if not res["proj_res"] <= cfg.proj_tol:
+        raise AssertionError(f"projection residual {res['proj_res']}")
+    flags, us, vs, ws, _ = smoke3d._update_boundary(
+        cfg, cfg.grid, state.frame - 1, cfg.dt, solver._base_flags)
+    inside = flags == poisson.OBJECT
+    rho_inside = float(state.rho[inside].abs().max())
+    if rho_inside != 0.0 or not res["rho_max"] > 0.5:
+        raise AssertionError(f"rho inside the object {rho_inside}, "
+                             f"rho_max {res['rho_max']}")
+    # the projection at full width against a right-hand side of known
+    # scale: one more buoyancy kick on the stepped velocity, projected
+    # with this frame's flags; the divergence left on fluid cells must be
+    # below 10 * proj_tol of the divergence before
+    v_kick = forces.buoyancy_3d(state.v, state.rho, state.T, cfg.alpha,
+                                cfg.beta, cfg.dt)
+    before = poisson.masked_divergence_3d(state.u, v_kick, state.w, flags,
+                                          us, vs, ws)[0].abs().max()
+    pu, pv, pw, _, iters, _, _ = poisson.project_masked_3d(
+        state.u, v_kick, state.w, flags, us, vs, ws, solver.ctx,
+        cfg.proj_tol, cfg.proj_max_iters)
+    after = poisson.masked_divergence_3d(pu, pv, pw, flags, us, vs,
+                                         ws)[0].abs().max()
+    rel = float(after / before)
+    if not rel < 10 * cfg.proj_tol or iters >= cfg.proj_max_iters:
+        raise AssertionError(f"divergence on fluid cells {rel} of the "
+                             f"right-hand side after {iters} iterations")
+    log("[obstacle] " + json.dumps(dict(
+        res, frame=state.frame,
+        object_cells=int(inside.sum()), div_after_over_before=rel,
+        check_iters=iters)))
+    if profile:
+        profile_steps(solver, state, profile, "obstacle path", "a",
+                      res["ms_per_step"])
+    return res["launches"]
+
+
+def mgpcg_phase(n, steps):
+    """Phase 6: the vortex path with the MG-PCG projection."""
+    from gpufluidsimulation_tpu_torch.config import EngineMode
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+
+    cfg = bench_config(n, engine_mode=EngineMode(spectral_poisson=False))
+    solver = Smoke3D(cfg)
+    state, res = timed_steps(solver, steps, KERNELS[:4] + ("rbgs_smooth",))
+    if not res["proj_res"] <= cfg.proj_tol or (
+            max(res["proj_iters"]) >= cfg.proj_max_iters):
+        raise AssertionError(f"MG-PCG missed proj_tol: {res}")
+    log("[mgpcg] " + json.dumps(res))
+    return res["launches"]
+
+
+def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
+    """Device time by kernel name over `steps` steps, written to `path`,
+    with the card's busy time per step (the sum over kernels) beside
+    `ms_per_step`, the step time measured without the profiler: the rest
+    of the step the card waits for the host."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             state = solver.step(state)
         torch.cuda.synchronize()
-    table = prof.key_averages().table(sort_by="cuda_time_total",
-                                      row_limit=40)
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
+    launches = sum(e.count for e in kernels) / steps
+    table = events.table(sort_by="cuda_time_total", row_limit=45)
+    head = (f"== {title}: {steps} steps under the profiler: device busy "
+            f"{busy_ms:.2f} ms/step in {launches:.0f} kernel launches/step, "
+            f"against {ms_per_step:.2f} ms/step measured without the "
+            f"profiler: idle {100 * (1 - busy_ms / ms_per_step):.1f}%")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
-    with open(path, "w") as f:
-        f.write(table)
+    with open(path, mode) as f:
+        f.write(head + "\n" + table + "\n")
+    log("[profile] " + head)
     log("[profile] " + "\n".join(table.splitlines()[:30]))
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=256, help="main-path grid n^3")
-    ap.add_argument("--steps", type=int, default=8, help="timed steps")
+    ap.add_argument("--steps", type=int, default=8,
+                    help="timed steps of the main path")
+    ap.add_argument("--obstacle-n", type=int, default=256,
+                    help="grid n^3 of the obstacle and MG-PCG paths")
+    ap.add_argument("--obstacle-steps", type=int, default=4,
+                    help="timed steps of the obstacle and MG-PCG paths")
     ap.add_argument("--kernel-n", type=int, default=256,
                     help="grid of the kernel-vs-plain phase")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH",
-                    help="write a torch.profiler table of 2 steps to PATH")
+                    help="write torch.profiler tables of 2 steps of the "
+                    "main path and of the obstacle path to PATH")
     args = ap.parse_args()
 
     import torch
@@ -414,17 +682,28 @@ def main():
                 log(f"[build] {name}: {line.strip()}")
 
     results = kernel_phase(args.kernel_n, args.seed)
-    parity_phase()
-    launches = main_phase(args.n, args.steps, args.profile)
+    parity_phase(bench_config(32), "vortex")
+    parity_phase(obstacle_config(32), "obstacle")
+    mgpcg_parity_phase()
+    by_path = {
+        "main": main_phase(args.n, args.steps, args.profile),
+        "obstacle": obstacle_phase(args.obstacle_n, args.obstacle_steps,
+                                   args.profile),
+        "mgpcg": mgpcg_phase(args.obstacle_n, args.obstacle_steps)}
+    # each kernel's count comes from the path that was added for it
+    path_of = dict.fromkeys(KERNELS, "main")
+    path_of.update(masked_rbgs_smooth="obstacle", rbgs_smooth="mgpcg")
 
-    sources = {"trilerp_sample": "gpufluidsimulation_tpu_torch/csrc/trilerp_sample.cu",
-               "rk3_substep": "gpufluidsimulation_tpu_torch/csrc/rk3_substep.cu",
-               "dmc_substep": "gpufluidsimulation_tpu_torch/csrc/dmc_substep.cu",
-               "jacobi_diffuse": "gpufluidsimulation_tpu_torch/csrc/jacobi_diffuse.cu"}
     line = []
-    for name, r in results.items():
-        entry = dict(name=name, route="cuda", source=sources[name],
-                     replaces=r["replaces"], launches=launches[name],
+    for name in KERNELS:
+        r = results[name]
+        launches = by_path[path_of[name]][name]
+        if launches == 0:
+            raise AssertionError(f"{name} was never launched on its path")
+        entry = dict(name=name, route="cuda",
+                     source=f"gpufluidsimulation_tpu_torch/csrc/{name}.cu",
+                     replaces=r["replaces"], launches=launches,
+                     launches_by_path={p: c[name] for p, c in by_path.items()},
                      max_abs_err=r["max_abs_err"], max_err=r["max_abs_err"],
                      tol=r["tol"], ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],

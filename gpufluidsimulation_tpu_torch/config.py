@@ -1,15 +1,29 @@
-"""Device and dtype resolution for the port.
+"""Device and dtype resolution for the port, and its one engine mode.
 
-There are no process-wide engine modes: the port runs one configuration
-(the accelerator defaults of the JAX package) and every entry point takes
-an explicit ``device``.
+There are no process-wide engine modes and no environment switches: the
+port runs the accelerator defaults of the JAX package (exact gathers in
+the kernels, dual volume form, red-black Gauss-Seidel smoothing), every
+entry point takes an explicit ``device``, and the one choice a solver can
+make is carried by its configuration's ``EngineMode``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 DTYPE = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineMode:
+    """Per-solver engine mode. ``spectral_poisson``: None or True solves
+    the unmasked full-box pressure system directly in the DST/DCT
+    eigenbasis (the accelerator default), False with MG-PCG. Projections
+    with solid boundaries always use MG-PCG."""
+
+    spectral_poisson: bool | None = None
 
 
 def resolve_device(device=None) -> torch.device:

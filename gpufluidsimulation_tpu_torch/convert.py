@@ -12,9 +12,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from gpufluidsimulation_tpu_torch import config
 from gpufluidsimulation_tpu_torch.bimocq.mapping import MappingState
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 from gpufluidsimulation_tpu_torch.solvers.smoke3d import (
+    Boundary3D,
     Emitter3D,
     Smoke3DConfig,
     Smoke3DState,
@@ -98,12 +100,71 @@ def _emitter(e) -> Emitter3D:
     return Emitter3D(**d)
 
 
-def config_from_dict(d: dict) -> Smoke3DConfig:
+_BOUNDARY_KEYS = {f.name for f in dataclasses.fields(Boundary3D)}
+
+
+def _boundary(b, trans=None) -> Boundary3D:
+    """A boundary from its plain field values. A callable ``trans`` of the
+    JAX package (a closure over ``jax.numpy``) is never carried across:
+    pass the port's own as `trans`, or the field must be None."""
+    d = dict(b) if isinstance(b, dict) else dict(vars(b))
+    if d.pop("sdf_grid", None) is not None or d.get("kind") == "voxel":
+        raise NotImplementedError(
+            "voxel boundaries are not ported (analytic sphere and box only)")
+    their_trans = d.pop("trans", None)
+    if their_trans is not None and trans is None:
+        raise ValueError(
+            "boundary trans is a callable of the other package: pass the "
+            "port's own through boundary_trans")
+    unknown = set(d) - _BOUNDARY_KEYS
+    if unknown:
+        raise ValueError(f"unknown boundary fields {sorted(unknown)}")
+    for key in ("center", "velocity", "half_extents"):
+        if key in d:
+            d[key] = tuple(float(c) for c in d[key])
+    return Boundary3D(trans=trans, **d)
+
+
+# EngineMode fields of the JAX package whose value changes nothing the port
+# computes: interpret mode, the Pallas-vs-XLA viscosity (one function), the
+# window sampler's geometry and its exact-gather twin (the kernels gather
+# exactly), and the 2D particle transfers.
+_MODE_IGNORED = ("interp_interpret", "pallas_diffuse", "fast_interp",
+                 "interp_rr", "interp_adaptive", "particle_dense")
+# ... and the one value of each other field that the port implements
+_MODE_REQUIRED = {"rbgs": True, "volume_dual": True, "volume_exact": False,
+                  "volume_vol9": False, "interp_bf16": False,
+                  "sharded_sampling": ()}
+
+
+def _engine_mode(m):
+    """The port's EngineMode from the JAX mode's plain fields: carries
+    ``spectral_poisson`` across, accepts fields that do not change the
+    result, and raises for a non-default value the port cannot honour."""
+    if m is None or isinstance(m, config.EngineMode):
+        return m
+    d = dict(m) if isinstance(m, dict) else dict(vars(m))
+    spectral = d.pop("spectral_poisson", None)
+    for key in _MODE_IGNORED:
+        d.pop(key, None)
+    for key, allowed in _MODE_REQUIRED.items():
+        val = d.pop(key, None)
+        if val is not None and val != allowed:
+            raise NotImplementedError(
+                f"engine_mode.{key}={val!r} is not ported")
+    if d:
+        raise ValueError(f"unknown engine_mode fields {sorted(d)}")
+    return config.EngineMode(spectral_poisson=spectral)
+
+
+def config_from_dict(d: dict, boundary_trans=()) -> Smoke3DConfig:
     """The port's config from the JAX config's plain field values
-    (``dataclasses.asdict`` of it, or the same keys by hand). The JAX
-    package's ``engine_mode`` is dropped: the port has one mode."""
+    (``dataclasses.asdict`` of it, or the same keys by hand).
+    ``engine_mode`` keeps its ``spectral_poisson``; `boundary_trans` gives
+    the port's own ``trans(frame)`` for each boundary that moves by one
+    (None for the others)."""
     d = dict(d)
-    d.pop("engine_mode", None)
+    d["engine_mode"] = _engine_mode(d.get("engine_mode"))
     known = {f.name for f in dataclasses.fields(Smoke3DConfig)}
     unknown = set(d) - known
     if unknown:
@@ -113,5 +174,7 @@ def config_from_dict(d: dict) -> Smoke3DConfig:
     if "emitters" in d:
         d["emitters"] = tuple(_emitter(e) for e in d["emitters"])
     if "boundaries" in d:
-        d["boundaries"] = tuple(d["boundaries"])
+        trans = tuple(boundary_trans) + (None,) * len(d["boundaries"])
+        d["boundaries"] = tuple(_boundary(b, t)
+                                for b, t in zip(d["boundaries"], trans))
     return Smoke3DConfig(**d)

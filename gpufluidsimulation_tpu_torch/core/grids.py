@@ -73,26 +73,33 @@ class Grid3D:
         return {"c": self.OFF_C, "u": self.OFF_U, "v": self.OFF_V,
                 "w": self.OFF_W}[kind]
 
-    def node_coords(self, kind: str, device=None):
-        """World coordinates (X, Y, Z) of every node of `kind`, full-size
-        tensors: x = (i - 0.5*dim_x)*h in float32."""
+    def axis_coords(self, kind: str, device=None):
+        """World coordinates of `kind`'s nodes as three broadcastable
+        views (nx,1,1), (1,ny,1), (1,1,nz): x = (i - 0.5*dim_x)*h in
+        float32."""
         dim = self.dim_of(kind)
         nx, ny, nz = self.shape_of(kind)
         x = (torch.arange(nx, dtype=DTYPE, device=device) - 0.5 * dim[0]) * self.h
         y = (torch.arange(ny, dtype=DTYPE, device=device) - 0.5 * dim[1]) * self.h
         z = (torch.arange(nz, dtype=DTYPE, device=device) - 0.5 * dim[2]) * self.h
-        shape = (nx, ny, nz)
-        return (
-            x[:, None, None].expand(shape).contiguous(),
-            y[None, :, None].expand(shape).contiguous(),
-            z[None, None, :].expand(shape).contiguous(),
-        )
+        return x[:, None, None], y[None, :, None], z[None, None, :]
+
+    def node_coords(self, kind: str, device=None):
+        """World coordinates (X, Y, Z) of every node of `kind`, full-size
+        tensors."""
+        shape = self.shape_of(kind)
+        return tuple(c.expand(shape).contiguous()
+                     for c in self.axis_coords(kind, device))
 
     def zeros(self, kind: str, device=None):
         return torch.zeros(self.shape_of(kind), dtype=DTYPE, device=device)
 
     def interior_mask(self, kind: str, lo: int = 2, hi: int = 3,
-                      device=None):
+                      device=None, hi_add_dim: bool = False):
         """Nodes with lo <= idx <= n - hi on every axis (n = the field's
-        extent along that axis)."""
-        return band_mask(self.shape_of(kind), (lo,) * 3, (hi,) * 3, device)
+        extent along that axis). With ``hi_add_dim`` the upper margin
+        grows by the kind's staggering per axis (the semi-Lagrangian
+        update band, which keeps one more face plane)."""
+        dim = self.dim_of(kind) if hi_add_dim else (0, 0, 0)
+        return band_mask(self.shape_of(kind), (lo,) * 3,
+                         tuple(hi + d for d in dim), device)

@@ -59,6 +59,23 @@ __device__ __forceinline__ void mac_velocity(
   *ow = trilerp_clamped(w, ni, nj, nk + 1, gx, gy, gz + 0.5f);
 }
 
+// Sum of the six axis neighbours of cell (i, j, k) of an (nx, ny, nz)
+// k-fastest field with zero ghosts outside it, in the order of the JAX
+// smoothers: ((((((0 + x[i+1]) + x[i-1]) + x[j+1]) + x[j-1]) + x[k+1]) + x[k-1]).
+__device__ __forceinline__ float neighbour_sum(const float* x, int64_t idx,
+                                               int i, int j, int k, int nx,
+                                               int ny, int nz) {
+  const int64_t sx = (int64_t)ny * nz, sy = nz;
+  float nb = 0.0f;
+  nb = nb + (i < nx - 1 ? x[idx + sx] : 0.0f);
+  nb = nb + (i > 0 ? x[idx - sx] : 0.0f);
+  nb = nb + (j < ny - 1 ? x[idx + sy] : 0.0f);
+  nb = nb + (j > 0 ? x[idx - sy] : 0.0f);
+  nb = nb + (k < nz - 1 ? x[idx + 1] : 0.0f);
+  nb = nb + (k > 0 ? x[idx - 1] : 0.0f);
+  return nb;
+}
+
 inline unsigned int blocks_for(int64_t n) {
   int64_t b = (n + kThreads - 1) / kThreads;
   const int64_t cap = 132 * 64;  // grid-stride beyond 64 blocks per SM

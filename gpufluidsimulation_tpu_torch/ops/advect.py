@@ -1,6 +1,8 @@
-"""3D map marches and the 27-point extrema clamp.
+"""3D map marches, semi-Lagrangian transport and the 27-point extrema
+clamp.
 
-Counterpart of ``gpufluidsimulation_tpu.ops.advect`` (3D BiMocq subset).
+Counterpart of ``gpufluidsimulation_tpu.ops.advect`` (3D BiMocq and
+semi-Lagrangian subset).
 The CFL substep loops run on the host: ``cfldt`` arrives as a float32 host
 value (one device sync per step, in the solver) and the substep schedule
 repeats the JAX ``lax.while_loop`` arithmetic in ``np.float32`` — in
@@ -9,6 +11,15 @@ float64 the count of substeps can differ, and then the maps differ.
 Positions inside a march are cell-lattice grid coordinates (p/h); each
 substep is one launch of the ``rk3_substep`` or ``dmc_substep`` kernel
 (``ops/interp_fast.py``).
+
+The semi-Lagrangian family (``semilag_multi_3d``, ``semilag_3d``,
+``semilag_kinds_3d``) backtraces each kind's node lattice with
+``rk3_substep`` and samples with ``trilerp_sample`` (plain trilinear). The
+JAX package's ``mac_at_nodes_3d``, ``_vel_pack``, ``_union_pack``,
+``_concat_kind_positions``, ``gate_nx`` and ``node_off`` are window
+geometry of the TPU kernels and have no counterpart: ``rk3_substep`` from
+the exact lattice coordinate (i - 0.5*dim) computes the same stage-1
+velocity as their identity peel.
 """
 
 from __future__ import annotations
@@ -69,20 +80,39 @@ def trace_rk3_3d(grid, u, v, w, dt, px, py, pz, lo=1.0, hi=1.0):
     return out[0] * h, out[1] * h, out[2] * h
 
 
-def trace_3d(grid, u, v, w, cfldt, dt, px, py, pz, from_identity=False):
+def _staggered_axis(grid, kind):
+    """The axis along which `kind` is staggered; None for the cell kind."""
+    dim = grid.dim_of(kind)
+    return dim.index(1) if any(dim) else None
+
+
+def _cropped_positions(grid, kind, device=None):
+    """Exact grid coordinates (i - 0.5*dim per axis) of `kind`'s nodes
+    cropped to the (ni, nj, nk) cell block, stacked (3, ni, nj, nk), and
+    the staggered axis. The staggered axis's last face plane sits outside
+    the semi-Lagrangian update band, so it is neither traced nor
+    sampled."""
+    dim = grid.dim_of(kind)
+    shape = grid.shape_c
+    ar = [torch.arange(n, dtype=torch.float32, device=device) - 0.5 * d
+          for n, d in zip(shape, dim)]
+    pos = torch.stack([ar[0][:, None, None].expand(shape),
+                       ar[1][None, :, None].expand(shape),
+                       ar[2][None, None, :].expand(shape)])
+    return pos, _staggered_axis(grid, kind)
+
+
+def trace_3d(grid, u, v, w, cfldt, dt, px, py, pz, from_identity=False,
+             kind="c"):
     """CFL-substepped RK3 trace of world positions by `dt` (signed).
-    ``from_identity=True`` asserts the positions are the cell lattice;
-    the march then starts from the exact integer lattice (the JAX
-    package's identity peel, whose stage 1 is the face average)."""
+    ``from_identity=True`` asserts the positions are `kind`'s node
+    lattice cropped to the cell block (px, py, pz are then not read); the
+    march starts from the exact lattice coordinates (the JAX package's
+    identity peel, whose stage 1 is the staggered average there)."""
     h = grid.h
     sign = 1.0 if dt >= 0 else -1.0
     if from_identity:
-        dev = px.device
-        ni, nj, nk = grid.shape_c
-        ar = [torch.arange(n, dtype=torch.float32, device=dev) for n in (ni, nj, nk)]
-        pos = torch.stack([ar[0][:, None, None].expand(ni, nj, nk),
-                           ar[1][None, :, None].expand(ni, nj, nk),
-                           ar[2][None, None, :].expand(ni, nj, nk)])
+        pos, _ = _cropped_positions(grid, kind, u.device)
     else:
         pos = torch.stack([interp.div_scalar(p, h) for p in (px, py, pz)])
     clamp = _clamp_grid(grid)
@@ -101,6 +131,48 @@ def update_forward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
     mask = grid.interior_mask("c", lo=2, hi=3, device=mx.device)
     return (torch.where(mask, ox, mx), torch.where(mask, oy, my),
             torch.where(mask, oz, mz))
+
+
+# ---------------------------------------------------------------------------
+# Semi-Lagrangian advection
+# ---------------------------------------------------------------------------
+
+
+def _pad_plane(out_crop, src, ax):
+    """Re-expand a cropped-lattice result to the kind's lattice: the
+    dropped face plane keeps `src` (it is outside the update band)."""
+    if ax is None:
+        return out_crop
+    return torch.cat([out_crop, src.narrow(ax, src.shape[ax] - 1, 1)], dim=ax)
+
+
+def semilag_multi_3d(grid, kind, fields, u, v, w, cfldt, dt):
+    """Trace each node of `kind`'s lattice by `dt` (signed; pass -dt to
+    backtrace) once and sample every field of `fields` there (plain
+    trilinear). Nodes outside the update band
+    interior_mask(kind, 2, 3, hi_add_dim=True) keep their values."""
+    ax = _staggered_axis(grid, kind)
+    bx, by, bz = trace_3d(grid, u, v, w, cfldt, dt, None, None, None,
+                          from_identity=True, kind=kind)
+    off = grid.off_of(kind)
+    out = interp_fast.trilerp_sample(
+        torch.stack(list(fields)), bx.contiguous(), by.contiguous(),
+        bz.contiguous(), grid.h, (off,) * len(fields), dual=False)
+    mask = grid.interior_mask(kind, lo=2, hi=3, device=u.device,
+                              hi_add_dim=True)
+    return [torch.where(mask, _pad_plane(out[i], f, ax), f)
+            for i, f in enumerate(fields)]
+
+
+def semilag_3d(grid, kind, field_src, u, v, w, cfldt, dt):
+    return semilag_multi_3d(grid, kind, [field_src], u, v, w, cfldt, dt)[0]
+
+
+def semilag_kinds_3d(grid, groups, u, v, w, cfldt, dt):
+    """semilag_multi_3d over several (kind, [fields]) groups; one field
+    list per group."""
+    return [semilag_multi_3d(grid, k, fs, u, v, w, cfldt, dt)
+            for k, fs in groups]
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,20 @@
-"""Jacobi viscosity kernel and its plain version.
+"""Stencil kernels and their plain versions: the Jacobi viscosity sweep
+and the two red-black Gauss-Seidel smoothers of the multigrid V-cycles.
 
-Counterpart of ``gpufluidsimulation_tpu.ops.pallas_kernels`` (the
-``jacobi_diffuse`` entry). ``jacobi_diffuse`` runs ``iters`` damped-Jacobi
-sweeps of (I + coef*L) x = b with the boundary ring held; on a CUDA tensor
-each sweep is one launch of ``csrc/jacobi_diffuse.cu`` into a ping-pong
-buffer, on a CPU tensor the plain version runs. ``jacobi_diffuse.launches``
-counts kernel launches (one per sweep).
+Counterpart of ``gpufluidsimulation_tpu.ops.pallas_kernels``.
+
+``jacobi_diffuse`` runs ``iters`` damped-Jacobi sweeps of
+(I + coef*L) x = b with the boundary ring held; on a CUDA tensor each sweep
+is one launch of ``csrc/jacobi_diffuse.cu`` into a ping-pong buffer.
+
+``rbgs_smooth`` and ``masked_rbgs_smooth`` run ``iters`` red+black
+Gauss-Seidel sweeps of L x = b (``ops.poisson.laplacian`` and
+``ops.poisson.masked_laplacian``); on a CUDA tensor each colour half-sweep
+is one launch (``csrc/rbgs_smooth.cu``, ``csrc/masked_rbgs_smooth.cu``):
+the first one out of place into a fresh output, the rest in place on it.
+
+On a CPU tensor every wrapper takes its plain version. ``<wrapper>.launches``
+counts kernel launches and nothing else.
 """
 
 from __future__ import annotations
@@ -70,3 +79,184 @@ def jacobi_diffuse(x, b, iters, coef):
 
 
 jacobi_diffuse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Red-black Gauss-Seidel smoothers
+# ---------------------------------------------------------------------------
+
+
+def _red_mask(shape, device):
+    """(i + j + k) even, in global indices."""
+    nx, ny, nz = shape
+    ii = torch.arange(nx, device=device)[:, None, None]
+    jj = torch.arange(ny, device=device)[None, :, None]
+    kk = torch.arange(nz, device=device)[None, None, :]
+    return (ii + jj + kk) % 2 == 0
+
+
+def neighbour_sum(x):
+    """((((((0 + x[i+1]) + x[i-1]) + x[j+1]) + x[j-1]) + x[k+1]) + x[k-1])
+    with zero ghosts: the order of the JAX smoothers and of the kernels."""
+    nx, ny, nz = x.shape
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1, 1, 1))
+    c = (slice(1, nx + 1), slice(1, ny + 1), slice(1, nz + 1))
+    total = torch.zeros_like(x)
+    total = total + xp[2:nx + 2, c[1], c[2]]
+    total = total + xp[0:nx, c[1], c[2]]
+    total = total + xp[c[0], 2:ny + 2, c[2]]
+    total = total + xp[c[0], 0:ny, c[2]]
+    total = total + xp[c[0], c[1], 2:nz + 2]
+    total = total + xp[c[0], c[1], 0:nz]
+    return total
+
+
+def _structural_diag(shape, bc, device):
+    """Diagonal of L: 6 for Dirichlet (a 0-dim tensor, so that the division
+    is a true division on the card too), the count of in-domain neighbours
+    for Neumann."""
+    if bc != "neumann":
+        return torch.full((), 6.0, dtype=torch.float32, device=device)
+    d = torch.zeros(shape, dtype=torch.float32, device=device)
+    for axis, n in enumerate(shape):
+        cnt = torch.full((n,), 2.0, dtype=torch.float32, device=device)
+        cnt[0] -= 1.0
+        cnt[-1] -= 1.0
+        bshape = [1, 1, 1]
+        bshape[axis] = n
+        d = d + cnt.reshape(bshape)
+    return d
+
+
+def _gs_sweeps(x, b, diag, update, iters, reverse):
+    """`iters` sweeps; `update` restricts the cells that change (None =
+    all). Red first, or black first when `reverse`."""
+    red = _red_mask(b.shape, b.device)
+    colours = (~red, red) if reverse else (red, ~red)
+    if update is not None:
+        colours = tuple(c & update for c in colours)
+    for _ in range(int(iters)):
+        for colour in colours:
+            x = torch.where(colour, (neighbour_sum(x) + b) / diag, x)
+    return x
+
+
+def rbgs_smooth_plain(x, b, bc, iters, reverse=False):
+    """Plain version of ``rbgs_smooth``."""
+    if x is None:
+        x = torch.zeros_like(b)
+    return _gs_sweeps(x, b, _structural_diag(b.shape, bc, b.device), None,
+                      iters, reverse)
+
+
+def _launch_half_sweeps(wrapper, name, first, half, x, b, extra, iters,
+                        reverse):
+    """The 2*iters colour half-sweeps of one smoother call: the first out
+    of place from `x` (None = exactly zero) into a fresh tensor, the rest
+    in place on it. `extra` are the arguments between the shape and the
+    colour (bc flag, or the flags pointer placed before the shape)."""
+    out = torch.empty_like(b)
+    colours = (1, 0) if reverse else (0, 1)
+    with torch.cuda.device(b.device):
+        stream = _build.stream(b)
+        for s in range(2 * int(iters)):
+            colour = colours[s % 2]
+            if s == 0:
+                x_ptr = None if x is None else _build.ptr(x)
+                err = first(x_ptr, _build.ptr(b), *extra, colour,
+                            _build.ptr(out), stream)
+            else:
+                err = half(_build.ptr(out), _build.ptr(b), *extra, colour,
+                           stream)
+            _build.check(err, name)
+            wrapper.launches += 1
+    return out
+
+
+def _require_pair(name, x, b):
+    _build.require(b, "b", ndim=3)
+    if x is not None:
+        _build.require(x, "x", shape=b.shape)
+        if x.device != b.device:
+            raise ValueError(f"{name}: x and b on different devices")
+
+
+def rbgs_smooth(x, b, bc, iters, reverse=False):
+    """`iters` red+black Gauss-Seidel sweeps of L x = b, L as in
+    ``ops.poisson.laplacian`` for `bc` ('dirichlet' or 'neumann'):
+    x <- (neighbour sum + b) / diag on one colour at a time, red =
+    (i+j+k) even first, or black first when ``reverse`` (the V-cycle's
+    post-smoother, which keeps the cycle a symmetric preconditioner).
+    ``x=None`` is an exactly-zero initial guess and gives bit for bit the
+    result of smoothing an explicit zeros tensor. Returns a new tensor."""
+    if bc not in ("dirichlet", "neumann"):
+        raise ValueError(f"rbgs_smooth: unsupported bc {bc!r}")
+    if int(iters) < 1:
+        raise ValueError("rbgs_smooth: iters must be at least 1")
+    if not _build.on_card(b, "rbgs_smooth"):
+        return rbgs_smooth_plain(x, b, bc, iters, reverse)
+    _require_pair("rbgs_smooth", x, b)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    first = _build.function("rbgs_smooth", "gfs_rbgs_first",
+                            [P, P, I, I, I, I, I, P, P])
+    half = _build.function("rbgs_smooth", "gfs_rbgs_half",
+                           [P, P, I, I, I, I, I, P])
+    extra = (*b.shape, int(bc == "neumann"))
+    return _launch_half_sweeps(rbgs_smooth, "rbgs_smooth", first, half, x, b,
+                               extra, iters, reverse)
+
+
+rbgs_smooth.launches = 0
+
+FLUID, AIR = 0, 1
+
+
+def open_neighbours(flags):
+    """float32 count of fluid-or-air axis neighbours of every cell;
+    outside the field counts as solid."""
+    return neighbour_sum((flags <= AIR).to(torch.float32))
+
+
+def masked_diag(flags):
+    """Row diagonal of the masked operator on fluid rows: the number of
+    fluid-or-air neighbours, at least 1."""
+    return torch.clamp(open_neighbours(flags), min=1.0)
+
+
+def masked_rbgs_smooth_plain(x, b, flags, iters, reverse=False):
+    """Plain version of ``masked_rbgs_smooth``."""
+    fluid = flags == FLUID
+    x = torch.zeros_like(b) if x is None else torch.where(fluid, x, 0.0)
+    return _gs_sweeps(x, b, masked_diag(flags), fluid, iters, reverse)
+
+
+def masked_rbgs_smooth(x, b, flags, iters, reverse=False):
+    """`iters` red+black Gauss-Seidel sweeps on the masked operator
+    (``ops.poisson.masked_laplacian``): only fluid cells (flag 0) update,
+    x <- (neighbour sum + b) / max(#fluid-or-air neighbours, 1); every
+    other cell holds 0, whatever `x` held there. ``x=None`` is an
+    exactly-zero initial guess. On the card `flags` is a uint8 tensor (one
+    byte a cell). Returns a new tensor."""
+    if int(iters) < 1:
+        raise ValueError("masked_rbgs_smooth: iters must be at least 1")
+    if not _build.on_card(b, "masked_rbgs_smooth"):
+        return masked_rbgs_smooth_plain(x, b, flags, iters, reverse)
+    _require_pair("masked_rbgs_smooth", x, b)
+    if (flags.dtype != torch.uint8 or flags.device != b.device
+            or tuple(flags.shape) != tuple(b.shape)
+            or not flags.is_contiguous()):
+        raise ValueError(
+            "masked_rbgs_smooth: flags must be a contiguous uint8 tensor of "
+            f"b's shape on b's device, got {flags.dtype} "
+            f"{tuple(flags.shape)} on {flags.device}")
+    P, I = ctypes.c_void_p, ctypes.c_int
+    first = _build.function("masked_rbgs_smooth", "gfs_masked_rbgs_first",
+                            [P, P, P, I, I, I, I, P, P])
+    half = _build.function("masked_rbgs_smooth", "gfs_masked_rbgs_half",
+                           [P, P, P, I, I, I, I, P])
+    extra = (_build.ptr(flags), *b.shape)
+    return _launch_half_sweeps(masked_rbgs_smooth, "masked_rbgs_smooth",
+                               first, half, x, b, extra, iters, reverse)
+
+
+masked_rbgs_smooth.launches = 0

@@ -1,17 +1,27 @@
-"""3D smoke solver, BiMocq main path.
+"""3D smoke solver: BiMocq and semi-Lagrangian steps, moving obstacles.
 
-Counterpart of ``gpufluidsimulation_tpu.solvers.smoke3d`` for the
-configuration the benchmark runs: scheme BIMOCQ, ``reinit_mode='always'``,
-``blend_coeff == 1``, no voxel boundaries, analytic sphere emitters, the
-dual volume form and the spectral projection. Under that configuration the
-two-level (prev) tier, the scalar advector's maps and the accumulates are
-statically dead, so the state carries ``None`` for them, as the JAX
-package's dieted state does. Any other configuration raises
+Counterpart of ``gpufluidsimulation_tpu.solvers.smoke3d`` for scheme
+BIMOCQ under ``reinit_mode='always'`` and ``blend_coeff == 1`` (the
+benchmark's and the packaged scenes' configuration) and scheme SEMILAG;
+analytic sphere emitters; analytic sphere and box obstacles
+(``Boundary3D``) with the masked MG-PCG projection; the dual volume form;
+the spectral projection or, with
+``engine_mode=EngineMode(spectral_poisson=False)``, MG-PCG. Under
+always/blend 1 the two-level (prev) tier, the scalar advector's maps and
+the accumulates are statically dead, so the state carries ``None`` for
+them, as the JAX package's dieted state does. Any other configuration
+(MACCORMACK, MAC_REFLECTION, voxel boundaries and emitters, emitter
+``trans``/``emit_velocity``, counter/adaptive reinit, blend != 1) raises
 ``NotImplementedError``.
 
 One step syncs the host once to read max|vel| (the CFL substep count is
-decided on the host in float32, ops/advect.substeps) and once for the
-spectral refinement branch.
+decided on the host in float32, ops/advect.substeps), and then once for
+the spectral refinement branch or once per CG iteration of an MG-PCG
+projection (the exit test).
+
+The obstacle pose is computed on the host in float32, as the JAX step
+computes it on the device: in float64 a cell on the obstacle's surface
+can land on the other side of ``sdf <= 0`` and the flags differ.
 
 TF32: building a ``Smoke3D`` sets ``torch.backends.cuda.matmul.allow_tf32``
 and ``torch.backends.cudnn.allow_tf32`` to False for the process. The JAX
@@ -30,7 +40,7 @@ import torch
 from gpufluidsimulation_tpu_torch import config
 from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D
-from gpufluidsimulation_tpu_torch.ops import forces, poisson
+from gpufluidsimulation_tpu_torch.ops import advect, forces, poisson
 from gpufluidsimulation_tpu_torch.ops.advect import substeps
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 
@@ -51,6 +61,60 @@ class Emitter3D:
 
 
 @dataclasses.dataclass(frozen=True)
+class Boundary3D:
+    """Moving rigid obstacle: cells inside get flag 3 and the obstacle's
+    rigid velocity; in a shell of `half_width` cells outside it the
+    advected fields are replaced by their semi-Lagrangian fallback.
+
+    Shapes: analytic 'sphere' (`radius`) or 'box' (`half_extents`); the
+    JAX package's voxel level sets (`sdf_grid`, kind 'voxel') are not
+    ported. Motion: constant `velocity`, or a closed-form `trans(frame)`
+    world offset (dx, dy, dz) whose rigid velocity is the one-frame
+    finite difference. `trans` receives the frame as ``np.float32`` and
+    should compute in float32."""
+
+    center: Tuple[float, float, float]
+    radius: float = 0.02
+    velocity: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    half_width: float = 3.0
+    kind: str = "sphere"
+    half_extents: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    sdf_grid: object = dataclasses.field(default=None, compare=False)
+    trans: object = dataclasses.field(default=None, compare=False)
+
+    def sdf(self, x, y, z, pos):
+        """Signed distance at (broadcastable) world coordinates for the
+        obstacle centred at `pos`."""
+        dx = x - float(pos[0])
+        dy = y - float(pos[1])
+        dz = z - float(pos[2])
+        if self.kind == "sphere":
+            return torch.sqrt(dx * dx + dy * dy + dz * dz) - self.radius
+        ax = dx.abs() - self.half_extents[0]
+        ay = dy.abs() - self.half_extents[1]
+        az = dz.abs() - self.half_extents[2]
+        outside = torch.sqrt(ax.clamp(min=0.0) ** 2 + ay.clamp(min=0.0) ** 2
+                             + az.clamp(min=0.0) ** 2)
+        return outside + torch.maximum(ax, torch.maximum(ay, az)).clamp(max=0.0)
+
+    def pose_at(self, frame: int, dt: float):
+        """(position, rigid velocity) at a frame, each three ``np.float32``
+        values, in the float32 arithmetic of the JAX step."""
+        f32 = np.float32
+        f = f32(frame)
+        if self.trans is not None:
+            o0 = [f32(o) for o in self.trans(f)]
+            o1 = [f32(o) for o in self.trans(f32(f + f32(1.0)))]
+            pos = tuple(f32(f32(c) + o) for c, o in zip(self.center, o0))
+            vel = tuple(f32(f32(b - a) / f32(dt)) for a, b in zip(o0, o1))
+            return pos, vel
+        t = f32(f * f32(dt))
+        pos = tuple(f32(f32(c) + f32(f32(v) * t))
+                    for c, v in zip(self.center, self.velocity))
+        return pos, tuple(f32(v) for v in self.velocity)
+
+
+@dataclasses.dataclass(frozen=True)
 class Smoke3DConfig:
     ni: int
     nj: int
@@ -63,7 +127,7 @@ class Smoke3DConfig:
     alpha: float = 0.0            # smoke drop (density weight)
     beta: float = 0.0             # smoke rise (temperature weight)
     emitters: Tuple[Emitter3D, ...] = ()
-    boundaries: tuple = ()
+    boundaries: Tuple[Boundary3D, ...] = ()
     bc: str = "dirichlet"
     proj_tol: float = 1e-4
     proj_max_iters: int = 50
@@ -72,6 +136,7 @@ class Smoke3DConfig:
     scalar_reinit_gap: int = 30
     vel_distortion_limit: float = 1.0
     scalar_distortion_limit: float = 5.0
+    engine_mode: Optional[config.EngineMode] = None
 
     @property
     def h(self) -> float:
@@ -120,24 +185,41 @@ class Smoke3DState:
 def check_supported(cfg: Smoke3DConfig) -> None:
     """Raise NotImplementedError for any configuration the port lacks."""
     problems = []
-    if cfg.scheme != Scheme.BIMOCQ:
-        problems.append(f"scheme {Scheme(cfg.scheme).name} (only BIMOCQ)")
-    if cfg.boundaries:
-        problems.append("voxel boundaries")
-    if cfg.reinit_mode != "always":
-        problems.append(f"reinit_mode {cfg.reinit_mode!r} (only 'always')")
-    if cfg.blend_coeff != 1.0:
-        problems.append(f"blend_coeff {cfg.blend_coeff} (only 1.0)")
+    if cfg.scheme not in (Scheme.BIMOCQ, Scheme.SEMILAG):
+        problems.append(f"scheme {Scheme(cfg.scheme).name} (only BIMOCQ "
+                        "and SEMILAG)")
+    for bd in cfg.boundaries:
+        if not isinstance(bd, Boundary3D):
+            problems.append(f"boundary {bd!r} (Boundary3D only)")
+        elif bd.sdf_grid is not None or bd.kind not in ("sphere", "box"):
+            problems.append(f"boundary kind {bd.kind!r} with a voxel level "
+                            "set (analytic sphere and box only)")
+    if cfg.scheme == Scheme.BIMOCQ:
+        if cfg.reinit_mode != "always":
+            problems.append(f"reinit_mode {cfg.reinit_mode!r} (only 'always')")
+        if cfg.blend_coeff != 1.0:
+            problems.append(f"blend_coeff {cfg.blend_coeff} (only 1.0)")
     if cfg.bc not in ("dirichlet", "neumann"):
-        problems.append(f"bc {cfg.bc!r} (spectral projection: dirichlet "
-                        "or neumann)")
+        problems.append(f"bc {cfg.bc!r} (dirichlet or neumann)")
     for em in cfg.emitters:
         if not isinstance(em, Emitter3D):
             problems.append(f"emitter {em!r} (analytic spheres only)")
+    if cfg.engine_mode is not None and not isinstance(
+            cfg.engine_mode, config.EngineMode):
+        problems.append(f"engine_mode {cfg.engine_mode!r} (the port's "
+                        "config.EngineMode only)")
     if problems:
         raise NotImplementedError(
-            "the PyTorch port runs only the 3D BiMocq main path; "
+            "the PyTorch port does not run this configuration; "
             "unsupported: " + "; ".join(problems))
+
+
+def _uses_mgpcg(cfg: Smoke3DConfig) -> bool:
+    """Solid boundaries always project with (masked) MG-PCG; the open box
+    does when the engine mode turns the spectral solve off."""
+    mode = cfg.engine_mode
+    return bool(cfg.boundaries) or (mode is not None
+                                    and mode.spectral_poisson is False)
 
 
 def init_state(cfg: Smoke3DConfig, device=None) -> Smoke3DState:
@@ -222,11 +304,100 @@ def _forces_and_project(cfg, g, u, v, w, rho, T, frame, dt):
     return u, v, w, rho, T
 
 
-def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, s: Smoke3DState) -> Smoke3DState:
+def boundary_base_flags(g: Grid3D, device=None):
+    """The static part of the cell flags: domain walls (SOLID) on the x
+    and z faces and the floor, open top (AIR); uint8."""
+    ni, nj, nk = g.shape_c
+    ii = torch.arange(ni, device=device)[:, None, None]
+    jj = torch.arange(nj, device=device)[None, :, None]
+    kk = torch.arange(nk, device=device)[None, None, :]
+    wall = (ii < 1) | (kk < 1) | (ii >= ni - 1) | (kk >= nk - 1) | (jj < 1)
+    base = torch.where(wall, poisson.SOLID, poisson.FLUID)
+    base = torch.where(jj >= nj - 1, poisson.AIR, base)
+    return base.to(torch.uint8).contiguous()
+
+
+def _update_boundary(cfg: Smoke3DConfig, g: Grid3D, frame: int, dt, base):
+    """Per-frame boundary state: flags 0 fluid, 1 air (open top), 2 domain
+    wall, 3 moving object; staggered solid velocities on the faces inside
+    each object; per-kind shell masks (0 < sdf < half_width*h). `base` is
+    ``boundary_base_flags``. Returns (flags, u_solid, v_solid, w_solid,
+    shells)."""
+    dev = base.device
+    flags = base
+    solid_vel = {k: g.zeros(k, device=dev) for k in ("u", "v", "w")}
+    shells = {k: torch.zeros(g.shape_of(k), dtype=torch.bool, device=dev)
+              for k in ("c", "u", "v", "w")}
+    for bd in cfg.boundaries:
+        pos, bvel = bd.pose_at(frame, dt)
+        shell_w = bd.half_width * g.h
+        for axis, kind in enumerate(("u", "v", "w", "c")):
+            sd = bd.sdf(*g.axis_coords(kind, device=dev), pos)
+            if kind == "c":
+                flags = torch.where(sd <= 0.0, poisson.OBJECT, flags)
+            else:
+                solid_vel[kind] = torch.where(sd <= 0.0, float(bvel[axis]),
+                                              solid_vel[kind])
+            shells[kind] = shells[kind] | ((sd > 0.0) & (sd < shell_w))
+    return (flags.to(torch.uint8), solid_vel["u"], solid_vel["v"],
+            solid_vel["w"], shells)
+
+
+def _project3(cfg, ctx, bnd, u, v, w):
+    """Plain or boundary-aware projection depending on cfg.boundaries."""
+    if cfg.boundaries:
+        flags, us, vs, ws, _ = bnd
+        return poisson.project_masked_3d(u, v, w, flags, us, vs, ws, ctx,
+                                         cfg.proj_tol, cfg.proj_max_iters)
+    return poisson.project_3d(u, v, w, cfg.bc, cfg.proj_tol,
+                              cfg.proj_max_iters, ctx=ctx)
+
+
+def _blend_boundary(bnd, kind, field, fallback):
+    """Replace `field` with the semi-Lagrangian `fallback` in the shell
+    just outside solid objects."""
+    if bnd is None:
+        return field
+    return torch.where(bnd[4][kind], fallback, field)
+
+
+def _clear_boundary(bnd, field):
+    """Zero a cell field inside solid objects."""
+    if bnd is None:
+        return field
+    return torch.where(bnd[0] == poisson.OBJECT, 0.0, field)
+
+
+def _step_semilag(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
+                  s: Smoke3DState) -> Smoke3DState:
+    dt = cfg.dt
+    maxvel = _max_velocity(s.u, s.v, s.w)
+    cfldt = np.float32(np.float32(g.h) / maxvel)
+    (rho, T), (u,), (v,), (w,) = advect.semilag_kinds_3d(
+        g, [("c", [s.rho, s.T]), ("u", [s.u]), ("v", [s.v]), ("w", [s.w])],
+        s.u, s.v, s.w, cfldt, -dt)
+    u, v, w, rho, T = _forces_and_project(cfg, g, u, v, w, rho, T, s.frame,
+                                          dt)
+    bnd = (_update_boundary(cfg, g, s.frame, dt, base)
+           if cfg.boundaries else None)
+    rho = _clear_boundary(bnd, rho)
+    u, v, w, _, iters, res, hist = _project3(cfg, ctx, bnd, u, v, w)
+    return dataclasses.replace(
+        s, u=u, v=v, w=w, rho=rho, T=T, frame=s.frame + 1,
+        cfl=float(np.float32(maxvel * np.float32(dt)) / np.float32(g.h)),
+        proj_iters=iters, proj_res=res, proj_res_hist=hist,
+        substeps=len(substeps(cfldt, dt)))
+
+
+def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
+                 s: Smoke3DState) -> Smoke3DState:
     """advanceBimocq under per-frame reinitialization with blend 1."""
     dt = cfg.dt
     maxvel = _max_velocity(s.u, s.v, s.w)
     cfldt = np.float32(np.float32(g.h) / maxvel)
+
+    bnd = (_update_boundary(cfg, g, s.frame, dt, base)
+           if cfg.boundaries else None)
 
     # both maps are identity at step entry (reinitialized at the end of
     # every step): the backward march's first substep is the identity peel
@@ -234,6 +405,12 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, s: Smoke3DState) -> Smoke3DState
                                    from_identity=True)
     # the scalar advector is a counter-only alias of the velocity maps
     scalar_map = s.scalar_map
+
+    if cfg.boundaries:
+        # semi-Lagrangian fallbacks for the boundary shell
+        (sl_u,), (sl_v,), (sl_w,), (sl_rho, sl_T) = advect.semilag_kinds_3d(
+            g, [("u", [s.u]), ("v", [s.v]), ("w", [s.w]),
+                ("c", [s.rho, s.T])], s.u, s.v, s.w, cfldt, -dt)
 
     (u,) = mp.bimocq_advect_3d(g, "u", [s.u], [s.u_init], [s.u_prev],
                                vel_map.bwd, None, vel_map.fwd, None)
@@ -245,12 +422,19 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, s: Smoke3DState) -> Smoke3DState
                                  [s.rho_prev, s.T_prev], vel_map.bwd, None,
                                  vel_map.fwd, None)
 
+    if cfg.boundaries:
+        u = _blend_boundary(bnd, "u", u, sl_u)
+        v = _blend_boundary(bnd, "v", v, sl_v)
+        w = _blend_boundary(bnd, "w", w, sl_w)
+        rho = _blend_boundary(bnd, "c", rho, sl_rho)
+        T = _blend_boundary(bnd, "c", T, sl_T)
+        rho = _clear_boundary(bnd, rho)
+
     u, v, w, rho, T = _forces_and_project(cfg, g, u, v, w, rho, T, s.frame,
                                           dt)
 
     u_t, v_t, w_t = u, v, w
-    u, v, w, _, iters, res, hist = poisson.project_3d(
-        u, v, w, cfg.bc, cfg.proj_tol, cfg.proj_max_iters)
+    u, v, w, _, iters, res, hist = _project3(cfg, ctx, bnd, u, v, w)
     du_p, dv_p, dw_p = u - u_t, v - v_t, w - w_t
 
     vel_reinit = s.frame - s.vel_last_reinit > cfg.vel_reinit_gap
@@ -280,8 +464,12 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, s: Smoke3DState) -> Smoke3DState
     )
 
 
+_STEPS = {Scheme.BIMOCQ: _step_bimocq, Scheme.SEMILAG: _step_semilag}
+
+
 class Smoke3D:
-    """Driver object: the static config and its device.
+    """Solver object: the static config, its device, and what is built
+    once per solver (the MG context and the static boundary flags).
 
     ``device=None`` runs on the card and raises when there is none; pass
     ``device="cpu"`` for the plain PyTorch versions of every kernel."""
@@ -293,9 +481,15 @@ class Smoke3D:
         self.device = config.resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        self.ctx = (poisson.MGContext(self.grid.shape_c, cfg.bc, self.device)
+                    if _uses_mgpcg(cfg) else None)
+        self._base_flags = (boundary_base_flags(self.grid, self.device)
+                            if cfg.boundaries else None)
+        self._step = _STEPS[cfg.scheme]
 
     def init_state(self) -> Smoke3DState:
         return init_state(self.cfg, self.device)
 
     def step(self, state: Smoke3DState) -> Smoke3DState:
-        return _step_bimocq(self.cfg, self.grid, state)
+        return self._step(self.cfg, self.grid, self.ctx, self._base_flags,
+                          state)

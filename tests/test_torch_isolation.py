@@ -17,7 +17,8 @@ REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "gpufluidsimulation_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpufluidsimulation_tpu")
 WRAPPERS = (interp_fast.trilerp_sample, interp_fast.rk3_substep,
-            interp_fast.dmc_substep, stencil_kernels.jacobi_diffuse)
+            interp_fast.dmc_substep, stencil_kernels.jacobi_diffuse,
+            stencil_kernels.rbgs_smooth, stencil_kernels.masked_rbgs_smooth)
 
 
 def _imports(path):
@@ -46,7 +47,7 @@ def test_port_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
         "from gpufluidsimulation_tpu_torch.scenes.scenes3d import "
-        "vortex_collision_config\n"
+        "vortex_collision_config, moving_obstacle_config\n"
         "from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D\n"
         "from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme\n"
         "from gpufluidsimulation_tpu_torch import convert\n"
@@ -54,6 +55,8 @@ def test_port_import_leaves_jax_unloaded():
         "scheme=Scheme.BIMOCQ, dt=1.0)\n"
         "s = Smoke3D(cfg, device='cpu')\n"
         "st = s.step(s.init_state())\n"
+        "o = Smoke3D(moving_obstacle_config(ni=8, nj=8, nk=8), device='cpu')\n"
+        "assert o.step(o.init_state()).proj_iters > 0\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
@@ -85,7 +88,12 @@ def test_wrappers_take_plain_path_on_cpu():
     assert out.shape == grid.shape
     out = stencil_kernels.jacobi_diffuse(u, u, 3, 0.1)
     assert out.shape == u.shape
-    assert [fn.launches for fn in WRAPPERS] == before == [0, 0, 0, 0]
+    out = stencil_kernels.rbgs_smooth(None, u, "dirichlet", 2)
+    assert out.shape == u.shape
+    flags = (torch.rand(u.shape) < 0.2).to(torch.uint8) * 2
+    out = stencil_kernels.masked_rbgs_smooth(u, u, flags, 2, reverse=True)
+    assert out.shape == u.shape
+    assert [fn.launches for fn in WRAPPERS] == before == [0] * len(WRAPPERS)
 
 
 def test_wrappers_refuse_other_devices():
@@ -96,6 +104,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         stencil_kernels.jacobi_diffuse(p, p, 1, 0.1)
     with pytest.raises(ValueError):
+        stencil_kernels.rbgs_smooth(p, p, "neumann", 1)
+    with pytest.raises(ValueError):
+        stencil_kernels.masked_rbgs_smooth(None, p, p, 1)
+    with pytest.raises(ValueError):
         _build.require(torch.zeros(3), "x")
 
 
@@ -104,6 +116,10 @@ def test_build_flags_and_sources():
     math; the library name follows the source contents."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
+    assert "-fmad=false" in _build.NVCC_FLAGS
+    assert set(_build.SOURCES) >= {"rbgs_smooth", "masked_rbgs_smooth"}
+    assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
+        _build.SOURCES)
     for name in _build.SOURCES:
         src = _build.CSRC / f"{name}.cu"
         assert src.exists()

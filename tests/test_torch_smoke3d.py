@@ -147,8 +147,14 @@ def test_default_device_raises_without_cuda(monkeypatch, jax_run):
 
 
 @pytest.mark.parametrize("change", [
-    dict(scheme=Scheme.SEMILAG), dict(reinit_mode="counter"),
-    dict(blend_coeff=0.5), dict(boundaries=(object(),)), dict(bc="periodic"),
+    dict(scheme=Scheme.MACCORMACK), dict(scheme=Scheme.MAC_REFLECTION),
+    dict(reinit_mode="counter"), dict(blend_coeff=0.5),
+    dict(boundaries=(object(),)), dict(bc="periodic"),
+    dict(boundaries=(smoke3d.Boundary3D(center=(0.1, 0.1, 0.1),
+                                        kind="voxel"),)),
+    dict(boundaries=(smoke3d.Boundary3D(center=(0.1, 0.1, 0.1),
+                                        sdf_grid=np.zeros((4, 4, 4))),)),
+    dict(engine_mode=config.EngineMode(spectral_poisson=False)),
 ])
 def test_unported_configs_raise(jax_run, change):
     cfg = dataclasses.replace(_port_cfg(jax_run[0]), **change)
