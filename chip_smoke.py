@@ -2,22 +2,24 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py            # full run: 256^3 paths
-    python3 chip_smoke.py --n 64 --kernel-n 64 --obstacle-n 64
+    python3 chip_smoke.py --n 64 --kernel-n 64 --obstacle-n 64 --scheme-n 64
                                      # every phase at a small size
     python3 chip_smoke.py --profile out/profile.txt
                                      # also write per-kernel time tables of
-                                     # 2 steps of the main path and of the
-                                     # obstacle path to that file
+                                     # 2 steps of the main, obstacle and
+                                     # phase-7 paths to that file
 
 Phases, each of which fails loudly (non-zero exit, no result line):
- 1. print the card's name and power limit; build the six CUDA kernels
+ 1. print the card's name and power limit; build the seven CUDA kernels
     from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once;
  2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers), hold
     each kernel against its plain PyTorch version on the same inputs and
     time both with CUDA events;
  3. parity on the card (kernels) against the port on the CPU (plain
-    versions): 3 steps of the vortex step and of the moving-obstacle step
-    at 32^3 from one numpy state, and one MG-PCG solve;
+    versions): 3 steps at 32^3 from one numpy state of the vortex step,
+    the moving-obstacle step, MAC_REFLECTION on the vortex scene,
+    MACCORMACK on the obstacle scene, BiMocq with adaptive reinit and
+    blend 0.5 in the dual and in the exact volume form; one MG-PCG solve;
  4. the main path: the 3D BiMocq vortex-collision step as bench.py builds
     it (n^3, dt = 8/n, two recentred emitters), 1 warm-up step and
     `--steps` timed steps, every kernel's launch count reset before and
@@ -26,7 +28,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     sphere, masked MG-PCG) at n^3 with dt = 1.6/n, warmed up until the
     plume passes CFL 1 (so that both map marches substep), then timed
     steps with the launch counts reset before and read after;
- 6. the vortex path with the MG-PCG projection (spectral solve off).
+ 6. the vortex path with the MG-PCG projection (spectral solve off);
+ 7. three more vortex paths built like the main path: `reflection`
+    (MAC_REFLECTION, the scene's own default scheme), `maccormack`, and
+    `bimocq_adaptive` (adaptive reinit, blend 1), 1 warm-up and
+    `--scheme-steps` timed steps each.
 Then it prints one JSON line with every kernel's numbers and, last, the
 device line. It never imports JAX or the JAX package.
 """
@@ -108,7 +114,8 @@ def kernel_phase(n, seed):
     import torch.nn.functional as F
 
     from gpufluidsimulation_tpu_torch.core.grids import Grid3D
-    from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
+    from gpufluidsimulation_tpu_torch.ops import (advect, interp_fast,
+                                                  stencil_kernels)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -192,6 +199,36 @@ def kernel_phase(n, seed):
                   "pallas_call :995) and :1306 (_kernel_multi, pallas_call "
                   ":1421)"))
 
+    # minmax_sample: the rho+T trace clamp (C=2) at the cell lattice,
+    # positions displaced by up to ~2 cells, some outside the domain
+    pos = [(p + smooth(g.shape_c, rng, 2.5 * h, dev)).contiguous()
+           for p in g.node_coords("c", device=dev)]
+    outside = float(((pos[0] < 0) | (pos[0] > (n - 1) * h)).float().mean())
+    offs = (g.OFF_C,) * 2
+    got = interp_fast.minmax_sample(fc, *pos, h, offs)
+    want = interp_fast.minmax_sample_plain(fc, *pos, h, offs)
+    err = max(compare("minmax_sample mn", got[0], want[0], 0.0),
+              compare("minmax_sample mx", got[1], want[1], 0.0))
+    k_ms = cuda_time(lambda: interp_fast.minmax_sample(fc, *pos, h, offs),
+                     20)
+    p_ms = cuda_time(lambda: interp_fast.minmax_sample_plain(
+        fc, *pos, h, offs), 3, 1)
+    N = pos[0].numel()
+    C = fc.shape[0]
+    # positions read once, each channel's field read once and its two
+    # bounds written once; per channel 3 subtractions, 3 floors, 14 min/max
+    b_ms, b_by = bound_ms(4 * (3 * N + C * N + 2 * C * N),
+                          N * (3 + C * 20))
+    results["minmax_sample"] = dict(
+        max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, outside_share=outside,
+        replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:1177 "
+                  "(_kernel_minmax, pallas_call :1282; entry minmax3_fast "
+                  ":1212)"))
+    log(f"[kernels] minmax_sample C=2: {k_ms:.4f} ms (plain {p_ms:.3f}, "
+        f"bound {b_ms:.4f} by {b_by}); {100 * outside:.2f}% of the "
+        "positions outside the domain in x")
+
     # rk3_substep: one forward-map substep from a displaced lattice
     ni, nj, nk = g.shape_c
     pos = torch.stack([torch.div(p, h) for p in positions("c")]).contiguous()
@@ -205,16 +242,36 @@ def kernel_phase(n, seed):
     p_ms = cuda_time(lambda: interp_fast.rk3_substep_plain(u, v, w, pos, sh,
                                                            clamp), 3, 1)
     N = pos[0].numel()
-    b_ms, b_by = bound_ms(4 * (6 * N + u.numel() + v.numel() + w.numel()),
-                          N * (9 * (TRILERP_OPS + 1) + 12 + 18 + 6))
+    face_bytes = 4 * (u.numel() + v.numel() + w.numel())
+    rk3_ops = N * (9 * (TRILERP_OPS + 1) + 12 + 18 + 6)
+    b_ms, b_by = bound_ms(4 * 6 * N + face_bytes, rk3_ops)
+    variants = [dict(variant="displaced positions", max_abs_err=err, tol=tol,
+                     ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                     library_ms=None)]
+    log(f"[kernels] rk3_substep: {k_ms:.4f} ms (plain {p_ms:.3f}, bound "
+        f"{b_ms:.4f} by {b_by})")
+    # the identity peel (_kernel_rk3_ident): the same launch from the exact
+    # lattice; its least work reads no positions (they are the lattice)
+    lat, _ = advect._cropped_positions(g, "c", dev)
+    lat = lat.contiguous()
+    got = interp_fast.rk3_substep(u, v, w, lat, sh, clamp)
+    want = interp_fast.rk3_substep_plain(u, v, w, lat, sh, clamp)
+    err_i = compare("rk3_substep lattice", got, want, tol)
+    ki_ms = cuda_time(lambda: interp_fast.rk3_substep(u, v, w, lat, sh,
+                                                       clamp), 20)
+    pi_ms = cuda_time(lambda: interp_fast.rk3_substep_plain(
+        u, v, w, lat, sh, clamp), 3, 1)
+    bi_ms, bi_by = bound_ms(4 * 3 * N + face_bytes, rk3_ops)
+    variants.append(dict(variant="lattice positions (identity peel)",
+                         max_abs_err=err_i, tol=tol, ms=ki_ms, plain_ms=pi_ms,
+                         bound_ms=bi_ms, bound_by=bi_by, library_ms=None))
+    log(f"[kernels] rk3_substep from the lattice: {ki_ms:.4f} ms (plain "
+        f"{pi_ms:.3f}, bound {bi_ms:.4f} by {bi_by})")
     results["rk3_substep"] = dict(
-        max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
+        variants[0], variants=variants,
         replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:1664 "
                   "(_kernel_rk3/_kernel_rk3_twotier :1745, pallas_call "
                   ":1855) and :1870 (_kernel_rk3_ident, pallas_call :2001)"))
-    log(f"[kernels] rk3_substep: {k_ms:.4f} ms (plain {p_ms:.3f}, bound "
-        f"{b_ms:.4f} by {b_by})")
 
     # dmc_substep: one backward-map substep of a displaced map
     maps = torch.stack(positions("c")).contiguous()
@@ -353,15 +410,17 @@ def smoother_phase(n, rng, dev, compare):
     return results
 
 
-def bench_config(n, **overrides):
-    """The main-path configuration as bench.py builds it."""
+def bench_config(n, scheme=None, **overrides):
+    """The main-path configuration as bench.py builds it (scheme BiMocq
+    unless `scheme` names another)."""
     from gpufluidsimulation_tpu_torch.scenes.scenes3d import (
         vortex_collision_config)
     from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
     from gpufluidsimulation_tpu_torch.solvers.smoke3d import Emitter3D
 
     return vortex_collision_config(
-        ni=n, nj=n, nk=n, scheme=Scheme.BIMOCQ, dt=8.0 / n,
+        ni=n, nj=n, nk=n, scheme=Scheme.BIMOCQ if scheme is None else scheme,
+        dt=8.0 / n,
         emitters=(
             Emitter3D(center=(0.04, 0.10, 0.10), radius=0.015, sign=1.0),
             Emitter3D(center=(0.16, 0.101, 0.10), radius=0.015, sign=-1.0),
@@ -370,7 +429,7 @@ def bench_config(n, **overrides):
     )
 
 
-def obstacle_config(n):
+def obstacle_config(n, **overrides):
     """The moving-obstacle configuration as scripts/bench_matrix.py builds
     it: the packaged scene at n^3, dt = 1.6/n, MG-PCG to 1e-4 in at most
     40 iterations."""
@@ -378,7 +437,7 @@ def obstacle_config(n):
         moving_obstacle_config)
 
     return moving_obstacle_config(ni=n, nj=n, nk=n, proj_tol=1e-4,
-                                  proj_max_iters=40)
+                                  proj_max_iters=40, **overrides)
 
 
 FIELDS = ("u", "v", "w", "rho", "T", "u_init", "v_init", "w_init")
@@ -399,13 +458,15 @@ def parity_phase(cfg, label, steps=3):
     sg = convert.state_from_numpy(start, cfg, gpu.device)
     sc = convert.state_from_numpy(start, cfg, "cpu")
     worst = {}
-    iters = []
+    iters, reinits = [], []
     for k in range(steps):
         sg = gpu.step(sg)
         sc = cpu.step(sc)
-        if sg.substeps != sc.substeps:
-            raise AssertionError(f"parity step {k}: substeps {sg.substeps} "
-                                 f"(card) != {sc.substeps} (cpu)")
+        for key in ("substeps", "vel_last_reinit", "scalar_last_reinit"):
+            if getattr(sg, key) != getattr(sc, key):
+                raise AssertionError(
+                    f"parity {label} step {k}: {key} {getattr(sg, key)} "
+                    f"(card) != {getattr(sc, key)} (cpu)")
         if cfg.boundaries:
             if sg.proj_iters != sc.proj_iters:
                 raise AssertionError(
@@ -418,6 +479,7 @@ def parity_phase(cfg, label, steps=3):
             if not torch.equal(fg.cpu(), fc):
                 raise AssertionError(f"parity step {k}: flags differ")
         iters.append(sg.proj_iters)
+        reinits.append((sg.vel_last_reinit, sg.scalar_last_reinit))
     a, b = convert.state_to_numpy(sg), convert.state_to_numpy(sc)
     for key in FIELDS:
         err = float(np.abs(a[key].astype(np.float64) - b[key]).max())
@@ -429,8 +491,9 @@ def parity_phase(cfg, label, steps=3):
         if not np.isfinite(err) or err > 2e-3 * scale:
             raise AssertionError(f"parity {label} {key}: card vs cpu {err}")
     n = cfg.ni
-    log(f"[parity] {label} {n}^3, {steps} steps, proj_iters {iters}, card "
-        "vs cpu max abs err (bound 2e-3 of scale): " + json.dumps(worst))
+    log(f"[parity] {label} {n}^3, {steps} steps, proj_iters {iters}, "
+        f"(vel, scalar) last reinit {reinits}, card vs cpu max abs err "
+        "(bound 2e-3 of scale): " + json.dumps(worst))
     return worst
 
 
@@ -458,7 +521,7 @@ def mgpcg_parity_phase(n=32, seed=1):
 
 
 KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
-           "rbgs_smooth", "masked_rbgs_smooth")
+           "rbgs_smooth", "masked_rbgs_smooth", "minmax_sample")
 
 
 def wrappers():
@@ -500,7 +563,9 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
     for _ in range(steps):
         state = solver.step(state)
         per_step.append(dict(substeps=state.substeps,
-                             proj_iters=state.proj_iters))
+                             proj_iters=state.proj_iters,
+                             reinit=(state.vel_last_reinit,
+                                     state.scalar_last_reinit)))
     end.record()
     torch.cuda.synchronize()
     host_ms = (time.time() - t0) / steps * 1e3
@@ -519,6 +584,7 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
                / 1e6 / (dev_ms / 1e3),
                substeps=[p["substeps"] for p in per_step],
                proj_iters=[p["proj_iters"] for p in per_step],
+               last_reinit=[p["reinit"] for p in per_step],
                proj_res=float(state.proj_res), cfl=state.cfl,
                rho_max=float(state.rho.max()), launches=launches,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -609,6 +675,39 @@ def mgpcg_phase(n, steps):
     return res["launches"]
 
 
+def scheme_phase(n, steps, profile):
+    """Phase 7: the vortex scene at n^3 built as the main path, with
+    MAC_REFLECTION, MACCORMACK and BiMocq under adaptive reinit (blend 1,
+    the hybrid solver's policy with the reference's default blend)."""
+    from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+
+    paths = {
+        "reflection": (bench_config(n, scheme=Scheme.MAC_REFLECTION),
+                       ("trilerp_sample", "minmax_sample", "rk3_substep",
+                        "jacobi_diffuse")),
+        "maccormack": (bench_config(n, scheme=Scheme.MACCORMACK),
+                       ("trilerp_sample", "minmax_sample", "rk3_substep",
+                        "jacobi_diffuse")),
+        "bimocq_adaptive": (bench_config(n, reinit_mode="adaptive"),
+                            KERNELS[:4]),
+    }
+    by_path = {}
+    for name, (cfg, expect) in paths.items():
+        solver = Smoke3D(cfg)
+        state, res = timed_steps(solver, steps, expect)
+        if not 0.0 < res["rho_max"] <= 10.0:
+            raise AssertionError(f"{name}: implausible rho_max "
+                                 f"{res['rho_max']}")
+        log(f"[{name}] " + json.dumps(res))
+        if profile:
+            profile_steps(solver, state, profile, f"{name} path", "a",
+                          res["ms_per_step"])
+        del state, solver
+        by_path[name] = res["launches"]
+    return by_path
+
+
 def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
     """Device time by kernel name over `steps` steps, written to `path`,
     with the card's busy time per step (the sum over kernels) beside
@@ -651,10 +750,16 @@ def main():
                     help="timed steps of the obstacle and MG-PCG paths")
     ap.add_argument("--kernel-n", type=int, default=256,
                     help="grid of the kernel-vs-plain phase")
+    ap.add_argument("--scheme-n", type=int, default=256,
+                    help="grid n^3 of the reflection, maccormack and "
+                    "bimocq_adaptive paths")
+    ap.add_argument("--scheme-steps", type=int, default=3,
+                    help="timed steps of each of those paths")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH",
                     help="write torch.profiler tables of 2 steps of the "
-                    "main path and of the obstacle path to PATH")
+                    "main, obstacle, reflection, maccormack and "
+                    "bimocq_adaptive paths to PATH")
     args = ap.parse_args()
 
     import torch
@@ -663,7 +768,9 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 2
     try:
+        from gpufluidsimulation_tpu_torch.config import EngineMode
         from gpufluidsimulation_tpu_torch.ops import _build
+        from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
@@ -684,15 +791,28 @@ def main():
     results = kernel_phase(args.kernel_n, args.seed)
     parity_phase(bench_config(32), "vortex")
     parity_phase(obstacle_config(32), "obstacle")
+    parity_phase(bench_config(32, scheme=Scheme.MAC_REFLECTION),
+                 "reflection vortex")
+    parity_phase(obstacle_config(32, scheme=Scheme.MACCORMACK),
+                 "maccormack obstacle")
+    small_gaps = dict(reinit_mode="adaptive", blend_coeff=0.5,
+                      vel_reinit_gap=2, scalar_reinit_gap=3)
+    parity_phase(bench_config(32, **small_gaps), "bimocq adaptive blend 0.5")
+    parity_phase(bench_config(32, engine_mode=EngineMode(volume_exact=True),
+                              **small_gaps),
+                 "bimocq adaptive blend 0.5 exact volume")
     mgpcg_parity_phase()
     by_path = {
         "main": main_phase(args.n, args.steps, args.profile),
         "obstacle": obstacle_phase(args.obstacle_n, args.obstacle_steps,
                                    args.profile),
         "mgpcg": mgpcg_phase(args.obstacle_n, args.obstacle_steps)}
+    by_path.update(scheme_phase(args.scheme_n, args.scheme_steps,
+                                args.profile))
     # each kernel's count comes from the path that was added for it
     path_of = dict.fromkeys(KERNELS, "main")
-    path_of.update(masked_rbgs_smooth="obstacle", rbgs_smooth="mgpcg")
+    path_of.update(masked_rbgs_smooth="obstacle", rbgs_smooth="mgpcg",
+                   minmax_sample="reflection")
 
     line = []
     for name in KERNELS:

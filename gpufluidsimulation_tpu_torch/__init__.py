@@ -2,13 +2,17 @@
 
 The package mirrors ``gpufluidsimulation_tpu``'s module names so each
 function can be found beside its JAX counterpart. Plain tensor code is
-PyTorch; the four hot stencils and gathers of the 3D BiMocq step are
-hand-written CUDA C++ kernels under ``csrc/``, built with nvcc on first use
+PyTorch; the hot stencils and gathers of the 3D steps are hand-written
+CUDA C++ kernels under ``csrc/``, built with nvcc on first use
 (``ops/_build.py``). Every kernel wrapper keeps its plain PyTorch version
 beside it: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel or raises.
 
-Only the 3D BiMocq step with per-frame reinitialization, blend 1, no voxel
-boundaries, the dual volume form and the spectral projection is ported;
-other configurations raise ``NotImplementedError``.
+The 3D schemes BIMOCQ (every ``reinit_mode`` and blend, the dual or the
+exact volume form), SEMILAG, MACCORMACK and MAC_REFLECTION are ported, on
+the open box and with analytic moving obstacles. Voxel (``sdf_grid``)
+boundaries and emitters and emitter ``trans``/``emit_velocity`` raise
+``NotImplementedError``; ``convert`` also refuses the JAX package's vol9
+volume form. The 2D solver, the CLI, I/O and the sharded step are not
+ported.
 """

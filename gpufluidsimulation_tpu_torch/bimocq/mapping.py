@@ -1,10 +1,22 @@
-"""BiMocq characteristic-mapping engine, 3D dual-volume subset.
+"""BiMocq characteristic-mapping engine, 3D.
 
-Counterpart of ``gpufluidsimulation_tpu.bimocq.mapping`` for the main
-path: per-frame reinitialization, blend 1 (the level-2 tier statically
-dead), the dual volume form. Map positions at each kind's lattice are a
-static stencil (``map_at_lattice_3d``, plain torch); the field samples at
-mapped positions go through the ``trilerp_sample`` kernel in dual mode.
+Counterpart of the 3D half of ``gpufluidsimulation_tpu.bimocq.mapping``:
+the map state and its marches, the pull-back with BFECC compensation and
+the two-level (``bwd_prev``) blend, the accumulates through the forward
+map, the distortion estimate and reinitialization. Two volume forms:
+
+* dual (the default, the JAX package's accelerator mode): map positions
+  at each kind's lattice are a static stencil (``map_at_lattice_3d``,
+  plain torch) and the field samples at mapped positions go through the
+  ``trilerp_sample`` kernel in dual mode; the non-identity accumulate is
+  the source prefilter + a plain trilinear sample, as in the JAX package;
+* exact (``exact=True``, the JAX package's exact-gather mode): the
+  reference's 9-point composition field(M(p + d)), every map and field
+  sample one ``trilerp_sample(dual=False)`` launch over the 9 stacked
+  stencil points.
+
+The JAX package's vol9 fixup, multi-kind pull-back and Pallas prefilter
+are not ported (an opt-in, a parked path and an unwired kernel).
 """
 
 from __future__ import annotations
@@ -12,10 +24,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from gpufluidsimulation_tpu_torch.core.grids import band_mask
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
+
+# _VOL3 corner offsets (units of h) and the centre, the 9-point stencil
+_VOL9 = interp_fast._VOL3 + ((0.0, 0.0, 0.0),)
+_ZERO3 = ((0.0, 0.0, 0.0),) * 3
 
 
 @dataclasses.dataclass
@@ -76,12 +93,42 @@ def _band3(shape, a: Tuple[int, int, int], b: Tuple[int, int, int],
     return band_mask(shape, [x + 1 for x in a], [x + 1 for x in b], device)
 
 
+def _bands(kind_dim, shape, device):
+    """The advect band (2+dim < idx < n-3) and the compensate/accumulate
+    band (1+dim < idx < n-2)."""
+    d = kind_dim
+    return (_band3(shape, (2 + d[0], 2 + d[1], 2 + d[2]), (3, 3, 3), device),
+            _band3(shape, (1 + d[0], 1 + d[1], 1 + d[2]), (2, 2, 2), device))
+
+
+def _blend_weights(blend_coeff):
+    """(b, 1 - b) as float32 values, as the JAX step computes them from
+    its float32 blend scalar."""
+    b = np.float32(blend_coeff)
+    return float(b), float(np.float32(1.0) - b)
+
+
+def _clamp_world(grid, mx, my, mz, clamp_lo, clamp_hi):
+    h = grid.h
+    return (mx.clamp(clamp_lo * h, grid.ni * h - clamp_hi * h),
+            my.clamp(clamp_lo * h, grid.nj * h - clamp_hi * h),
+            mz.clamp(clamp_lo * h, grid.nk * h - clamp_hi * h))
+
+
+def _map_sample_3d(grid, maps, px, py, pz, clamp_lo, clamp_hi):
+    """Sample a (3, ni, nj, nk) map at world positions of any shape (one
+    C=3 ``trilerp_sample`` launch) and clamp the result into
+    [lo*h, L - hi*h]."""
+    out = interp_fast.trilerp_sample(maps, px.contiguous(), py.contiguous(),
+                                     pz.contiguous(), grid.h, _ZERO3)
+    return _clamp_world(grid, out[0], out[1], out[2], clamp_lo, clamp_hi)
+
+
 def map_at_lattice_3d(grid, maps, kind, clamp_lo, clamp_hi):
     """Map values at `kind`'s node lattice: the identity stencil for cell
     kinds, a clamped 0.5/0.5 face average along each staggered axis; the
     result is clamped into [lo*h, L - hi*h]."""
     dim = grid.dim_of(kind)
-    h = grid.h
     out = []
     for ch in range(3):
         m = maps[ch]
@@ -93,11 +140,7 @@ def map_at_lattice_3d(grid, maps, kind, clamp_lo, clamp_hi):
                 n = q.shape[axis]
                 m = 0.5 * (q.narrow(axis, 0, n - 1) + q.narrow(axis, 1, n - 1))
         out.append(m)
-    return (
-        out[0].clamp(clamp_lo * h, grid.ni * h - clamp_hi * h),
-        out[1].clamp(clamp_lo * h, grid.nj * h - clamp_hi * h),
-        out[2].clamp(clamp_lo * h, grid.nk * h - clamp_hi * h),
-    )
+    return _clamp_world(grid, *out, clamp_lo, clamp_hi)
 
 
 def volume_prefilter_3d(f):
@@ -126,24 +169,125 @@ def _sample_fields_at(grid, kind, fields, positions, dual=False):
     return [out[i] for i in range(len(fields))]
 
 
+# ---------------------------------------------------------------------------
+# The exact volume form: single-field ops (advect_kernel, doubleAdvect_kernel,
+# cumulate_kernel, gpu_compensate_*), as the JAX package evaluates them off
+# its fast path
+# ---------------------------------------------------------------------------
+
+
+def _volume_eval_3d(grid, kind, eval_fn, device):
+    """0.5 * mean(8 corner evals) + 0.5 * centre eval at each node of
+    `kind`; the 9 stencil points are stacked on a leading axis so that
+    every map or field sample of `eval_fn` is one launch."""
+    px, py, pz = grid.node_coords(kind, device=device)
+    offs = torch.tensor(_VOL9, dtype=px.dtype, device=device) * grid.h
+    sh = (9,) + (1,) * px.dim()
+    vals = eval_fn(px[None] + offs[:, 0].reshape(sh),
+                   py[None] + offs[:, 1].reshape(sh),
+                   pz[None] + offs[:, 2].reshape(sh))
+    return 0.5 * vals[:8].mean(dim=0) + 0.5 * vals[8]
+
+
+def advect_with_map_3d(grid, kind, field_cur, field_init, bwd):
+    """Pull field_init back through the backward map (advect_kernel);
+    outside the band 2+dim < idx < n-3 the current field is kept."""
+
+    def ev(px, py, pz):
+        m = _map_sample_3d(grid, bwd, px, py, pz, 1.0, 1.0)
+        return _sample_fields_at(grid, kind, [field_init], m)[0]
+
+    out = _volume_eval_3d(grid, kind, ev, field_cur.device)
+    band, _ = _bands(grid.dim_of(kind), field_cur.shape, field_cur.device)
+    return torch.where(band, out, field_cur)
+
+
+def double_advect_3d(grid, kind, field, field_prev, bwd, bwd_prev,
+                     blend_coeff):
+    """Two-level pull-back through bwd_prev o bwd, blended with `field`
+    (doubleAdvect_kernel): field <- blend*field + (1-blend)*prev_value."""
+
+    def ev(px, py, pz):
+        m = _map_sample_3d(grid, bwd, px, py, pz, 1.0, 1.0)
+        o = _map_sample_3d(grid, bwd_prev, *m, 1.0, 1.0)
+        return _sample_fields_at(grid, kind, [field_prev], o)[0]
+
+    prev_value = _volume_eval_3d(grid, kind, ev, field.device)
+    b, one_minus_b = _blend_weights(blend_coeff)
+    band, _ = _bands(grid.dim_of(kind), field.shape, field.device)
+    return torch.where(band, field * b + one_minus_b * prev_value, field)
+
+
+def accumulate_3d(grid, kind, dfield_init, field_change, fwd, coeff=1.0):
+    """Push a change through the forward map into the init buffer
+    (cumulate_kernel): dfield_init += volume<coeff * change(fwd(x))> on
+    the band 1+dim < idx < n-2."""
+
+    def ev(px, py, pz):
+        m = _map_sample_3d(grid, fwd, px, py, pz, 0.0, 0.0)
+        return coeff * _sample_fields_at(grid, kind, [field_change], m)[0]
+
+    delta = _volume_eval_3d(grid, kind, ev, dfield_init.device)
+    _, band = _bands(grid.dim_of(kind), dfield_init.shape, dfield_init.device)
+    return torch.where(band, dfield_init + delta, dfield_init)
+
+
+def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd):
+    """BFECC error compensation (gpu_compensate_velocity/field):
+    err = volume<field_adv(fwd(x))> - field_init, out = field_adv -
+    0.5*volume<err(bwd(x))>, then the 27-point clamp around field_adv."""
+    dev = field_adv.device
+    _, band = _bands(grid.dim_of(kind), field_adv.shape, dev)
+
+    def ev_fwd(px, py, pz):
+        m = _map_sample_3d(grid, fwd, px, py, pz, 0.0, 0.0)
+        return _sample_fields_at(grid, kind, [field_adv], m)[0]
+
+    err = _volume_eval_3d(grid, kind, ev_fwd, dev) - field_init
+    err = torch.where(band, err, 0.0)
+
+    def ev_bwd(px, py, pz):
+        m = _map_sample_3d(grid, bwd, px, py, pz, 0.0, 0.0)
+        return _sample_fields_at(grid, kind, [err], m)[0]
+
+    correction = _volume_eval_3d(grid, kind, ev_bwd, dev)
+    out = torch.where(band, field_adv - 0.5 * correction, field_adv)
+    return advect.clamp_extrema_neighborhood(field_adv, out)
+
+
+# ---------------------------------------------------------------------------
+# Fused per-kind entry points
+# ---------------------------------------------------------------------------
+
+
 def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
-                     bwd, bwd_prev, fwd, blend_coeff):
-    """Advect + BFECC compensation over N fields of one lattice kind in
-    the dual volume form: three ``trilerp_sample`` launches (advect,
+                     bwd, bwd_prev, fwd, blend_coeff, exact=False):
+    """Advect + BFECC compensation + two-level blend over N fields of one
+    lattice kind. ``blend_coeff=None`` marks the blend as 1: the level-2
+    pull-back through bwd_prev has weight 0 and is skipped.
+
+    Dual form: three ``trilerp_sample`` launches in dual mode (advect,
     error, correction), each stage ending in the band masks, then the
-    27-point clamp. ``blend_coeff=None`` (statically 1) is the only
-    supported blend: the level-2 pull-back has weight 0."""
-    if blend_coeff is not None:
-        raise NotImplementedError(
-            "bimocq_advect_3d: only blend_coeff=None (blend 1) is ported")
-    del fields_prev, bwd_prev
-    dim = grid.dim_of(kind)
-    shape = fields_cur[0].shape
-    dev = fields_cur[0].device
-    band_adv = _band3(shape, (2 + dim[0], 2 + dim[1], 2 + dim[2]), (3, 3, 3),
-                      dev)
-    band_c = _band3(shape, (1 + dim[0], 1 + dim[1], 1 + dim[2]), (2, 2, 2),
-                    dev)
+    27-point clamp; with a blend, one C=3 map sample of bwd_prev at the
+    advect positions and one dual sample of the prev fields there.
+    ``exact=True`` delegates to the single-field ops."""
+    if blend_coeff is not None and (bwd_prev is None
+                                    or any(f is None for f in fields_prev)):
+        raise ValueError("bimocq_advect_3d: a blend needs bwd_prev and the "
+                         "prev fields")
+    if exact:
+        outs = []
+        for cur, init, prev in zip(fields_cur, fields_init, fields_prev):
+            x = advect_with_map_3d(grid, kind, cur, init, bwd)
+            x = compensate_3d(grid, kind, x, init, fwd, bwd)
+            if blend_coeff is not None:
+                x = double_advect_3d(grid, kind, x, prev, bwd, bwd_prev,
+                                     blend_coeff)
+            outs.append(x)
+        return outs
+
+    band_adv, band_c = _bands(grid.dim_of(kind), fields_cur[0].shape,
+                              fields_cur[0].device)
 
     # advect: pull init back through the backward map
     p1 = map_at_lattice_3d(grid, bwd, kind, 1.0, 1.0)
@@ -157,31 +301,82 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
             for e, init in zip(errs, fields_init)]
     p4 = map_at_lattice_3d(grid, bwd, kind, 0.0, 0.0)
     corrs = _sample_fields_at(grid, kind, errs, p4, dual=True)
-    return [advect.clamp_extrema_neighborhood(
-                a, torch.where(band_c, a - 0.5 * c, a))
-            for a, c in zip(advs, corrs)]
+    comps = [advect.clamp_extrema_neighborhood(
+                 a, torch.where(band_c, a - 0.5 * c, a))
+             for a, c in zip(advs, corrs)]
+    if blend_coeff is None:
+        return comps
+
+    # double advect: two-level pull-back through bwd_prev o bwd
+    p2 = _map_sample_3d(grid, bwd_prev, *p1, 1.0, 1.0)
+    prevs = _sample_fields_at(grid, kind, list(fields_prev), p2, dual=True)
+    b, one_minus_b = _blend_weights(blend_coeff)
+    return [torch.where(band_adv, x * b + one_minus_b * pv, x)
+            for x, pv in zip(comps, prevs)]
 
 
-def accumulate_multi_3d(grid, kind, groups, fwd, identity=False):
+def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
+                        exact=False):
     """Push coeff-weighted changes through the forward map into their
-    bases: `groups` is a list of (base, [(change, coeff), ...]). Only the
-    identity forward map is ported, where the 9-point volume average is
-    exactly the separable prefilter."""
-    if not identity:
-        raise NotImplementedError(
-            "accumulate_multi_3d: only identity=True is ported")
-    del fwd
-    dim = grid.dim_of(kind)
-    shape = groups[0][0].shape
-    band = _band3(shape, (1 + dim[0], 1 + dim[1], 1 + dim[2]), (2, 2, 2),
-                  groups[0][0].device)
-    outs = []
+    bases: `groups` is a list of (base, [(change, coeff), ...]).
+
+    Dual form: each group's changes are summed into one field first (the
+    pull-back is linear); ``identity=True`` (the map is the identity) is
+    then the separable prefilter itself, otherwise the prefiltered sums
+    are sampled with plain trilinear at the forward map's lattice values
+    (one launch for all groups). ``exact=True`` applies ``accumulate_3d``
+    change by change and ignores `identity`, as the JAX package's exact
+    path does."""
+    if exact:
+        outs = []
+        for base, pairs in groups:
+            for change, coeff in pairs:
+                base = accumulate_3d(grid, kind, base, change, fwd, coeff)
+            outs.append(base)
+        return outs
+    _, band = _bands(grid.dim_of(kind), groups[0][0].shape,
+                     groups[0][0].device)
+    combined = []
     for base, pairs in groups:
         if not pairs:
-            outs.append(base)
+            combined.append(torch.zeros_like(base))
             continue
         tot = pairs[0][1] * pairs[0][0]
         for change, coeff in pairs[1:]:
             tot = tot + coeff * change
-        outs.append(torch.where(band, base + volume_prefilter_3d(tot), base))
-    return outs
+        combined.append(tot)
+    flat = [volume_prefilter_3d(c) for c in combined]
+    if identity:
+        deltas = flat
+    else:
+        p3 = map_at_lattice_3d(grid, fwd, kind, 0.0, 0.0)
+        deltas = _sample_fields_at(grid, kind, flat, p3)
+    return [torch.where(band, base + delta, base)
+            for (base, _), delta in zip(groups, deltas)]
+
+
+def estimate_distortion_3d(grid, mapping: MappingState, exclude_mask=None):
+    """sqrt(max over interior cells of max(|x - F(B(x))|^2,
+    |x - B(F(x))|^2)) as a 0-dim tensor on the maps' device
+    (estimate_kernel + the host reduction of the reference). Each map
+    sample is one C=3 ``trilerp_sample`` launch; `exclude_mask` zeroes
+    the cells it marks (solid objects)."""
+    px, py, pz = grid.node_coords("c", device=mapping.bwd.device)
+    bwd, fwd = mapping.bwd, mapping.fwd
+
+    def sample(maps, qx, qy, qz):
+        return interp_fast.trilerp_sample(maps, qx.contiguous(),
+                                          qy.contiguous(), qz.contiguous(),
+                                          grid.h, _ZERO3)
+
+    b = sample(bwd, px, py, pz)
+    f = sample(fwd, b[0], b[1], b[2])
+    d_bf = (px - f[0]) ** 2 + (py - f[1]) ** 2 + (pz - f[2]) ** 2
+    f = sample(fwd, px, py, pz)
+    b = sample(bwd, f[0], f[1], f[2])
+    d_fb = (px - b[0]) ** 2 + (py - b[1]) ** 2 + (pz - b[2]) ** 2
+    d = torch.maximum(d_bf, d_fb)
+    d = torch.where(_band3(d.shape, (1, 1, 1), (2, 2, 2), d.device), d, 0.0)
+    if exclude_mask is not None:
+        d = torch.where(exclude_mask, 0.0, d)
+    return torch.sqrt(d.max())

@@ -3,8 +3,8 @@
 There are no process-wide engine modes and no environment switches: the
 port runs the accelerator defaults of the JAX package (exact gathers in
 the kernels, dual volume form, red-black Gauss-Seidel smoothing), every
-entry point takes an explicit ``device``, and the one choice a solver can
-make is carried by its configuration's ``EngineMode``.
+entry point takes an explicit ``device``, and the choices a solver can
+make are carried by its configuration's ``EngineMode``.
 """
 
 from __future__ import annotations
@@ -21,9 +21,13 @@ class EngineMode:
     """Per-solver engine mode. ``spectral_poisson``: None or True solves
     the unmasked full-box pressure system directly in the DST/DCT
     eigenbasis (the accelerator default), False with MG-PCG. Projections
-    with solid boundaries always use MG-PCG."""
+    with solid boundaries always use MG-PCG. ``volume_exact``: True
+    evaluates the BiMocq volume average as the reference's exact 9-point
+    composition field(M(p + d)) (the JAX package's exact-gather mode);
+    None or False uses the dual form (its accelerator default)."""
 
     spectral_poisson: bool | None = None
+    volume_exact: bool | None = None
 
 
 def resolve_device(device=None) -> torch.device:

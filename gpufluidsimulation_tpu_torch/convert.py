@@ -127,26 +127,38 @@ def _boundary(b, trans=None) -> Boundary3D:
 
 # EngineMode fields of the JAX package whose value changes nothing the port
 # computes: interpret mode, the Pallas-vs-XLA viscosity (one function), the
-# window sampler's geometry and its exact-gather twin (the kernels gather
-# exactly), and the 2D particle transfers.
-_MODE_IGNORED = ("interp_interpret", "pallas_diffuse", "fast_interp",
-                 "interp_rr", "interp_adaptive", "particle_dense")
+# window sampler's geometry (the kernels gather exactly), and the 2D
+# particle transfers.
+_MODE_IGNORED = ("interp_interpret", "pallas_diffuse", "interp_rr",
+                 "interp_adaptive", "particle_dense")
 # ... and the one value of each other field that the port implements
-_MODE_REQUIRED = {"rbgs": True, "volume_dual": True, "volume_exact": False,
-                  "volume_vol9": False, "interp_bf16": False,
-                  "sharded_sampling": ()}
+_MODE_REQUIRED = {"volume_dual": True, "volume_vol9": False,
+                  "interp_bf16": False, "sharded_sampling": ()}
 
 
 def _engine_mode(m):
     """The port's EngineMode from the JAX mode's plain fields: carries
-    ``spectral_poisson`` across, accepts fields that do not change the
-    result, and raises for a non-default value the port cannot honour."""
+    ``spectral_poisson`` across, maps the JAX package's exact volume form
+    (``fast_interp=False`` or ``volume_exact=True``) to
+    ``volume_exact=True``, accepts fields that do not change the result,
+    and raises for a value the port cannot honour: the red-black smoother
+    off (which ``fast_interp=False`` implies unless ``rbgs`` is given),
+    and, in the dual form, the prefilter or vol9 volume forms."""
     if m is None or isinstance(m, config.EngineMode):
         return m
     d = dict(m) if isinstance(m, dict) else dict(vars(m))
     spectral = d.pop("spectral_poisson", None)
+    fast = d.pop("fast_interp", None)
+    exact = bool(d.pop("volume_exact", None)) or fast is False
+    rbgs = d.pop("rbgs", None)
+    if rbgs is False or (rbgs is None and fast is False):
+        raise NotImplementedError("engine_mode.rbgs=False is not ported "
+                                  "(the Jacobi-smoothed V-cycle)")
     for key in _MODE_IGNORED:
         d.pop(key, None)
+    if exact:      # the volume form is exact whatever these say
+        d.pop("volume_dual", None)
+        d.pop("volume_vol9", None)
     for key, allowed in _MODE_REQUIRED.items():
         val = d.pop(key, None)
         if val is not None and val != allowed:
@@ -154,15 +166,16 @@ def _engine_mode(m):
                 f"engine_mode.{key}={val!r} is not ported")
     if d:
         raise ValueError(f"unknown engine_mode fields {sorted(d)}")
-    return config.EngineMode(spectral_poisson=spectral)
+    return config.EngineMode(spectral_poisson=spectral,
+                             volume_exact=True if exact else None)
 
 
 def config_from_dict(d: dict, boundary_trans=()) -> Smoke3DConfig:
     """The port's config from the JAX config's plain field values
     (``dataclasses.asdict`` of it, or the same keys by hand).
-    ``engine_mode`` keeps its ``spectral_poisson``; `boundary_trans` gives
-    the port's own ``trans(frame)`` for each boundary that moves by one
-    (None for the others)."""
+    ``engine_mode`` keeps its projection and its volume form;
+    `boundary_trans` gives the port's own ``trans(frame)`` for each
+    boundary that moves by one (None for the others)."""
     d = dict(d)
     d["engine_mode"] = _engine_mode(d.get("engine_mode"))
     known = {f.name for f in dataclasses.fields(Smoke3DConfig)}

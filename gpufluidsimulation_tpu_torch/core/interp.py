@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-_MAC_OFFS = ((-0.5, 0.0, 0.0), (0.0, -0.5, 0.0), (0.0, 0.0, -0.5))
+MAC_OFFS = ((-0.5, 0.0, 0.0), (0.0, -0.5, 0.0), (0.0, 0.0, -0.5))
 
 
 def div_scalar(x, s: float):
@@ -32,22 +32,30 @@ def _axis_corners(g, n):
     return i0.clamp(0, n - 1), (i0 + 1).clamp(0, n - 1), f
 
 
-def trilerp_grid(field, gx, gy, gz):
-    """Trilinear sample of `field` at grid coordinates (index units on the
-    field's lattice) with per-corner index clamping."""
+def corners_grid(field, gx, gy, gz):
+    """The 8 clamped corner values of the trilinear cell around grid
+    coordinates g, in the order of ``gpufluidsimulation_tpu.core.interp.
+    _gather8_3d`` (x fastest: v000, v100, v010, v110, v001, ...), and the
+    fractions (fx, fy, fz)."""
     nx, ny, nz = field.shape
     ia, ib, fx = _axis_corners(gx, nx)
     ja, jb, fy = _axis_corners(gy, ny)
     ka, kb, fz = _axis_corners(gz, nz)
     flat = field.reshape(-1)
+    vals = [flat[(i * ny + j) * nz + k]
+            for k in (ka, kb) for j in (ja, jb) for i in (ia, ib)]
+    return vals, (fx, fy, fz)
 
-    def at(i, j, k):
-        return flat[(i * ny + j) * nz + k]
 
-    c00 = (1 - fx) * at(ia, ja, ka) + fx * at(ib, ja, ka)
-    c10 = (1 - fx) * at(ia, jb, ka) + fx * at(ib, jb, ka)
-    c01 = (1 - fx) * at(ia, ja, kb) + fx * at(ib, ja, kb)
-    c11 = (1 - fx) * at(ia, jb, kb) + fx * at(ib, jb, kb)
+def trilerp_grid(field, gx, gy, gz):
+    """Trilinear sample of `field` at grid coordinates (index units on the
+    field's lattice) with per-corner index clamping."""
+    (v000, v100, v010, v110, v001, v101, v011, v111), (fx, fy, fz) = (
+        corners_grid(field, gx, gy, gz))
+    c00 = (1 - fx) * v000 + fx * v100
+    c10 = (1 - fx) * v010 + fx * v110
+    c01 = (1 - fx) * v001 + fx * v101
+    c11 = (1 - fx) * v011 + fx * v111
     c0 = (1 - fy) * c00 + fy * c10
     c1 = (1 - fy) * c01 + fy * c11
     return (1 - fz) * c0 + fz * c1
@@ -67,9 +75,9 @@ def sample3(field, px, py, pz, h, off):
 def mac_velocity_3d(u, v, w, px, py, pz, h):
     """The 3D MAC velocity at world positions (each component sampled on
     its own staggered lattice)."""
-    return (sample3(u, px, py, pz, h, _MAC_OFFS[0]),
-            sample3(v, px, py, pz, h, _MAC_OFFS[1]),
-            sample3(w, px, py, pz, h, _MAC_OFFS[2]))
+    return (sample3(u, px, py, pz, h, MAC_OFFS[0]),
+            sample3(v, px, py, pz, h, MAC_OFFS[1]),
+            sample3(w, px, py, pz, h, MAC_OFFS[2]))
 
 
 def mac_velocity_grid(u, v, w, gx, gy, gz):
@@ -79,6 +87,22 @@ def mac_velocity_grid(u, v, w, gx, gy, gz):
     return (trilerp_grid(u, gx + 0.5, gy, gz),
             trilerp_grid(v, gx, gy + 0.5, gz),
             trilerp_grid(w, gx, gy, gz + 0.5))
+
+
+def mac_pack_3d(u, v, w):
+    """The MAC triplet edge-padded to the common (ni+1, nj+1, nk+1) shape
+    and stacked, so one C=3 sample with offsets ``MAC_OFFS`` evaluates the
+    MAC velocity: clamped indices into the padded copy read the same
+    values as clamped indices into each component."""
+    shape = tuple(max(s) for s in zip(u.shape, v.shape, w.shape))
+    out = []
+    for f in (u, v, w):
+        for axis in range(3):
+            if f.shape[axis] < shape[axis]:
+                f = torch.cat([f, f.narrow(axis, f.shape[axis] - 1, 1)],
+                              dim=axis)
+        out.append(f)
+    return torch.stack(out)
 
 
 def mac_velocity_at_c_3d(u, v, w):

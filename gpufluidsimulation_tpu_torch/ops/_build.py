@@ -30,8 +30,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
-           "rbgs_smooth", "masked_rbgs_smooth")
+SOURCES = ("trilerp_sample", "minmax_sample", "rk3_substep", "dmc_substep",
+           "jacobi_diffuse", "rbgs_smooth", "masked_rbgs_smooth")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

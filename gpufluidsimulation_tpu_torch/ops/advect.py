@@ -1,8 +1,7 @@
-"""3D map marches, semi-Lagrangian transport and the 27-point extrema
-clamp.
+"""3D map marches, semi-Lagrangian and MacCormack transport and the
+27-point extrema clamp.
 
-Counterpart of ``gpufluidsimulation_tpu.ops.advect`` (3D BiMocq and
-semi-Lagrangian subset).
+Counterpart of the 3D half of ``gpufluidsimulation_tpu.ops.advect``.
 The CFL substep loops run on the host: ``cfldt`` arrives as a float32 host
 value (one device sync per step, in the solver) and the substep schedule
 repeats the JAX ``lax.while_loop`` arithmetic in ``np.float32`` — in
@@ -20,6 +19,14 @@ JAX package's ``mac_at_nodes_3d``, ``_vel_pack``, ``_union_pack``,
 geometry of the TPU kernels and have no counterpart: ``rk3_substep`` from
 the exact lattice coordinate (i - 0.5*dim) computes the same stage-1
 velocity as their identity peel.
+
+MacCormack (``maccormack_kinds_3d``, ``maccormack_multi_3d``,
+``maccormack_3d``) is a backward and a forward semilag stage, the
+correction and one of two clamps: the 27-point neighbourhood clamp
+(velocities) or the trace clamp (scalars): the min/max of the 8 trilinear
+corners at a two-stage midpoint backtrace (``minmax_sample``) with the
+trilinear sample there as fallback, as the JAX package's exact path
+computes it.
 """
 
 from __future__ import annotations
@@ -173,6 +180,79 @@ def semilag_kinds_3d(grid, groups, u, v, w, cfldt, dt):
     list per group."""
     return [semilag_multi_3d(grid, k, fs, u, v, w, cfldt, dt)
             for k, fs in groups]
+
+
+# ---------------------------------------------------------------------------
+# MacCormack
+# ---------------------------------------------------------------------------
+
+
+def _trace_clamp(grid, kind, srcs, fwds, backs, packed, dt):
+    """The trace clamp of maccormack_multi_3d: the MacCormack corrections
+    fwd + 0.5*(src - back) of every field, replaced by the trilinear
+    sample of src at the two-stage midpoint backtrace wherever they leave
+    the min/max of src's 8 corners there. `packed` is the MAC triplet
+    (interp.mac_pack_3d); both midpoint stages sample it with one C=3
+    ``trilerp_sample`` launch each (stage 1 at the lattice itself, the
+    staggered average there). The positions are not clamped into the
+    domain: near walls the corner indices clamp instead."""
+    h = grid.h
+    pos, ax = _cropped_positions(grid, kind, srcs[0].device)
+    px, py, pz = pos * h      # the kind's world lattice, as node_coords
+    vel1 = interp_fast.trilerp_sample(packed, px, py, pz, h, interp.MAC_OFFS)
+    mx_ = px - 0.5 * dt * vel1[0]
+    my_ = py - 0.5 * dt * vel1[1]
+    mz_ = pz - 0.5 * dt * vel1[2]
+    vel2 = interp_fast.trilerp_sample(packed, mx_, my_, mz_, h,
+                                      interp.MAC_OFFS)
+    bx, by, bz = px - dt * vel2[0], py - dt * vel2[1], pz - dt * vel2[2]
+    stacked = torch.stack(list(srcs))
+    offs = (grid.off_of(kind),) * len(srcs)
+    mn, mx = interp_fast.minmax_sample(stacked, bx, by, bz, h, offs)
+    fallback = interp_fast.trilerp_sample(stacked, bx, by, bz, h, offs)
+    crop = tuple(slice(0, s) for s in px.shape)
+    outs = []
+    for c, (src, fwd, back) in enumerate(zip(srcs, fwds, backs)):
+        dst = (fwd + 0.5 * (src - back))[crop]
+        clamped = torch.where((dst < mn[c]) | (dst > mx[c]), fallback[c], dst)
+        outs.append(_pad_plane(clamped, src, ax))
+    return outs
+
+
+def maccormack_kinds_3d(grid, groups, u, v, w, cfldt, dt):
+    """MacCormack over several (kind, [fields], clamp) groups: a backward
+    semilag stage (trace by -dt), a forward one (+dt) of its result, the
+    correction fwd + 0.5*(src - back) and a clamp. `clamp` is 'trace'
+    (the scalar clamp: corner min/max at the midpoint backtrace with the
+    semilag fallback, clamp_extrema_kernel) or 'neighborhood' (the
+    velocity clamp: the 27-point clamp, clampExtrema_kernel)."""
+    packed = None
+    outs = []
+    for kind, fields, clamp in groups:
+        fwds = semilag_multi_3d(grid, kind, fields, u, v, w, cfldt, -dt)
+        backs = semilag_multi_3d(grid, kind, fwds, u, v, w, cfldt, dt)
+        if clamp == "trace":
+            if packed is None:
+                packed = interp.mac_pack_3d(u, v, w)
+            outs.append(_trace_clamp(grid, kind, fields, fwds, backs, packed,
+                                     dt))
+        elif clamp == "neighborhood":
+            outs.append([clamp_extrema_neighborhood(s, f + 0.5 * (s - b))
+                         for s, f, b in zip(fields, fwds, backs)])
+        else:
+            raise ValueError(f"unknown clamp {clamp!r}")
+    return outs
+
+
+def maccormack_multi_3d(grid, kind, srcs, u, v, w, cfldt, dt):
+    """MacCormack of several same-kind fields sharing every trace, with
+    the trace clamp."""
+    return maccormack_kinds_3d(grid, [(kind, srcs, "trace")], u, v, w,
+                               cfldt, dt)[0]
+
+
+def maccormack_3d(grid, kind, src, u, v, w, cfldt, dt):
+    return maccormack_multi_3d(grid, kind, [src], u, v, w, cfldt, dt)[0]
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Sampler, RK3-substep and DMC-substep kernels with their plain versions.
+"""Sampler, corner min/max, RK3-substep and DMC-substep kernels with their
+plain versions.
 
 Counterpart of ``gpufluidsimulation_tpu.ops.interp_fast``. Each wrapper
 takes the plain PyTorch version for a CPU tensor and launches its CUDA
@@ -37,6 +38,20 @@ _VOL3 = (
 MAX_CHANNELS = 4
 
 
+def _check_sample_args(name, fields, offs, px, py, pz):
+    C = fields.shape[0]
+    if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
+        raise ValueError(f"{name}: need 1..{MAX_CHANNELS} channels with one "
+                         f"offset each, got {C} and {len(offs)}")
+    _build.require(fields, "fields", ndim=4)
+    for pname, p in (("px", px), ("py", py), ("pz", pz)):
+        _build.require(p, pname, shape=px.shape)
+        if p.device != fields.device:
+            raise ValueError(f"{name}: {pname} on {p.device}, fields on "
+                             f"{fields.device}")
+    return C
+
+
 # ---------------------------------------------------------------------------
 # trilerp_sample
 # ---------------------------------------------------------------------------
@@ -68,16 +83,7 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False):
     """
     if not _build.on_card(fields, "trilerp_sample"):
         return trilerp_sample_plain(fields, px, py, pz, h, offs, dual)
-    C = fields.shape[0]
-    if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
-        raise ValueError(f"trilerp_sample: need 1..{MAX_CHANNELS} channels "
-                         f"with one offset each, got {C} and {len(offs)}")
-    _build.require(fields, "fields", ndim=4)
-    for name, p in (("px", px), ("py", py), ("pz", pz)):
-        _build.require(p, name, shape=px.shape)
-        if p.device != fields.device:
-            raise ValueError(f"trilerp_sample: {name} on {p.device}, "
-                             f"fields on {fields.device}")
+    C = _check_sample_args("trilerp_sample", fields, offs, px, py, pz)
     out = torch.empty((C,) + tuple(px.shape), dtype=torch.float32,
                       device=fields.device)
     offs_host = (_F * (3 * C))(*[float(o) for off in offs for o in off])
@@ -96,6 +102,57 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False):
 
 
 trilerp_sample.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# minmax_sample
+# ---------------------------------------------------------------------------
+
+
+def minmax_sample_plain(fields, px, py, pz, h, offs):
+    """Plain version: (mn, mx), each (C, *px.shape), the min and max of
+    the 8 clamped trilinear corner values of each field."""
+    x, y, z = (interp.div_scalar(p, h) for p in (px, py, pz))
+    mns, mxs = [], []
+    for c in range(fields.shape[0]):
+        vals, _ = interp.corners_grid(fields[c], x - offs[c][0],
+                                      y - offs[c][1], z - offs[c][2])
+        mn = mx = vals[0]
+        for val in vals[1:]:
+            mn = torch.minimum(mn, val)
+            mx = torch.maximum(mx, val)
+        mns.append(mn)
+        mxs.append(mx)
+    return torch.stack(mns), torch.stack(mxs)
+
+
+def minmax_sample(fields, px, py, pz, h, offs):
+    """Min and max over the 8 trilinear corners of C stacked same-shape
+    fields (C, nx, ny, nz) at world positions (px, py, pz), channel c on
+    the lattice (i + offs[c])*h; corner indices are clamped to the field,
+    so positions outside the domain are taken as they come. Returns
+    (mn, mx), each (C, *px.shape)."""
+    if not _build.on_card(fields, "minmax_sample"):
+        return minmax_sample_plain(fields, px, py, pz, h, offs)
+    C = _check_sample_args("minmax_sample", fields, offs, px, py, pz)
+    out = torch.empty((2, C) + tuple(px.shape), dtype=torch.float32,
+                      device=fields.device)
+    offs_host = (_F * (3 * C))(*[float(o) for off in offs for o in off])
+    fn = _build.function(
+        "minmax_sample", "gfs_minmax_sample",
+        [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _F,
+         ctypes.POINTER(_F), _P, _P, _P])
+    with torch.cuda.device(fields.device):
+        err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
+                 _build.ptr(py), _build.ptr(pz), px.numel(), float(h),
+                 offs_host, _build.ptr(out[0]), _build.ptr(out[1]),
+                 _build.stream(fields))
+    _build.check(err, "minmax_sample")
+    minmax_sample.launches += 1
+    return out[0], out[1]
+
+
+minmax_sample.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,27 @@
-"""3D smoke solver: BiMocq and semi-Lagrangian steps, moving obstacles.
+"""3D smoke solver: the BiMocq, semi-Lagrangian, MacCormack and
+reflection steps, moving obstacles.
 
-Counterpart of ``gpufluidsimulation_tpu.solvers.smoke3d`` for scheme
-BIMOCQ under ``reinit_mode='always'`` and ``blend_coeff == 1`` (the
-benchmark's and the packaged scenes' configuration) and scheme SEMILAG;
-analytic sphere emitters; analytic sphere and box obstacles
-(``Boundary3D``) with the masked MG-PCG projection; the dual volume form;
-the spectral projection or, with
-``engine_mode=EngineMode(spectral_poisson=False)``, MG-PCG. Under
+Counterpart of ``gpufluidsimulation_tpu.solvers.smoke3d``: schemes BIMOCQ
+(``reinit_mode`` 'always', 'counter' or 'adaptive', any ``blend_coeff``,
+the dual or, with ``EngineMode(volume_exact=True)``, the exact volume
+form), SEMILAG, MACCORMACK and MAC_REFLECTION; analytic sphere emitters;
+analytic sphere and box obstacles (``Boundary3D``) with the masked MG-PCG
+projection; the spectral projection or, with
+``EngineMode(spectral_poisson=False)``, MG-PCG. Under BIMOCQ with
 always/blend 1 the two-level (prev) tier, the scalar advector's maps and
 the accumulates are statically dead, so the state carries ``None`` for
-them, as the JAX package's dieted state does. Any other configuration
-(MACCORMACK, MAC_REFLECTION, voxel boundaries and emitters, emitter
-``trans``/``emit_velocity``, counter/adaptive reinit, blend != 1) raises
-``NotImplementedError``.
+them, as the JAX package's dieted state does (``_aux_dead``). Voxel
+boundaries and emitters and emitter ``trans``/``emit_velocity`` raise
+``NotImplementedError`` (``check_supported``; ``convert`` refuses them
+and the vol9 volume form).
 
-One step syncs the host once to read max|vel| (the CFL substep count is
-decided on the host in float32, ops/advect.substeps), and then once for
-the spectral refinement branch or once per CG iteration of an MG-PCG
-projection (the exit test).
+Host syncs per step: one to read max|vel| (the CFL substep count is
+decided on the host in float32, ops/advect.substeps); one for the
+spectral refinement branch or one per CG iteration of an MG-PCG
+projection (the exit test), twice over for MAC_REFLECTION, which projects
+twice; and under ``reinit_mode='adaptive'`` one more to read the two map
+distortions that decide the reinitializations (the JAX step's
+``lax.cond`` branches become host branches).
 
 The obstacle pose is computed on the host in float32, as the JAX step
 computes it on the device: in float64 a cell on the obstacle's surface
@@ -182,23 +186,23 @@ class Smoke3DState:
     substeps: int = 0
 
 
+REINIT_MODES = ("always", "counter", "adaptive")
+
+
 def check_supported(cfg: Smoke3DConfig) -> None:
     """Raise NotImplementedError for any configuration the port lacks."""
     problems = []
-    if cfg.scheme not in (Scheme.BIMOCQ, Scheme.SEMILAG):
-        problems.append(f"scheme {Scheme(cfg.scheme).name} (only BIMOCQ "
-                        "and SEMILAG)")
+    if cfg.scheme not in _STEPS:
+        problems.append(f"scheme {cfg.scheme!r}")
     for bd in cfg.boundaries:
         if not isinstance(bd, Boundary3D):
             problems.append(f"boundary {bd!r} (Boundary3D only)")
         elif bd.sdf_grid is not None or bd.kind not in ("sphere", "box"):
             problems.append(f"boundary kind {bd.kind!r} with a voxel level "
                             "set (analytic sphere and box only)")
-    if cfg.scheme == Scheme.BIMOCQ:
-        if cfg.reinit_mode != "always":
-            problems.append(f"reinit_mode {cfg.reinit_mode!r} (only 'always')")
-        if cfg.blend_coeff != 1.0:
-            problems.append(f"blend_coeff {cfg.blend_coeff} (only 1.0)")
+    if cfg.scheme == Scheme.BIMOCQ and cfg.reinit_mode not in REINIT_MODES:
+        problems.append(f"reinit_mode {cfg.reinit_mode!r} (one of "
+                        f"{REINIT_MODES})")
     if cfg.bc not in ("dirichlet", "neumann"):
         problems.append(f"bc {cfg.bc!r} (dirichlet or neumann)")
     for em in cfg.emitters:
@@ -214,6 +218,18 @@ def check_supported(cfg: Smoke3DConfig) -> None:
             "unsupported: " + "; ".join(problems))
 
 
+def _aux_dead(cfg: Smoke3DConfig) -> bool:
+    """True when the two-level blend tier is statically dead: BiMocq with
+    per-frame reinitialization and blend 1. The *_prev fields, bwd_prev
+    and the scalar advector's own maps are then None in the state."""
+    return (cfg.scheme == Scheme.BIMOCQ and cfg.reinit_mode == "always"
+            and cfg.blend_coeff == 1.0)
+
+
+def _volume_exact(cfg: Smoke3DConfig) -> bool:
+    return cfg.engine_mode is not None and bool(cfg.engine_mode.volume_exact)
+
+
 def _uses_mgpcg(cfg: Smoke3DConfig) -> bool:
     """Solid boundaries always project with (masked) MG-PCG; the open box
     does when the engine mode turns the spectral solve off."""
@@ -224,18 +240,22 @@ def _uses_mgpcg(cfg: Smoke3DConfig) -> bool:
 
 def init_state(cfg: Smoke3DConfig, device=None) -> Smoke3DState:
     g = cfg.grid
+    dead = _aux_dead(cfg)
 
     def z(kind):
         return g.zeros(kind, device=device)
 
+    def zp(kind):
+        return None if dead else z(kind)
+
     return Smoke3DState(
         u=z("u"), v=z("v"), w=z("w"),
         u_init=z("u"), v_init=z("v"), w_init=z("w"),
-        u_prev=None, v_prev=None, w_prev=None,
-        rho=z("c"), rho_init=z("c"), rho_prev=None,
-        T=z("c"), T_init=z("c"), T_prev=None,
-        vel_map=mp.init_mapping(g, with_prev=False, device=device),
-        scalar_map=mp.init_mapping(g, with_maps=False),
+        u_prev=zp("u"), v_prev=zp("v"), w_prev=zp("w"),
+        rho=z("c"), rho_init=z("c"), rho_prev=zp("c"),
+        T=z("c"), T_init=z("c"), T_prev=zp("c"),
+        vel_map=mp.init_mapping(g, with_prev=not dead, device=device),
+        scalar_map=mp.init_mapping(g, with_maps=not dead, device=device),
         # frame 0 triggers both reinit deadlines (vel -11, scalar -31)
         frame=0, vel_last_reinit=-11, scalar_last_reinit=-31,
         cfl=0.0, proj_iters=0,
@@ -368,43 +388,123 @@ def _clear_boundary(bnd, field):
     return torch.where(bnd[0] == poisson.OBJECT, 0.0, field)
 
 
-def _step_semilag(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
-                  s: Smoke3DState) -> Smoke3DState:
+def _cfl(maxvel, dt, h) -> float:
+    return float(np.float32(maxvel * np.float32(dt)) / np.float32(h))
+
+
+def _finish_step(cfg, g, ctx, base, s, fields, maxvel, cfldt):
+    """Forces, boundaries and projection after the advection of a
+    semi-Lagrangian or MacCormack step; `fields` is (u, v, w, rho, T)."""
     dt = cfg.dt
-    maxvel = _max_velocity(s.u, s.v, s.w)
-    cfldt = np.float32(np.float32(g.h) / maxvel)
-    (rho, T), (u,), (v,), (w,) = advect.semilag_kinds_3d(
-        g, [("c", [s.rho, s.T]), ("u", [s.u]), ("v", [s.v]), ("w", [s.w])],
-        s.u, s.v, s.w, cfldt, -dt)
-    u, v, w, rho, T = _forces_and_project(cfg, g, u, v, w, rho, T, s.frame,
-                                          dt)
+    u, v, w, rho, T = _forces_and_project(cfg, g, *fields, s.frame, dt)
     bnd = (_update_boundary(cfg, g, s.frame, dt, base)
            if cfg.boundaries else None)
     rho = _clear_boundary(bnd, rho)
     u, v, w, _, iters, res, hist = _project3(cfg, ctx, bnd, u, v, w)
     return dataclasses.replace(
         s, u=u, v=v, w=w, rho=rho, T=T, frame=s.frame + 1,
-        cfl=float(np.float32(maxvel * np.float32(dt)) / np.float32(g.h)),
-        proj_iters=iters, proj_res=res, proj_res_hist=hist,
-        substeps=len(substeps(cfldt, dt)))
+        cfl=_cfl(maxvel, dt, g.h), proj_iters=iters, proj_res=res,
+        proj_res_hist=hist, substeps=len(substeps(cfldt, dt)))
+
+
+def _step_semilag(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
+                  s: Smoke3DState) -> Smoke3DState:
+    maxvel = _max_velocity(s.u, s.v, s.w)
+    cfldt = np.float32(np.float32(g.h) / maxvel)
+    (rho, T), (u,), (v,), (w,) = advect.semilag_kinds_3d(
+        g, [("c", [s.rho, s.T]), ("u", [s.u]), ("v", [s.v]), ("w", [s.w])],
+        s.u, s.v, s.w, cfldt, -cfg.dt)
+    return _finish_step(cfg, g, ctx, base, s, (u, v, w, rho, T), maxvel,
+                        cfldt)
+
+
+def _maccormack_vel(g, u, v, w, au, av, aw, cfldt, dt):
+    """MacCormack of the staggered triplet (au, av, aw) traced in
+    (u, v, w), with the velocity (27-point neighbourhood) clamp."""
+    (cu,), (cv,), (cw,) = advect.maccormack_kinds_3d(
+        g, [("u", [au], "neighborhood"), ("v", [av], "neighborhood"),
+            ("w", [aw], "neighborhood")], u, v, w, cfldt, dt)
+    return cu, cv, cw
+
+
+def _step_maccormack(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
+                     s: Smoke3DState) -> Smoke3DState:
+    maxvel = _max_velocity(s.u, s.v, s.w)
+    cfldt = np.float32(np.float32(g.h) / maxvel)
+    # scalars keep the trace clamp, velocities the neighbourhood clamp
+    (rho, T), (u,), (v,), (w,) = advect.maccormack_kinds_3d(
+        g, [("c", [s.rho, s.T], "trace"), ("u", [s.u], "neighborhood"),
+            ("v", [s.v], "neighborhood"), ("w", [s.w], "neighborhood")],
+        s.u, s.v, s.w, cfldt, cfg.dt)
+    return _finish_step(cfg, g, ctx, base, s, (u, v, w, rho, T), maxvel,
+                        cfldt)
+
+
+def _step_reflection(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
+                     s: Smoke3DState) -> Smoke3DState:
+    """advanceReflection: MacCormack scalars over dt, half-step velocity
+    MacCormack, forces and projection, reflect u* = 2u - u_hat, advect the
+    reflected field another half step in the projected field, forces and
+    projection again."""
+    dt = cfg.dt
+    half = 0.5 * dt
+    maxvel = _max_velocity(s.u, s.v, s.w)
+    cfldt = np.float32(np.float32(g.h) / maxvel)
+    rho, T = advect.maccormack_multi_3d(g, "c", [s.rho, s.T], s.u, s.v, s.w,
+                                        cfldt, dt)
+    u, v, w = _maccormack_vel(g, s.u, s.v, s.w, s.u, s.v, s.w, cfldt, half)
+    u, v, w, rho, T = _forces_and_project(cfg, g, u, v, w, rho, T, s.frame,
+                                          half)
+    bnd = (_update_boundary(cfg, g, s.frame, dt, base)
+           if cfg.boundaries else None)
+    rho = _clear_boundary(bnd, rho)
+    u_save, v_save, w_save = u, v, w
+    u, v, w, _, it1, res1, _ = _project3(cfg, ctx, bnd, u, v, w)
+    ru, rv, rw = 2.0 * u - u_save, 2.0 * v - v_save, 2.0 * w - w_save
+    u2, v2, w2 = _maccormack_vel(g, u, v, w, ru, rv, rw, cfldt, half)
+    v2 = forces.buoyancy_3d(v2, rho, T, cfg.alpha, cfg.beta, half)
+    if cfg.viscosity:
+        coef = cfg.viscosity * half / (g.h * g.h)
+        u2 = forces.diffuse_3d(u2, 20, coef)
+        v2 = forces.diffuse_3d(v2, 20, coef)
+        w2 = forces.diffuse_3d(w2, 20, coef)
+    u2, v2, w2, _, it2, res2, hist2 = _project3(cfg, ctx, bnd, u2, v2, w2)
+    return dataclasses.replace(
+        s, u=u2, v=v2, w=w2, rho=rho, T=T, frame=s.frame + 1,
+        cfl=_cfl(maxvel, dt, g.h), proj_iters=it1 + it2,
+        proj_res=torch.maximum(res1, res2), proj_res_hist=hist2,
+        substeps=len(substeps(cfldt, half)))
 
 
 def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
                  s: Smoke3DState) -> Smoke3DState:
-    """advanceBimocq under per-frame reinitialization with blend 1."""
+    """advanceBimocq with the hybrid solver's reinitialization policies:
+    'always' reinitializes both maps every frame (the GPU solver),
+    'counter' after a gap of frames, 'adaptive' also when a map's
+    distortion passes its limit. A blend below 1 mixes in the level-2
+    pull-back through bwd_prev once a map has been reinitialized."""
     dt = cfg.dt
+    always = cfg.reinit_mode == "always"
+    exact = _volume_exact(cfg)
     maxvel = _max_velocity(s.u, s.v, s.w)
     cfldt = np.float32(np.float32(g.h) / maxvel)
 
     bnd = (_update_boundary(cfg, g, s.frame, dt, base)
            if cfg.boundaries else None)
 
-    # both maps are identity at step entry (reinitialized at the end of
-    # every step): the backward march's first substep is the identity peel
+    # under 'always' both maps are identity at step entry (reinitialized
+    # at the end of every step): the backward march's first substep is
+    # the identity peel, and the scalar maps are the velocity maps
     vel_map = mp.update_mapping_3d(s.vel_map, g, s.u, s.v, s.w, cfldt, dt,
-                                   from_identity=True)
-    # the scalar advector is a counter-only alias of the velocity maps
-    scalar_map = s.scalar_map
+                                   from_identity=always)
+    if not always:
+        scalar_map = mp.update_mapping_3d(s.scalar_map, g, s.u, s.v, s.w,
+                                          cfldt, dt)
+    elif s.scalar_map.fwd is None:
+        scalar_map = s.scalar_map          # counter-only alias
+    else:
+        scalar_map = dataclasses.replace(s.scalar_map, fwd=vel_map.fwd,
+                                         bwd=vel_map.bwd)
 
     if cfg.boundaries:
         # semi-Lagrangian fallbacks for the boundary shell
@@ -412,15 +512,23 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
             g, [("u", [s.u]), ("v", [s.v]), ("w", [s.w]),
                 ("c", [s.rho, s.T])], s.u, s.v, s.w, cfldt, -dt)
 
-    (u,) = mp.bimocq_advect_3d(g, "u", [s.u], [s.u_init], [s.u_prev],
-                               vel_map.bwd, None, vel_map.fwd, None)
-    (v,) = mp.bimocq_advect_3d(g, "v", [s.v], [s.v_init], [s.v_prev],
-                               vel_map.bwd, None, vel_map.fwd, None)
-    (w,) = mp.bimocq_advect_3d(g, "w", [s.w], [s.w_init], [s.w_prev],
-                               vel_map.bwd, None, vel_map.fwd, None)
-    rho, T = mp.bimocq_advect_3d(g, "c", [s.rho, s.T], [s.rho_init, s.T_init],
-                                 [s.rho_prev, s.T_prev], vel_map.bwd, None,
-                                 vel_map.fwd, None)
+    # the two-level blend is blend_coeff once a map has been reinitialized
+    # and 1 before; at 1 the level-2 term has weight exactly 0 (None)
+    def blend(mapping):
+        live = cfg.blend_coeff != 1.0 and mapping.reinit_count != 0
+        return cfg.blend_coeff if live else None
+
+    def pull_back(kind, cur, init, prev, maps, b):
+        return mp.bimocq_advect_3d(g, kind, cur, init, prev, maps.bwd,
+                                   maps.bwd_prev, maps.fwd, b, exact=exact)
+
+    blend_v = blend(vel_map)
+    (u,) = pull_back("u", [s.u], [s.u_init], [s.u_prev], vel_map, blend_v)
+    (v,) = pull_back("v", [s.v], [s.v_init], [s.v_prev], vel_map, blend_v)
+    (w,) = pull_back("w", [s.w], [s.w_init], [s.w_prev], vel_map, blend_v)
+    smaps = vel_map if scalar_map.fwd is None else scalar_map
+    rho, T = pull_back("c", [s.rho, s.T], [s.rho_init, s.T_init],
+                       [s.rho_prev, s.T_prev], smaps, blend(scalar_map))
 
     if cfg.boundaries:
         u = _blend_boundary(bnd, "u", u, sl_u)
@@ -430,41 +538,92 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
         T = _blend_boundary(bnd, "c", T, sl_T)
         rho = _clear_boundary(bnd, rho)
 
+    # external forces, kept as deltas for the accumulates; under
+    # always/blend 1 the accumulated inits would only become the
+    # zero-weighted prevs, so the accumulates are statically dead
+    accumulate = not _aux_dead(cfg)
+    before = (u, v, w, rho, T)
     u, v, w, rho, T = _forces_and_project(cfg, g, u, v, w, rho, T, s.frame,
                                           dt)
+    if accumulate:
+        du_ext, dv_ext, dw_ext, drho_ext, dT_ext = (
+            a - b for a, b in zip((u, v, w, rho, T), before))
 
     u_t, v_t, w_t = u, v, w
     u, v, w, _, iters, res, hist = _project3(cfg, ctx, bnd, u, v, w)
     du_p, dv_p, dw_p = u - u_t, v - v_t, w - w_t
 
+    # reinitialization decisions (host ints; 'adaptive' reads the two map
+    # distortions in one host sync)
     vel_reinit = s.frame - s.vel_last_reinit > cfg.vel_reinit_gap
     scalar_reinit = s.frame - s.scalar_last_reinit > cfg.scalar_reinit_gap
+    if cfg.reinit_mode == "adaptive":
+        excl = (bnd[0] == poisson.OBJECT) if cfg.boundaries else None
+        d = torch.stack([mp.estimate_distortion_3d(g, vel_map, excl),
+                         mp.estimate_distortion_3d(g, scalar_map, excl)])
+        d_vel, d_sc = (np.float32(x) / np.float32(maxvel * np.float32(dt))
+                       for x in d.cpu().numpy())
+        vel_reinit = (bool(d_vel > np.float32(cfg.vel_distortion_limit))
+                      or vel_reinit)
+        scalar_reinit = (bool(d_sc > np.float32(cfg.scalar_distortion_limit))
+                         or scalar_reinit)
+    proj_coeff = 1.0 if vel_reinit else 2.0
 
-    # reinitialize every frame; init <- current velocity plus one more
-    # projection accumulate through the (identity) forward map
-    vel_map = mp.reinitialize(vel_map, g)
-    (u_init,) = mp.accumulate_multi_3d(g, "u", [(u, [(du_p, 1.0)])],
-                                       vel_map.fwd, identity=True)
-    (v_init,) = mp.accumulate_multi_3d(g, "v", [(v, [(dv_p, 1.0)])],
-                                       vel_map.fwd, identity=True)
-    (w_init,) = mp.accumulate_multi_3d(g, "w", [(w, [(dw_p, 1.0)])],
-                                       vel_map.fwd, identity=True)
-    scalar_map = mp.reinitialize(scalar_map, g)
+    # accumulate the deltas into the init buffers through the forward maps
+    u_init, v_init, w_init = s.u_init, s.v_init, s.w_init
+    rho_init, T_init = s.rho_init, s.T_init
+    if accumulate:
+        u_init, v_init, w_init = (
+            mp.accumulate_multi_3d(g, kind, [(base, [(ext, 1.0),
+                                                     (dp, proj_coeff)])],
+                                   vel_map.fwd, exact=exact)[0]
+            for kind, base, ext, dp in (("u", u_init, du_ext, du_p),
+                                        ("v", v_init, dv_ext, dv_p),
+                                        ("w", w_init, dw_ext, dw_p)))
+        rho_init, T_init = mp.accumulate_multi_3d(
+            g, "c", [(rho_init, [(drho_ext, 1.0)]), (T_init, [(dT_ext, 1.0)])],
+            scalar_map.fwd, exact=exact)
+
+    u_prev, v_prev, w_prev = s.u_prev, s.v_prev, s.w_prev
+    if always or vel_reinit:
+        # init <- current velocity plus one more projection accumulate
+        # through the (now identity) forward map
+        vel_map = mp.reinitialize(vel_map, g)
+        if s.u_prev is not None:
+            u_prev, v_prev, w_prev = u_init, v_init, w_init
+        u_init, v_init, w_init = (
+            mp.accumulate_multi_3d(g, kind, [(f, [(dp, 1.0)])], vel_map.fwd,
+                                   identity=True, exact=exact)[0]
+            for kind, f, dp in (("u", u, du_p), ("v", v, dv_p),
+                                ("w", w, dw_p)))
+    rho_prev, T_prev = s.rho_prev, s.T_prev
+    if always or scalar_reinit:
+        scalar_map = mp.reinitialize(scalar_map, g)
+        if s.rho_prev is not None:
+            rho_prev, T_prev = rho_init, T_init
+        rho_init, T_init = rho, T
 
     return dataclasses.replace(
         s, u=u, v=v, w=w, u_init=u_init, v_init=v_init, w_init=w_init,
-        rho=rho, rho_init=rho, T=T, T_init=T,
+        u_prev=u_prev, v_prev=v_prev, w_prev=w_prev,
+        rho=rho, rho_init=rho_init, rho_prev=rho_prev,
+        T=T, T_init=T_init, T_prev=T_prev,
         vel_map=vel_map, scalar_map=scalar_map,
         frame=s.frame + 1,
         vel_last_reinit=s.frame if vel_reinit else s.vel_last_reinit,
         scalar_last_reinit=s.frame if scalar_reinit else s.scalar_last_reinit,
-        cfl=float(np.float32(maxvel * np.float32(dt)) / np.float32(g.h)),
-        proj_iters=iters, proj_res=res, proj_res_hist=hist,
-        interp_overflow=0, substeps=len(substeps(cfldt, dt)),
+        cfl=_cfl(maxvel, dt, g.h), proj_iters=iters, proj_res=res,
+        proj_res_hist=hist, interp_overflow=0,
+        substeps=len(substeps(cfldt, dt)),
     )
 
 
-_STEPS = {Scheme.BIMOCQ: _step_bimocq, Scheme.SEMILAG: _step_semilag}
+_STEPS = {
+    Scheme.SEMILAG: _step_semilag,
+    Scheme.MACCORMACK: _step_maccormack,
+    Scheme.MAC_REFLECTION: _step_reflection,
+    Scheme.BIMOCQ: _step_bimocq,
+}
 
 
 class Smoke3D:

@@ -201,14 +201,19 @@ def test_obstacle_config_across_and_refusals(jax_obstacle_run):
     with pytest.raises(NotImplementedError):
         convert.config_from_dict(voxel)
     for field, value in (("rbgs", False), ("volume_dual", False),
-                         ("volume_exact", True), ("interp_bf16", True)):
+                         ("volume_vol9", True), ("interp_bf16", True)):
         mode = dict(d["engine_mode"], **{field: value})
         with pytest.raises(NotImplementedError, match=field):
             convert.config_from_dict(dict(static, engine_mode=mode))
+    # the exact volume form is carried across; a non-analytic emitter is
+    # still refused
+    exact = convert.config_from_dict(dict(static, engine_mode=dict(
+        d["engine_mode"], volume_exact=True)))
+    assert exact.engine_mode.volume_exact is True
     with pytest.raises(NotImplementedError):
         smoke3d.Smoke3D(dataclasses.replace(
             scenes3d.moving_obstacle_config(ni=16, nj=16, nk=16),
-            scheme=Scheme.MACCORMACK), device="cpu")
+            scheme=Scheme.MACCORMACK, emitters=(object(),)), device="cpu")
 
 
 def test_scene_table_and_mgpcg_ownership():

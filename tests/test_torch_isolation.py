@@ -16,7 +16,8 @@ from gpufluidsimulation_tpu_torch.ops import stencil_kernels
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "gpufluidsimulation_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "gpufluidsimulation_tpu")
-WRAPPERS = (interp_fast.trilerp_sample, interp_fast.rk3_substep,
+WRAPPERS = (interp_fast.trilerp_sample, interp_fast.minmax_sample,
+            interp_fast.rk3_substep,
             interp_fast.dmc_substep, stencil_kernels.jacobi_diffuse,
             stencil_kernels.rbgs_smooth, stencil_kernels.masked_rbgs_smooth)
 
@@ -81,6 +82,9 @@ def test_wrappers_take_plain_path_on_cpu():
     out = interp_fast.trilerp_sample(u[None], *(grid * h), h,
                                      ((0.0, 0.0, 0.0),), dual=True)
     assert out.shape == (1, n, n, n)
+    mn, mx = interp_fast.minmax_sample(u[None], *(grid * h), h,
+                                       ((-0.5, 0.0, 0.0),))
+    assert mn.shape == mx.shape == (1, n, n, n)
     out = interp_fast.rk3_substep(u, v, w, grid, 0.5,
                                   (1.0, n - 1.0) * 3)
     assert out.shape == grid.shape
@@ -117,7 +121,8 @@ def test_build_flags_and_sources():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     assert "-fmad=false" in _build.NVCC_FLAGS
-    assert set(_build.SOURCES) >= {"rbgs_smooth", "masked_rbgs_smooth"}
+    assert set(_build.SOURCES) >= {"rbgs_smooth", "masked_rbgs_smooth",
+                                   "minmax_sample"}
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
         _build.SOURCES)
     for name in _build.SOURCES:

@@ -143,11 +143,20 @@ def test_mapping_state_lifecycle_matches_jax():
 
 
 def test_unported_blend_raises():
+    """A blend below 1 and a non-identity accumulate are ported now (held
+    against JAX in tests/test_torch_bimocq_full.py); what raises is a
+    blend without the level-2 map or the prev fields it blends in."""
     tg = grids.Grid3D(*SHAPE, H)
     f = _t(_fields("c", 1, 1)[0])
     ident = mapping.identity_map_3d(tg)
-    with pytest.raises(NotImplementedError):
-        mapping.bimocq_advect_3d(tg, "c", [f], [f], [f], ident, ident,
+    (out,) = mapping.bimocq_advect_3d(tg, "c", [f], [f], [f], ident, ident,
+                                      ident, 0.5)
+    assert out.shape == f.shape and bool(torch.isfinite(out).all())
+    (acc,) = mapping.accumulate_multi_3d(tg, "c", [(f, [(f, 1.0)])], ident)
+    assert acc.shape == f.shape
+    with pytest.raises(ValueError):
+        mapping.bimocq_advect_3d(tg, "c", [f], [f], [f], ident, None,
                                  ident, 0.5)
-    with pytest.raises(NotImplementedError):
-        mapping.accumulate_multi_3d(tg, "c", [(f, [(f, 1.0)])], ident)
+    with pytest.raises(ValueError):
+        mapping.bimocq_advect_3d(tg, "c", [f], [f], [None], ident, ident,
+                                 ident, 0.5)
