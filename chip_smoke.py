@@ -10,7 +10,7 @@
                                      # phase-7 paths to that file
 
 Phases, each of which fails loudly (non-zero exit, no result line):
- 1. print the card's name and power limit; build the seven CUDA kernels
+ 1. print the card's name and power limit; build the nine CUDA kernels
     from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once;
  2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers), hold
     each kernel against its plain PyTorch version on the same inputs and
@@ -19,7 +19,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     versions): 3 steps at 32^3 from one numpy state of the vortex step,
     the moving-obstacle step, MAC_REFLECTION on the vortex scene,
     MACCORMACK on the obstacle scene, BiMocq with adaptive reinit and
-    blend 0.5 in the dual and in the exact volume form; one MG-PCG solve;
+    blend 0.5 in the dual, exact, vol9 and prefilter volume forms; one
+    MG-PCG solve;
  4. the main path: the 3D BiMocq vortex-collision step as bench.py builds
     it (n^3, dt = 8/n, two recentred emitters), 1 warm-up step and
     `--steps` timed steps, every kernel's launch count reset before and
@@ -29,10 +30,12 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     plume passes CFL 1 (so that both map marches substep), then timed
     steps with the launch counts reset before and read after;
  6. the vortex path with the MG-PCG projection (spectral solve off);
- 7. three more vortex paths built like the main path: `reflection`
-    (MAC_REFLECTION, the scene's own default scheme), `maccormack`, and
-    `bimocq_adaptive` (adaptive reinit, blend 1), 1 warm-up and
-    `--scheme-steps` timed steps each.
+ 7. five more vortex paths built like the main path: `reflection`
+    (MAC_REFLECTION, the scene's own default scheme), `maccormack`,
+    `bimocq_adaptive` (adaptive reinit, blend 1), `bimocq_vol9` (the
+    same in the vol9 volume form, with the share of flagged block
+    channels) and `bimocq_prefilter` (the main path in the prefilter
+    volume form), 1 warm-up and `--scheme-steps` timed steps each.
 Then it prints one JSON line with every kernel's numbers and, last, the
 device line. It never imports JAX or the JAX package.
 """
@@ -314,6 +317,7 @@ def kernel_phase(n, seed):
     log(f"[kernels] jacobi_diffuse (one sweep): {k_ms:.4f} ms (plain "
         f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
     results.update(smoother_phase(n, rng, dev, compare))
+    results.update(volume_phase(g, rng, dev, compare, positions))
     return results
 
 
@@ -407,6 +411,125 @@ def smoother_phase(n, rng, dev, compare):
         variants[0], variants=variants,
         replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:311 "
                   "(_masked_rbgs_kernel, pallas_call :385)"))
+    return results
+
+
+def volume_phase(g, rng, dev, compare, positions):
+    """Phase 2, the two volume-form kernels at the n^3 path's shapes:
+    ``volume_prefilter`` on the u lattice (C=1) and the cell lattice (C=2,
+    rho+T) against its plain version and, as a yardstick, one replicate-
+    padded conv3d with the same 3x3x3 weights; ``vol9_fixup`` through a
+    map displaced by up to ~2 cells, u (C=1, the error stage's clamp and
+    band) and rho+T (C=2, the advect stage's), with every block flagged
+    (tol = 0) and at the default tol, against its plain version."""
+    import torch
+    import torch.nn.functional as F
+
+    from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    results = {}
+    h = g.h
+    fu = smooth(g.shape_u, rng, 0.06, dev)[None].contiguous()
+    fc = torch.stack([smooth(g.shape_c, rng, 1.0, dev),
+                      smooth(g.shape_c, rng, 50.0, dev)]).contiguous()
+    # yardstick weights: 0.5 delta + 0.5 S(x)S(x)S with S = [1/8, 3/4, 1/8]
+    s1 = torch.tensor([0.125, 0.75, 0.125], dtype=torch.float64)
+    w = 0.5 * s1[:, None, None] * s1[None, :, None] * s1[None, None, :]
+    w[1, 1, 1] += 0.5
+    w = w.to(torch.float32).to(dev)[None, None].contiguous()
+    torch.backends.cudnn.allow_tf32 = False
+    variants = []
+    for label, f in (("C=1 u", fu), ("C=2 c", fc)):
+        got = interp_fast.volume_prefilter(f)
+        want = interp_fast.volume_prefilter_plain(f)
+        tol = 1e-6 * max(1.0, float(want.abs().max()))
+        err = compare(f"volume_prefilter {label}", got, want, tol)
+        k_ms = cuda_time(lambda: interp_fast.volume_prefilter(f), 20)
+        p_ms = cuda_time(lambda: interp_fast.volume_prefilter_plain(f), 3, 1)
+
+        def conv():
+            return F.conv3d(F.pad(f[:, None], (1,) * 6, mode="replicate"), w)
+
+        lib_err = float((conv()[:, 0] - got).abs().max())
+        lib_ms = cuda_time(conv, 20)
+        # each field read once, each output written once; per output 27
+        # loads, 13 products and sums in the three passes, 3 for the blend
+        b_ms, b_by = bound_ms(4 * 2 * f.numel(), f.numel() * (3 * 5 + 3))
+        variants.append(dict(variant=label, max_abs_err=err, tol=tol,
+                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=lib_ms,
+                             library_max_abs_err=lib_err))
+        log(f"[kernels] volume_prefilter {label}: {k_ms:.4f} ms (plain "
+            f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by}, conv3d {lib_ms:.4f} "
+            f"ms with max_abs_err {lib_err:.3e} against the kernel)")
+    results["volume_prefilter"] = dict(
+        variants[0], variants=variants,
+        replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:1492 "
+                  "(_kernel_prefilter, pallas_call :1552 in _prefilter_padded; "
+                  "entry volume_prefilter_fast :1571)"))
+
+    maps = torch.stack(positions("c")).contiguous()
+    stats = interp_fast.vol9_map_stats(maps, h, g.shape_c)
+    variants = []
+    for label, f, kind, clamp, band_lo in (("C=1 u", fu, "u", 0.0, 1),
+                                           ("C=2 c", fc, "c", 1.0, 2)):
+        dim = g.dim_of(kind)
+        band = (band_lo + dim[0], band_lo + dim[1], band_lo + dim[2],
+                band_lo + 1)
+        p1 = mp.map_at_lattice_3d(g, maps, kind, clamp, clamp)
+        duals = interp_fast.trilerp_sample(
+            f, *(p.contiguous() for p in p1), h, (g.off_of(kind),) * len(f),
+            dual=True)
+        for tol_label, tol in (("tol=0", 0.0), ("default tol", None)):
+            name = f"{label} {tol_label}"
+            flags = interp_fast.vol9_flags(f, p1, stats, g.shape_c, h, dim,
+                                           clamp, clamp, band=band, tol=tol)
+            got = interp_fast.vol9_fixup(duals.clone(), f, stats, maps, p1, g,
+                                         kind, clamp, clamp, band=band,
+                                         tol=tol)
+            want = interp_fast.vol9_fixup_plain(duals, f, stats, maps, p1, g,
+                                                kind, clamp, clamp, band=band,
+                                                tol=tol)
+            scale = max(1.0, float(want.abs().max()))
+            err = compare(f"vol9_fixup {name}", got, want, 1e-6 * scale)
+            out = duals.clone()
+            k_ms = cuda_time(lambda: interp_fast.vol9_launch(
+                out, f, maps, flags, g, kind, clamp, clamp), 10)
+            call_ms = cuda_time(lambda: interp_fast.vol9_fixup(
+                out, f, stats, maps, p1, g, kind, clamp, clamp, band=band,
+                tol=tol), 10)
+            p_ms = cuda_time(lambda: interp_fast.vol9_fixup_plain(
+                duals, f, stats, maps, p1, g, kind, clamp, clamp, band=band,
+                tol=tol), 2, 1)
+            # the work of this run's flags: per node of a block flagged
+            # for any channel the 9 mapped positions (maps read once, 27
+            # map trilerps), per flagged node and channel 9 field trilerps,
+            # the field read and the output read and written
+            _, block, _ = interp_fast.vol9_blocks(g.shape_c)
+            node_flags = interp_fast._expand_flags(flags, f.shape[1:], block)
+            n_chan = int(node_flags.sum())
+            n_any = int(node_flags.any(dim=0).sum())
+            share = n_any / node_flags[0].numel()
+            nbytes = (flags.numel() + 4 * share * maps.numel()
+                      + 4 * 3 * n_chan)
+            nops = (n_any * 9 * (3 * TRILERP_OPS + 3 + 8)
+                    + n_chan * (9 * TRILERP_OPS + 10))
+            b_ms, b_by = bound_ms(nbytes, nops)
+            flagged = float(flags.float().mean())
+            variants.append(dict(variant=name, max_abs_err=err,
+                                 tol=1e-6 * scale, ms=k_ms, call_ms=call_ms,
+                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None, flagged_share=flagged))
+            log(f"[kernels] vol9_fixup {name}: kernel {k_ms:.4f} ms, with "
+                f"the flag prepass {call_ms:.4f} ms (plain {p_ms:.3f}, bound "
+                f"{b_ms:.4f} by {b_by}); {100 * flagged:.1f}% of the block "
+                "channels flagged")
+    results["vol9_fixup"] = dict(
+        variants[0], variants=variants,
+        replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:2816 "
+                  "(_kernel_vol9fix, pallas_call :2995 in _vol9_fixup_padded; "
+                  "entries vol9_fixup :3012, sample3_vol9 :3075)"))
     return results
 
 
@@ -521,7 +644,10 @@ def mgpcg_parity_phase(n=32, seed=1):
 
 
 KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
-           "rbgs_smooth", "masked_rbgs_smooth", "minmax_sample")
+           "rbgs_smooth", "masked_rbgs_smooth", "minmax_sample",
+           "volume_prefilter", "vol9_fixup")
+# the kernels of the main path
+MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 
 
 def wrappers():
@@ -540,6 +666,8 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
     finite. The state lives only here, so the peak memory is one path's."""
     import torch
 
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
     fns = wrappers()
     t0 = time.time()
     state = solver.step(solver.init_state())
@@ -555,6 +683,7 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
     held = torch.cuda.memory_allocated()   # the state and what is cached
     for fn in fns.values():
         fn.launches = 0
+    interp_fast.reset_vol9_block_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     per_step = []
@@ -571,6 +700,7 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
     host_ms = (time.time() - t0) / steps * 1e3
     dev_ms = start.elapsed_time(end) / steps
     launches = {k: fn.launches for k, fn in fns.items()}
+    vol9_blocks = interp_fast.vol9_block_counts()
     missing = [k for k in expect if launches[k] == 0]
     if missing:
         raise AssertionError(f"the path never launched {missing}")
@@ -587,6 +717,7 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
                last_reinit=[p["reinit"] for p in per_step],
                proj_res=float(state.proj_res), cfl=state.cfl,
                rho_max=float(state.rho.max()), launches=launches,
+               vol9_blocks_exact_total=vol9_blocks,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                held_before_gib=held / 2 ** 30)
     return state, res
@@ -597,7 +728,7 @@ def main_phase(n, steps, profile):
     from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
 
     solver = Smoke3D(bench_config(n))
-    state, res = timed_steps(solver, steps, KERNELS[:4])
+    state, res = timed_steps(solver, steps, MAIN_KERNELS)
     if not 0.0 < res["rho_max"] <= 10.0:
         raise AssertionError(f"implausible rho_max={res['rho_max']}")
     log("[main] " + json.dumps(res))
@@ -667,7 +798,7 @@ def mgpcg_phase(n, steps):
 
     cfg = bench_config(n, engine_mode=EngineMode(spectral_poisson=False))
     solver = Smoke3D(cfg)
-    state, res = timed_steps(solver, steps, KERNELS[:4] + ("rbgs_smooth",))
+    state, res = timed_steps(solver, steps, MAIN_KERNELS + ("rbgs_smooth",))
     if not res["proj_res"] <= cfg.proj_tol or (
             max(res["proj_iters"]) >= cfg.proj_max_iters):
         raise AssertionError(f"MG-PCG missed proj_tol: {res}")
@@ -677,8 +808,11 @@ def mgpcg_phase(n, steps):
 
 def scheme_phase(n, steps, profile):
     """Phase 7: the vortex scene at n^3 built as the main path, with
-    MAC_REFLECTION, MACCORMACK and BiMocq under adaptive reinit (blend 1,
-    the hybrid solver's policy with the reference's default blend)."""
+    MAC_REFLECTION, MACCORMACK, BiMocq under adaptive reinit (blend 1, the
+    hybrid solver's policy with the reference's default blend), BiMocq
+    under adaptive reinit in the vol9 volume form, and BiMocq in the
+    prefilter volume form."""
+    from gpufluidsimulation_tpu_torch.config import EngineMode
     from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
     from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
 
@@ -691,6 +825,11 @@ def scheme_phase(n, steps, profile):
                         "jacobi_diffuse")),
         "bimocq_adaptive": (bench_config(n, reinit_mode="adaptive"),
                             KERNELS[:4]),
+        "bimocq_vol9": (bench_config(n, reinit_mode="adaptive",
+                                     engine_mode=EngineMode(volume_vol9=True)),
+                        KERNELS[:4] + ("vol9_fixup",)),
+        "bimocq_prefilter": (bench_config(
+            n, engine_mode=EngineMode(volume_dual=False)), MAIN_KERNELS),
     }
     by_path = {}
     for name, (cfg, expect) in paths.items():
@@ -751,15 +890,15 @@ def main():
     ap.add_argument("--kernel-n", type=int, default=256,
                     help="grid of the kernel-vs-plain phase")
     ap.add_argument("--scheme-n", type=int, default=256,
-                    help="grid n^3 of the reflection, maccormack and "
-                    "bimocq_adaptive paths")
+                    help="grid n^3 of the reflection, maccormack, "
+                    "bimocq_adaptive, bimocq_vol9 and bimocq_prefilter "
+                    "paths")
     ap.add_argument("--scheme-steps", type=int, default=3,
                     help="timed steps of each of those paths")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH",
                     help="write torch.profiler tables of 2 steps of the "
-                    "main, obstacle, reflection, maccormack and "
-                    "bimocq_adaptive paths to PATH")
+                    "main, obstacle and phase-7 paths to PATH")
     args = ap.parse_args()
 
     import torch
@@ -801,6 +940,12 @@ def main():
     parity_phase(bench_config(32, engine_mode=EngineMode(volume_exact=True),
                               **small_gaps),
                  "bimocq adaptive blend 0.5 exact volume")
+    parity_phase(bench_config(32, engine_mode=EngineMode(volume_vol9=True),
+                              **small_gaps),
+                 "bimocq adaptive blend 0.5 vol9 volume")
+    parity_phase(bench_config(32, engine_mode=EngineMode(volume_dual=False),
+                              **small_gaps),
+                 "bimocq adaptive blend 0.5 prefilter volume")
     mgpcg_parity_phase()
     by_path = {
         "main": main_phase(args.n, args.steps, args.profile),
@@ -812,7 +957,8 @@ def main():
     # each kernel's count comes from the path that was added for it
     path_of = dict.fromkeys(KERNELS, "main")
     path_of.update(masked_rbgs_smooth="obstacle", rbgs_smooth="mgpcg",
-                   minmax_sample="reflection")
+                   minmax_sample="reflection", vol9_fixup="bimocq_vol9",
+                   volume_prefilter="bimocq_prefilter")
 
     line = []
     for name in KERNELS:

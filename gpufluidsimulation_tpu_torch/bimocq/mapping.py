@@ -3,20 +3,28 @@
 Counterpart of the 3D half of ``gpufluidsimulation_tpu.bimocq.mapping``:
 the map state and its marches, the pull-back with BFECC compensation and
 the two-level (``bwd_prev``) blend, the accumulates through the forward
-map, the distortion estimate and reinitialization. Two volume forms:
+map, the distortion estimate and reinitialization. Four volume forms,
+chosen by ``mode`` as the JAX package's ``mapping._volume_mode`` chooses:
 
-* dual (the default, the JAX package's accelerator mode): map positions
-  at each kind's lattice are a static stencil (``map_at_lattice_3d``,
-  plain torch) and the field samples at mapped positions go through the
-  ``trilerp_sample`` kernel in dual mode; the non-identity accumulate is
-  the source prefilter + a plain trilinear sample, as in the JAX package;
-* exact (``exact=True``, the JAX package's exact-gather mode): the
-  reference's 9-point composition field(M(p + d)), every map and field
-  sample one ``trilerp_sample(dual=False)`` launch over the 9 stacked
-  stencil points.
+* ``"dual"`` (the default, the JAX package's accelerator mode): map
+  positions at each kind's lattice are a static stencil
+  (``map_at_lattice_3d``, plain torch) and the field samples at mapped
+  positions go through the ``trilerp_sample`` kernel in dual mode; the
+  non-identity accumulate is the source prefilter (``volume_prefilter``
+  kernel) + a plain trilinear sample;
+* ``"vol9"``: each dual stage is followed by the ``vol9_fixup`` kernel,
+  which takes the exact 9-position composition on every block where the
+  dual form is not provably within tolerance of it; the non-identity
+  accumulates go the same way, the level-2 blend stage stays dual;
+* ``"prefilter"``: every source is prefiltered (``volume_prefilter``)
+  and sampled with plain trilinear;
+* ``"exact"`` (the JAX package's exact-gather mode): the reference's
+  9-point composition field(M(p + d)), every map and field sample one
+  ``trilerp_sample(dual=False)`` launch over the 9 stacked stencil points.
 
-The JAX package's vol9 fixup, multi-kind pull-back and Pallas prefilter
-are not ported (an opt-in, a parked path and an unwired kernel).
+The identity accumulate after a reinitialization is the prefilter itself
+in every form but the exact one. The JAX package's multi-kind pull-back
+(``bimocq_advect_multi_3d``) is not ported (a parked path).
 """
 
 from __future__ import annotations
@@ -30,9 +38,8 @@ import torch
 from gpufluidsimulation_tpu_torch.core.grids import band_mask
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
 
-# _VOL3 corner offsets (units of h) and the centre, the 9-point stencil
-_VOL9 = interp_fast._VOL3 + ((0.0, 0.0, 0.0),)
-_ZERO3 = ((0.0, 0.0, 0.0),) * 3
+_ZERO3 = interp_fast._ZERO3
+VOLUME_MODES = ("dual", "vol9", "prefilter", "exact")
 
 
 @dataclasses.dataclass
@@ -109,10 +116,8 @@ def _blend_weights(blend_coeff):
 
 
 def _clamp_world(grid, mx, my, mz, clamp_lo, clamp_hi):
-    h = grid.h
-    return (mx.clamp(clamp_lo * h, grid.ni * h - clamp_hi * h),
-            my.clamp(clamp_lo * h, grid.nj * h - clamp_hi * h),
-            mz.clamp(clamp_lo * h, grid.nk * h - clamp_hi * h))
+    lo, hi = interp_fast.clamp_bounds(grid, clamp_lo, clamp_hi)
+    return tuple(m.clamp(a, b) for m, a, b in zip((mx, my, mz), lo, hi))
 
 
 def _map_sample_3d(grid, maps, px, py, pz, clamp_lo, clamp_hi):
@@ -145,28 +150,45 @@ def map_at_lattice_3d(grid, maps, kind, clamp_lo, clamp_hi):
 
 def volume_prefilter_3d(f):
     """0.5*f + 0.5*(S_x S_y S_z f) with S = [1/8, 3/4, 1/8], edge-padded;
-    axis z first, then y, then x (the JAX composition order)."""
-
-    def s(x, axis):
-        n = x.shape[axis]
-        xp = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)],
-                       dim=axis)
-        return (0.125 * xp.narrow(axis, 0, n) + 0.75 * x
-                + 0.125 * xp.narrow(axis, 2, n))
-
-    return 0.5 * f + 0.5 * s(s(s(f, 2), 1), 0)
+    axis z first, then y, then x (the JAX composition order): one
+    ``volume_prefilter`` call."""
+    return interp_fast.volume_prefilter(f[None].contiguous())[0]
 
 
 def _sample_fields_at(grid, kind, fields, positions, dual=False):
-    """Sample N same-shape fields of `kind` at shared world positions:
-    one ``trilerp_sample`` launch for all N (dual = the 9-point volume
-    blend evaluated in the kernel)."""
+    """Sample N same-shape fields of `kind` (a list, or stacked (N, ...))
+    at shared world positions: one ``trilerp_sample`` launch for all N
+    (dual = the 9-point volume blend evaluated in the kernel)."""
     mx, my, mz = positions
-    off = grid.off_of(kind)
+    src = fields if torch.is_tensor(fields) else torch.stack(fields)
     out = interp_fast.trilerp_sample(
-        torch.stack(fields), mx.contiguous(), my.contiguous(),
-        mz.contiguous(), grid.h, (off,) * len(fields), dual=dual)
-    return [out[i] for i in range(len(fields))]
+        src, mx.contiguous(), my.contiguous(), mz.contiguous(), grid.h,
+        (grid.off_of(kind),) * src.shape[0], dual=dual)
+    return [out[i] for i in range(src.shape[0])]
+
+
+def vol9_map_stats(grid, maps):
+    """``interp_fast.vol9_map_stats`` of one (3, ni, nj, nk) map: computed
+    once per map and step and passed to every vol9 stage and accumulate
+    that samples through the map."""
+    return interp_fast.vol9_map_stats(maps, grid.h, grid.shape_c)
+
+
+def _vol9_sample(grid, kind, fields, map_stats, maps, clamp_lo, clamp_hi,
+                 band_lo, band_hi):
+    """One vol9 stage over N same-shape fields: the dual ``trilerp_sample``
+    launch at the map's lattice values, then ``vol9_fixup`` deciding on
+    the stage's band (band_lo + dim < idx < n - band_hi)."""
+    dim = grid.dim_of(kind)
+    src = torch.stack(fields)
+    p1 = map_at_lattice_3d(grid, maps, kind, clamp_lo, clamp_hi)
+    duals = interp_fast.trilerp_sample(
+        src, *(p.contiguous() for p in p1), grid.h,
+        (grid.off_of(kind),) * src.shape[0], dual=True)
+    out = interp_fast.vol9_fixup(
+        duals, src, map_stats, maps, p1, grid, kind, clamp_lo, clamp_hi,
+        band=(band_lo + dim[0], band_lo + dim[1], band_lo + dim[2], band_hi))
+    return [out[i] for i in range(src.shape[0])]
 
 
 # ---------------------------------------------------------------------------
@@ -174,19 +196,6 @@ def _sample_fields_at(grid, kind, fields, positions, dual=False):
 # cumulate_kernel, gpu_compensate_*), as the JAX package evaluates them off
 # its fast path
 # ---------------------------------------------------------------------------
-
-
-def _volume_eval_3d(grid, kind, eval_fn, device):
-    """0.5 * mean(8 corner evals) + 0.5 * centre eval at each node of
-    `kind`; the 9 stencil points are stacked on a leading axis so that
-    every map or field sample of `eval_fn` is one launch."""
-    px, py, pz = grid.node_coords(kind, device=device)
-    offs = torch.tensor(_VOL9, dtype=px.dtype, device=device) * grid.h
-    sh = (9,) + (1,) * px.dim()
-    vals = eval_fn(px[None] + offs[:, 0].reshape(sh),
-                   py[None] + offs[:, 1].reshape(sh),
-                   pz[None] + offs[:, 2].reshape(sh))
-    return 0.5 * vals[:8].mean(dim=0) + 0.5 * vals[8]
 
 
 def advect_with_map_3d(grid, kind, field_cur, field_init, bwd):
@@ -197,7 +206,7 @@ def advect_with_map_3d(grid, kind, field_cur, field_init, bwd):
         m = _map_sample_3d(grid, bwd, px, py, pz, 1.0, 1.0)
         return _sample_fields_at(grid, kind, [field_init], m)[0]
 
-    out = _volume_eval_3d(grid, kind, ev, field_cur.device)
+    out = interp_fast.volume_eval_3d(grid, kind, ev, field_cur.device)
     band, _ = _bands(grid.dim_of(kind), field_cur.shape, field_cur.device)
     return torch.where(band, out, field_cur)
 
@@ -212,7 +221,7 @@ def double_advect_3d(grid, kind, field, field_prev, bwd, bwd_prev,
         o = _map_sample_3d(grid, bwd_prev, *m, 1.0, 1.0)
         return _sample_fields_at(grid, kind, [field_prev], o)[0]
 
-    prev_value = _volume_eval_3d(grid, kind, ev, field.device)
+    prev_value = interp_fast.volume_eval_3d(grid, kind, ev, field.device)
     b, one_minus_b = _blend_weights(blend_coeff)
     band, _ = _bands(grid.dim_of(kind), field.shape, field.device)
     return torch.where(band, field * b + one_minus_b * prev_value, field)
@@ -227,7 +236,7 @@ def accumulate_3d(grid, kind, dfield_init, field_change, fwd, coeff=1.0):
         m = _map_sample_3d(grid, fwd, px, py, pz, 0.0, 0.0)
         return coeff * _sample_fields_at(grid, kind, [field_change], m)[0]
 
-    delta = _volume_eval_3d(grid, kind, ev, dfield_init.device)
+    delta = interp_fast.volume_eval_3d(grid, kind, ev, dfield_init.device)
     _, band = _bands(grid.dim_of(kind), dfield_init.shape, dfield_init.device)
     return torch.where(band, dfield_init + delta, dfield_init)
 
@@ -243,14 +252,14 @@ def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd):
         m = _map_sample_3d(grid, fwd, px, py, pz, 0.0, 0.0)
         return _sample_fields_at(grid, kind, [field_adv], m)[0]
 
-    err = _volume_eval_3d(grid, kind, ev_fwd, dev) - field_init
+    err = interp_fast.volume_eval_3d(grid, kind, ev_fwd, dev) - field_init
     err = torch.where(band, err, 0.0)
 
     def ev_bwd(px, py, pz):
         m = _map_sample_3d(grid, bwd, px, py, pz, 0.0, 0.0)
         return _sample_fields_at(grid, kind, [err], m)[0]
 
-    correction = _volume_eval_3d(grid, kind, ev_bwd, dev)
+    correction = interp_fast.volume_eval_3d(grid, kind, ev_bwd, dev)
     out = torch.where(band, field_adv - 0.5 * correction, field_adv)
     return advect.clamp_extrema_neighborhood(field_adv, out)
 
@@ -261,21 +270,29 @@ def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd):
 
 
 def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
-                     bwd, bwd_prev, fwd, blend_coeff, exact=False):
+                     bwd, bwd_prev, fwd, blend_coeff, mode="dual",
+                     map_stats=None):
     """Advect + BFECC compensation + two-level blend over N fields of one
-    lattice kind. ``blend_coeff=None`` marks the blend as 1: the level-2
-    pull-back through bwd_prev has weight 0 and is skipped.
+    lattice kind in the volume form `mode` (one of VOLUME_MODES).
+    ``blend_coeff=None`` marks the blend as 1: the level-2 pull-back
+    through bwd_prev has weight 0 and is skipped.
 
-    Dual form: three ``trilerp_sample`` launches in dual mode (advect,
-    error, correction), each stage ending in the band masks, then the
-    27-point clamp; with a blend, one C=3 map sample of bwd_prev at the
-    advect positions and one dual sample of the prev fields there.
-    ``exact=True`` delegates to the single-field ops."""
+    Three sampling stages (advect, error, correction), each ending in the
+    band masks, then the 27-point clamp; with a blend, one C=3 map sample
+    of bwd_prev at the advect positions and one sample of the prev fields
+    there. Per stage, "dual" is one ``trilerp_sample`` launch in dual
+    mode; "vol9" that launch and ``vol9_fixup`` (`map_stats`: the
+    ``vol9_map_stats`` of bwd and of fwd, or None to compute them here),
+    the blend stage staying dual; "prefilter" one ``volume_prefilter``
+    call of the stage's sources and a plain trilinear launch. "exact"
+    delegates to the single-field ops."""
+    if mode not in VOLUME_MODES:
+        raise ValueError(f"bimocq_advect_3d: unknown volume mode {mode!r}")
     if blend_coeff is not None and (bwd_prev is None
                                     or any(f is None for f in fields_prev)):
         raise ValueError("bimocq_advect_3d: a blend needs bwd_prev and the "
                          "prev fields")
-    if exact:
+    if mode == "exact":
         outs = []
         for cur, init, prev in zip(fields_cur, fields_init, fields_prev):
             x = advect_with_map_3d(grid, kind, cur, init, bwd)
@@ -288,19 +305,34 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
 
     band_adv, band_c = _bands(grid.dim_of(kind), fields_cur[0].shape,
                               fields_cur[0].device)
+    dual = mode != "prefilter"
+    if mode == "vol9" and map_stats is None:
+        map_stats = (vol9_map_stats(grid, bwd), vol9_map_stats(grid, fwd))
+
+    def sample(fields, positions):
+        src = fields if dual else interp_fast.volume_prefilter(
+            torch.stack(fields))
+        return _sample_fields_at(grid, kind, src, positions, dual=dual)
+
+    def stage(fields, maps, clamp, band_lo):
+        """Sample `fields` through `maps` at the kind's lattice; band_lo is
+        the stage's band (band_lo + dim < idx < n - band_lo - 1)."""
+        if mode == "vol9":
+            stats = map_stats[0] if maps is bwd else map_stats[1]
+            return _vol9_sample(grid, kind, fields, stats, maps, clamp, clamp,
+                                band_lo, band_lo + 1)
+        return sample(fields, map_at_lattice_3d(grid, maps, kind, clamp,
+                                                clamp))
 
     # advect: pull init back through the backward map
-    p1 = map_at_lattice_3d(grid, bwd, kind, 1.0, 1.0)
-    advs = _sample_fields_at(grid, kind, list(fields_init), p1, dual=True)
+    advs = stage(list(fields_init), bwd, 1.0, 2)
     advs = [torch.where(band_adv, a, cur) for a, cur in zip(advs, fields_cur)]
 
     # compensate: BFECC error correction + 27-point clamp
-    p3 = map_at_lattice_3d(grid, fwd, kind, 0.0, 0.0)
-    errs = _sample_fields_at(grid, kind, advs, p3, dual=True)
+    errs = stage(advs, fwd, 0.0, 1)
     errs = [torch.where(band_c, e - init, 0.0)
             for e, init in zip(errs, fields_init)]
-    p4 = map_at_lattice_3d(grid, bwd, kind, 0.0, 0.0)
-    corrs = _sample_fields_at(grid, kind, errs, p4, dual=True)
+    corrs = stage(errs, bwd, 0.0, 1)
     comps = [advect.clamp_extrema_neighborhood(
                  a, torch.where(band_c, a - 0.5 * c, a))
              for a, c in zip(advs, corrs)]
@@ -308,26 +340,29 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
         return comps
 
     # double advect: two-level pull-back through bwd_prev o bwd
+    p1 = map_at_lattice_3d(grid, bwd, kind, 1.0, 1.0)
     p2 = _map_sample_3d(grid, bwd_prev, *p1, 1.0, 1.0)
-    prevs = _sample_fields_at(grid, kind, list(fields_prev), p2, dual=True)
+    prevs = sample(list(fields_prev), p2)
     b, one_minus_b = _blend_weights(blend_coeff)
     return [torch.where(band_adv, x * b + one_minus_b * pv, x)
             for x, pv in zip(comps, prevs)]
 
 
 def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
-                        exact=False):
+                        mode="dual", fwd_stats=None):
     """Push coeff-weighted changes through the forward map into their
     bases: `groups` is a list of (base, [(change, coeff), ...]).
 
-    Dual form: each group's changes are summed into one field first (the
-    pull-back is linear); ``identity=True`` (the map is the identity) is
-    then the separable prefilter itself, otherwise the prefiltered sums
-    are sampled with plain trilinear at the forward map's lattice values
-    (one launch for all groups). ``exact=True`` applies ``accumulate_3d``
-    change by change and ignores `identity`, as the JAX package's exact
-    path does."""
-    if exact:
+    Each group's changes are summed into one field first (the pull-back
+    is linear). With ``identity=True`` (the map is the identity) the
+    deltas are the prefiltered sums, one ``volume_prefilter`` call for
+    all groups. Otherwise "vol9" runs the sums through one vol9 stage at
+    the forward map's lattice values (`fwd_stats`: ``vol9_map_stats`` of
+    fwd, or None to compute it here), and "dual" and "prefilter" sample
+    the prefiltered sums with plain trilinear there (one launch for all
+    groups). "exact" applies ``accumulate_3d`` change by change and
+    ignores `identity`, as the JAX package's exact path does."""
+    if mode == "exact":
         outs = []
         for base, pairs in groups:
             for change, coeff in pairs:
@@ -345,12 +380,18 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
         for change, coeff in pairs[1:]:
             tot = tot + coeff * change
         combined.append(tot)
-    flat = [volume_prefilter_3d(c) for c in combined]
     if identity:
-        deltas = flat
+        deltas = interp_fast.volume_prefilter(torch.stack(combined))
+    elif mode == "vol9":
+        if fwd_stats is None:
+            fwd_stats = vol9_map_stats(grid, fwd)
+        deltas = _vol9_sample(grid, kind, combined, fwd_stats, fwd, 0.0, 0.0,
+                              1, 2)
     else:
         p3 = map_at_lattice_3d(grid, fwd, kind, 0.0, 0.0)
-        deltas = _sample_fields_at(grid, kind, flat, p3)
+        deltas = _sample_fields_at(
+            grid, kind, interp_fast.volume_prefilter(torch.stack(combined)),
+            p3)
     return [torch.where(band, base + delta, base)
             for (base, _), delta in zip(groups, deltas)]
 

@@ -21,13 +21,30 @@ class EngineMode:
     """Per-solver engine mode. ``spectral_poisson``: None or True solves
     the unmasked full-box pressure system directly in the DST/DCT
     eigenbasis (the accelerator default), False with MG-PCG. Projections
-    with solid boundaries always use MG-PCG. ``volume_exact``: True
-    evaluates the BiMocq volume average as the reference's exact 9-point
-    composition field(M(p + d)) (the JAX package's exact-gather mode);
-    None or False uses the dual form (its accelerator default)."""
+    with solid boundaries always use MG-PCG.
+
+    The BiMocq volume average, with the JAX package's precedence
+    (``mapping._volume_mode``): ``volume_exact=True`` evaluates it as the
+    reference's exact 9-point composition field(M(p + d)) (the JAX
+    package's exact-gather mode), whatever the other two say;
+    ``volume_dual=False`` takes the source-prefilter form and turns vol9
+    off with the dual form; ``volume_vol9=True`` (with the dual form)
+    adds the sparse exact fixup to every dual stage. Otherwise the dual
+    form (the accelerator default)."""
 
     spectral_poisson: bool | None = None
     volume_exact: bool | None = None
+    volume_dual: bool | None = None
+    volume_vol9: bool | None = None
+
+    @property
+    def volume_mode(self) -> str:
+        """'exact', 'prefilter', 'vol9' or 'dual'."""
+        if self.volume_exact:
+            return "exact"
+        if self.volume_dual is False:
+            return "prefilter"
+        return "vol9" if self.volume_vol9 else "dual"
 
 
 def resolve_device(device=None) -> torch.device:

@@ -130,20 +130,22 @@ def _boundary(b, trans=None) -> Boundary3D:
 # window sampler's geometry (the kernels gather exactly), and the 2D
 # particle transfers.
 _MODE_IGNORED = ("interp_interpret", "pallas_diffuse", "interp_rr",
-                 "interp_adaptive", "particle_dense")
+                 "particle_dense")
 # ... and the one value of each other field that the port implements
-_MODE_REQUIRED = {"volume_dual": True, "volume_vol9": False,
-                  "interp_bf16": False, "sharded_sampling": ()}
+_MODE_REQUIRED = {"interp_bf16": False, "sharded_sampling": ()}
 
 
 def _engine_mode(m):
     """The port's EngineMode from the JAX mode's plain fields: carries
-    ``spectral_poisson`` across, maps the JAX package's exact volume form
-    (``fast_interp=False`` or ``volume_exact=True``) to
-    ``volume_exact=True``, accepts fields that do not change the result,
-    and raises for a value the port cannot honour: the red-black smoother
-    off (which ``fast_interp=False`` implies unless ``rbgs`` is given),
-    and, in the dual form, the prefilter or vol9 volume forms."""
+    ``spectral_poisson``, ``volume_dual`` and ``volume_vol9`` across, maps
+    the JAX package's exact volume form (``fast_interp=False`` or
+    ``volume_exact=True``) to ``volume_exact=True`` and its window
+    sampler without adaptive taps (``interp_adaptive=False``, which
+    leaves the JAX package the prefilter form) to ``volume_dual=False``,
+    accepts fields that do not change the result, and raises for a value
+    the port cannot honour: the red-black smoother off (which
+    ``fast_interp=False`` implies unless ``rbgs`` is given), bf16 windows
+    and sharded sampling."""
     if m is None or isinstance(m, config.EngineMode):
         return m
     d = dict(m) if isinstance(m, dict) else dict(vars(m))
@@ -156,9 +158,12 @@ def _engine_mode(m):
                                   "(the Jacobi-smoothed V-cycle)")
     for key in _MODE_IGNORED:
         d.pop(key, None)
+    dual = d.pop("volume_dual", None)
+    vol9 = d.pop("volume_vol9", None)
+    if d.pop("interp_adaptive", None) is False:
+        dual = False
     if exact:      # the volume form is exact whatever these say
-        d.pop("volume_dual", None)
-        d.pop("volume_vol9", None)
+        dual = vol9 = None
     for key, allowed in _MODE_REQUIRED.items():
         val = d.pop(key, None)
         if val is not None and val != allowed:
@@ -167,7 +172,8 @@ def _engine_mode(m):
     if d:
         raise ValueError(f"unknown engine_mode fields {sorted(d)}")
     return config.EngineMode(spectral_poisson=spectral,
-                             volume_exact=True if exact else None)
+                             volume_exact=True if exact else None,
+                             volume_dual=dual, volume_vol9=vol9)
 
 
 def config_from_dict(d: dict, boundary_trans=()) -> Smoke3DConfig:

@@ -31,7 +31,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("trilerp_sample", "minmax_sample", "rk3_substep", "dmc_substep",
-           "jacobi_diffuse", "rbgs_smooth", "masked_rbgs_smooth")
+           "jacobi_diffuse", "rbgs_smooth", "masked_rbgs_smooth",
+           "volume_prefilter", "vol9_fixup")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

@@ -1,5 +1,5 @@
-"""Sampler, corner min/max, RK3-substep and DMC-substep kernels with their
-plain versions.
+"""Sampler, corner min/max, RK3-substep, DMC-substep, volume-prefilter and
+vol9-fixup kernels with their plain versions.
 
 Counterpart of ``gpufluidsimulation_tpu.ops.interp_fast``. Each wrapper
 takes the plain PyTorch version for a CPU tensor and launches its CUDA
@@ -11,6 +11,13 @@ The kernels gather exactly with clamped indices, as
 windows, reach contract and coverage renormalization have no counterpart
 here, so nothing is ever truncated and the port's ``interp_overflow`` is
 always 0.
+
+The vol9 fixup keeps the JAX package's adaptive decision: per block of
+16 x 16 x (256 or 128) cell-lattice nodes and per channel, the dual
+volume form is replaced by the exact 9-position composition wherever it
+is not provably within ``tol * max|f|`` of it (``vol9_flags``, plain
+torch on both devices, no host sync). The blocks are a decision
+granularity, not the kernel's thread blocks.
 """
 
 from __future__ import annotations
@@ -308,3 +315,352 @@ def dmc_substep(u, v, w, maps, sh, thresh):
 
 
 dmc_substep.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# volume_prefilter
+# ---------------------------------------------------------------------------
+
+
+def _edge_shifts(x, axis):
+    """(x[i-1], x[i+1]) along `axis`, indices clamped to the edges."""
+    n = x.shape[axis]
+    xp = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)],
+                   dim=axis)
+    return xp.narrow(axis, 0, n), xp.narrow(axis, 2, n)
+
+
+def _smooth_axis(x, axis):
+    """(0.125*lo + 0.75*x) + 0.125*hi along `axis`, edge-clamped."""
+    lo, hi = _edge_shifts(x, axis)
+    return 0.125 * lo + 0.75 * x + 0.125 * hi
+
+
+def volume_prefilter_plain(fields):
+    """Plain version: 0.5*f + 0.5*(S_x S_y S_z f) of C stacked same-shape
+    fields (C, nx, ny, nz), S = [1/8, 3/4, 1/8] with edge-clamped indices;
+    the z pass first, then y, then x (the JAX composition order)."""
+    return 0.5 * fields + 0.5 * _smooth_axis(
+        _smooth_axis(_smooth_axis(fields, 3), 2), 1)
+
+
+def volume_prefilter(fields):
+    """The separable volume prefilter 0.5*delta + 0.5*S^3 of C stacked
+    same-shape fields (C, nx, ny, nz), edge-clamped. Returns a new
+    (C, nx, ny, nz) tensor."""
+    if not _build.on_card(fields, "volume_prefilter"):
+        return volume_prefilter_plain(fields)
+    _build.require(fields, "fields", ndim=4)
+    out = torch.empty_like(fields)
+    fn = _build.function("volume_prefilter", "gfs_volume_prefilter",
+                         [_P, _I, _I, _I, _I, _P, _P])
+    with torch.cuda.device(fields.device):
+        err = fn(_build.ptr(fields), *fields.shape, _build.ptr(out),
+                 _build.stream(fields))
+    _build.check(err, "volume_prefilter")
+    volume_prefilter.launches += 1
+    return out
+
+
+volume_prefilter.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# vol9_fixup
+# ---------------------------------------------------------------------------
+
+# a block channel goes exact when dev * roughness > VOL9_TOL * max|f| (the
+# JAX package's GFS_VOL9_TOL default)
+VOL9_TOL = 2e-3
+_ZERO3 = ((0.0, 0.0, 0.0),) * 3
+# _VOL3 corner offsets (units of h) and the centre, the 9-point stencil
+_VOL9 = _VOL3 + ((0.0, 0.0, 0.0),)
+
+
+def _ceil_to(a, b):
+    return -(-a // b) * b
+
+
+def vol9_blocks(grid_n):
+    """(padded cell-lattice shape, decision block, blocks per axis) of the
+    vol9 decision: blocks of x 16, y 16 and z 256 when the padded z extent
+    (a multiple of 128) is a multiple of 256, else 128."""
+    ni, nj, nk = grid_n
+    out_shape = (_ceil_to(ni, 16), _ceil_to(nj, 16), _ceil_to(nk, 128))
+    block = (16, 16, 256 if out_shape[2] % 256 == 0 else 128)
+    return out_shape, block, tuple(o // b for o, b in zip(out_shape, block))
+
+
+def _block_max(d, block):
+    """Max over each block of a 3D tensor whose shape `block` divides."""
+    (nx, ny, nz), (b0, b1, b2) = d.shape, block
+    return d.reshape(nx // b0, b0, ny // b1, b1, nz // b2, b2).amax(
+        dim=(1, 3, 5))
+
+
+def _dilate_blocks(r):
+    """Each block's max with its edge-clamped neighbours, axis by axis."""
+    for ax in range(3):
+        r = torch.maximum(r, torch.maximum(*_edge_shifts(r, ax)))
+    return r
+
+
+def vol9_map_stats(maps, h, grid_n):
+    """Per-block corner-deviation bound of a (3, ni, nj, nk) world map:
+    from the six one-sided differences of maps/h minus the identity, the
+    largest 0.25*|sum| over the 8 sign combinations, on the interior
+    cells, zero on the padded cell lattice's rim, block max, dilated one
+    block. Computed once per map and step; every stage and kind that
+    samples through the map shares it."""
+    out_shape, block, _ = vol9_blocks(grid_n)
+    g = interp.div_scalar(maps, h)
+    dev_e = None
+    for ch in range(3):
+        m = g[ch]
+        mid = m[1:-1, 1:-1, 1:-1]
+        dpos, dneg = [], []
+        for b in range(3):
+            lo, hi = [slice(1, -1)] * 3, [slice(1, -1)] * 3
+            lo[b], hi[b] = slice(0, -2), slice(2, None)
+            one = 1.0 if b == ch else 0.0
+            dpos.append(m[tuple(hi)] - mid - one)
+            dneg.append(-(mid - m[tuple(lo)]) + one)
+        for sx in (dneg[0], dpos[0]):
+            for sy in (dneg[1], dpos[1]):
+                for sz in (dneg[2], dpos[2]):
+                    t = 0.25 * ((sx + sy) + sz).abs()
+                    dev_e = t if dev_e is None else torch.maximum(dev_e, t)
+    pad = []
+    for ax in (2, 1, 0):
+        pad += [1, out_shape[ax] - dev_e.shape[ax] - 1]
+    return _dilate_blocks(_block_max(torch.nn.functional.pad(dev_e, pad),
+                                     block))
+
+
+def _edge_pad_to(x, shape):
+    """`x` edge-padded at the upper end of each axis out to `shape`."""
+    for ax in range(3):
+        if shape[ax] > x.shape[ax]:
+            idx = torch.arange(shape[ax], device=x.device).clamp(
+                max=x.shape[ax] - 1)
+            x = x.index_select(ax, idx)
+    return x
+
+
+def vol9_flags(fields, p1, map_stats, grid_n, h, dim, clamp_lo, clamp_hi,
+               band=None, tol=None):
+    """The vol9 decision: a bool (C, nbx, nby, nbz) tensor over the
+    ``vol9_blocks`` lattice, True where channel c of a block takes the
+    exact composition: dev * rough_c > tol * max|f_c| (``tol <= 0`` flags
+    every block). dev is `map_stats` plus the block's largest clamp
+    deviation of the centre positions `p1` (world, on the kind's lattice;
+    corners near a clamped face deviate by up to h/4); rough_c is the
+    block's largest neighbour difference of f_c, dilated one block. The
+    statistics cover the nodes of `band` = (lo_x, lo_y, lo_z, hi),
+    lo < idx < n + dim - hi per axis, or with ``band=None`` every node of
+    the padded lattice, positions past the field's last node continued
+    with the node spacing. Plain torch on every device, no host sync."""
+    tol = VOL9_TOL if tol is None else float(tol)
+    out_shape, block, nb = vol9_blocks(grid_n)
+    C, dev = fields.shape[0], fields.device
+    if tol <= 0.0:
+        return torch.ones((C,) + nb, dtype=torch.bool, device=dev)
+    kind_shape = tuple(fields.shape[1:])
+    bmask = None
+    for ax in range(3 if band is not None else 0):
+        i = torch.arange(out_shape[ax], device=dev)
+        m = ((i > band[ax]) & (i < grid_n[ax] + dim[ax] - band[3])).reshape(
+            [-1 if a == ax else 1 for a in range(3)])
+        bmask = m if bmask is None else bmask & m
+
+    def bmax(d, fill=0.0):
+        d = d[:out_shape[0], :out_shape[1], :out_shape[2]]
+        pad = []
+        for ax in (2, 1, 0):
+            pad += [0, out_shape[ax] - d.shape[ax]]
+        if any(pad):
+            d = torch.nn.functional.pad(d, pad, value=fill)
+        if bmask is not None:
+            d = torch.where(bmask, d, fill)
+        return _block_max(d, block)
+
+    sl = tuple(slice(0, min(o, k)) for o, k in zip(out_shape, kind_shape))
+    clampdev = None
+    for ax in range(3):
+        g = _edge_pad_to(interp.div_scalar(p1[ax][sl], h), out_shape)
+        n = min(out_shape[ax], kind_shape[ax])
+        if out_shape[ax] > n:
+            over = (torch.arange(out_shape[ax], device=dev) - (n - 1)).clamp(
+                min=0).to(g.dtype)
+            g = g + over.reshape([-1 if a == ax else 1 for a in range(3)])
+        d = torch.maximum((clamp_lo - (g - 0.25)).clamp(min=0.0),
+                          ((g + 0.25) - (grid_n[ax] - clamp_hi)).clamp(
+                              min=0.0)).clamp(max=0.25)
+        clampdev = d if clampdev is None else torch.maximum(clampdev, d)
+    dev_full = map_stats + bmax(clampdev)
+    flags = []
+    for c in range(C):
+        f = fields[c]
+        rough = None
+        for ax in range(3):
+            n = f.shape[ax]
+            dm = bmax((f.narrow(ax, 1, n - 1) - f.narrow(ax, 0, n - 1)).abs())
+            rough = dm if rough is None else torch.maximum(rough, dm)
+        flags.append(dev_full * _dilate_blocks(rough)
+                     > tol * f.abs().max())
+    return torch.stack(flags)
+
+
+def volume_eval_3d(grid, kind, eval_fn, device):
+    """0.5*(sum of the 8 corner evals)/8 + 0.5*centre eval at each node of
+    `kind`, the corners added one by one in _VOL3 order. The 9 stencil
+    points p + d*h are stacked on a leading axis of the positions, so each
+    sample in `eval_fn` is one call; ``eval_fn(px, py, pz)[q]`` is the
+    value at point q."""
+    px, py, pz = grid.node_coords(kind, device=device)
+    offs = torch.tensor(_VOL9, dtype=px.dtype, device=device) * grid.h
+    sh = (9,) + (1,) * px.dim()
+    vals = eval_fn(px[None] + offs[:, 0].reshape(sh),
+                   py[None] + offs[:, 1].reshape(sh),
+                   pz[None] + offs[:, 2].reshape(sh))
+    acc = vals[0]
+    for q in range(1, 8):
+        acc = acc + vals[q]
+    return 0.5 * (acc / 8.0) + 0.5 * vals[8]
+
+
+def clamp_bounds(grid, clamp_lo, clamp_hi):
+    """The per-axis world clamp [lo*h, n*h - hi*h] of mapped positions."""
+    h = grid.h
+    return ((clamp_lo * h,) * 3,
+            tuple(n * h - clamp_hi * h for n in grid.shape_c))
+
+
+def vol9_exact_plain(fields, maps, grid, kind, clamp_lo, clamp_hi):
+    """The exact 9-position volume composition of C stacked fields of
+    `kind` (the reference's advect_kernel): at each node p, the volume
+    average of f(clamp(M(p + d*h))) over d in _VOL3 and the centre, M the
+    trilinear sample of the (3, ni, nj, nk) world map `maps`. Plain
+    samplers throughout."""
+    lo, hi = clamp_bounds(grid, clamp_lo, clamp_hi)
+    offs = (grid.off_of(kind),) * fields.shape[0]
+
+    def ev(px, py, pz):
+        m = trilerp_sample_plain(maps, px, py, pz, grid.h, _ZERO3)
+        m = [m[a].clamp(lo[a], hi[a]) for a in range(3)]
+        return trilerp_sample_plain(fields, *m, grid.h, offs).transpose(0, 1)
+
+    return volume_eval_3d(grid, kind, ev, fields.device)
+
+
+def _expand_flags(flags, kind_shape, block):
+    """Per-node view of (C, nbx, nby, nbz) block flags on a kind's lattice;
+    nodes past the block lattice (a staggered kind's last face plane when
+    the blocks end at the cell count) are unflagged."""
+    nb = flags.shape[1:]
+    idx, valid = [], []
+    for ax in range(3):
+        i = torch.arange(kind_shape[ax], device=flags.device) // block[ax]
+        shape = [-1 if a == ax else 1 for a in range(3)]
+        valid.append((i < nb[ax]).reshape(shape))
+        idx.append(i.clamp(max=nb[ax] - 1).reshape(shape))
+    return flags[:, idx[0], idx[1], idx[2]] & valid[0] & valid[1] & valid[2]
+
+
+def _vol9_merge_plain(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
+                      clamp_hi):
+    _, block, _ = vol9_blocks(grid.shape_c)
+    exact = vol9_exact_plain(fields, maps, grid, kind, clamp_lo, clamp_hi)
+    return torch.where(_expand_flags(flags, fields.shape[1:], block), exact,
+                       dual_outs)
+
+
+def vol9_fixup_plain(dual_outs, fields, map_stats, maps, p1, grid, kind,
+                     clamp_lo, clamp_hi, band=None, tol=None):
+    """Plain version: ``torch.where(flag, exact, dual)`` with the flags of
+    ``vol9_flags`` and the composition of ``vol9_exact_plain``."""
+    flags = vol9_flags(fields, p1, map_stats, grid.shape_c, grid.h,
+                       grid.dim_of(kind), clamp_lo, clamp_hi, band=band,
+                       tol=tol)
+    return _vol9_merge_plain(dual_outs, fields, maps, flags, grid, kind,
+                             clamp_lo, clamp_hi)
+
+
+def vol9_fixup(dual_outs, fields, map_stats, maps, p1, grid, kind, clamp_lo,
+               clamp_hi, band=None, tol=None):
+    """Replace the dual volume form `dual_outs` (C, kind shape) of the C
+    stacked source `fields` of `kind` by the exact 9-position composition
+    through `maps` (clamped to [lo*h, n*h - hi*h]) on every block channel
+    that ``vol9_flags`` flags; `map_stats` is ``vol9_map_stats(maps)`` and
+    `p1` the dual form's centre positions. On the card the kernel
+    overwrites the flagged nodes of `dual_outs` in place and returns it;
+    on the CPU a new tensor is returned. Adds the call's flagged and total
+    block channels to ``vol9_block_counts``."""
+    flags = vol9_flags(fields, p1, map_stats, grid.shape_c, grid.h,
+                       grid.dim_of(kind), clamp_lo, clamp_hi, band=band,
+                       tol=tol)
+    key = str(flags.device)
+    prev = vol9_fixup.exact_blocks.get(key)
+    n_flagged = flags.sum()
+    vol9_fixup.exact_blocks[key] = (n_flagged if prev is None
+                                    else prev + n_flagged)
+    vol9_fixup.total_blocks += flags.numel()
+    if not _build.on_card(fields, "vol9_fixup"):
+        return _vol9_merge_plain(dual_outs, fields, maps, flags, grid, kind,
+                                 clamp_lo, clamp_hi)
+    return vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
+                       clamp_hi)
+
+
+def vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
+                clamp_hi):
+    """The ``vol9_fixup`` kernel launch alone, with the block flags of
+    ``vol9_flags`` given: overwrites the flagged nodes of `dual_outs` in
+    place and returns it."""
+    C = fields.shape[0]
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"vol9_fixup: need 1..{MAX_CHANNELS} channels, "
+                         f"got {C}")
+    _build.require(fields, "fields", shape=(C,) + grid.shape_of(kind))
+    _build.require(dual_outs, "dual_outs", shape=fields.shape)
+    _build.require(maps, "maps", shape=(3,) + grid.shape_c)
+    _, block, nb = vol9_blocks(grid.shape_c)
+    if tuple(flags.shape) != (C,) + nb:
+        raise ValueError(f"vol9_fixup: flags of shape {tuple(flags.shape)}, "
+                         f"expected {(C,) + nb}")
+    if not (dual_outs.device == maps.device == fields.device
+            == flags.device):
+        raise ValueError("vol9_fixup: tensors on different devices")
+    flags = flags.to(torch.uint8).contiguous()
+    lo, hi = clamp_bounds(grid, clamp_lo, clamp_hi)
+    params = (_F * 9)(*grid.off_of(kind), *lo, *hi)
+    fn = _build.function(
+        "vol9_fixup", "gfs_vol9_fixup",
+        [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _F,
+         ctypes.POINTER(_F), _P, _P])
+    with torch.cuda.device(fields.device):
+        err = fn(_build.ptr(maps), *grid.shape_c, _build.ptr(fields), C,
+                 *fields.shape[1:], _build.ptr(flags), *nb, *block,
+                 float(grid.h), params, _build.ptr(dual_outs),
+                 _build.stream(fields))
+    _build.check(err, "vol9_fixup")
+    vol9_fixup.launches += 1
+    return dual_outs
+
+
+vol9_fixup.launches = 0
+vol9_fixup.exact_blocks = {}     # device -> flagged block channels (tensor)
+vol9_fixup.total_blocks = 0
+
+
+def vol9_block_counts():
+    """(exact, total) block channels of every ``vol9_fixup`` call since
+    the last ``reset_vol9_block_counts``: the exact count is kept on each
+    device and read here (a host sync), never per step."""
+    return (sum(int(t) for t in vol9_fixup.exact_blocks.values()),
+            vol9_fixup.total_blocks)
+
+
+def reset_vol9_block_counts():
+    vol9_fixup.exact_blocks = {}
+    vol9_fixup.total_blocks = 0

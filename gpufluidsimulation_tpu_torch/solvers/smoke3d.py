@@ -3,17 +3,17 @@ reflection steps, moving obstacles.
 
 Counterpart of ``gpufluidsimulation_tpu.solvers.smoke3d``: schemes BIMOCQ
 (``reinit_mode`` 'always', 'counter' or 'adaptive', any ``blend_coeff``,
-the dual or, with ``EngineMode(volume_exact=True)``, the exact volume
-form), SEMILAG, MACCORMACK and MAC_REFLECTION; analytic sphere emitters;
-analytic sphere and box obstacles (``Boundary3D``) with the masked MG-PCG
-projection; the spectral projection or, with
+the four volume forms of the engine mode: dual by default, vol9 with
+``volume_vol9=True``, prefilter with ``volume_dual=False``, exact with
+``volume_exact=True``), SEMILAG, MACCORMACK and MAC_REFLECTION; analytic
+sphere emitters; analytic sphere and box obstacles (``Boundary3D``) with
+the masked MG-PCG projection; the spectral projection or, with
 ``EngineMode(spectral_poisson=False)``, MG-PCG. Under BIMOCQ with
 always/blend 1 the two-level (prev) tier, the scalar advector's maps and
 the accumulates are statically dead, so the state carries ``None`` for
 them, as the JAX package's dieted state does (``_aux_dead``). Voxel
 boundaries and emitters and emitter ``trans``/``emit_velocity`` raise
-``NotImplementedError`` (``check_supported``; ``convert`` refuses them
-and the vol9 volume form).
+``NotImplementedError`` (``check_supported``; ``convert`` refuses them).
 
 Host syncs per step: one to read max|vel| (the CFL substep count is
 decided on the host in float32, ops/advect.substeps); one for the
@@ -226,8 +226,9 @@ def _aux_dead(cfg: Smoke3DConfig) -> bool:
             and cfg.blend_coeff == 1.0)
 
 
-def _volume_exact(cfg: Smoke3DConfig) -> bool:
-    return cfg.engine_mode is not None and bool(cfg.engine_mode.volume_exact)
+def _volume_mode(cfg: Smoke3DConfig) -> str:
+    """The BiMocq volume form: 'exact', 'dual', 'vol9' or 'prefilter'."""
+    return "dual" if cfg.engine_mode is None else cfg.engine_mode.volume_mode
 
 
 def _uses_mgpcg(cfg: Smoke3DConfig) -> bool:
@@ -485,7 +486,7 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     pull-back through bwd_prev once a map has been reinitialized."""
     dt = cfg.dt
     always = cfg.reinit_mode == "always"
-    exact = _volume_exact(cfg)
+    mode = _volume_mode(cfg)
     maxvel = _max_velocity(s.u, s.v, s.w)
     cfldt = np.float32(np.float32(g.h) / maxvel)
 
@@ -518,15 +519,25 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
         live = cfg.blend_coeff != 1.0 and mapping.reinit_count != 0
         return cfg.blend_coeff if live else None
 
+    # vol9 map statistics: once per map this step, shared by every stage,
+    # kind and accumulate that samples through the map
+    smaps = vel_map if scalar_map.fwd is None else scalar_map
+    stats = {}
+    if mode == "vol9":
+        for m in (vel_map.bwd, vel_map.fwd, smaps.bwd, smaps.fwd):
+            if id(m) not in stats:
+                stats[id(m)] = mp.vol9_map_stats(g, m)
+
     def pull_back(kind, cur, init, prev, maps, b):
-        return mp.bimocq_advect_3d(g, kind, cur, init, prev, maps.bwd,
-                                   maps.bwd_prev, maps.fwd, b, exact=exact)
+        return mp.bimocq_advect_3d(
+            g, kind, cur, init, prev, maps.bwd, maps.bwd_prev, maps.fwd, b,
+            mode=mode, map_stats=(stats.get(id(maps.bwd)),
+                                  stats.get(id(maps.fwd))))
 
     blend_v = blend(vel_map)
     (u,) = pull_back("u", [s.u], [s.u_init], [s.u_prev], vel_map, blend_v)
     (v,) = pull_back("v", [s.v], [s.v_init], [s.v_prev], vel_map, blend_v)
     (w,) = pull_back("w", [s.w], [s.w_init], [s.w_prev], vel_map, blend_v)
-    smaps = vel_map if scalar_map.fwd is None else scalar_map
     rho, T = pull_back("c", [s.rho, s.T], [s.rho_init, s.T_init],
                        [s.rho_prev, s.T_prev], smaps, blend(scalar_map))
 
@@ -576,13 +587,15 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
         u_init, v_init, w_init = (
             mp.accumulate_multi_3d(g, kind, [(base, [(ext, 1.0),
                                                      (dp, proj_coeff)])],
-                                   vel_map.fwd, exact=exact)[0]
+                                   vel_map.fwd, mode=mode,
+                                   fwd_stats=stats.get(id(vel_map.fwd)))[0]
             for kind, base, ext, dp in (("u", u_init, du_ext, du_p),
                                         ("v", v_init, dv_ext, dv_p),
                                         ("w", w_init, dw_ext, dw_p)))
         rho_init, T_init = mp.accumulate_multi_3d(
             g, "c", [(rho_init, [(drho_ext, 1.0)]), (T_init, [(dT_ext, 1.0)])],
-            scalar_map.fwd, exact=exact)
+            scalar_map.fwd, mode=mode,
+            fwd_stats=stats.get(id(scalar_map.fwd)))
 
     u_prev, v_prev, w_prev = s.u_prev, s.v_prev, s.w_prev
     if always or vel_reinit:
@@ -593,7 +606,7 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
             u_prev, v_prev, w_prev = u_init, v_init, w_init
         u_init, v_init, w_init = (
             mp.accumulate_multi_3d(g, kind, [(f, [(dp, 1.0)])], vel_map.fwd,
-                                   identity=True, exact=exact)[0]
+                                   identity=True, mode=mode)[0]
             for kind, f, dp in (("u", u, du_p), ("v", v, dv_p),
                                 ("w", w, dw_p)))
     rho_prev, T_prev = s.rho_prev, s.T_prev

@@ -161,18 +161,25 @@ RUNS = {
 
 
 def _jax_run(name):
+    return _jax_states(*RUNS[name])
+
+
+def _jax_states(mode, reinit, blend, steps, dt, eager=False):
     """The JAX solver's states (and, under adaptive reinit, its distortions
-    before each step) for run `name`, as flat numpy arrays."""
-    mode, reinit, blend, steps, dt = RUNS[name]
+    before each step) for one run, as flat numpy arrays. The fast path
+    runs the jitted step (or, with `eager`, the step function outside jit,
+    its Pallas calls each jitted on its own); the exact path runs op by
+    op."""
     jsolver, jstate = _jax_solver(mode, reinit, blend, dt)
     jcfg = jsolver.cfg
     states = [_flatten(jstate)]
-    if mode.fast_interp:
+    if mode.fast_interp and not eager:
         for _ in range(steps):
             jstate = jsolver.step(jstate)      # donates its input
             states.append(_flatten(jstate))
     else:
-        with config.engine_mode_scope(jcfg.engine_mode), jax.disable_jit():
+        with config.engine_mode_scope(jcfg.engine_mode), (
+                jax.disable_jit(not mode.fast_interp)):
             for _ in range(steps):
                 jstate = jsmoke._step_bimocq(jcfg, jcfg.grid, jsolver.ctx,
                                              jstate)
@@ -209,9 +216,13 @@ def _port_distortions(cfg, st):
 
 
 def _compare_run(name, run, rel=1e-4):
+    return _compare_states(run, *RUNS[name], rel=rel, name=name)
+
+
+def _compare_states(run, mode, reinit, blend, steps, dt, rel=1e-4,
+                    name=""):
     """Step the port on the CPU from the JAX run's first state and hold
     every step against it; returns the port's config and the JAX states."""
-    mode, reinit, blend, steps, dt = RUNS[name]
     want = _unflatten(run)
     assert len(want) == steps + 1
     jcfg = _jax_solver(mode, reinit, blend, dt)[0].cfg
@@ -304,7 +315,9 @@ def test_full_state_round_trip_and_dieted_choice():
 
 def test_engine_mode_volume_form_across():
     """The JAX exact form (fast_interp=False, or volume_exact) maps to the
-    port's volume_exact; vol9 and the rbgs-off smoother are refused."""
+    port's volume_exact; the prefilter and vol9 forms are carried with the
+    JAX precedence (mapping._volume_mode); the rbgs-off smoother is
+    refused."""
     def port_mode(**kw):
         return convert._engine_mode(dataclasses.asdict(
             config.EngineMode(**kw)))
@@ -314,8 +327,20 @@ def test_engine_mode_volume_form_across():
     assert port_mode(fast_interp=True).volume_exact is None
     assert port_mode(fast_interp=False, rbgs=True,
                      volume_vol9=True).volume_exact is True
-    with pytest.raises(NotImplementedError, match="vol9"):
-        port_mode(fast_interp=True, volume_vol9=True)
+    for kw, form in ((dict(fast_interp=True), "dual"),
+                     (dict(fast_interp=True, volume_vol9=True), "vol9"),
+                     (dict(fast_interp=True, volume_dual=False), "prefilter"),
+                     (dict(fast_interp=True, volume_dual=False,
+                           volume_vol9=True), "prefilter"),
+                     (dict(fast_interp=True, interp_adaptive=False),
+                      "prefilter"),
+                     (dict(fast_interp=True, volume_exact=True,
+                           volume_vol9=True), "exact"),
+                     (dict(fast_interp=False, rbgs=True, volume_dual=False),
+                      "exact")):
+        with config.engine_mode_scope(config.EngineMode(**kw)):
+            assert jmp._volume_mode() == form, kw
+        assert port_mode(**kw).volume_mode == form, kw
     with pytest.raises(NotImplementedError, match="rbgs"):
         port_mode(fast_interp=False)
 
@@ -328,21 +353,32 @@ SHAPE = (16, 20, 24)
 H = 0.2 / SHAPE[0]
 
 
-def _maps(seed, amp=0.3):
-    jg = jgrids.Grid3D(*SHAPE, H)
+def _maps_at(shape, h, seed, amp=0.3):
+    """The identity map of a `shape` grid plus smooth displacements of
+    up to `amp` cells."""
+    jg = jgrids.Grid3D(*shape, h)
     ident = [np.asarray(p) for p in jg.node_coords("c")]
-    return np.stack([(p + _smooth(p.shape, seed + i, amp * H))
+    return np.stack([(p + _smooth(p.shape, seed + i, amp * h))
                      for i, p in enumerate(ident)]).astype(np.float32)
 
 
-def _fields(kind, n, seed):
-    shape = grids.Grid3D(*SHAPE, H).shape_of(kind)
+def _fields_at(shape, h, kind, n, seed):
+    """n smooth fields of `kind` (scales 1 and 50) with a raised box."""
+    shape = grids.Grid3D(*shape, h).shape_of(kind)
     out = []
     for c in range(n):
         f = _smooth(shape, seed + c, (1.0, 50.0)[c])
         f[4:9, 5:11, 6:13] += (1.0, 50.0)[c]
         out.append(f)
     return out
+
+
+def _maps(seed, amp=0.3):
+    return _maps_at(SHAPE, H, seed, amp)
+
+
+def _fields(kind, n, seed):
+    return _fields_at(SHAPE, H, kind, n, seed)
 
 
 @pytest.mark.parametrize("kind", ["c"])

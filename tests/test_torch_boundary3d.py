@@ -200,11 +200,16 @@ def test_obstacle_config_across_and_refusals(jax_obstacle_run):
                                           sdf_grid=np.zeros((4, 4, 4))),))
     with pytest.raises(NotImplementedError):
         convert.config_from_dict(voxel)
-    for field, value in (("rbgs", False), ("volume_dual", False),
-                         ("volume_vol9", True), ("interp_bf16", True)):
+    for field, value in (("rbgs", False), ("interp_bf16", True)):
         mode = dict(d["engine_mode"], **{field: value})
         with pytest.raises(NotImplementedError, match=field):
             convert.config_from_dict(dict(static, engine_mode=mode))
+    # the prefilter and vol9 volume forms are carried across
+    for field, value, form in (("volume_dual", False, "prefilter"),
+                               ("volume_vol9", True, "vol9")):
+        mode = dict(d["engine_mode"], **{field: value})
+        em = convert.config_from_dict(dict(static, engine_mode=mode)).engine_mode
+        assert getattr(em, field) is value and em.volume_mode == form
     # the exact volume form is carried across; a non-analytic emitter is
     # still refused
     exact = convert.config_from_dict(dict(static, engine_mode=dict(

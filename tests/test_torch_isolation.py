@@ -10,6 +10,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from gpufluidsimulation_tpu_torch.core.grids import Grid3D
 from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
 from gpufluidsimulation_tpu_torch.ops import stencil_kernels
 
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "gpufluidsimulation_tpu")
 WRAPPERS = (interp_fast.trilerp_sample, interp_fast.minmax_sample,
             interp_fast.rk3_substep,
             interp_fast.dmc_substep, stencil_kernels.jacobi_diffuse,
-            stencil_kernels.rbgs_smooth, stencil_kernels.masked_rbgs_smooth)
+            stencil_kernels.rbgs_smooth, stencil_kernels.masked_rbgs_smooth,
+            interp_fast.volume_prefilter, interp_fast.vol9_fixup)
 
 
 def _imports(path):
@@ -97,6 +99,14 @@ def test_wrappers_take_plain_path_on_cpu():
     flags = (torch.rand(u.shape) < 0.2).to(torch.uint8) * 2
     out = stencil_kernels.masked_rbgs_smooth(u, u, flags, 2, reverse=True)
     assert out.shape == u.shape
+    out = interp_fast.volume_prefilter(u[None])
+    assert out.shape == (1,) + u.shape
+    g = Grid3D(n, n, n, h)
+    maps = grid * h
+    out = interp_fast.vol9_fixup(
+        u[None], u[None], interp_fast.vol9_map_stats(maps, h, g.shape_c),
+        maps, g.node_coords("u"), g, "u", 0.0, 0.0, tol=0.0)
+    assert out.shape == (1,) + u.shape
     assert [fn.launches for fn in WRAPPERS] == before == [0] * len(WRAPPERS)
 
 
@@ -112,6 +122,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         stencil_kernels.masked_rbgs_smooth(None, p, p, 1)
     with pytest.raises(ValueError):
+        interp_fast.volume_prefilter(t)
+    with pytest.raises(ValueError):
         _build.require(torch.zeros(3), "x")
 
 
@@ -122,7 +134,8 @@ def test_build_flags_and_sources():
     assert not any("fast_math" in f for f in _build.NVCC_FLAGS)
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert set(_build.SOURCES) >= {"rbgs_smooth", "masked_rbgs_smooth",
-                                   "minmax_sample"}
+                                   "minmax_sample", "volume_prefilter",
+                                   "vol9_fixup"}
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
         _build.SOURCES)
     for name in _build.SOURCES:
