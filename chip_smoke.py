@@ -91,8 +91,11 @@ def bound_ms(nbytes, nops):
 
 
 # float32 operations per output element, counted from the kernels' source:
-# one clamped trilerp = 3 floor + 3 frac + 7 lerps x 4 (1-f, 2 mul, add)
-TRILERP_OPS = 34
+# one clamped trilerp = one weight set (3 floor + 3 frac) + 7 lerps x 4
+# (1-f, 2 mul, add); channels sampled at one position share the weights
+TRILERP_WEIGHTS = 6
+LERP_OPS = 4
+TRILERP_OPS = TRILERP_WEIGHTS + 7 * LERP_OPS
 # dual: 9 trilerps, 24 corner-coordinate adds, 7 corner adds, 4 blend ops
 DUAL_OPS = 9 * TRILERP_OPS + 24 + 7 + 4
 
@@ -421,7 +424,14 @@ def volume_phase(g, rng, dev, compare, positions):
     padded conv3d with the same 3x3x3 weights; ``vol9_fixup`` through a
     map displaced by up to ~2 cells, u (C=1, the error stage's clamp and
     band) and rho+T (C=2, the advect stage's), with every block flagged
-    (tol = 0) and at the default tol, against its plain version."""
+    (tol = 0) and at the default tol, against its plain version. The vol9
+    fields are a smooth patch per channel (u: x < n*3/8; rho: x >= n/2,
+    y < n/2; T: y >= n*5/8) over a faint short wave, so at the default
+    tol only the blocks near a patch are flagged, the two channels' flags
+    differ, and the unflagged nodes' dual values differ from the exact
+    composition by more than the comparison's tolerance: a kernel that
+    ignored the flags, mixed up the block index or read another channel's
+    flag would disagree with the plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -471,9 +481,32 @@ def volume_phase(g, rng, dev, compare, positions):
 
     maps = torch.stack(positions("c")).contiguous()
     stats = interp_fast.vol9_map_stats(maps, h, g.shape_c)
+
+    def vol9_field(shape, amp, xs, ys):
+        """A smooth field of size `amp` on the nodes of x range `xs` and y
+        range `ys`, over a background wave of 1/1000 of it, ~6 cells long,
+        where the decision falls below tol but the dual form still differs
+        from the exact composition."""
+        f = smooth(shape, rng, amp, dev)
+        mask = torch.zeros_like(f, dtype=torch.bool)
+        mask[xs, ys] = True
+        idx = torch.meshgrid(*[torch.arange(m, device=dev, dtype=torch.float32)
+                               for m in shape], indexing="ij")
+        k = rng.uniform(0.8, 1.2, 3)
+        wave = torch.sin(sum(float(kk) * ii for kk, ii in zip(k, idx))
+                         + float(rng.uniform(0, 2 * np.pi)))
+        return torch.where(mask, f, 0.0) + (amp / 1000) * wave
+
+    n0, n1 = g.shape_c[:2]
+    vu = vol9_field(g.shape_u, 1.0, slice(0, 3 * n0 // 8),
+                    slice(None))[None].contiguous()
+    vc = torch.stack([
+        vol9_field(g.shape_c, 1.0, slice(n0 // 2, None), slice(0, n1 // 2)),
+        vol9_field(g.shape_c, 50.0, slice(None),
+                   slice(5 * n1 // 8, None))]).contiguous()
     variants = []
-    for label, f, kind, clamp, band_lo in (("C=1 u", fu, "u", 0.0, 1),
-                                           ("C=2 c", fc, "c", 1.0, 2)):
+    for label, f, kind, clamp, band_lo in (("C=1 u", vu, "u", 0.0, 1),
+                                           ("C=2 c", vc, "c", 1.0, 2)):
         dim = g.dim_of(kind)
         band = (band_lo + dim[0], band_lo + dim[1], band_lo + dim[2],
                 band_lo + 1)
@@ -502,21 +535,44 @@ def volume_phase(g, rng, dev, compare, positions):
             p_ms = cuda_time(lambda: interp_fast.vol9_fixup_plain(
                 duals, f, stats, maps, p1, g, kind, clamp, clamp, band=band,
                 tol=tol), 2, 1)
-            # the work of this run's flags: per node of a block flagged
-            # for any channel the 9 mapped positions (maps read once, 27
-            # map trilerps), per flagged node and channel 9 field trilerps,
-            # the field read and the output read and written
+            # the work of this run's flags. Per node of a block flagged
+            # for any channel, at each of the 9 stencil points: the point
+            # (3 adds in units of h), the map's 3 channels sampled there
+            # (one weight set, 3 x 7 lerps), the clamp (6) and the field
+            # coordinates (3 scales, 3 offsets). Per flagged node and
+            # channel: 9 field trilerps, 7 corner adds, 3 for the blend.
+            # The flags and the flagged share of the map read once, each
+            # flagged node's field read and output written once (the
+            # in-place kernel reads no dual value)
             _, block, _ = interp_fast.vol9_blocks(g.shape_c)
             node_flags = interp_fast._expand_flags(flags, f.shape[1:], block)
             n_chan = int(node_flags.sum())
             n_any = int(node_flags.any(dim=0).sum())
             share = n_any / node_flags[0].numel()
             nbytes = (flags.numel() + 4 * share * maps.numel()
-                      + 4 * 3 * n_chan)
-            nops = (n_any * 9 * (3 * TRILERP_OPS + 3 + 8)
-                    + n_chan * (9 * TRILERP_OPS + 10))
+                      + 4 * 2 * n_chan)
+            point_ops = 3 + TRILERP_WEIGHTS + 3 * 7 * LERP_OPS + 6 + 6
+            nops = (n_any * 9 * point_ops
+                    + n_chan * (9 * TRILERP_OPS + 7 + 3))
             b_ms, b_by = bound_ms(nbytes, nops)
             flagged = float(flags.float().mean())
+            if tol == 0.0:
+                exact = want
+            else:
+                # the default tol must leave blocks unflagged where the
+                # exact composition differs from the dual value, and the
+                # channels' flags must differ, or the flags go untested
+                miss = float((exact - duals).abs()[~node_flags].max())
+                log(f"[kernels] vol9_fixup {name}: a kernel that ignored the "
+                    f"flags would be off by {miss:.3e} (tol "
+                    f"{1e-6 * scale:.1e})")
+                if not 0.0 < flagged < 1.0 or not miss > 10e-6 * scale:
+                    raise AssertionError(
+                        f"vol9_fixup {name}: the flags go untested: flagged "
+                        f"share {flagged}, unflagged nodes off by {miss}")
+                if len(f) > 1 and torch.equal(flags[0], flags[1]):
+                    raise AssertionError(f"vol9_fixup {name}: the channels' "
+                                         "flags are equal")
             variants.append(dict(variant=name, max_abs_err=err,
                                  tol=1e-6 * scale, ms=k_ms, call_ms=call_ms,
                                  plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
@@ -908,7 +964,7 @@ def main():
         return 2
     try:
         from gpufluidsimulation_tpu_torch.config import EngineMode
-        from gpufluidsimulation_tpu_torch.ops import _build
+        from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
         from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
@@ -940,9 +996,16 @@ def main():
     parity_phase(bench_config(32, engine_mode=EngineMode(volume_exact=True),
                               **small_gaps),
                  "bimocq adaptive blend 0.5 exact volume")
+    interp_fast.reset_vol9_block_counts()
     parity_phase(bench_config(32, engine_mode=EngineMode(volume_vol9=True),
                               **small_gaps),
                  "bimocq adaptive blend 0.5 vol9 volume")
+    # both runs take the same steps, so each made half of the fixups
+    per_run = interp_fast.vol9_fixup.total_blocks // 2
+    exact = {dev: int(n)
+             for dev, n in interp_fast.vol9_fixup.exact_blocks.items()}
+    log(f"[parity] vol9 32^3: block channels flagged, by device, {exact} "
+        f"of {per_run} in each run")
     parity_phase(bench_config(32, engine_mode=EngineMode(volume_dual=False),
                               **small_gaps),
                  "bimocq adaptive blend 0.5 prefilter volume")

@@ -167,13 +167,6 @@ def _sample_fields_at(grid, kind, fields, positions, dual=False):
     return [out[i] for i in range(src.shape[0])]
 
 
-def vol9_map_stats(grid, maps):
-    """``interp_fast.vol9_map_stats`` of one (3, ni, nj, nk) map: computed
-    once per map and step and passed to every vol9 stage and accumulate
-    that samples through the map."""
-    return interp_fast.vol9_map_stats(maps, grid.h, grid.shape_c)
-
-
 def _vol9_sample(grid, kind, fields, map_stats, maps, clamp_lo, clamp_hi,
                  band_lo, band_hi):
     """One vol9 stage over N same-shape fields: the dual ``trilerp_sample``
@@ -282,10 +275,10 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
     of bwd_prev at the advect positions and one sample of the prev fields
     there. Per stage, "dual" is one ``trilerp_sample`` launch in dual
     mode; "vol9" that launch and ``vol9_fixup`` (`map_stats`: the
-    ``vol9_map_stats`` of bwd and of fwd, or None to compute them here),
-    the blend stage staying dual; "prefilter" one ``volume_prefilter``
-    call of the stage's sources and a plain trilinear launch. "exact"
-    delegates to the single-field ops."""
+    ``interp_fast.vol9_map_stats`` of bwd and of fwd, computed once per
+    map and step by the caller), the blend stage staying dual;
+    "prefilter" one ``volume_prefilter`` call of the stage's sources and
+    a plain trilinear launch. "exact" delegates to the single-field ops."""
     if mode not in VOLUME_MODES:
         raise ValueError(f"bimocq_advect_3d: unknown volume mode {mode!r}")
     if blend_coeff is not None and (bwd_prev is None
@@ -307,7 +300,7 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
                               fields_cur[0].device)
     dual = mode != "prefilter"
     if mode == "vol9" and map_stats is None:
-        map_stats = (vol9_map_stats(grid, bwd), vol9_map_stats(grid, fwd))
+        raise ValueError("bimocq_advect_3d: vol9 needs the map statistics")
 
     def sample(fields, positions):
         src = fields if dual else interp_fast.volume_prefilter(
@@ -357,10 +350,10 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
     is linear). With ``identity=True`` (the map is the identity) the
     deltas are the prefiltered sums, one ``volume_prefilter`` call for
     all groups. Otherwise "vol9" runs the sums through one vol9 stage at
-    the forward map's lattice values (`fwd_stats`: ``vol9_map_stats`` of
-    fwd, or None to compute it here), and "dual" and "prefilter" sample
-    the prefiltered sums with plain trilinear there (one launch for all
-    groups). "exact" applies ``accumulate_3d`` change by change and
+    the forward map's lattice values (`fwd_stats`:
+    ``interp_fast.vol9_map_stats`` of fwd), and "dual" and "prefilter"
+    sample the prefiltered sums with plain trilinear there (one launch
+    for all groups). "exact" applies ``accumulate_3d`` change by change and
     ignores `identity`, as the JAX package's exact path does."""
     if mode == "exact":
         outs = []
@@ -384,7 +377,8 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
         deltas = interp_fast.volume_prefilter(torch.stack(combined))
     elif mode == "vol9":
         if fwd_stats is None:
-            fwd_stats = vol9_map_stats(grid, fwd)
+            raise ValueError("accumulate_multi_3d: vol9 needs the map "
+                             "statistics")
         deltas = _vol9_sample(grid, kind, combined, fwd_stats, fwd, 0.0, 0.0,
                               1, 2)
     else:

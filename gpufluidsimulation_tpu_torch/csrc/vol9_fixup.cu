@@ -17,14 +17,15 @@
 // -fmad=false. Unflagged nodes and channels keep their dual value.
 //
 // What bounds it on the H100: at tol = 0 (every block flagged) the
-// operations, 9 x (3 + C) clamped trilinear samples per node (~20 GFLOP
-// at 257x256x256, C=1, ~0.3 ms at 67 TFLOP/s) against ~0.4 GB of map,
-// field and output traffic (~0.12 ms). The TPU kernel fetched a ring-1
-// map window and a union-origin field window per flagged block, with
-// branch codes for windows that do not fit; here there is no window to
-// fit: one thread per output node, k fastest, gathers through L1/L2, an
-// unflagged block's threads return after reading the flags, and nothing
-// is compacted or synchronised with the host.
+// operations, per node 9 map samples (3 channels sharing one weight set)
+// and 9 x C field samples (~21 GFLOP at 257x256x256, C=1, ~0.32 ms at
+// 67 TFLOP/s) against ~0.34 GB of map and field reads and output writes
+// (~0.10 ms). The TPU kernel fetched a ring-1 map window and a
+// union-origin field window per flagged block, with branch codes for
+// windows that do not fit; here there is no window to fit: one thread per
+// output node, k fastest, gathers through L1/L2, an unflagged block's
+// threads return after reading the flags, and nothing is compacted or
+// synchronised with the host.
 #include "common.cuh"
 
 namespace {

@@ -44,7 +44,8 @@ import torch
 from gpufluidsimulation_tpu_torch import config
 from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D
-from gpufluidsimulation_tpu_torch.ops import advect, forces, poisson
+from gpufluidsimulation_tpu_torch.ops import (advect, forces, interp_fast,
+                                          poisson)
 from gpufluidsimulation_tpu_torch.ops.advect import substeps
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 
@@ -526,7 +527,8 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     if mode == "vol9":
         for m in (vel_map.bwd, vel_map.fwd, smaps.bwd, smaps.fwd):
             if id(m) not in stats:
-                stats[id(m)] = mp.vol9_map_stats(g, m)
+                stats[id(m)] = interp_fast.vol9_map_stats(m, g.h,
+                                                          g.shape_c)
 
     def pull_back(kind, cur, init, prev, maps, b):
         return mp.bimocq_advect_3d(

@@ -311,13 +311,15 @@ def test_vol9_bimocq_advect_matches_jax(tmp_path_factory, port_flags,
         monkeypatch.setattr(interp_fast, "VOL9_TOL", 0.0)
     tg = grids.Grid3D(*SHAPE, H)
     bwd, fwd = (torch.from_numpy(m) for m in _stage_maps())
+    stats = tuple(interp_fast.vol9_map_stats(m, tg.h, tg.shape_c)
+                  for m in (bwd, fwd))
     for kind in ADVECT_KINDS:
         C = 2 if kind == "c" else 1
         cur, init = _fields(kind, C, 2), _fields(kind, C, 3)
         got = mp.bimocq_advect_3d(
             tg, kind, list(torch.from_numpy(cur)),
             list(torch.from_numpy(init)), [None] * C, bwd, None, fwd, None,
-            mode="vol9")
+            mode="vol9", map_stats=stats)
         for c in range(C):
             scale = float(np.abs(init[c]).max())
             np.testing.assert_allclose(got[c].numpy(), want[f"{kind}_{c}"],
