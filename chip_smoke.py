@@ -10,7 +10,7 @@
                                      # phase-7 paths to that file
 
 Phases, each of which fails loudly (non-zero exit, no result line):
- 1. print the card's name and power limit; build the nine CUDA kernels
+ 1. print the card's name and power limit; build the ten CUDA kernels
     from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once;
  2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers), hold
     each kernel against its plain PyTorch version on the same inputs and
@@ -19,8 +19,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     versions): 3 steps at 32^3 from one numpy state of the vortex step,
     the moving-obstacle step, MAC_REFLECTION on the vortex scene,
     MACCORMACK on the obstacle scene, BiMocq with adaptive reinit and
-    blend 0.5 in the dual, exact, vol9 and prefilter volume forms; one
-    MG-PCG solve;
+    blend 0.5 in the dual, exact, vol9 and prefilter volume forms; the
+    fused multi-kind pull-back (bimocq_advect_multi_3d) of the velocity
+    triplet and of rho+T; one MG-PCG solve;
  4. the main path: the 3D BiMocq vortex-collision step as bench.py builds
     it (n^3, dt = 8/n, two recentred emitters), 1 warm-up step and
     `--steps` timed steps, every kernel's launch count reset before and
@@ -35,7 +36,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     `bimocq_adaptive` (adaptive reinit, blend 1), `bimocq_vol9` (the
     same in the vol9 volume form, with the share of flagged block
     channels) and `bimocq_prefilter` (the main path in the prefilter
-    volume form), 1 warm-up and `--scheme-steps` timed steps each.
+    volume form), 1 warm-up and `--scheme-steps` timed steps each;
+ 8. `pullback_multi`: the parked fused multi-kind pull-back at the
+    `--scheme-n` width, on a stepped state whose maps and prev tier are
+    live, launches counted, against and timed beside the per-kind
+    prefilter path.
 Then it prints one JSON line with every kernel's numbers and, last, the
 device line. It never imports JAX or the JAX package.
 """
@@ -321,6 +326,7 @@ def kernel_phase(n, seed):
         f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
     results.update(smoother_phase(n, rng, dev, compare))
     results.update(volume_phase(g, rng, dev, compare, positions))
+    results.update(pullback_phase(g, rng, dev, compare))
     return results
 
 
@@ -589,6 +595,120 @@ def volume_phase(g, rng, dev, compare, positions):
     return results
 
 
+def pullback_fields(g, kinds, rng, device):
+    """One smooth field per kind: velocity components of size 0.06, or
+    rho and T (sizes 1 and 50) for the cell kind."""
+    return [smooth(g.shape_of(k), rng, (1.0, 50.0)[i] if k == "c" else 0.06,
+                   device).contiguous() for i, k in enumerate(kinds)]
+
+
+def wobbled_map(g, rng, amp_cells, device):
+    """The identity map plus a smooth displacement of up to `amp_cells`."""
+    import torch
+
+    return torch.stack([p + smooth(g.shape_c, rng, amp_cells * g.h, device)
+                        for p in g.node_coords("c", device=device)]
+                       ).contiguous()
+
+
+# the fused pull-back's kind sets: the velocity triplet and rho+T
+PULLBACK_KINDS = (("u", "v", "w"), ("c", "c"))
+
+
+def pullback_phase(g, rng, dev, compare):
+    """Phase 2, the fused multi-kind pull-back at the n^3 path's shapes:
+    the velocity triplet (C=3) and rho+T (C=2), clamps (1, 1) and (0, 0),
+    through a map displaced by a smooth wobble of up to 3 cells, so that
+    some nodes near the faces are clipped and most are not; against its
+    plain version, to the bit. No one PyTorch call computes the function
+    (the map at each kind's lattice, the clip and the sample of fields of
+    several shapes), so its library time is null; as a yardstick for the
+    sampling part alone, grid_sample (border, align_corners) of the same
+    fields at the positions the kernel samples is timed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    h, n3 = g.h, g.shape_c
+    maps = wobbled_map(g, rng, 3.0, dev)
+    variants = []
+    for kinds in PULLBACK_KINDS:
+        fields = pullback_fields(g, kinds, rng, dev)
+        dims = [g.dim_of(k) for k in kinds]
+        for clamp in (1.0, 0.0):
+            label = f"{''.join(kinds)} clamp ({clamp:g}, {clamp:g})"
+            args = (maps, fields, dims, h, n3, clamp, clamp)
+            got = interp_fast.pullback_sample(*args)
+            want = interp_fast.pullback_sample_plain(*args)
+            err = compare(f"pullback_sample {label}", got, want, 0.0)
+            # the positions each channel samples, and the share clipped
+            grids5, clipped = [], 0.0
+            for d in dims:
+                pos = interp_fast.pullback_positions(maps, d, h, n3,
+                                                     got.shape[1:])
+                hit = torch.zeros_like(pos[0], dtype=torch.bool)
+                gpos = []
+                for p, n, s in zip(pos, n3, d):
+                    hit |= (p < clamp) | (p > n - clamp)
+                    gpos.append(p.clamp(clamp, n - clamp) + 0.5 * s)
+                clipped += float(hit.float().mean()) / len(dims)
+                ext = [n + s for n, s in zip(n3, d)]
+                grids5.append(torch.stack([
+                    gpos[a] * (2.0 / (ext[a] - 1)) - 1.0 for a in (2, 1, 0)],
+                    dim=-1)[None])
+            if not 0.0 < clipped < 1.0:
+                raise AssertionError(f"pullback_sample {label}: clipped "
+                                     f"share {clipped}, the clip goes "
+                                     "untested")
+            # one grid_sample per distinct kind: (c, c) shares its positions
+            calls = []
+            for kind in dict.fromkeys(kinds):
+                idx = [i for i, k in enumerate(kinds) if k == kind]
+                src = torch.stack([fields[i] for i in idx])[None]
+                calls.append((idx, src, grids5[idx[0]]))
+
+            def yardstick():
+                return [F.grid_sample(src, grid5, mode="bilinear",
+                                      padding_mode="border",
+                                      align_corners=True)
+                        for _, src, grid5 in calls]
+
+            lib_err = max(float((r[0, q] - got[i]).abs().max())
+                          for (idx, _, _), r in zip(calls, yardstick())
+                          for q, i in enumerate(idx))
+            k_ms = cuda_time(lambda: interp_fast.pullback_sample(*args), 20)
+            p_ms = cuda_time(lambda: interp_fast.pullback_sample_plain(*args),
+                             3, 1)
+            y_ms = cuda_time(yardstick, 20)
+            # the map and each field read once, each output written once;
+            # per output and map channel a division and the clip (2), on a
+            # staggered kind one more division, the add and the halving,
+            # then the half-cell shift and one trilerp
+            n_out = got[0].numel()
+            nbytes = 4 * (maps.numel() + sum(f.numel() for f in fields)
+                          + got.numel())
+            nops = n_out * sum(9 + (10 if any(d) else 0) + TRILERP_OPS
+                               for d in dims)
+            b_ms, b_by = bound_ms(nbytes, nops)
+            variants.append(dict(
+                variant=label, max_abs_err=err, tol=0.0, ms=k_ms,
+                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                clipped_share=clipped, sampling_grid_sample_ms=y_ms,
+                sampling_grid_sample_max_abs_err=lib_err))
+            log(f"[kernels] pullback_sample {label}: {k_ms:.4f} ms (plain "
+                f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by}; grid_sample of the "
+                f"sampling part alone {y_ms:.4f} ms, max_abs_err {lib_err:.3e} "
+                f"against the kernel); {100 * clipped:.2f}% of the outputs "
+                "clipped")
+    results = {"pullback_sample": dict(
+        variants[0], variants=variants,
+        replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:2154 "
+                  "(_kernel_pullback, pallas_call :2291 in _pullback_padded; "
+                  "entry sample3_pullback :2344)"))}
+    return results
+
+
 def bench_config(n, scheme=None, **overrides):
     """The main-path configuration as bench.py builds it (scheme BiMocq
     unless `scheme` names another)."""
@@ -699,9 +819,48 @@ def mgpcg_parity_phase(n=32, seed=1):
         raise AssertionError("mgpcg: card and cpu disagree")
 
 
+def multi_parity_phase(n=32, seed=2, blend=0.5):
+    """Phase 3: ``bimocq_advect_multi_3d`` (the fused prefilter form) on
+    the card against the port on the CPU, the same numpy inputs, for the
+    velocity triplet and rho+T: within 1e-5 of each field's scale (the
+    kernels are their plain versions to the bit; what differs is the
+    rounding of the elementwise glue, if any)."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+
+    g = Grid3D(n, n, n, 0.2 / n)
+    rng = np.random.default_rng(seed)
+    for kinds in PULLBACK_KINDS:
+        cur, init, prev = (pullback_fields(g, kinds, rng, "cpu")
+                           for _ in range(3))
+        bwd, fwd, bwd_prev = (wobbled_map(g, rng, a, "cpu")
+                              for a in (1.5, 1.5, 0.75))
+        out = {}
+        for dev in ("cuda", "cpu"):
+            def on(fs):
+                return [f.to(dev) for f in fs]
+
+            out[dev] = mp.bimocq_advect_multi_3d(
+                g, kinds, on(cur), on(init), on(prev), bwd.to(dev),
+                bwd_prev.to(dev), fwd.to(dev), blend)
+        errs = []
+        for kind, a, b in zip(kinds, out["cuda"], out["cpu"]):
+            err = float((a.cpu() - b).abs().max())
+            scale = float(b.abs().max())
+            errs.append(err / scale)
+            if not err <= 1e-5 * scale:
+                raise AssertionError(f"multi parity {kind}: card vs cpu "
+                                     f"{err} of scale {scale}")
+        log(f"[parity] bimocq_advect_multi_3d {''.join(kinds)} {n}^3 blend "
+            f"{blend}: card vs cpu max abs err over scale {errs} (bound "
+            "1e-5)")
+
+
 KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
            "rbgs_smooth", "masked_rbgs_smooth", "minmax_sample",
-           "volume_prefilter", "vol9_fixup")
+           "volume_prefilter", "vol9_fixup", "pullback_sample")
 # the kernels of the main path
 MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 
@@ -903,6 +1062,119 @@ def scheme_phase(n, steps, profile):
     return by_path
 
 
+def pullback_multi_phase(n, reps):
+    """Phase 8, the parked fused pull-back at full width. The vortex path
+    built as the main path with counter reinit, blend 0.5 and the
+    prefilter volume form is stepped until both maps have been
+    reinitialized twice and the last step reinitialized neither, so that
+    bwd, fwd and bwd_prev are all off the identity and the prev tier is
+    live. On that state ``bimocq_advect_multi_3d`` runs for the velocity
+    triplet (velocity maps) and for rho+T (scalar maps), every launch
+    count reset before and read after; then the per-kind
+    ``bimocq_advect_3d(mode="prefilter")`` on the same inputs. The fused
+    call must equal, to the bit, the same function run one kind per call
+    (so mixing the kinds' shapes in one launch changes nothing), and the
+    per-kind form within 5e-5 of each field's scale, the JAX package's
+    tolerance for the same comparison (test_pullback_multi_matches_per_kind):
+    the fused form takes the map in grid units, averages and clips there,
+    the per-kind form in world units, so a sample position differs by an
+    ulp of up to 256 cells (3e-5 cells), which moves a sample across the
+    emitters' one-cell edges by ~1e-5 of the scale. Both are timed."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
+    from gpufluidsimulation_tpu_torch.config import EngineMode
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+
+    cfg = bench_config(n, reinit_mode="counter", blend_coeff=0.5,
+                       engine_mode=EngineMode(volume_dual=False))
+    solver = Smoke3D(cfg)
+    t0 = time.time()
+    state = solver.step(solver.init_state())
+    while not (state.vel_map.reinit_count >= 2
+               and state.scalar_map.reinit_count >= 2
+               and state.vel_last_reinit < state.frame - 1
+               and state.scalar_last_reinit < state.frame - 1):
+        if state.frame >= 100:
+            raise AssertionError("pullback_multi: no live prev tier")
+        state = solver.step(state)
+    torch.cuda.synchronize()
+    warm_s = time.time() - t0
+    g, blend = cfg.grid, cfg.blend_coeff
+    s = state
+    calls = {
+        "uvw": (("u", "v", "w"), [s.u, s.v, s.w], [s.u_init, s.v_init,
+                                                    s.w_init],
+                [s.u_prev, s.v_prev, s.w_prev], s.vel_map),
+        "rho+T": (("c", "c"), [s.rho, s.T], [s.rho_init, s.T_init],
+                  [s.rho_prev, s.T_prev], s.scalar_map)}
+    ident = mp.identity_map_3d(g, solver.device)
+    for name, (_, _, _, _, m) in calls.items():
+        off = [float((x - ident).abs().max()) / g.h
+               for x in (m.bwd, m.fwd, m.bwd_prev)]
+        log(f"[pullback_multi] {name} maps off the identity by up to (bwd, "
+            f"fwd, bwd_prev) {off} cells")
+        if not min(off) > 0.0:
+            raise AssertionError(f"pullback_multi {name}: a map is the "
+                                 "identity")
+
+    def multi(kinds, cur, init, prev, m):
+        return mp.bimocq_advect_multi_3d(g, kinds, cur, init, prev, m.bwd,
+                                         m.bwd_prev, m.fwd, blend)
+
+    def per_kind(kinds, cur, init, prev, m):
+        if kinds[0] == "c":
+            return mp.bimocq_advect_3d(g, "c", cur, init, prev, m.bwd,
+                                       m.bwd_prev, m.fwd, blend,
+                                       mode="prefilter")
+        return [mp.bimocq_advect_3d(g, k, [c], [i], [p], m.bwd, m.bwd_prev,
+                                    m.fwd, blend, mode="prefilter")[0]
+                for k, c, i, p in zip(kinds, cur, init, prev)]
+
+    fns = wrappers()
+    for fn in fns.values():
+        fn.launches = 0
+    got = {name: multi(*args) for name, args in calls.items()}
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in fns.items()}
+    missing = [k for k in ("pullback_sample", "volume_prefilter",
+                           "trilerp_sample") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"pullback_multi never launched {missing}")
+    res = dict(n=n, frame=state.frame, warmup_steps=state.frame,
+               warmup_s=warm_s, launches=launches)
+    failed = []
+    for name, (kinds, cur, init, prev, m) in calls.items():
+        args = (kinds, cur, init, prev, m)
+        want = per_kind(*args)
+        errs = []
+        for i, (kind, a, b) in enumerate(zip(kinds, got[name], want)):
+            (alone,) = multi((kind,), [cur[i]], [init[i]], [prev[i]], m)
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            errs.append(err / scale)
+            if not torch.equal(a, alone):
+                failed.append(f"{name} {kind}: differs from its kind alone")
+            if not (np.isfinite(err) and err <= 5e-5 * scale):
+                failed.append(f"{name} {kind}: fused vs per-kind {err} of "
+                              f"scale {scale}")
+        counts = {}
+        for label, fn in (("fused", multi), ("per_kind", per_kind)):
+            for w in fns.values():
+                w.launches = 0
+            fn(*args)
+            counts[label] = {k: w.launches for k, w in fns.items()
+                             if w.launches}
+        res[name] = dict(
+            fused_ms=cuda_time(lambda: multi(*args), reps, 1),
+            per_kind_ms=cuda_time(lambda: per_kind(*args), reps, 1),
+            max_abs_err_over_scale=errs, launches_per_call=counts)
+    log("[pullback_multi] " + json.dumps(res))
+    if failed:
+        raise AssertionError("pullback_multi: " + "; ".join(failed))
+    return launches
+
+
 def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
     """Device time by kernel name over `steps` steps, written to `path`,
     with the card's busy time per step (the sum over kernels) beside
@@ -1009,6 +1281,7 @@ def main():
     parity_phase(bench_config(32, engine_mode=EngineMode(volume_dual=False),
                               **small_gaps),
                  "bimocq adaptive blend 0.5 prefilter volume")
+    multi_parity_phase()
     mgpcg_parity_phase()
     by_path = {
         "main": main_phase(args.n, args.steps, args.profile),
@@ -1017,11 +1290,13 @@ def main():
         "mgpcg": mgpcg_phase(args.obstacle_n, args.obstacle_steps)}
     by_path.update(scheme_phase(args.scheme_n, args.scheme_steps,
                                 args.profile))
+    by_path["pullback_multi"] = pullback_multi_phase(args.scheme_n, 5)
     # each kernel's count comes from the path that was added for it
     path_of = dict.fromkeys(KERNELS, "main")
     path_of.update(masked_rbgs_smooth="obstacle", rbgs_smooth="mgpcg",
                    minmax_sample="reflection", vol9_fixup="bimocq_vol9",
-                   volume_prefilter="bimocq_prefilter")
+                   volume_prefilter="bimocq_prefilter",
+                   pullback_sample="pullback_multi")
 
     line = []
     for name in KERNELS:

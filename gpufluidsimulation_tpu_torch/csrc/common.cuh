@@ -19,6 +19,14 @@ __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
 }
 
+// Flat offset of node (i, j, k) of an (nx, ny, nz) k-fastest array, each
+// index clamped to the array.
+__device__ __forceinline__ int64_t clamped_offset(int i, int j, int k, int nx,
+                                                  int ny, int nz) {
+  return ((int64_t)clampi(i, 0, nx - 1) * ny + clampi(j, 0, ny - 1)) * nz +
+         clampi(k, 0, nz - 1);
+}
+
 // Trilinear sample of an (nx, ny, nz) k-fastest field at grid coordinates
 // (index units on the field's own lattice).
 __device__ __forceinline__ float trilerp_clamped(

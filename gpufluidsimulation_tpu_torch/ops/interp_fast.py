@@ -1,5 +1,6 @@
-"""Sampler, corner min/max, RK3-substep, DMC-substep, volume-prefilter and
-vol9-fixup kernels with their plain versions.
+"""Sampler, corner min/max, RK3-substep, DMC-substep, volume-prefilter,
+vol9-fixup and fused multi-kind pull-back kernels with their plain
+versions: every TPU kernel of the JAX module has its counterpart here.
 
 Counterpart of ``gpufluidsimulation_tpu.ops.interp_fast``. Each wrapper
 takes the plain PyTorch version for a CPU tensor and launches its CUDA
@@ -664,3 +665,105 @@ def vol9_block_counts():
 def reset_vol9_block_counts():
     vol9_fixup.exact_blocks = {}
     vol9_fixup.total_blocks = 0
+
+
+# ---------------------------------------------------------------------------
+# pullback_sample
+# ---------------------------------------------------------------------------
+
+
+def _pullback_extent(maps, fields, dims, grid_n):
+    """Check the arguments of the fused pull-back and return its output
+    extent: the JAX package's cell-lattice block grid (``vol9_blocks``,
+    multiples of 16 x 16 x 128) cut to the fields' largest extent. A
+    staggered kind's last face plane lies outside it wherever the block
+    grid ends at the cell count."""
+    C = len(fields)
+    if not 1 <= C <= MAX_CHANNELS or len(dims) != C:
+        raise ValueError(f"pullback_sample: need 1..{MAX_CHANNELS} fields "
+                         f"with one staggering each, got {C} and {len(dims)}")
+    grid_n = tuple(grid_n)
+    if tuple(maps.shape) != (3,) + grid_n:
+        raise ValueError(f"pullback_sample: maps of shape {tuple(maps.shape)}"
+                         f", expected {(3,) + grid_n}")
+    for c, (f, d) in enumerate(zip(fields, dims)):
+        if tuple(d) not in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1)):
+            raise ValueError(f"pullback_sample: dims[{c}] = {d} is not the "
+                             "staggering of a lattice kind")
+        want = tuple(n + s for n, s in zip(grid_n, d))
+        if tuple(f.shape) != want:
+            raise ValueError(f"pullback_sample: fields[{c}] of shape "
+                             f"{tuple(f.shape)}, expected {want}")
+        if f.device != maps.device:
+            raise ValueError(f"pullback_sample: fields[{c}] on {f.device}, "
+                             f"maps on {maps.device}")
+    padded, _, _ = vol9_blocks(grid_n)
+    return tuple(min(p, max(f.shape[ax] for f in fields))
+                 for ax, p in enumerate(padded))
+
+
+def pullback_positions(maps, d, h, grid_n, extent):
+    """The map in grid units (maps / h) at the nodes of staggering `d` over
+    `extent`, unclipped: averaged 0.5*(m[n-1] + m[n]) along each staggered
+    axis, map indices clamped to the map."""
+    g = interp.div_scalar(maps, h)
+    out = []
+    for ch in range(3):
+        m = _edge_pad_to(g[ch], extent)
+        for axis in range(3):
+            if d[axis]:
+                m = 0.5 * (_edge_shifts(m, axis)[0] + m)
+        out.append(m)
+    return out
+
+
+def pullback_sample_plain(maps, fields, dims, h, grid_n, clamp_lo, clamp_hi):
+    """Plain version: (C, *extent) samples, field c (of staggering
+    dims[c]) at the clipped map position of its node plus 0.5*dims[c]."""
+    extent = _pullback_extent(maps, fields, dims, grid_n)
+    outs = []
+    for f, d in zip(fields, dims):
+        pos = pullback_positions(maps, d, h, grid_n, extent)
+        outs.append(interp.trilerp_grid(f, *(
+            p.clamp(float(clamp_lo), float(n - clamp_hi)) + 0.5 * s
+            for p, n, s in zip(pos, grid_n, d))))
+    return torch.stack(outs)
+
+
+def pullback_sample(maps, fields, dims, h, grid_n, clamp_lo, clamp_hi):
+    """Pull C <= 4 fields of mixed lattice kinds back through one world
+    map (3, ni, nj, nk) in one launch: channel c is fields[c] (its kind's
+    shape, staggering dims[c]) sampled at its nodes' map positions, taken
+    in grid units, averaged along the staggered axis and clipped to
+    [clamp_lo, n - clamp_hi]. Returns (C, *extent) over the extent of
+    ``_pullback_extent``; callers cut each kind out."""
+    if not _build.on_card(maps, "pullback_sample"):
+        return pullback_sample_plain(maps, fields, dims, h, grid_n, clamp_lo,
+                                     clamp_hi)
+    extent = _pullback_extent(maps, fields, dims, grid_n)
+    _build.require(maps, "maps")
+    for c, f in enumerate(fields):
+        _build.require(f, f"fields[{c}]")
+    C = len(fields)
+    out = torch.empty((C,) + extent, dtype=torch.float32, device=maps.device)
+    ptrs = (_P * C)(*[f.data_ptr() for f in fields])
+    shapes = (_I * (3 * C))(*[n for f in fields for n in f.shape])
+    stag = (_I * C)(*[list(d).index(1) if any(d) else -1 for d in dims])
+    hi = (_F * 3)(*[float(n - clamp_hi) for n in grid_n])
+    fn = _build.function(
+        "pullback_sample", "gfs_pullback_sample",
+        [_P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I),
+         ctypes.POINTER(_I), _I, _I, _I, _I, _F, _F, ctypes.POINTER(_F), _P,
+         _P])
+    with torch.cuda.device(maps.device):
+        err = fn(_build.ptr(maps), *grid_n, ptrs, shapes, stag, C, *extent,
+                 float(h), float(clamp_lo), hi, _build.ptr(out),
+                 _build.stream(maps))
+    _build.check(err, "pullback_sample")
+    pullback_sample.launches += 1
+    return out
+
+
+pullback_sample.launches = 0
+# the JAX package's name for the fused pull-back
+sample3_pullback = pullback_sample

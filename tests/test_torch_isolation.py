@@ -21,7 +21,8 @@ WRAPPERS = (interp_fast.trilerp_sample, interp_fast.minmax_sample,
             interp_fast.rk3_substep,
             interp_fast.dmc_substep, stencil_kernels.jacobi_diffuse,
             stencil_kernels.rbgs_smooth, stencil_kernels.masked_rbgs_smooth,
-            interp_fast.volume_prefilter, interp_fast.vol9_fixup)
+            interp_fast.volume_prefilter, interp_fast.vol9_fixup,
+            interp_fast.pullback_sample)
 
 
 def _imports(path):
@@ -107,6 +108,10 @@ def test_wrappers_take_plain_path_on_cpu():
         u[None], u[None], interp_fast.vol9_map_stats(maps, h, g.shape_c),
         maps, g.node_coords("u"), g, "u", 0.0, 0.0, tol=0.0)
     assert out.shape == (1,) + u.shape
+    out = interp_fast.pullback_sample(
+        maps, [u, v, w, u[:-1]], [g.dim_of(k) for k in "uvwc"], h, g.shape_c,
+        1.0, 1.0)
+    assert out.shape == (4, n + 1, n + 1, n + 1)   # the block grid's extent
     assert [fn.launches for fn in WRAPPERS] == before == [0] * len(WRAPPERS)
 
 
@@ -124,6 +129,10 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         interp_fast.volume_prefilter(t)
     with pytest.raises(ValueError):
+        interp_fast.pullback_sample(torch.empty(3, 4, 4, 4, device="meta"),
+                                    [p], [(0, 0, 0)], 1.0, (4, 4, 4), 0.0,
+                                    0.0)
+    with pytest.raises(ValueError):
         _build.require(torch.zeros(3), "x")
 
 
@@ -135,7 +144,7 @@ def test_build_flags_and_sources():
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert set(_build.SOURCES) >= {"rbgs_smooth", "masked_rbgs_smooth",
                                    "minmax_sample", "volume_prefilter",
-                                   "vol9_fixup"}
+                                   "vol9_fixup", "pullback_sample"}
     assert sorted(p.stem for p in _build.CSRC.glob("*.cu")) == sorted(
         _build.SOURCES)
     for name in _build.SOURCES:
