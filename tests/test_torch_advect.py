@@ -32,6 +32,20 @@ FAST = config.EngineMode(fast_interp=True, interp_interpret=True)
 POS_ATOL = 2e-6
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The displacements' 1 - exp(-q) cancels for small q, so one ulp of
+    exp moves them by up to ~4e-4 cells. With several threads, a process's
+    first CPU torch.exp of a few thousand elements (split into chunks of
+    2048 across the threads) now and then rounds the chunks of the other
+    threads one ulp apart from every later call, after JAX has run in the
+    process; one thread computes every call alike."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _smooth(shape, seed, amp):
     rng = np.random.default_rng(seed)
     idx = np.meshgrid(*[np.arange(s, dtype=np.float64) for s in shape],
