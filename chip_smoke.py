@@ -11,10 +11,15 @@
 
 Phases, each of which fails loudly (non-zero exit, no result line):
  1. print the card's name and power limit; build the ten CUDA kernels
-    from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once;
- 2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers), hold
-    each kernel against its plain PyTorch version on the same inputs and
-    time both with CUDA events;
+    from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once, and
+    print each kernel's registers and spills (trilerp_sample must not
+    spill);
+ 2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers and
+    the Jacobi solve), hold each kernel against its plain PyTorch version
+    on the same inputs and time both with CUDA events; trilerp_sample and
+    jacobi_diffuse bit for bit, the sampler also at positions outside the
+    domain and on the quarter-cell lattice, the Jacobi solve at every
+    chunking of its sweeps into launches;
  3. parity on the card (kernels) against the port on the CPU (plain
     versions): 3 steps at 32^3 from one numpy state of the vortex step,
     the moving-obstacle step, MAC_REFLECTION on the vortex scene,
@@ -25,7 +30,8 @@ Phases, each of which fails loudly (non-zero exit, no result line):
  4. the main path: the 3D BiMocq vortex-collision step as bench.py builds
     it (n^3, dt = 8/n, two recentred emitters), 1 warm-up step and
     `--steps` timed steps, every kernel's launch count reset before and
-    read after, rho_max in (0, 10] and every field finite;
+    read after (12 trilerp_sample and 3 x ceil(20/s) jacobi_diffuse
+    launches a step), rho_max in (0, 10] and every field finite;
  5. the obstacle path: the moving-obstacle scene (buoyant plume, sweeping
     sphere, masked MG-PCG) at n^3 with dt = 1.6/n, warmed up until the
     plume passes CFL 1 (so that both map marches substep), then timed
@@ -51,6 +57,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -101,8 +108,34 @@ def bound_ms(nbytes, nops):
 TRILERP_WEIGHTS = 6
 LERP_OPS = 4
 TRILERP_OPS = TRILERP_WEIGHTS + 7 * LERP_OPS
-# dual: 9 trilerps, 24 corner-coordinate adds, 7 corner adds, 4 blend ops
-DUAL_OPS = 9 * TRILERP_OPS + 24 + 7 + 4
+
+
+def dual_ops(pos, h, offs):
+    """float32 operations the dual volume form needs on these positions
+    once weights and lerps are shared: per output the 3 divisions by h;
+    per distinct channel offset 3 subtractions and, per axis, the two
+    corner coordinates g -+ 1/4 and 3 x (floor, fraction, 1 - f); per
+    channel the distinct lerps, 3 operations each (2 products, a sum):
+    x lerps on the node pairs that the 8 corners and the centre touch,
+    2|J||K| + 4, with |J| and |K| (2 or 3) the y and z nodes that
+    g -+ 1/4 span at this position, y lerps 4|K| + 2, the 9 z lerps; then
+    the 7 corner sums and the 4 operations of the blend."""
+    import torch
+
+    x = [p / torch.full((), h, dtype=p.dtype, device=p.device) for p in pos]
+    n_out = pos[0].numel()
+    total = 3 * n_out
+    for off in dict.fromkeys(offs):
+        total += 36 * n_out
+
+        def span(g):
+            return 2 + (torch.floor(g + 0.25) != torch.floor(g - 0.25)).to(
+                torch.int64)
+
+        J, K = span(x[1] - off[1]), span(x[2] - off[2])
+        lerps = int((2 * J * K + 4 + 4 * K + 2 + 9).sum())
+        total += offs.count(off) * (3 * lerps + 11 * n_out)
+    return total
 
 
 def smooth(shape, rng, amp, device):
@@ -160,6 +193,39 @@ def kernel_phase(n, seed):
     pc = positions("c")
     fc = torch.stack([smooth(g.shape_c, rng, 1.0, dev),
                       smooth(g.shape_c, rng, 50.0, dev)]).contiguous()
+    def edge_positions(kind, how):
+        """`kind`'s lattice stretched to reach 3 cells outside the field
+        on every axis ("outside"), or (with h = 1/4, so that p / h is
+        exact) grid coordinates g on the quarter-cell lattice within 2
+        cells of each node, both g - 1/4 and g integral ("quarter")."""
+        if how == "outside":
+            return [(p * ((m + 6.0) / m) - 3.0 * h).contiguous()
+                    for p, m in zip(g.node_coords(kind, device=dev),
+                                    g.shape_of(kind))], h
+        off = g.off_of(kind)
+        lat = torch.meshgrid(*[torch.arange(m, dtype=torch.float32,
+                                            device=dev)
+                               for m in g.shape_of(kind)], indexing="ij")
+        gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+        return [(0.25 * (q + torch.randint(-8, 9, q.shape, device=dev,
+                                           generator=gen) / 4.0 + o))
+                .contiguous() for q, o in zip(lat, off)], 0.25
+
+    # the same functions at the domain's edges and on the floor lattice,
+    # compared only: positions up to 3 cells outside the field, and on
+    # quarter-cell values where the 3-node neighbourhood splits
+    edges = []
+    for label, fields, kind, dual in (("C=1 dual u", fu, "u", True),
+                                      ("C=2 dual c", fc, "c", True),
+                                      ("C=1 plain u", fu, "u", False)):
+        offs = (g.off_of(kind),) * fields.shape[0]
+        for how in ("outside", "quarter"):
+            pos, hh = edge_positions(kind, how)
+            got = interp_fast.trilerp_sample(fields, *pos, hh, offs, dual=dual)
+            want = interp_fast.trilerp_sample_plain(fields, *pos, hh, offs,
+                                                    dual)
+            edges.append(dict(variant=f"{label} {how}", max_abs_err=compare(
+                f"trilerp_sample {label} {how}", got, want, 0.0), tol=0.0))
     variants = []
     for label, fields, pos, off, dual in (
             ("C=1 dual u", fu, pu, g.OFF_U, True),
@@ -169,8 +235,8 @@ def kernel_phase(n, seed):
         offs = (off,) * C
         got = interp_fast.trilerp_sample(fields, *pos, h, offs, dual=dual)
         want = interp_fast.trilerp_sample_plain(fields, *pos, h, offs, dual)
-        # fp32, identical operation order: a few ulp of the largest value
-        tol = 1e-6 * max(1.0, float(want.abs().max()))
+        # same operations in the same order: bit for bit
+        tol = 0.0
         err = compare(f"trilerp_sample {label}", got, want, tol)
         k_ms = cuda_time(lambda: interp_fast.trilerp_sample(
             fields, *pos, h, offs, dual=dual), 20)
@@ -178,8 +244,10 @@ def kernel_phase(n, seed):
             fields, *pos, h, offs, dual), 3, warmup=1)
         n_out = pos[0].numel()
         nbytes = 4 * (fields.numel() + 3 * n_out + C * n_out)
-        nops = n_out * (6 + C * (DUAL_OPS if dual else TRILERP_OPS))
+        nops = (dual_ops(pos, h, offs) if dual
+                else n_out * (6 + C * TRILERP_OPS))
         b_ms, b_by = bound_ms(nbytes, nops)
+        ops_ms = nops / FP32_OPS_PER_S * 1e3
         lib_ms = None
         if C == 1 and not dual:
             # yardstick only: grid_sample computes the same clamped
@@ -200,12 +268,14 @@ def kernel_phase(n, seed):
                 align_corners=True), 20)
         variants.append(dict(variant=label, max_abs_err=err, tol=tol,
                              ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=lib_ms))
+                             bound_by=b_by, ops_bound_ms=ops_ms,
+                             library_ms=lib_ms))
         log(f"[kernels] trilerp_sample {label}: {k_ms:.4f} ms (plain "
-            f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by}, library {lib_ms})")
+            f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by}, operations alone "
+            f"{ops_ms:.4f}, library {lib_ms})")
     main = variants[0]
     results["trilerp_sample"] = dict(
-        main, variants=variants,
+        main, variants=variants + edges,
         replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:915 (_kernel, "
                   "pallas_call :995) and :1306 (_kernel_multi, pallas_call "
                   ":1421)"))
@@ -306,28 +376,59 @@ def kernel_phase(n, seed):
     log(f"[kernels] dmc_substep: {k_ms:.4f} ms (plain {p_ms:.3f}, bound "
         f"{b_ms:.4f} by {b_by})")
 
-    # jacobi_diffuse: the 20 sweeps of one velocity component's solve
-    coef = 1e-6 * (8.0 / n) / (h * h)
-    x = smooth(g.shape_u, rng, 0.06, dev)
-    got = stencil_kernels.jacobi_diffuse(x, x, 20, coef)
-    want = stencil_kernels.jacobi_diffuse_plain(x, x, 20, coef)
-    tol = 1e-6 * max(1.0, float(want.abs().max()))
-    err = compare("jacobi_diffuse (20 sweeps)", got, want, tol)
-    k_ms = cuda_time(lambda: stencil_kernels.jacobi_diffuse(x, x, 1, coef), 40)
-    p_ms = cuda_time(lambda: stencil_kernels.jacobi_diffuse_plain(
-        x, x, 1, coef), 5, 1)
-    b_ms, b_by = bound_ms(4 * 3 * x.numel(), x.numel() * 8)
-    results["jacobi_diffuse"] = dict(
-        max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
-        replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:200 "
-                  "(_jacobi_diffuse_kernel, pallas_call :264)"))
-    log(f"[kernels] jacobi_diffuse (one sweep): {k_ms:.4f} ms (plain "
-        f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
+    results["jacobi_diffuse"] = jacobi_phase(g, rng, dev, compare)
     results.update(smoother_phase(n, rng, dev, compare))
     results.update(volume_phase(g, rng, dev, compare, positions))
     results.update(pullback_phase(g, rng, dev, compare))
     return results
+
+
+def jacobi_phase(g, rng, dev, compare):
+    """Phase 2, the viscosity solve: s sweeps a launch against the plain
+    sweeps, bit for bit, at iters 1, s-1, s, s+1 and 20 on the u lattice
+    (b = x, as the solver calls it) and on an odd 100x200x200 field with
+    its own b and a larger coef; then the 20-sweep solve of one velocity
+    component timed at 2, 4 and 8 sweeps a launch, with the bound of the
+    solve (x and b read once, the result written once; 20 x 8 operations
+    a cell) and the one-sweep launch beside it."""
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+
+    n, h = g.ni, g.h
+    coef = 1e-6 * (8.0 / n) / (h * h)          # the main path's
+    s = sk.SWEEPS_PER_LAUNCH
+    x = smooth(g.shape_u, rng, 0.06, dev)
+    xo = smooth((100, 200, 200), rng, 1.0, dev)
+    bo = smooth((100, 200, 200), rng, 1.0, dev)
+    errs = []
+    for label, xi, bi, c in (("u", x, x, coef), ("100x200x200", xo, bo, 0.3)):
+        for iters in sorted({1, max(s - 1, 1), s, s + 1, 20}):
+            got = sk.jacobi_diffuse(xi, bi, iters, c)
+            want = sk.jacobi_diffuse_plain(xi, bi, iters, c)
+            errs.append(compare(f"jacobi_diffuse {label} iters={iters}", got,
+                                want, 0.0))
+    want = sk.jacobi_diffuse_plain(x, x, 20, coef)
+    p_ms = cuda_time(lambda: sk.jacobi_diffuse_plain(x, x, 20, coef), 3, 1)
+    b_ms, b_by = bound_ms(4 * 3 * x.numel(), 20 * 8 * x.numel())
+    variants = []
+    for per in (2, 4, 8):
+        err = compare(f"jacobi_diffuse u 20 sweeps, {per} a launch",
+                      sk.jacobi_launches(x, x, 20, coef, per), want, 0.0)
+        k_ms = cuda_time(lambda: sk.jacobi_launches(x, x, 20, coef, per), 10)
+        variants.append(dict(variant=f"20-sweep solve, {per} sweeps a launch",
+                             max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             launches_per_solve=len(sk.sweep_chunks(20, per))))
+        log(f"[kernels] jacobi_diffuse 20-sweep solve, {per} sweeps a launch: "
+            f"{k_ms:.4f} ms (plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by}), "
+            f"{k_ms / 20:.4f} ms a sweep")
+    one_ms = cuda_time(lambda: sk.jacobi_launches(x, x, 1, coef, 1), 40)
+    log(f"[kernels] jacobi_diffuse one sweep, one launch: {one_ms:.4f} ms")
+    main = next(v for v in variants if v["launches_per_solve"]
+                == len(sk.sweep_chunks(20)))
+    return dict(main, max_abs_err=max(errs + [main["max_abs_err"]]),
+                one_sweep_ms=one_ms, sweeps_per_launch=s, variants=variants,
+                replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:200 "
+                          "(_jacobi_diffuse_kernel, pallas_call :264)"))
 
 
 def smoother_phase(n, rng, dev, compare):
@@ -863,6 +964,8 @@ KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
            "volume_prefilter", "vol9_fixup", "pullback_sample")
 # the kernels of the main path
 MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
+# redesigned for Hopper after their first port (PERF.md, kernel table)
+REDESIGNED = ("trilerp_sample", "jacobi_diffuse")
 
 
 def wrappers():
@@ -942,10 +1045,21 @@ def main_phase(n, steps, profile):
     """Phase 4: the main path through the entry points, launches counted."""
     from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
 
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels
+
     solver = Smoke3D(bench_config(n))
     state, res = timed_steps(solver, steps, MAIN_KERNELS)
     if not 0.0 < res["rho_max"] <= 10.0:
         raise AssertionError(f"implausible rho_max={res['rho_max']}")
+    # 12 dual pull-back samples (3 stages x u, v, w, rho+T) and 3 viscosity
+    # solves of 20 sweeps, s sweeps a launch, per step
+    per_step = {k: res["launches"][k] / steps
+                for k in ("trilerp_sample", "jacobi_diffuse")}
+    want = {"trilerp_sample": 12,
+            "jacobi_diffuse": 3 * len(stencil_kernels.sweep_chunks(20))}
+    if per_step != want:
+        raise AssertionError(f"main path launches per step {per_step}, "
+                             f"expected {want}")
     log("[main] " + json.dumps(res))
     if profile:
         profile_steps(solver, state, profile, "main path", "w",
@@ -1252,8 +1366,15 @@ def main():
     log(f"[build] {len(logs)} libraries in {time.time() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line and name in REDESIGNED):
                 log(f"[build] {name}: {line.strip()}")
+    # the redesigned sampler holds its 27-node neighbourhood in registers
+    # with compile-time indices: it must not spill to local memory
+    spills = [line for line in logs["trilerp_sample"].splitlines()
+              if re.search(r"[1-9]\d* bytes spill", line)]
+    if spills:
+        raise AssertionError(f"trilerp_sample spills: {spills}")
 
     results = kernel_phase(args.kernel_n, args.seed)
     parity_phase(bench_config(32), "vortex")
@@ -1312,8 +1433,9 @@ def main():
                      tol=r["tol"], ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                      bound_by=r["bound_by"], library_ms=r["library_ms"])
-        if "variants" in r:
-            entry["variants"] = r["variants"]
+        for extra in ("variants", "one_sweep_ms", "sweeps_per_launch"):
+            if extra in r:
+                entry[extra] = r[extra]
         line.append(entry)
     log(json.dumps({"kernels": line}))
     log(smi)

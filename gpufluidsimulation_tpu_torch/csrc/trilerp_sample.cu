@@ -14,60 +14,222 @@
 // summed in that function's _VOL3 order.
 //
 // What bounds it on the H100: bytes. Each output reads 3 position floats
-// and writes C floats; the field is read once from device memory when
-// positions stay near their lattice site (neighbouring threads gather
-// neighbouring cells, and the reuse hits L1/L2). At 256^3 with C=1 that is
-// about 5 x 67 MB, ~0.1 ms at 3.35 TB/s. The TPU kernel's windowed DMA,
-// block origins and coverage renormalization existed to avoid scalar
-// gathers on the TPU; on Hopper the gathers go through the cache, so the
-// simple design is one thread per output node, k fastest so that a warp's
-// position loads and output stores are coalesced, and all C channels
-// sampled by the same thread so the position loads are shared.
+// and writes C floats, and the field is read once from device memory when
+// positions stay near their lattice site: about 5 x 67 MB at 256^3 with
+// C=1, ~0.1 ms at 3.35 TB/s. The first design evaluated the dual form as
+// 9 independent clamped trilerps: 72 gathers and 27 floor/fraction pairs
+// a channel, every address in int64, and ran at 8x that bound, held by
+// its loads and integer work rather than by device memory.
+//
+// The design here: one thread per output node, k fastest, so that the
+// position loads and output stores coalesce; the C channels share the
+// positions, and the per-axis weights while their offsets agree. Per
+// axis the 9 samples use only 3 coordinates (g - 1/4, g, g + 1/4), each
+// rounded as g + d in float32 exactly as before; their floors lie within
+// B = floor(g - 1/4) and B + 1 (the spread is 1/2 < 1), so the floors,
+// fractions and clamped node indices are taken once per axis (9 pairs, not
+// 27) and each channel loads its clamped 3 x 3 x 3 neighbourhood
+// clamp(B .. B+2) once: 27 loads, not 72. Clamping node by node yields the
+// values the plain version reads, since it clamps each corner index the
+// same way. The 8 corners of each sample are picked by selects on "this
+// coordinate's floor is B + 1" with compile-time register indices (no
+// dynamic indexing, so no local memory). Lerps that two samples share
+// (same x coordinate and the same two nodes) are computed once: the
+// x lerps for all 9 (j, k) node pairs of each x coordinate, the y lerps
+// per (x, y) coordinate pair, then one z lerp per sample. Every lerp sees
+// the operands of the plain version's x, then y, then z blend, the corners
+// are summed in _VOL3 order and blended as 0.5*(acc/8) + 0.5*centre, and
+// the library is built with -fmad=false: the result is bit-identical.
+// Indices are int32: the wrapper raises unless C*nx*ny*nz and C*n_out are
+// below 2^31 (every field up to 512^3 at C <= 4). The plain (dual=False)
+// path loads the 2 x 2 x 2 corners of the centre only.
+//
+// Measured (chip_smoke.py, H100, 256^3): the dual form is now held by
+// instruction throughput, ~700 instructions an output channel, not by
+// device memory: 0.40 ms at C=1 against its 0.10 ms bound (PERF.md,
+// row 1).
 #include "common.cuh"
 
 namespace {
 
 constexpr int kMaxC = 4;
+// A block samples a 32 x 2 x 2 box of the output lattice (k, j, i), so
+// that its warps gather overlapping rows of the field through one L1;
+// 128 threads a block: at the dual kernel's 72 registers, 7 blocks (28
+// warps) fit an SM, against 3 blocks (24 warps) of 256
+constexpr int kBlockK = 32, kBlockJ = 2, kBlockI = 2;
 
 struct Offsets {
   float o[kMaxC][3];
 };
 
-// _VOL3 corner order of gpufluidsimulation_tpu.bimocq.mapping
-__constant__ float kVol3[8][3] = {
-    {0.25f, 0.25f, 0.25f},  {0.25f, 0.25f, -0.25f},
-    {0.25f, -0.25f, 0.25f}, {0.25f, -0.25f, -0.25f},
-    {-0.25f, 0.25f, 0.25f}, {-0.25f, 0.25f, -0.25f},
-    {-0.25f, -0.25f, 0.25f}, {-0.25f, -0.25f, -0.25f}};
+// Channel c's offset on axis a, read at compile-time indices (a dynamic
+// index would copy the argument to local memory).
+__device__ __forceinline__ float offset(const Offsets& offs, int c, int a) {
+  float o = offs.o[0][a];
+#pragma unroll
+  for (int q = 1; q < kMaxC; ++q) o = c == q ? offs.o[q][a] : o;
+  return o;
+}
 
+// One axis of the dual stencil: the coordinates g - 1/4 (index 0), g (1)
+// and g + 1/4 (2); their fractions f; the offsets (index times stride) of
+// the clamped nodes B, B + 1, B + 2 with B = floor(g - 1/4); and whether
+// coordinate 1 or 2 takes its corners at (B+1, B+2) rather than (B, B+1).
+// Coordinate 0 always takes (B, B+1).
+struct Axis {
+  float f[3];
+  unsigned node[3];
+  bool up[3];
+};
+
+// The clamped node of an integral float coordinate, as an unsigned offset
+// (an unsigned 32-bit offset lets the loads add it to the field's base
+// address in the load itself). Clamping in float keeps huge or non-finite
+// coordinates at the edge node, as the plain version's integer clamp does.
+__device__ __forceinline__ unsigned clamp_node(float i, int n) {
+  return (unsigned)fminf(fmaxf(i, 0.0f), (float)(n - 1));
+}
+
+__device__ __forceinline__ Axis make_axis(float g, int n, int stride) {
+  Axis a;
+  const float c[3] = {g + (-0.25f), g, g + 0.25f};
+  const float base = floorf(c[0]);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float fl = floorf(c[q]);
+    a.f[q] = c[q] - fl;
+    a.up[q] = fl != base;
+    a.node[q] = clamp_node(base + (float)q, n) * (unsigned)stride;
+  }
+  return a;
+}
+
+// (1 - f) * lo + f * hi, the blend of the plain version (1 - f is not
+// kept per coordinate: recomputing it costs less than the registers)
+__device__ __forceinline__ float lerp(float f, float lo, float hi) {
+  return (1.0f - f) * lo + f * hi;
+}
+
+// The dual volume sample of one channel from its 27-node neighbourhood.
+__device__ __forceinline__ float dual_sample(const float* __restrict__ f,
+                                             const Axis& ax, const Axis& ay,
+                                             const Axis& az) {
+  // one z node at a time: its 9 (x, y) nodes, the x lerps of each y node
+  // for each x coordinate, then the y lerps of the (x, y) coordinate pairs
+  // the 9 samples use, (-,-) (-,+) (+,-) (+,+) and the centre's (0,0):
+  // pair p at x coordinate qx and y coordinate qy
+  float Y[5][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        v[a][b] = __ldg(f + (ax.node[a] + ay.node[b] + az.node[c]));
+    float X[3][3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const float lo = ax.up[q] ? v[1][b] : v[0][b];
+        const float hi = ax.up[q] ? v[2][b] : v[1][b];
+        X[q][b] = lerp(ax.f[q], lo, hi);
+      }
+#pragma unroll
+    for (int p = 0; p < 5; ++p) {
+      const int qx = p == 4 ? 1 : (p < 2 ? 0 : 2);
+      const int qy = p == 4 ? 1 : (p % 2 == 0 ? 0 : 2);
+      const float lo = ay.up[qy] ? X[qx][1] : X[qx][0];
+      const float hi = ay.up[qy] ? X[qx][2] : X[qx][1];
+      Y[p][c] = lerp(ay.f[qy], lo, hi);
+    }
+  }
+  // z lerp of one sample from its (x, y) pair and z coordinate
+  auto zl = [&](int p, int qz) {
+    const float lo = az.up[qz] ? Y[p][1] : Y[p][0];
+    const float hi = az.up[qz] ? Y[p][2] : Y[p][1];
+    return lerp(az.f[qz], lo, hi);
+  };
+  // _VOL3 order: (+,+,+) (+,+,-) (+,-,+) (+,-,-) (-,+,+) ... (-,-,-);
+  // pair index: (+,+) 3, (+,-) 2, (-,+) 1, (-,-) 0
+  float acc = zl(3, 2);
+  acc = acc + zl(3, 0);
+  acc = acc + zl(2, 2);
+  acc = acc + zl(2, 0);
+  acc = acc + zl(1, 2);
+  acc = acc + zl(1, 0);
+  acc = acc + zl(0, 2);
+  acc = acc + zl(0, 0);
+  const float center = zl(4, 1);
+  return 0.5f * (acc / 8.0f) + 0.5f * center;
+}
+
+// The clamped trilerp of gfs::trilerp_clamped with int32 offsets.
+__device__ __forceinline__ float trilerp32(const float* __restrict__ f,
+                                           int nx, int ny, int nz, float gx,
+                                           float gy, float gz) {
+  const float i0f = floorf(gx), j0f = floorf(gy), k0f = floorf(gz);
+  const float fx = gx - i0f, fy = gy - j0f, fz = gz - k0f;
+  const unsigned sx = ny * nz, sy = nz;
+  const unsigned ia = clamp_node(i0f, nx) * sx;
+  const unsigned ib = clamp_node(i0f + 1.0f, nx) * sx;
+  const unsigned ja = clamp_node(j0f, ny) * sy;
+  const unsigned jb = clamp_node(j0f + 1.0f, ny) * sy;
+  const unsigned ka = clamp_node(k0f, nz), kb = clamp_node(k0f + 1.0f, nz);
+  const float v000 = __ldg(f + (ia + ja + ka));
+  const float v100 = __ldg(f + (ib + ja + ka));
+  const float v010 = __ldg(f + (ia + jb + ka));
+  const float v110 = __ldg(f + (ib + jb + ka));
+  const float v001 = __ldg(f + (ia + ja + kb));
+  const float v101 = __ldg(f + (ib + ja + kb));
+  const float v011 = __ldg(f + (ia + jb + kb));
+  const float v111 = __ldg(f + (ib + jb + kb));
+  const float c00 = (1.0f - fx) * v000 + fx * v100;
+  const float c10 = (1.0f - fx) * v010 + fx * v110;
+  const float c01 = (1.0f - fx) * v001 + fx * v101;
+  const float c11 = (1.0f - fx) * v011 + fx * v111;
+  const float c0 = (1.0f - fy) * c00 + fy * c10;
+  const float c1 = (1.0f - fy) * c01 + fy * c11;
+  return (1.0f - fz) * c0 + fz * c1;
+}
+
+template <bool kDual>
 __global__ void trilerp_sample_kernel(
     const float* __restrict__ fields, int C, int nx, int ny, int nz,
     const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, int64_t n_out, float h, Offsets offs,
-    int dual, float* __restrict__ out) {
-  const int64_t field_size = (int64_t)nx * ny * nz;
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < n_out; idx += (int64_t)gridDim.x * blockDim.x) {
-    const float x = px[idx] / h, y = py[idx] / h, z = pz[idx] / h;
-    for (int c = 0; c < C; ++c) {
-      const float* f = fields + c * field_size;
-      const float gx = x - offs.o[c][0];
-      const float gy = y - offs.o[c][1];
-      const float gz = z - offs.o[c][2];
-      const float center = gfs::trilerp_clamped(f, nx, ny, nz, gx, gy, gz);
-      float res = center;
-      if (dual) {
-        float acc = gfs::trilerp_clamped(f, nx, ny, nz, gx + kVol3[0][0],
-                                         gy + kVol3[0][1], gz + kVol3[0][2]);
-        for (int q = 1; q < 8; ++q) {
-          acc = acc + gfs::trilerp_clamped(f, nx, ny, nz, gx + kVol3[q][0],
-                                           gy + kVol3[q][1],
-                                           gz + kVol3[q][2]);
-        }
-        res = 0.5f * (acc / 8.0f) + 0.5f * center;
+    const float* __restrict__ pz, int n_out, int d1, int d2, float h,
+    Offsets offs, float* __restrict__ out) {
+  // the output lattice is (n_out / (d1 d2), d1, d2), k = last index fastest
+  const int k = blockIdx.x * kBlockK + threadIdx.x;
+  const int j = blockIdx.y * kBlockJ + threadIdx.y;
+  const int i = blockIdx.z * kBlockI + threadIdx.z;
+  const int idx = (i * d1 + j) * d2 + k;
+  if (k >= d2 || j >= d1 || idx >= n_out) return;
+  const int field_size = nx * ny * nz;
+  const float x = __ldg(px + idx) / h, y = __ldg(py + idx) / h,
+              z = __ldg(pz + idx) / h;
+  Axis ax, ay, az;
+  for (int c = 0; c < C; ++c) {
+    const float* f = fields + c * field_size;
+    const float gx = x - offset(offs, c, 0);
+    const float gy = y - offset(offs, c, 1);
+    const float gz = z - offset(offs, c, 2);
+    float res;
+    if (kDual) {
+      if (c == 0 || offset(offs, c, 0) != offset(offs, c - 1, 0) ||
+          offset(offs, c, 1) != offset(offs, c - 1, 1) ||
+          offset(offs, c, 2) != offset(offs, c - 1, 2)) {
+        ax = make_axis(gx, nx, ny * nz);
+        ay = make_axis(gy, ny, nz);
+        az = make_axis(gz, nz, 1);
       }
-      out[c * n_out + idx] = res;
+      res = dual_sample(f, ax, ay, az);
+    } else {
+      res = trilerp32(f, nx, ny, nz, gx, gy, gz);
     }
+    out[c * n_out + idx] = res;
   }
 }
 
@@ -75,17 +237,31 @@ __global__ void trilerp_sample_kernel(
 
 extern "C" int gfs_trilerp_sample(const void* fields, int C, int nx, int ny,
                                   int nz, const void* px, const void* py,
-                                  const void* pz, long long n_out, float h,
-                                  const float* offs_host, int dual, void* out,
-                                  void* stream) {
-  if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
+                                  const void* pz, long long n_out, int d1,
+                                  int d2, float h, const float* offs_host,
+                                  int dual, void* out, void* stream) {
+  const long long limit = 1LL << 31;
+  if (C < 1 || C > kMaxC || n_out < 1 || d1 < 1 || d2 < 1 ||
+      n_out % ((long long)d1 * d2) != 0 ||
+      (long long)C * nx * ny * nz >= limit || (long long)C * n_out >= limit)
+    return (int)cudaErrorInvalidValue;
+  const long long d0 = n_out / ((long long)d1 * d2);
+  const dim3 block(kBlockK, kBlockJ, kBlockI);
+  const dim3 grid((d2 + kBlockK - 1) / kBlockK, (d1 + kBlockJ - 1) / kBlockJ,
+                  (unsigned int)((d0 + kBlockI - 1) / kBlockI));
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   Offsets offs;
   for (int c = 0; c < C; ++c)
     for (int a = 0; a < 3; ++a) offs.o[c][a] = offs_host[3 * c + a];
-  trilerp_sample_kernel<<<gfs::blocks_for(n_out), gfs::kThreads, 0,
-                          (cudaStream_t)stream>>>(
-      (const float*)fields, C, nx, ny, nz, (const float*)px,
-      (const float*)py, (const float*)pz, (int64_t)n_out, h, offs, dual,
-      (float*)out);
+  if (dual)
+    trilerp_sample_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)fields, C, nx, ny, nz, (const float*)px,
+        (const float*)py, (const float*)pz, (int)n_out, d1, d2, h, offs,
+        (float*)out);
+  else
+    trilerp_sample_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        (const float*)fields, C, nx, ny, nz, (const float*)px,
+        (const float*)py, (const float*)pz, (int)n_out, d1, d2, h, offs,
+        (float*)out);
   return (int)cudaGetLastError();
 }

@@ -92,17 +92,22 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False):
     if not _build.on_card(fields, "trilerp_sample"):
         return trilerp_sample_plain(fields, px, py, pz, h, offs, dual)
     C = _check_sample_args("trilerp_sample", fields, offs, px, py, pz)
+    if max(fields.numel(), C * px.numel()) >= 2 ** 31:
+        raise ValueError("trilerp_sample: int32 indexing needs fewer than "
+                         "2^31 field values and outputs")
     out = torch.empty((C,) + tuple(px.shape), dtype=torch.float32,
                       device=fields.device)
     offs_host = (_F * (3 * C))(*[float(o) for off in offs for o in off])
     fn = _build.function(
         "trilerp_sample", "gfs_trilerp_sample",
-        [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _F,
+        [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _F,
          ctypes.POINTER(_F), _I, _P, _P])
+    # the kernel tiles the output lattice by its last two extents
+    d1, d2 = ((1,) * 2 + tuple(px.shape))[-2:]
     with torch.cuda.device(fields.device):
         err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
-                 _build.ptr(py), _build.ptr(pz), px.numel(), float(h),
-                 offs_host, int(bool(dual)), _build.ptr(out),
+                 _build.ptr(py), _build.ptr(pz), px.numel(), d1, d2,
+                 float(h), offs_host, int(bool(dual)), _build.ptr(out),
                  _build.stream(fields))
     _build.check(err, "trilerp_sample")
     trilerp_sample.launches += 1

@@ -4,8 +4,9 @@ and the two red-black Gauss-Seidel smoothers of the multigrid V-cycles.
 Counterpart of ``gpufluidsimulation_tpu.ops.pallas_kernels``.
 
 ``jacobi_diffuse`` runs ``iters`` damped-Jacobi sweeps of
-(I + coef*L) x = b with the boundary ring held; on a CUDA tensor each sweep
-is one launch of ``csrc/jacobi_diffuse.cu`` into a ping-pong buffer.
+(I + coef*L) x = b with the boundary ring held; on a CUDA tensor the sweeps
+go in chunks of at most ``SWEEPS_PER_LAUNCH`` (``sweep_chunks``), each one
+launch of ``csrc/jacobi_diffuse.cu`` into a ping-pong buffer.
 
 ``rbgs_smooth`` and ``masked_rbgs_smooth`` run ``iters`` red+black
 Gauss-Seidel sweeps of L x = b (``ops.poisson.laplacian`` and
@@ -51,27 +52,52 @@ def jacobi_diffuse_plain(x, b, iters, coef):
     return x
 
 
+# sweeps per launch of the temporally blocked kernel, chosen by measurement
+# at 257x256x256 among 2, 4 and 8 (PERF.md, row 11)
+SWEEPS_PER_LAUNCH = 2
+
+
+def sweep_chunks(iters, per_launch=SWEEPS_PER_LAUNCH):
+    """The sweeps of each launch of an `iters`-sweep solve: full chunks of
+    `per_launch`, then the remainder as one shorter launch."""
+    full, rest = divmod(int(iters), int(per_launch))
+    return [int(per_launch)] * full + ([rest] if rest else [])
+
+
 def jacobi_diffuse(x, b, iters, coef):
     """`iters` damped-Jacobi sweeps for (I + coef*L) x = b, interior only."""
     if not _build.on_card(x, "jacobi_diffuse"):
         return jacobi_diffuse_plain(x, b, iters, coef)
+    return jacobi_launches(x, b, iters, coef, SWEEPS_PER_LAUNCH)
+
+
+def jacobi_launches(x, b, iters, coef, per_launch):
+    """The card's `iters` sweeps, `per_launch` (1..8) sweeps a launch."""
     _build.require(x, "x", ndim=3)
     _build.require(b, "b", shape=x.shape)
     if b.device != x.device:
         raise ValueError("jacobi_diffuse: x and b on different devices")
+    if not 1 <= int(per_launch) <= 8:
+        raise ValueError("jacobi_diffuse: 1 to 8 sweeps a launch")
+    if x.numel() >= 2 ** 31:
+        raise ValueError("jacobi_diffuse: int32 indexing needs fewer than "
+                         f"2^31 cells, got {x.numel()}")
     coef_f, denom_f = _coefs(coef)
+    if not 1.0 <= denom_f <= 2.0 ** 20:
+        raise ValueError("jacobi_diffuse: the kernel takes 0 <= coef with "
+                         f"1 + 6*coef <= 2^20, got coef {coef}")
     fn = _build.function(
         "jacobi_diffuse", "gfs_jacobi_diffuse",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-         ctypes.c_void_p])
+         ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+         ctypes.c_void_p, ctypes.c_void_p])
     bufs = [torch.empty_like(x), torch.empty_like(x)]
     src = x
     with torch.cuda.device(x.device):
-        for s in range(int(iters)):
-            dst = bufs[s % 2]
+        for n, sweeps in enumerate(sweep_chunks(iters, per_launch)):
+            dst = bufs[n % 2]
             err = fn(_build.ptr(src), _build.ptr(b), *x.shape, coef_f,
-                     denom_f, _build.ptr(dst), _build.stream(x))
+                     denom_f, sweeps, _build.ptr(dst), _build.stream(x))
             _build.check(err, "jacobi_diffuse")
             jacobi_diffuse.launches += 1
             src = dst
