@@ -18,8 +18,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     the Jacobi solve), hold each kernel against its plain PyTorch version
     on the same inputs and time both with CUDA events; trilerp_sample and
     jacobi_diffuse bit for bit, the sampler also at positions outside the
-    domain and on the quarter-cell lattice, the Jacobi solve at every
-    chunking of its sweeps into launches;
+    domain and on the quarter-cell lattice, the Jacobi solve at iters
+    around its sweeps a launch and its division over the accepted range
+    of denominators;
  3. parity on the card (kernels) against the port on the CPU (plain
     versions): 3 steps at 32^3 from one numpy state of the vortex step,
     the moving-obstacle step, MAC_REFLECTION on the vortex scene,
@@ -384,13 +385,15 @@ def kernel_phase(n, seed):
 
 
 def jacobi_phase(g, rng, dev, compare):
-    """Phase 2, the viscosity solve: s sweeps a launch against the plain
-    sweeps, bit for bit, at iters 1, s-1, s, s+1 and 20 on the u lattice
-    (b = x, as the solver calls it) and on an odd 100x200x200 field with
-    its own b and a larger coef; then the 20-sweep solve of one velocity
-    component timed at 2, 4 and 8 sweeps a launch, with the bound of the
-    solve (x and b read once, the result written once; 20 x 8 operations
-    a cell) and the one-sweep launch beside it."""
+    """Phase 2, the viscosity solve: the kernel against the plain sweeps,
+    bit for bit, at iters 1, s-1, s, s+1 and 20 on the u lattice (b = x,
+    as the solver calls it) and on an odd 100x200x200 field with its own b
+    and a larger coef; the division at 1 and s sweeps for denominators
+    log-spaced over the accepted range and numerators from 2^-140 to
+    2^110 (``division_sweep``); then the 20-sweep solve of one velocity
+    component timed with the bound of the solve (x and b read once, the
+    result written once; 20 x 8 operations a cell) and the one-sweep
+    launch beside it."""
     from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
 
     n, h = g.ni, g.h
@@ -406,29 +409,63 @@ def jacobi_phase(g, rng, dev, compare):
             want = sk.jacobi_diffuse_plain(xi, bi, iters, c)
             errs.append(compare(f"jacobi_diffuse {label} iters={iters}", got,
                                 want, 0.0))
-    want = sk.jacobi_diffuse_plain(x, x, 20, coef)
+    errs.append(division_sweep(rng, dev, s))
     p_ms = cuda_time(lambda: sk.jacobi_diffuse_plain(x, x, 20, coef), 3, 1)
     b_ms, b_by = bound_ms(4 * 3 * x.numel(), 20 * 8 * x.numel())
-    variants = []
-    for per in (2, 4, 8):
-        err = compare(f"jacobi_diffuse u 20 sweeps, {per} a launch",
-                      sk.jacobi_launches(x, x, 20, coef, per), want, 0.0)
-        k_ms = cuda_time(lambda: sk.jacobi_launches(x, x, 20, coef, per), 10)
-        variants.append(dict(variant=f"20-sweep solve, {per} sweeps a launch",
-                             max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                             launches_per_solve=len(sk.sweep_chunks(20, per))))
-        log(f"[kernels] jacobi_diffuse 20-sweep solve, {per} sweeps a launch: "
-            f"{k_ms:.4f} ms (plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by}), "
-            f"{k_ms / 20:.4f} ms a sweep")
-    one_ms = cuda_time(lambda: sk.jacobi_launches(x, x, 1, coef, 1), 40)
-    log(f"[kernels] jacobi_diffuse one sweep, one launch: {one_ms:.4f} ms")
-    main = next(v for v in variants if v["launches_per_solve"]
-                == len(sk.sweep_chunks(20)))
-    return dict(main, max_abs_err=max(errs + [main["max_abs_err"]]),
-                one_sweep_ms=one_ms, sweeps_per_launch=s, variants=variants,
+    k_ms = cuda_time(lambda: sk.jacobi_diffuse(x, x, 20, coef), 10)
+    one_ms = cuda_time(lambda: sk.jacobi_diffuse(x, x, 1, coef), 40)
+    log(f"[kernels] jacobi_diffuse 20-sweep solve, {s} sweeps a launch: "
+        f"{k_ms:.4f} ms (plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by}), "
+        f"{k_ms / 20:.4f} ms a sweep; one sweep, one launch: "
+        f"{one_ms:.4f} ms")
+    return dict(max_abs_err=max(errs), tol=0.0, ms=k_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                one_sweep_ms=one_ms, sweeps_per_launch=s,
                 replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:200 "
                           "(_jacobi_diffuse_kernel, pallas_call :264)"))
+
+
+def division_sweep(rng, dev, s):
+    """The Jacobi kernel's division against the plain sweeps' a / denom,
+    bit for bit: 255 coefs log-spaced so that denom = 1 + 6 coef spans
+    [1, 2^20], and coef 0, at 1 and `s` sweeps on a 20x24x36 field. b has
+    random signs and magnitudes 2^-140 .. 2^110, x magnitudes 2^-140 ..
+    2^90, a tenth of each zero, and x is zero on the lower half of k, so
+    that there the first sweep's numerators are b itself: normal and
+    subnormal numerators around both ends of the fast path's range
+    [2^-64, 2^100], divided by every denom. Returns the largest abs error
+    in float64."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+
+    def field(top):
+        shape = (20, 24, 36)
+        mag = np.exp2(rng.uniform(-140.0, top, shape))
+        v = (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+        v[rng.random(shape) < 0.1] = 0.0
+        return v
+
+    x, b = field(90.0), field(110.0)
+    x[:, :, :18] = 0.0
+    x, b = torch.from_numpy(x).to(dev), torch.from_numpy(b).to(dev)
+    coefs = [0.0] + list(np.geomspace(1e-7, (2.0 ** 20 - 1.0) / 6.0, 255))
+    worst, mismatched = 0.0, 0
+    for c in coefs:
+        for iters in sorted({1, s}):
+            got = sk.jacobi_diffuse(x, b, iters, float(c))
+            want = sk.jacobi_diffuse_plain(x, b, iters, float(c))
+            mismatched += int((got.view(torch.int32)
+                               != want.view(torch.int32)).sum())
+            worst = max(worst, float((got.double() - want.double())
+                                     .abs().max()))
+    log(f"[kernels] jacobi_diffuse division sweep: {len(coefs)} coefs, "
+        f"denom 1 .. 2^20, iters 1 and {s}: {mismatched} cells differ in "
+        f"their bits, max_abs_err={worst:.3e} tol=0.0e+00")
+    if mismatched or not np.isfinite(worst) or worst > 0.0:
+        raise AssertionError(f"jacobi_diffuse division sweep: {mismatched} "
+                             f"cells differ (max abs err {worst})")
+    return worst
 
 
 def smoother_phase(n, rng, dev, compare):

@@ -199,14 +199,15 @@ template <bool kDual>
 __global__ void trilerp_sample_kernel(
     const float* __restrict__ fields, int C, int nx, int ny, int nz,
     const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, int n_out, int d1, int d2, float h,
-    Offsets offs, float* __restrict__ out) {
-  // the output lattice is (n_out / (d1 d2), d1, d2), k = last index fastest
+    const float* __restrict__ pz, int n_out, int d0, int d1, int d2,
+    float h, Offsets offs, float* __restrict__ out) {
+  // the output lattice is (d0, d1, d2), k = last index fastest; the bounds
+  // are checked before the offset is formed, so it stays below n_out
   const int k = blockIdx.x * kBlockK + threadIdx.x;
   const int j = blockIdx.y * kBlockJ + threadIdx.y;
   const int i = blockIdx.z * kBlockI + threadIdx.z;
+  if (k >= d2 || j >= d1 || i >= d0) return;
   const int idx = (i * d1 + j) * d2 + k;
-  if (k >= d2 || j >= d1 || idx >= n_out) return;
   const int field_size = nx * ny * nz;
   const float x = __ldg(px + idx) / h, y = __ldg(py + idx) / h,
               z = __ldg(pz + idx) / h;
@@ -256,12 +257,12 @@ extern "C" int gfs_trilerp_sample(const void* fields, int C, int nx, int ny,
   if (dual)
     trilerp_sample_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
         (const float*)fields, C, nx, ny, nz, (const float*)px,
-        (const float*)py, (const float*)pz, (int)n_out, d1, d2, h, offs,
-        (float*)out);
+        (const float*)py, (const float*)pz, (int)n_out, (int)d0, d1, d2, h,
+        offs, (float*)out);
   else
     trilerp_sample_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
         (const float*)fields, C, nx, ny, nz, (const float*)px,
-        (const float*)py, (const float*)pz, (int)n_out, d1, d2, h, offs,
-        (float*)out);
+        (const float*)py, (const float*)pz, (int)n_out, (int)d0, d1, d2, h,
+        offs, (float*)out);
   return (int)cudaGetLastError();
 }

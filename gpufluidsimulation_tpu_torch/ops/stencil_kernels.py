@@ -5,8 +5,9 @@ Counterpart of ``gpufluidsimulation_tpu.ops.pallas_kernels``.
 
 ``jacobi_diffuse`` runs ``iters`` damped-Jacobi sweeps of
 (I + coef*L) x = b with the boundary ring held; on a CUDA tensor the sweeps
-go in chunks of at most ``SWEEPS_PER_LAUNCH`` (``sweep_chunks``), each one
-launch of ``csrc/jacobi_diffuse.cu`` into a ping-pong buffer.
+go in launches of ``SWEEPS_PER_LAUNCH`` and one of the remainder
+(``sweep_chunks``), each of ``csrc/jacobi_diffuse.cu`` into a ping-pong
+buffer.
 
 ``rbgs_smooth`` and ``masked_rbgs_smooth`` run ``iters`` red+black
 Gauss-Seidel sweeps of L x = b (``ops.poisson.laplacian`` and
@@ -52,8 +53,9 @@ def jacobi_diffuse_plain(x, b, iters, coef):
     return x
 
 
-# sweeps per launch of the temporally blocked kernel, chosen by measurement
-# at 257x256x256 among 2, 4 and 8 (PERF.md, row 11)
+# sweeps per launch of the temporally blocked kernel (kSweeps in
+# csrc/jacobi_diffuse.cu, which builds only this count and 1), chosen by
+# measurement at 257x256x256 among 2, 4 and 8 (PERF.md, row 11)
 SWEEPS_PER_LAUNCH = 2
 
 
@@ -65,20 +67,14 @@ def sweep_chunks(iters, per_launch=SWEEPS_PER_LAUNCH):
 
 
 def jacobi_diffuse(x, b, iters, coef):
-    """`iters` damped-Jacobi sweeps for (I + coef*L) x = b, interior only."""
+    """`iters` damped-Jacobi sweeps for (I + coef*L) x = b, interior only;
+    on the card ``SWEEPS_PER_LAUNCH`` sweeps a launch (``sweep_chunks``)."""
     if not _build.on_card(x, "jacobi_diffuse"):
         return jacobi_diffuse_plain(x, b, iters, coef)
-    return jacobi_launches(x, b, iters, coef, SWEEPS_PER_LAUNCH)
-
-
-def jacobi_launches(x, b, iters, coef, per_launch):
-    """The card's `iters` sweeps, `per_launch` (1..8) sweeps a launch."""
     _build.require(x, "x", ndim=3)
     _build.require(b, "b", shape=x.shape)
     if b.device != x.device:
         raise ValueError("jacobi_diffuse: x and b on different devices")
-    if not 1 <= int(per_launch) <= 8:
-        raise ValueError("jacobi_diffuse: 1 to 8 sweeps a launch")
     if x.numel() >= 2 ** 31:
         raise ValueError("jacobi_diffuse: int32 indexing needs fewer than "
                          f"2^31 cells, got {x.numel()}")
@@ -94,7 +90,7 @@ def jacobi_launches(x, b, iters, coef, per_launch):
     bufs = [torch.empty_like(x), torch.empty_like(x)]
     src = x
     with torch.cuda.device(x.device):
-        for n, sweeps in enumerate(sweep_chunks(iters, per_launch)):
+        for n, sweeps in enumerate(sweep_chunks(iters)):
             dst = bufs[n % 2]
             err = fn(_build.ptr(src), _build.ptr(b), *x.shape, coef_f,
                      denom_f, sweeps, _build.ptr(dst), _build.stream(x))

@@ -6,14 +6,17 @@
 
 Each variant is the kernel's source in ``gpufluidsimulation_tpu_torch/csrc``
 with a few textual edits (block shape, rows per thread, the division, the
-offset arithmetic). Every variant is built with nvcc for sm_90a with the
-port's flags and ``-Xptxas -v`` (registers and spills are printed), run on
-the inputs of ``chip_smoke.py``'s kernel phase, held against the plain
-PyTorch version (its max abs error is printed; the shipped design must
-show 0) and timed with CUDA events. ``jacobi_diffuse`` variants are timed
-per 20-sweep solve at 1, 2, 4 and 8 sweeps a launch, on a smooth field,
-an all-zero field and one zero on half its k range. Builds go to the
-port's build directory (``gpufluidsimulation_tpu_torch/_build/variants/``).
+offset arithmetic). This is the one place where such alternatives are
+built: the port ships only the chosen design. Every variant is built with
+nvcc for sm_90a with the port's flags and ``-Xptxas -v`` (registers and
+spills are printed), run on the inputs of ``chip_smoke.py``'s kernel
+phase, held against the plain PyTorch version (its max abs error is
+printed; the shipped design must show 0) and timed with CUDA events.
+``jacobi_diffuse`` variants are timed per 20-sweep solve at 1, 2, 4 and 8
+sweeps a launch (the shipped source builds 2 and 1; every variant here
+adds 4 and 8), on a smooth field, an all-zero field and one zero on half
+its k range. Builds go to the port's build directory
+(``gpufluidsimulation_tpu_torch/_build/variants/``).
 Needs a GPU and nvcc; imports no JAX.
 """
 
@@ -53,6 +56,14 @@ TRILERP = {
         (_TRILERP_KERNEL, "template <bool kDual>\n__global__ void "
          "__launch_bounds__(128, 8) trilerp_sample_kernel(")],
 }
+
+# every Jacobi variant also builds 4 and 8 sweeps a launch, beside the
+# shipped kSweeps and 1, so that a 20-sweep solve can be timed at each
+_JACOBI_ONE = ("  if (sweeps == 1) return launch<1>(xp, bp, nx, ny, nz, coef, "
+               "denom, op, s);\n")
+_JACOBI_MORE = "".join(
+    _JACOBI_ONE.replace("== 1", f"== {s}").replace("<1>", f"<{s}>")
+    for s in (1, 4, 8))
 
 JACOBI = {
     "shipped (32x32 region, 2 rows a thread)": [],
@@ -162,12 +173,14 @@ def jacobi_variants(n, out_dir):
     wants = [sk.jacobi_diffuse_plain(x, x, 20, coef) for _, x in fields]
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for i, (name, edits) in enumerate(JACOBI.items()):
-        lib, ptxas = build(out_dir, f"jacobi_{i}", "jacobi_diffuse", edits)
+        lib, ptxas = build(out_dir, f"jacobi_{i}", "jacobi_diffuse",
+                           [*edits, (_JACOBI_ONE, _JACOBI_MORE)])
         fn = lib.gfs_jacobi_diffuse
         fn.argtypes = [P, P, I, I, I, F, F, I, P, P]
         fn.restype = I
         regs = [line.split(",")[0] for line in ptxas if "registers" in line]
-        cs.log(f"[jacobi_diffuse] {name}: {regs} (8 down to 1 sweeps)")
+        cs.log(f"[jacobi_diffuse] {name}: {regs} (sweeps a launch in the "
+               "order ptxas builds them)")
         for (label, x), want in zip(fields, wants):
             times = []
             for per in (1, 2, 4, 8):

@@ -288,3 +288,21 @@ def test_sweep_chunks(per_launch):
     assert stencil_kernels.sweep_chunks(20) == stencil_kernels.sweep_chunks(
         20, default)
     assert 1 <= default <= 8
+
+
+def test_jacobi_kernel_builds_the_wrappers_chunks():
+    """csrc/jacobi_diffuse.cu instantiates its sweeps a launch (kSweeps)
+    and 1 only: kSweeps is SWEEPS_PER_LAUNCH, and every launch the wrapper
+    makes for a solve of 0 to 40 sweeps asks for one of those two."""
+    import re
+    from pathlib import Path
+
+    src = (Path(stencil_kernels.__file__).resolve().parent.parent / "csrc"
+           / "jacobi_diffuse.cu").read_text()
+    k_sweeps = int(re.search(r"constexpr int kSweeps = (\d+);", src)[1])
+    built = {k_sweeps if n == "kSweeps" else int(n)
+             for n in re.findall(r"return launch<(\w+)>\(", src)}
+    assert k_sweeps == stencil_kernels.SWEEPS_PER_LAUNCH
+    assert built == {1, k_sweeps}
+    for iters in range(0, 41):
+        assert set(stencil_kernels.sweep_chunks(iters)) <= built
