@@ -8,11 +8,11 @@ CUDA C++ kernels under ``csrc/``, built with nvcc on first use
 beside it: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel or raises.
 
-The 3D schemes BIMOCQ (every ``reinit_mode`` and blend, the dual or the
-exact volume form), SEMILAG, MACCORMACK and MAC_REFLECTION are ported, on
-the open box and with analytic moving obstacles. Voxel (``sdf_grid``)
+The 3D schemes BIMOCQ (every ``reinit_mode`` and blend; the dual, exact,
+vol9 and prefilter volume forms), SEMILAG, MACCORMACK and MAC_REFLECTION
+are ported, on the open box and with analytic moving obstacles; ``convert``
+carries every volume form between the two packages. Voxel (``sdf_grid``)
 boundaries and emitters and emitter ``trans``/``emit_velocity`` raise
-``NotImplementedError``; ``convert`` also refuses the JAX package's vol9
-volume form. The 2D solver, the CLI, I/O and the sharded step are not
-ported.
+``NotImplementedError``. The 2D solver, the CLI, I/O and the sharded step
+are not ported.
 """

@@ -56,17 +56,6 @@ __device__ __forceinline__ float trilerp_clamped(
   return (1.0f - fz) * c0 + fz * c1;
 }
 
-// The 3D MAC velocity at cell-lattice grid coordinates g = p/h: each
-// staggered component's own lattice sits half a cell lower on its axis.
-__device__ __forceinline__ void mac_velocity(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ w, int ni, int nj, int nk,
-    float gx, float gy, float gz, float* ou, float* ov, float* ow) {
-  *ou = trilerp_clamped(u, ni + 1, nj, nk, gx + 0.5f, gy, gz);
-  *ov = trilerp_clamped(v, ni, nj + 1, nk, gx, gy + 0.5f, gz);
-  *ow = trilerp_clamped(w, ni, nj, nk + 1, gx, gy, gz + 0.5f);
-}
-
 // Sum of the six axis neighbours of cell (i, j, k) of an (nx, ny, nz)
 // k-fastest field with zero ghosts outside it, in the order of the JAX
 // smoothers: ((((((0 + x[i+1]) + x[i-1]) + x[j+1]) + x[j-1]) + x[k+1]) + x[k-1]).

@@ -9,57 +9,227 @@
 //   g' = clamp(g + c1*k1 + c2*k2 + c3*k3, [lo, hi] per axis)
 // where a = sh/2, b = 3sh/4, c1..c3 = (2/9, 3/9, 4/9)*sh and sh is the
 // signed substep over h (advect.trace_rk3_3d in grid units, the fused
-// kernels' arithmetic order). The identity peel launches this kernel on
-// the lattice positions: stage 1 there is exactly the face average k1.
+// kernels' arithmetic order). The lattice mode (_kernel_rk3_ident) reads
+// no positions: node (i, j, k) of the (ni, nj, nk) cell block starts at
+// (i - 0.5*dim_x, j - 0.5*dim_y, k - 0.5*dim_z), exact in float32 and the
+// bits of advect._cropped_positions for the kind with face vector dim.
 //
-// What bounds it on the H100: bytes. Each node reads 3 position floats
-// and writes 3; the velocity gathers (3 stages x 3 components x 8 corners)
-// land within a cell or two of the node, so the velocity triplet is read
-// about once through L1/L2. At 256^3 that is ~6 x 67 MB + 3 x 67 MB of
-// velocity, ~0.18 ms at 3.35 TB/s. The TPU kernel fetched a padded window
-// per block and evaluated hat-weighted taps because the TPU has no fast
-// gather; the simple design here is one thread per node holding all three
-// stages in registers, so no intermediate position touches device memory.
+// What bounds it on the H100: bytes, ~0.18 ms at 256^3 (3 position floats
+// read and 3 written a node, the velocity triplet read once; 0.12 ms from
+// the lattice). The first design called gfs::trilerp_clamped nine times a
+// node (3 stages x u, v, w): each call floored its own three coordinates,
+// clamped six indices and formed eight 64-bit offsets, in a grid-stride
+// loop over an int64 index; it ran at 4-6x the bound, held by instruction
+// throughput (an estimate from the source: ~800 instructions a node).
+//
+// The design here: one thread per node on a (k, j, i) block of the node
+// lattice, k fastest, so that position loads and output stores coalesce and
+// a block's gathers share rows of the faces through L1. At one stage the
+// three components sample at (gx+1/2, gy, gz), (gx, gy+1/2, gz) and
+// (gx, gy, gz+1/2): per axis the two coordinates g and g + 1/2 (the same
+// float32 add as the plain version's mac_velocity_grid) are floored once,
+// with their fraction and 1 - f, and each component takes its corners from
+// those: 6 floor/weight sets a stage instead of 9. Each component still
+// clamps to its own extent: the coordinate g + 1/2 of the staggered axis
+// to n + 1 nodes, g to n. Along z, the innermost axis, the corners are
+// loaded as the pair (lo, lo + 1) with lo = clamp(floor(g), 0, n - 2), two
+// loads from one address; where the plain version's clamped corners
+// coincide (floor(g) <= -1: both 0; floor(g) >= n - 1: both n - 1), the
+// pair's lerped value at that node is taken for both after the x and y
+// lerps, which are the same operations on the same values, so the same
+// bits. That halves the address arithmetic of the gathers and needs
+// n >= 2 along z (the wrapper raises for nk < 2). Offsets are unsigned
+// 32-bit (the wrapper raises unless each face and n are below 2^31). Each
+// blend keeps the plain version's operands and its x, then y, then z
+// order, and the library is built with -fmad=false: the result is
+// bit-identical.
+//
+// Measured (scripts/kernel_variants.py, H100, 256^3): the shared sets
+// took 0.70 to 0.52 ms, the z pairs to 0.46, the 64-register cap (no
+// spill) to 0.46 from displaced positions and 0.43 from the lattice;
+// block shapes move it by 2%, a velocity tile staged in shared memory is
+// 4x slower. The kernel stays bound by instruction throughput (~700 SASS
+// instructions a node, 72 gathers among them): 2.5-3.5x its bytes bound
+// (PERF.md, rows 5-6).
 #include "common.cuh"
 
 namespace {
 
-__global__ void rk3_substep_kernel(
-    const float* __restrict__ u, const float* __restrict__ v,
-    const float* __restrict__ w, int ni, int nj, int nk,
-    const float* __restrict__ pos, int64_t n, float a, float b, float c1,
-    float c2, float c3, float lox, float hix, float loy, float hiy,
-    float loz, float hiz, float* __restrict__ out) {
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-       idx < n; idx += (int64_t)gridDim.x * blockDim.x) {
-    const float gx = pos[idx], gy = pos[n + idx], gz = pos[2 * n + idx];
-    float u1, v1, w1, u2, v2, w2, u3, v3, w3;
-    gfs::mac_velocity(u, v, w, ni, nj, nk, gx, gy, gz, &u1, &v1, &w1);
-    gfs::mac_velocity(u, v, w, ni, nj, nk, gx + a * u1, gy + a * v1,
-                      gz + a * w1, &u2, &v2, &w2);
-    gfs::mac_velocity(u, v, w, ni, nj, nk, gx + b * u2, gy + b * v2,
-                      gz + b * w2, &u3, &v3, &w3);
-    const float ox = gx + c1 * u1 + c2 * u2 + c3 * u3;
-    const float oy = gy + c1 * v1 + c2 * v2 + c3 * v3;
-    const float oz = gz + c1 * w1 + c2 * w2 + c3 * w3;
-    out[idx] = fminf(fmaxf(ox, lox), hix);
-    out[n + idx] = fminf(fmaxf(oy, loy), hiy);
-    out[2 * n + idx] = fminf(fmaxf(oz, loz), hiz);
+// A block covers 32 x 4 x 1 nodes (k, j, i): 128 threads, at most 64
+// registers a thread (8 blocks an SM)
+constexpr int kBlockK = 32, kBlockJ = 4, kBlockI = 1;
+constexpr int kMinBlocks = 8;
+
+// One x or y coordinate of a trilinear sample: its fraction f, 1 - f,
+// and the clamped corner nodes floor(g) and floor(g) + 1.
+struct Coord {
+  float f, w;
+  unsigned lo, hi;
+};
+
+// The z coordinate: f, 1 - f, the first node lo of the loaded pair
+// (lo, lo + 1), and whether both clamped corners sit at lo + 1 (top) or at
+// lo (bottom; also for a NaN, which the plain clamp sends to node 0).
+struct ZPair {
+  float f, w;
+  unsigned lo;
+  bool top, bottom;
+};
+
+// The clamped node of an integral float coordinate. Clamping in float
+// keeps huge or non-finite coordinates at the edge node, as the plain
+// version's integer clamp does.
+__device__ __forceinline__ unsigned clamp_node(float i, int n) {
+  return (unsigned)fminf(fmaxf(i, 0.0f), (float)(n - 1));
+}
+
+__device__ __forceinline__ Coord coord(float g, int n) {
+  Coord c;
+  const float fl = floorf(g);
+  c.f = g - fl;
+  c.w = 1.0f - c.f;
+  c.lo = clamp_node(fl, n);
+  c.hi = clamp_node(fl + 1.0f, n);
+  return c;
+}
+
+__device__ __forceinline__ ZPair zpair(float g, int n) {
+  ZPair c;
+  const float fl = floorf(g);
+  c.f = g - fl;
+  c.w = 1.0f - c.f;
+  c.lo = clamp_node(fl, n - 1);
+  c.top = fl >= (float)(n - 1);
+  c.bottom = !(fl >= 0.0f);
+  return c;
+}
+
+// The clamped trilerp of gfs::trilerp_clamped from per-axis coordinates,
+// (sx, sy) the field's x and y strides.
+__device__ __forceinline__ float trilerp(const float* __restrict__ f,
+                                         const Coord& x, const Coord& y,
+                                         const ZPair& z, unsigned sx,
+                                         unsigned sy) {
+  const unsigned xa = x.lo * sx, xb = x.hi * sx;
+  const unsigned ya = y.lo * sy, yb = y.hi * sy;
+  const float* aa = f + (xa + ya + z.lo);
+  const float* ba = f + (xb + ya + z.lo);
+  const float* ab = f + (xa + yb + z.lo);
+  const float* bb = f + (xb + yb + z.lo);
+  // the x, then y lerps at z nodes lo and lo + 1
+  const float c00 = x.w * __ldg(aa) + x.f * __ldg(ba);
+  const float c10 = x.w * __ldg(ab) + x.f * __ldg(bb);
+  const float c01 = x.w * __ldg(aa + 1) + x.f * __ldg(ba + 1);
+  const float c11 = x.w * __ldg(ab + 1) + x.f * __ldg(bb + 1);
+  const float l0 = y.w * c00 + y.f * c10;
+  const float l1 = y.w * c01 + y.f * c11;
+  // the plain version's lerps at its two clamped z corners
+  const float c0 = z.top ? l1 : l0;
+  const float c1 = z.bottom ? l0 : l1;
+  return z.w * c0 + z.f * c1;
+}
+
+// The MAC faces of an (ni, nj, nk) grid: u (ni+1, nj, nk), v (ni, nj+1,
+// nk), w (ni, nj, nk+1), k-fastest.
+struct Faces {
+  const float* __restrict__ u;
+  const float* __restrict__ v;
+  const float* __restrict__ w;
+  int ni, nj, nk;
+};
+
+// The MAC velocity at cell-lattice grid coordinates g = p/h: each
+// staggered component's own lattice sits half a cell lower on its axis.
+__device__ __forceinline__ void mac_velocity(const Faces& F, float gx,
+                                             float gy, float gz, float* ou,
+                                             float* ov, float* ow) {
+  const Coord x0 = coord(gx, F.ni), x1 = coord(gx + 0.5f, F.ni + 1);
+  const Coord y0 = coord(gy, F.nj), y1 = coord(gy + 0.5f, F.nj + 1);
+  const ZPair z0 = zpair(gz, F.nk), z1 = zpair(gz + 0.5f, F.nk + 1);
+  const unsigned nj = F.nj, nk = F.nk;
+  *ou = trilerp(F.u, x1, y0, z0, nj * nk, nk);
+  *ov = trilerp(F.v, x0, y1, z0, (nj + 1) * nk, nk);
+  *ow = trilerp(F.w, x0, y0, z1, nj * (nk + 1), nk + 1);
+}
+
+struct Params {
+  float a, b, c1, c2, c3;
+  float lox, hix, loy, hiy, loz, hiz;
+  float dimx, dimy, dimz;   // the lattice mode's face vector (0 or 1)
+};
+
+// kLattice: start at the node's own lattice coordinate; else read it.
+template <bool kLattice>
+__global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI, kMinBlocks)
+    rk3_substep_kernel(Faces F, const float* __restrict__ px,
+                       const float* __restrict__ py,
+                       const float* __restrict__ pz, int d0, int d1, int d2,
+                       Params P, float* __restrict__ ox,
+                       float* __restrict__ oy, float* __restrict__ oz) {
+  const int k = blockIdx.x * kBlockK + threadIdx.x;
+  const int j = blockIdx.y * kBlockJ + threadIdx.y;
+  const int i = blockIdx.z * kBlockI + threadIdx.z;
+  if (k >= d2 || j >= d1 || i >= d0) return;
+  const int idx = (i * d1 + j) * d2 + k;
+  float gx, gy, gz;
+  if (kLattice) {
+    gx = (float)i - 0.5f * P.dimx;
+    gy = (float)j - 0.5f * P.dimy;
+    gz = (float)k - 0.5f * P.dimz;
+  } else {
+    gx = __ldg(px + idx);
+    gy = __ldg(py + idx);
+    gz = __ldg(pz + idx);
   }
+  float u1, v1, w1, u2, v2, w2, u3, v3, w3;
+  mac_velocity(F, gx, gy, gz, &u1, &v1, &w1);
+  mac_velocity(F, gx + P.a * u1, gy + P.a * v1, gz + P.a * w1, &u2, &v2,
+               &w2);
+  mac_velocity(F, gx + P.b * u2, gy + P.b * v2, gz + P.b * w2, &u3, &v3,
+               &w3);
+  const float rx = gx + P.c1 * u1 + P.c2 * u2 + P.c3 * u3;
+  const float ry = gy + P.c1 * v1 + P.c2 * v2 + P.c3 * v3;
+  const float rz = gz + P.c1 * w1 + P.c2 * w2 + P.c3 * w3;
+  ox[idx] = fminf(fmaxf(rx, P.lox), P.hix);
+  oy[idx] = fminf(fmaxf(ry, P.loy), P.hiy);
+  oz[idx] = fminf(fmaxf(rz, P.loz), P.hiz);
 }
 
 }  // namespace
 
+// pos == NULL selects the lattice mode: the (d0, d1, d2) = (ni, nj, nk)
+// cell block of the kind whose face vector is dim_host.
 extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
                                int ni, int nj, int nk, const void* pos,
-                               long long n, float a, float b, float c1,
-                               float c2, float c3, const float* clamp_host,
-                               void* out, void* stream) {
-  rk3_substep_kernel<<<gfs::blocks_for(n), gfs::kThreads, 0,
-                       (cudaStream_t)stream>>>(
-      (const float*)u, (const float*)v, (const float*)w, ni, nj, nk,
-      (const float*)pos, (int64_t)n, a, b, c1, c2, c3, clamp_host[0],
-      clamp_host[1], clamp_host[2], clamp_host[3], clamp_host[4],
-      clamp_host[5], (float*)out);
+                               int d0, int d1, int d2, const float* dim_host,
+                               float a, float b, float c1, float c2,
+                               float c3, const float* clamp_host, void* out,
+                               void* stream) {
+  const long long limit = 1LL << 31;
+  const long long n = (long long)d0 * d1 * d2;
+  if (ni < 1 || nj < 1 || nk < 2 || d0 < 1 || d1 < 1 || d2 < 1 ||
+      n >= limit || (long long)(ni + 1) * nj * nk >= limit ||
+      (long long)ni * (nj + 1) * nk >= limit ||
+      (long long)ni * nj * (nk + 1) >= limit)
+    return (int)cudaErrorInvalidValue;
+  const dim3 block(kBlockK, kBlockJ, kBlockI);
+  const dim3 grid((d2 + kBlockK - 1) / kBlockK, (d1 + kBlockJ - 1) / kBlockJ,
+                  (d0 + kBlockI - 1) / kBlockI);
+  if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
+  const Faces F{(const float*)u, (const float*)v, (const float*)w, ni, nj,
+                nk};
+  const Params P{a, b, c1, c2, c3,
+                 clamp_host[0], clamp_host[1], clamp_host[2], clamp_host[3],
+                 clamp_host[4], clamp_host[5],
+                 dim_host[0], dim_host[1], dim_host[2]};
+  float* o = (float*)out;
+  if (pos == nullptr) {
+    rk3_substep_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
+        F, nullptr, nullptr, nullptr, d0, d1, d2, P, o, o + n, o + 2 * n);
+  } else {
+    const float* p = (const float*)pos;
+    rk3_substep_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
+        F, p, p + n, p + 2 * n, d0, d1, d2, P, o, o + n, o + 2 * n);
+  }
   return (int)cudaGetLastError();
 }

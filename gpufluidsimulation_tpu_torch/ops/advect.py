@@ -16,9 +16,10 @@ The semi-Lagrangian family (``semilag_multi_3d``, ``semilag_3d``,
 ``rk3_substep`` and samples with ``trilerp_sample`` (plain trilinear). The
 JAX package's ``mac_at_nodes_3d``, ``_vel_pack``, ``_union_pack``,
 ``_concat_kind_positions``, ``gate_nx`` and ``node_off`` are window
-geometry of the TPU kernels and have no counterpart: ``rk3_substep`` from
-the exact lattice coordinate (i - 0.5*dim) computes the same stage-1
-velocity as their identity peel.
+geometry of the TPU kernels and have no counterpart:
+``rk3_substep_lattice``, which starts from the exact lattice coordinate
+(i - 0.5*dim), computes the same stage-1 velocity as their identity
+peel.
 
 MacCormack (``maccormack_kinds_3d``, ``maccormack_multi_3d``,
 ``maccormack_3d``) is a backward and a forward semilag stage, the
@@ -99,14 +100,9 @@ def _cropped_positions(grid, kind, device=None):
     the staggered axis. The staggered axis's last face plane sits outside
     the semi-Lagrangian update band, so it is neither traced nor
     sampled."""
-    dim = grid.dim_of(kind)
-    shape = grid.shape_c
-    ar = [torch.arange(n, dtype=torch.float32, device=device) - 0.5 * d
-          for n, d in zip(shape, dim)]
-    pos = torch.stack([ar[0][:, None, None].expand(shape),
-                       ar[1][None, :, None].expand(shape),
-                       ar[2][None, None, :].expand(shape)])
-    return pos, _staggered_axis(grid, kind)
+    return (interp_fast.lattice_positions(grid.shape_c, grid.dim_of(kind),
+                                          device),
+            _staggered_axis(grid, kind))
 
 
 def trace_3d(grid, u, v, w, cfldt, dt, px, py, pz, from_identity=False,
@@ -115,15 +111,22 @@ def trace_3d(grid, u, v, w, cfldt, dt, px, py, pz, from_identity=False,
     ``from_identity=True`` asserts the positions are `kind`'s node
     lattice cropped to the cell block (px, py, pz are then not read); the
     march starts from the exact lattice coordinates (the JAX package's
-    identity peel, whose stage 1 is the staggered average there)."""
+    identity peel, whose stage 1 is the staggered average there): its
+    first substep is ``rk3_substep_lattice``, which on the card forms
+    them in the kernel, so the lattice is never materialized there."""
     h = grid.h
     sign = 1.0 if dt >= 0 else -1.0
-    if from_identity:
+    clamp = _clamp_grid(grid)
+    subs = substeps(cfldt, abs(dt))
+    if from_identity and subs:
+        pos = interp_fast.rk3_substep_lattice(
+            u, v, w, grid.dim_of(kind), _sh(subs[0], h, sign), clamp)
+        subs = subs[1:]
+    elif from_identity:
         pos, _ = _cropped_positions(grid, kind, u.device)
     else:
         pos = torch.stack([interp.div_scalar(p, h) for p in (px, py, pz)])
-    clamp = _clamp_grid(grid)
-    for sub in substeps(cfldt, abs(dt)):
+    for sub in subs:
         pos = interp_fast.rk3_substep(u, v, w, pos, _sh(sub, h, sign), clamp)
     return pos[0] * h, pos[1] * h, pos[2] * h
 

@@ -44,6 +44,17 @@ _VOL3 = (
     (-0.25, -0.25, 0.25), (-0.25, -0.25, -0.25),
 )
 MAX_CHANNELS = 4
+# the kernels index with 32-bit offsets
+INT32_LIMIT = 2 ** 31
+
+
+def check_int32(name, **counts):
+    """Raise unless every count (of field values, positions or outputs) is
+    below 2^31, so that a kernel's 32-bit offsets cannot overflow."""
+    big = [f"{k} {v}" for k, v in counts.items() if v >= INT32_LIMIT]
+    if big:
+        raise ValueError(f"{name}: 32-bit offsets need fewer than 2^31 "
+                         f"values, got {', '.join(big)}")
 
 
 def _check_sample_args(name, fields, offs, px, py, pz):
@@ -92,9 +103,8 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False):
     if not _build.on_card(fields, "trilerp_sample"):
         return trilerp_sample_plain(fields, px, py, pz, h, offs, dual)
     C = _check_sample_args("trilerp_sample", fields, offs, px, py, pz)
-    if max(fields.numel(), C * px.numel()) >= 2 ** 31:
-        raise ValueError("trilerp_sample: int32 indexing needs fewer than "
-                         "2^31 field values and outputs")
+    check_int32("trilerp_sample", fields=fields.numel(),
+                outputs=C * px.numel())
     out = torch.empty((C,) + tuple(px.shape), dtype=torch.float32,
                       device=fields.device)
     offs_host = (_F * (3 * C))(*[float(o) for off in offs for o in off])
@@ -201,6 +211,62 @@ def rk3_substep_plain(u, v, w, pos, sh, clamp):
                         oz.clamp(clamp[4], clamp[5])])
 
 
+def lattice_positions(shape, dim, device=None):
+    """Grid coordinates (i - 0.5*dim per axis) of the nodes of an (n0, n1,
+    n2) block, stacked (3, n0, n1, n2): exact in float32. With the cell
+    block's shape and a kind's face vector, that kind's nodes cropped to
+    the cell block (``advect._cropped_positions``)."""
+    ar = [torch.arange(n, dtype=torch.float32, device=device) - 0.5 * d
+          for n, d in zip(shape, dim)]
+    return torch.stack([ar[0][:, None, None].expand(shape),
+                        ar[1][None, :, None].expand(shape),
+                        ar[2][None, None, :].expand(shape)])
+
+
+def _faces(name, u, v, w):
+    """The (ni, nj, nk) cell block of a MAC triplet on the card, checked."""
+    ni, nj, nk = v.shape[0], u.shape[1], u.shape[2]
+    _build.require(u, "u", shape=(ni + 1, nj, nk))
+    _build.require(v, "v", shape=(ni, nj + 1, nk))
+    _build.require(w, "w", shape=(ni, nj, nk + 1))
+    if not u.device == v.device == w.device:
+        raise ValueError(f"{name}: tensors on different devices")
+    return ni, nj, nk
+
+
+def rk3_check_sizes(cell_shape, n):
+    """Raise unless the MAC faces of an (ni, nj, nk) grid and `n`
+    positions fit the rk3_substep kernel: nk >= 2 (it loads the z corners
+    in pairs) and 32-bit offsets."""
+    ni, nj, nk = cell_shape
+    if nk < 2:
+        raise ValueError(f"rk3_substep: the kernel needs nk >= 2, got {nk}")
+    check_int32("rk3_substep", u=(ni + 1) * nj * nk, v=ni * (nj + 1) * nk,
+                w=ni * nj * (nk + 1), positions=n)
+
+
+def _rk3_launch(u, v, w, pos, shape, dim, sh, clamp, out):
+    """One rk3_substep kernel launch: from `pos` (3, *shape), or from the
+    lattice of face vector `dim` where `pos` is None."""
+    ni, nj, nk = v.shape[0], u.shape[1], u.shape[2]
+    n = out[0].numel()
+    rk3_check_sizes((ni, nj, nk), n)
+    # the kernel tiles the node lattice by its last two extents
+    d1, d2 = ((1,) * 2 + tuple(shape))[-2:]
+    fn = _build.function(
+        "rk3_substep", "gfs_rk3_substep",
+        [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, ctypes.POINTER(_F),
+         _F, _F, _F, _F, _F, ctypes.POINTER(_F), _P, _P])
+    dim_host = (_F * 3)(*[float(d) for d in dim])
+    clamp_host = (_F * 6)(*[float(c) for c in clamp])
+    with torch.cuda.device(out.device):
+        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), ni, nj, nk,
+                 None if pos is None else _build.ptr(pos), n // (d1 * d2),
+                 d1, d2, dim_host, *rk3_coefficients(sh), clamp_host,
+                 _build.ptr(out), _build.stream(out))
+    _build.check(err, "rk3_substep")
+
+
 def rk3_substep(u, v, w, pos, sh, clamp):
     """One Ralston RK3 substep of the characteristic trace: `pos` is
     stacked (3, ...) cell-lattice grid coordinates (p/h), `sh` the signed
@@ -208,33 +274,40 @@ def rk3_substep(u, v, w, pos, sh, clamp):
     the MAC faces of an (ni, nj, nk) grid."""
     if not _build.on_card(pos, "rk3_substep"):
         return rk3_substep_plain(u, v, w, pos, sh, clamp)
-    ni, nj, nk = v.shape[0], u.shape[1], u.shape[2]
-    _build.require(u, "u", shape=(ni + 1, nj, nk))
-    _build.require(v, "v", shape=(ni, nj + 1, nk))
-    _build.require(w, "w", shape=(ni, nj, nk + 1))
+    _faces("rk3_substep", u, v, w)
     _build.require(pos, "pos")
     if pos.dim() < 2 or pos.shape[0] != 3:
         raise ValueError(f"rk3_substep: pos must be (3, ...), got "
                          f"{tuple(pos.shape)}")
-    if not (u.device == v.device == w.device == pos.device):
+    if pos.device != u.device:
         raise ValueError("rk3_substep: tensors on different devices")
     out = torch.empty_like(pos)
-    a, b, c1, c2, c3 = rk3_coefficients(sh)
-    clamp_host = (_F * 6)(*[float(c) for c in clamp])
-    fn = _build.function(
-        "rk3_substep", "gfs_rk3_substep",
-        [_P, _P, _P, _I, _I, _I, _P, _LL, _F, _F, _F, _F, _F,
-         ctypes.POINTER(_F), _P, _P])
-    with torch.cuda.device(pos.device):
-        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), ni, nj, nk,
-                 _build.ptr(pos), pos[0].numel(), a, b, c1, c2, c3,
-                 clamp_host, _build.ptr(out), _build.stream(pos))
-    _build.check(err, "rk3_substep")
+    _rk3_launch(u, v, w, pos, pos.shape[1:], (0, 0, 0), sh, clamp, out)
     rk3_substep.launches += 1
     return out
 
 
 rk3_substep.launches = 0
+
+
+def rk3_substep_lattice(u, v, w, kind_dim, sh, clamp):
+    """``rk3_substep`` from the lattice of the kind with face vector
+    `kind_dim`, cropped to the (ni, nj, nk) cell block: node (i, j, k)
+    starts at (i - 0.5*dim_x, j - 0.5*dim_y, k - 0.5*dim_z). On the card
+    the kernel forms those coordinates itself and reads no positions.
+    Returns (3, ni, nj, nk)."""
+    if not _build.on_card(u, "rk3_substep_lattice"):
+        shape = (v.shape[0], u.shape[1], u.shape[2])
+        return rk3_substep_plain(
+            u, v, w, lattice_positions(shape, kind_dim, u.device), sh, clamp)
+    shape = _faces("rk3_substep_lattice", u, v, w)
+    out = torch.empty((3,) + shape, dtype=torch.float32, device=u.device)
+    _rk3_launch(u, v, w, None, shape, kind_dim, sh, clamp, out)
+    rk3_substep_lattice.launches += 1
+    return out
+
+
+rk3_substep_lattice.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -350,6 +423,13 @@ def volume_prefilter_plain(fields):
         _smooth_axis(_smooth_axis(fields, 3), 2), 1)
 
 
+def prefilter_check_int32(shape):
+    """Raise unless C stacked (C, nx, ny, nz) fields fit the
+    volume_prefilter kernel's 32-bit offsets."""
+    C, nx, ny, nz = shape
+    check_int32("volume_prefilter", fields=C * nx * ny * nz)
+
+
 def volume_prefilter(fields):
     """The separable volume prefilter 0.5*delta + 0.5*S^3 of C stacked
     same-shape fields (C, nx, ny, nz), edge-clamped. Returns a new
@@ -357,6 +437,7 @@ def volume_prefilter(fields):
     if not _build.on_card(fields, "volume_prefilter"):
         return volume_prefilter_plain(fields)
     _build.require(fields, "fields", ndim=4)
+    prefilter_check_int32(fields.shape)
     out = torch.empty_like(fields)
     fn = _build.function("volume_prefilter", "gfs_volume_prefilter",
                          [_P, _I, _I, _I, _I, _P, _P])

@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Time the port's solver paths in several source trees on one GPU.
+
+    python3 scripts/ab_paths.py _archive/parent . . _archive/parent
+    python3 scripts/ab_paths.py A B --paths main,maccormack --n 128 --steps 8
+
+Each tree runs in its own process, from its own root, in the order given,
+so each builds its own kernels and imports its own package (a tree is any
+checkout of the repository, e.g. a ``git archive`` of a commit unpacked
+under the gitignored ``_archive/``). Listing the trees as parent, change,
+change, parent gives each one an early and a late turn on the same card.
+In each process the tree's kernels are built first, then every path is
+built as that tree's ``chip_smoke.bench_config`` builds it (256^3 by
+default), stepped twice to warm up (the first step of a path allocates
+its working set), then timed over ``--steps`` steps with CUDA events.
+Prints one JSON line per tree and path, then ms/step by path and run.
+Needs a GPU; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+PATHS = ("main", "reflection", "maccormack", "bimocq_prefilter")
+
+
+def child(tree, paths, n, steps):
+    """Time `paths` with the package and chip_smoke of `tree`."""
+    sys.path.insert(0, tree)
+    import gc
+
+    import torch
+
+    import chip_smoke as cs
+    import gpufluidsimulation_tpu_torch as port
+    from gpufluidsimulation_tpu_torch.config import EngineMode
+    from gpufluidsimulation_tpu_torch.ops import _build
+    from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+
+    if not os.path.abspath(port.__file__).startswith(tree):
+        raise SystemExit(f"{tree}: imported the package from {port.__file__}")
+    _build.build()
+    configs = {
+        "main": dict(),
+        "reflection": dict(scheme=Scheme.MAC_REFLECTION),
+        "maccormack": dict(scheme=Scheme.MACCORMACK),
+        "bimocq_prefilter": dict(engine_mode=EngineMode(volume_dual=False)),
+    }
+    for path in paths:
+        solver = Smoke3D(cs.bench_config(n, **configs[path]))
+        state = solver.step(solver.step(solver.init_state()))
+        torch.cuda.synchronize()
+        events = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(steps + 1)]
+        events[0].record()
+        for k in range(steps):
+            state = solver.step(state)
+            events[k + 1].record()
+        torch.cuda.synchronize()
+        per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+        print(json.dumps(dict(tree=tree, path=path, n=n,
+                              ms_per_step=sum(per_step) / steps,
+                              per_step_ms=per_step,
+                              substeps=state.substeps)), flush=True)
+        del state, solver
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("trees", nargs="+", help="source trees, in run order")
+    ap.add_argument("--paths", default=",".join(PATHS))
+    ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    paths = args.paths.split(",")
+    if args.child:
+        child(os.path.abspath(args.trees[0]), paths, args.n, args.steps)
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_paths: no GPU", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    table = {p: [] for p in paths}
+    for run, label in enumerate(args.trees):
+        tree = os.path.abspath(label)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), tree, "--child",
+             "--paths", args.paths, "--n", str(args.n), "--steps",
+             str(args.steps)], cwd=tree, capture_output=True, text=True)
+        if proc.returncode:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            raise SystemExit(f"ab_paths: {tree} failed")
+        for line in proc.stdout.splitlines():
+            print(line, flush=True)
+            res = json.loads(line)
+            table[res["path"]].append(f"{run}:{label} "
+                                      f"{res['ms_per_step']:.2f}")
+    for path, cells in table.items():
+        print(f"[ab] {path} ms/step: " + ", ".join(cells), flush=True)
+    print(smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Time design variants of the port's redesigned kernels on one GPU.
 
-    python3 scripts/kernel_variants.py            # 256^3 shapes
+    python3 scripts/kernel_variants.py            # 256^3 shapes, all four
     python3 scripts/kernel_variants.py --n 64     # a quick check
+    python3 scripts/kernel_variants.py --kernels rk3_substep,volume_prefilter
 
 Each variant is the kernel's source in ``gpufluidsimulation_tpu_torch/csrc``
-with a few textual edits (block shape, rows per thread, the division, the
-offset arithmetic). This is the one place where such alternatives are
-built: the port ships only the chosen design. Every variant is built with
+with textual edits (block or tile shape, rows per thread, the division,
+the offset arithmetic, register caps, segment length, prefetching, a
+shared-memory velocity tile). This is the one place where such
+alternatives are built: the port ships only the chosen design. A variant
+that does not build is reported and skipped. Every variant is built with
 nvcc for sm_90a with the port's flags and ``-Xptxas -v`` (registers and
 spills are printed), run on the inputs of ``chip_smoke.py``'s kernel
 phase, held against the plain PyTorch version (its max abs error is
@@ -15,7 +18,12 @@ printed; the shipped design must show 0) and timed with CUDA events.
 ``jacobi_diffuse`` variants are timed per 20-sweep solve at 1, 2, 4 and 8
 sweeps a launch (the shipped source builds 2 and 1; every variant here
 adds 4 and 8), on a smooth field, an all-zero field and one zero on half
-its k range. Builds go to the port's build directory
+its k range. ``rk3_substep`` variants run from positions displaced by up
+to 2 cells and in the lattice mode (cell kind); ``volume_prefilter``
+variants at C=1 on the u lattice and C=2 on the cell lattice. Each build
+prints its registers, spills and, where the toolkit has cuobjdump, each
+kernel's static SASS instruction count. Builds go to the port's build
+directory
 (``gpufluidsimulation_tpu_torch/_build/variants/``).
 Needs a GPU and nvcc; imports no JAX.
 """
@@ -25,6 +33,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -77,8 +86,167 @@ JACOBI = {
 }
 
 
+_RK3_BLOCK = "constexpr int kBlockK = 32, kBlockJ = 4, kBlockI = 1;"
+_RK3_MIN = "constexpr int kMinBlocks = 8;"
+_RK3_BOUNDS = ("__global__ void __launch_bounds__(kBlockK * kBlockJ * "
+               "kBlockI, kMinBlocks)\n")
+
+
+def _rk3_block(k, j, i):
+    """Block (k, j, i); the blocks an SM are capped at 1024 threads."""
+    return [(_RK3_BLOCK, f"constexpr int kBlockK = {k}, kBlockJ = {j}, "
+             f"kBlockI = {i};"),
+            (_RK3_MIN, f"constexpr int kMinBlocks = {1024 // (k * j * i)};")]
+
+
+# the z corners clamped one by one, as the plain version does (this
+# design's first step: 8 addresses a sample)
+_RK3_PER_CORNER = """__device__ __forceinline__ float trilerp(
+    const float* __restrict__ f, const Coord& x, const Coord& y,
+    const Coord& z, unsigned sx, unsigned sy) {
+  const unsigned xa = x.lo * sx, xb = x.hi * sx;
+  const unsigned ya = y.lo * sy, yb = y.hi * sy;
+  const unsigned aa = xa + ya, ba = xb + ya, ab = xa + yb, bb = xb + yb;
+  const float c00 =
+      x.w * __ldg(f + (aa + z.lo)) + x.f * __ldg(f + (ba + z.lo));
+  const float c10 =
+      x.w * __ldg(f + (ab + z.lo)) + x.f * __ldg(f + (bb + z.lo));
+  const float c01 =
+      x.w * __ldg(f + (aa + z.hi)) + x.f * __ldg(f + (ba + z.hi));
+  const float c11 =
+      x.w * __ldg(f + (ab + z.hi)) + x.f * __ldg(f + (bb + z.hi));
+  const float c0 = y.w * c00 + y.f * c10;
+  const float c1 = y.w * c01 + y.f * c11;
+  return z.w * c0 + z.f * c1;
+}
+
+// The MAC faces of an (ni, nj, nk) grid"""
+
+# the velocity triplet's tile (the block's nodes and a 2-cell halo, one
+# more node on each axis for the staggered faces) staged in shared memory
+# by the whole block before any node is traced; a corner set inside the
+# tile is read from it, any other from global memory
+_RK3_TILE_DEFS = """constexpr int kR = 2;
+constexpr int kTX = kBlockI + 2 * kR + 1, kTY = kBlockJ + 2 * kR + 1,
+              kTZ = kBlockK + 2 * kR + 1, kTV = kTX * kTY * kTZ;
+__shared__ float tile[3][kTV];
+
+template <int kQ>
+__device__ __forceinline__ float trilerp_tile(
+    const float* __restrict__ f, const Coord& x, const Coord& y,
+    const ZPair& z, unsigned sx, unsigned sy) {
+  const int bx = (int)(blockIdx.z * kBlockI) - kR;
+  const int by = (int)(blockIdx.y * kBlockJ) - kR;
+  const int bz = (int)(blockIdx.x * kBlockK) - kR;
+  const int xa = (int)x.lo - bx, xb = (int)x.hi - bx;
+  const int ya = (int)y.lo - by, yb = (int)y.hi - by;
+  const int za = (int)z.lo - bz;
+  if (xa >= 0 && xb < kTX && ya >= 0 && yb < kTY && za >= 0 &&
+      za + 1 < kTZ) {
+    const float* s = tile[kQ];
+    const int aa = (xa * kTY + ya) * kTZ + za, ba = (xb * kTY + ya) * kTZ + za;
+    const int ab = (xa * kTY + yb) * kTZ + za, bb = (xb * kTY + yb) * kTZ + za;
+    const float c00 = x.w * s[aa] + x.f * s[ba];
+    const float c10 = x.w * s[ab] + x.f * s[bb];
+    const float c01 = x.w * s[aa + 1] + x.f * s[ba + 1];
+    const float c11 = x.w * s[ab + 1] + x.f * s[bb + 1];
+    const float l0 = y.w * c00 + y.f * c10;
+    const float l1 = y.w * c01 + y.f * c11;
+    const float c0 = z.top ? l1 : l0;
+    const float c1 = z.bottom ? l0 : l1;
+    return z.w * c0 + z.f * c1;
+  }
+  return trilerp(f, x, y, z, sx, sy);
+}
+
+// The MAC faces of an (ni, nj, nk) grid"""
+_RK3_TILE_LOAD = """  const int i = blockIdx.z * kBlockI + threadIdx.z;
+  {
+    const int tid =
+        (threadIdx.z * kBlockJ + threadIdx.y) * kBlockK + threadIdx.x;
+    const int bx = (int)(blockIdx.z * kBlockI) - kR;
+    const int by = (int)(blockIdx.y * kBlockJ) - kR;
+    const int bz = (int)(blockIdx.x * kBlockK) - kR;
+    for (int e = tid; e < 3 * kTV; e += kBlockK * kBlockJ * kBlockI) {
+      const int q = e / kTV, r = e - q * kTV;
+      const int tx = r / (kTY * kTZ), r2 = r - tx * (kTY * kTZ);
+      const int ty = r2 / kTZ, tz = r2 - ty * kTZ;
+      const float* f = q == 0 ? F.u : (q == 1 ? F.v : F.w);
+      const int nx = F.ni + (q == 0), ny = F.nj + (q == 1);
+      const int nz = F.nk + (q == 2);
+      tile[q][r] = __ldg(f + (gfs::clampi(bx + tx, 0, nx - 1) * ny +
+                              gfs::clampi(by + ty, 0, ny - 1)) * nz +
+                         gfs::clampi(bz + tz, 0, nz - 1));
+    }
+    __syncthreads();
+  }
+  if (k >= d2 || j >= d1 || i >= d0) return;"""
+
+_RK3_Z_PER_CORNER = (
+    "  const ZPair z0 = zpair(gz, F.nk), z1 = zpair(gz + 0.5f, F.nk + 1);",
+    "  const Coord z0 = coord(gz, F.nk), z1 = coord(gz + 0.5f, F.nk + 1);")
+
+RK3 = {
+    "shipped (32x4x1 block, z pairs, at most 64 registers)": [],
+    "no register cap": [(_RK3_BOUNDS, "__global__ void\n")],
+    "z corners clamped one by one (8 addresses a sample)": [
+        ("// The MAC faces of an (ni, nj, nk) grid", _RK3_PER_CORNER),
+        _RK3_Z_PER_CORNER],
+    "z corners clamped one by one, no register cap": [
+        ("// The MAC faces of an (ni, nj, nk) grid", _RK3_PER_CORNER),
+        _RK3_Z_PER_CORNER, (_RK3_BOUNDS, "__global__ void\n")],
+    "per-component floors (gfs::trilerp_clamped, 64-bit offsets)": [(
+        "  const Coord x0 = coord(gx, F.ni), x1 = coord(gx + 0.5f, F.ni + 1);",
+        "  *ou = gfs::trilerp_clamped(F.u, F.ni + 1, F.nj, F.nk, gx + 0.5f, "
+        "gy, gz);\n"
+        "  *ov = gfs::trilerp_clamped(F.v, F.ni, F.nj + 1, F.nk, gx, "
+        "gy + 0.5f, gz);\n"
+        "  *ow = gfs::trilerp_clamped(F.w, F.ni, F.nj, F.nk + 1, gx, gy, "
+        "gz + 0.5f);\n  return;\n"
+        "  const Coord x0 = coord(gx, F.ni), x1 = coord(gx + 0.5f, F.ni + 1);"),
+        (_RK3_BOUNDS, "__global__ void\n")],
+    "32x1x1 block": _rk3_block(32, 1, 1),
+    "32x2x2 block": _rk3_block(32, 2, 2),
+    "32x8x1 block (256 threads)": _rk3_block(32, 8, 1),
+    "64x2x1 block": _rk3_block(64, 2, 1),
+    "velocity tile in shared memory (32x4x2 block, 2-cell halo)": [
+        *_rk3_block(32, 4, 2),
+        ("// The MAC faces of an (ni, nj, nk) grid", _RK3_TILE_DEFS),
+        ("  *ou = trilerp(F.u,", "  *ou = trilerp_tile<0>(F.u,"),
+        ("  *ov = trilerp(F.v,", "  *ov = trilerp_tile<1>(F.v,"),
+        ("  *ow = trilerp(F.w,", "  *ow = trilerp_tile<2>(F.w,"),
+        ("  const int i = blockIdx.z * kBlockI + threadIdx.z;\n"
+         "  if (k >= d2 || j >= d1 || i >= d0) return;", _RK3_TILE_LOAD)],
+}
+
+_PF = "constexpr int kTileK = 32, kTileJ = 4, kSeg = 32;"
+
+
+def _pf(k, j, seg):
+    return (_PF, f"constexpr int kTileK = {k}, kTileJ = {j}, kSeg = {seg};")
+
+
+PREFILTER = {
+    "shipped (32x4 tile, 32-plane segments)": [],
+    "32x8 tile, 16-plane segments (the first tiling)": [_pf(32, 8, 16)],
+    "32x4 tile, 8-plane segments": [_pf(32, 4, 8)],
+    "32x4 tile, 16-plane segments": [_pf(32, 4, 16)],
+    "32x4 tile, 64-plane segments": [_pf(32, 4, 64)],
+    "32x2 tile, 32-plane segments": [_pf(32, 2, 32)],
+    "32x8 tile, 32-plane segments": [_pf(32, 8, 32)],
+    "32x16 tile, 32-plane segments": [_pf(32, 16, 32)],
+    "64x4 tile, 32-plane segments": [_pf(64, 4, 32)],
+    "no prefetch (each plane loaded when it is staged)": [
+        ("      if (cur < last_plane) load(cur + 1);\n", ""),
+        ("    if (cur != last) {      // uniform over the block\n",
+         "    if (cur != last) {      // uniform over the block\n"
+         "      load(cur);\n")],
+}
+
+
 def build(out_dir, tag, source, edits):
-    """nvcc the edited source; returns the library and the ptxas lines."""
+    """nvcc the edited source; returns the library and the ptxas lines
+    (None and nvcc's errors if it does not build)."""
     from gpufluidsimulation_tpu_torch.ops import _build
 
     text = (CSRC / f"{source}.cu").read_text()
@@ -93,11 +261,31 @@ def build(out_dir, tag, source, edits):
            str(CSRC), "-o", str(lib), str(cu)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
-        raise SystemExit(f"{tag}: nvcc failed\n{res.stdout}{res.stderr}")
+        return None, [f"nvcc failed: {res.stdout}{res.stderr}"]
     ptxas = [line.strip().replace("ptxas info    : ", "")
              for line in (res.stdout + res.stderr).splitlines()
              if "registers" in line or "spill" in line]
-    return ctypes.CDLL(str(lib)), ptxas
+    return ctypes.CDLL(str(lib)), ptxas + sass_counts(lib)
+
+
+def sass_counts(lib):
+    """Static SASS instructions of each kernel in `lib` (cuobjdump), in the
+    order the library lists them; [] without cuobjdump."""
+    from gpufluidsimulation_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return []
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True)
+    counts, name = [], None
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            counts.append([name, 0])
+        elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[-1][1] += 1
+    return [f"SASS {n[:60]}: {c} instructions" for n, c in counts]
 
 
 def trilerp_variants(n, out_dir):
@@ -129,6 +317,9 @@ def trilerp_variants(n, out_dir):
         ctypes.c_longlong
     for i, (name, edits) in enumerate(TRILERP.items()):
         lib, ptxas = build(out_dir, f"trilerp_{i}", "trilerp_sample", edits)
+        if lib is None:
+            cs.log(f"[trilerp_sample] {name}: " + "; ".join(ptxas))
+            continue
         fn = lib.gfs_trilerp_sample
         fn.argtypes = [P, I, I, I, I, P, P, P, LL, I, I, F,
                        ctypes.POINTER(F), I, P, P]
@@ -175,6 +366,9 @@ def jacobi_variants(n, out_dir):
     for i, (name, edits) in enumerate(JACOBI.items()):
         lib, ptxas = build(out_dir, f"jacobi_{i}", "jacobi_diffuse",
                            [*edits, (_JACOBI_ONE, _JACOBI_MORE)])
+        if lib is None:
+            cs.log(f"[jacobi_diffuse] {name}: " + "; ".join(ptxas))
+            continue
         fn = lib.gfs_jacobi_diffuse
         fn.argtypes = [P, P, I, I, I, F, F, I, P, P]
         fn.restype = I
@@ -203,9 +397,109 @@ def jacobi_variants(n, out_dir):
                    "solve: " + ", ".join(times))
 
 
+def rk3_variants(n, out_dir):
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import _build, advect, interp_fast
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    g = Grid3D(n, n, n, 0.2 / n)
+    u, v, w = (cs.smooth(s, rng, 0.06, dev)
+               for s in (g.shape_u, g.shape_v, g.shape_w))
+    top = max(float(t.abs().max()) for t in (u, v, w))
+    sh = float(np.float32(np.float32(g.h) / np.float32(top))
+               / np.float32(g.h))
+    clamp = advect._clamp_grid(g)
+    lat, _ = advect._cropped_positions(g, "c", dev)
+    pos = (lat + torch.stack([cs.smooth(g.shape_c, rng, 2.0, dev)
+                              for _ in range(3)])).contiguous()
+    cases = [("displaced", pos, interp_fast.rk3_substep_plain(
+        u, v, w, pos, sh, clamp)),
+             ("lattice", None, interp_fast.rk3_substep_plain(
+                 u, v, w, lat.contiguous(), sh, clamp))]
+    F, I, P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    coefs = interp_fast.rk3_coefficients(sh)
+    dim = (F * 3)(0.0, 0.0, 0.0)
+    clamp_host = (F * 6)(*clamp)
+    for i, (name, edits) in enumerate(RK3.items()):
+        lib, ptxas = build(out_dir, f"rk3_{i}", "rk3_substep", edits)
+        cs.log(f"[rk3_substep] {name}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = lib.gfs_rk3_substep
+        fn.argtypes = [P, P, P, I, I, I, P, I, I, I, ctypes.POINTER(F),
+                       F, F, F, F, F, ctypes.POINTER(F), P, P]
+        fn.restype = I
+        for label, p, want in cases:
+            out = torch.empty_like(want)
+
+            def run():
+                err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), n, n,
+                         n, None if p is None else _build.ptr(p), n, n, n,
+                         dim, *coefs, clamp_host, _build.ptr(out),
+                         _build.stream(u))
+                _build.check(err, name)
+
+            run()
+            err = float((out - want).abs().max())
+            ms = cs.cuda_time(run, 30)
+            cs.log(f"[rk3_substep] {name}: {label} {ms:.4f} ms, "
+                   f"max_abs_err {err:.3e}")
+
+
+def prefilter_variants(n, out_dir):
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    g = Grid3D(n, n, n, 0.2 / n)
+    cases = [("C=1 u", cs.smooth(g.shape_u, rng, 0.06, dev)[None]
+              .contiguous()),
+             ("C=2 c", torch.stack([cs.smooth(g.shape_c, rng, 1.0, dev),
+                                    cs.smooth(g.shape_c, rng, 50.0, dev)])
+              .contiguous())]
+    wants = [interp_fast.volume_prefilter_plain(f) for _, f in cases]
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for i, (name, edits) in enumerate(PREFILTER.items()):
+        lib, ptxas = build(out_dir, f"prefilter_{i}", "volume_prefilter",
+                           edits)
+        cs.log(f"[volume_prefilter] {name}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = lib.gfs_volume_prefilter
+        fn.argtypes = [P, I, I, I, I, P, P]
+        fn.restype = I
+        for (label, f), want in zip(cases, wants):
+            out = torch.empty_like(f)
+
+            def run():
+                err = fn(_build.ptr(f), *f.shape, _build.ptr(out),
+                         _build.stream(f))
+                _build.check(err, name)
+
+            run()
+            err = float((out - want).abs().max())
+            ms = cs.cuda_time(run, 50)
+            cs.log(f"[volume_prefilter] {name}: {label} {ms:.4f} ms, "
+                   f"max_abs_err {err:.3e}")
+
+
+RUNNERS = {"trilerp_sample": trilerp_variants,
+           "jacobi_diffuse": jacobi_variants,
+           "rk3_substep": rk3_variants,
+           "volume_prefilter": prefilter_variants}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=256)
+    ap.add_argument("--kernels", default=",".join(RUNNERS),
+                    help="comma-separated kernels whose variants to run")
     ap.add_argument("--out", default=str(ROOT / "gpufluidsimulation_tpu_torch"
                                         / "_build" / "variants"))
     args = ap.parse_args()
@@ -218,8 +512,8 @@ def main():
     out_dir = Path(args.out)
     os.makedirs(out_dir, exist_ok=True)
     cs.log(cs.nvidia_smi_line())
-    trilerp_variants(args.n, out_dir)
-    jacobi_variants(args.n, out_dir)
+    for name in args.kernels.split(","):
+        RUNNERS[name](args.n, out_dir)
     return 0
 
 
