@@ -7,24 +7,30 @@
     python3 chip_smoke.py --profile out/profile.txt
                                      # also write per-kernel time tables of
                                      # 2 steps of the main, obstacle and
-                                     # phase-7 paths to that file
+                                     # phase-7 paths to that file, with
+                                     # the backward-map march's device
+                                     # time
 
 Phases, each of which fails loudly (non-zero exit, no result line):
  1. print the card's name and power limit; build the ten CUDA kernels
     from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once, and
-    print each kernel's registers and spills (the four redesigned ones,
-    trilerp_sample, jacobi_diffuse, rk3_substep and volume_prefilter,
-    must not spill);
+    print each kernel's registers and spills (the six redesigned ones,
+    trilerp_sample, jacobi_diffuse, rk3_substep, volume_prefilter,
+    dmc_substep and vol9_fixup, must not spill);
  2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers and
     the Jacobi solve), hold each kernel against its plain PyTorch version
     on the same inputs and time both with CUDA events; trilerp_sample,
-    jacobi_diffuse, rk3_substep and volume_prefilter bit for bit, the
-    sampler also at positions outside the domain and on the quarter-cell
-    lattice, the Jacobi solve at iters around its sweeps a launch and its
-    division over the accepted range of denominators, rk3_substep and
-    volume_prefilter also on 100x200x200 and 37x29x45, rk3_substep from
+    jacobi_diffuse, rk3_substep, dmc_substep, volume_prefilter and
+    vol9_fixup bit for bit, the sampler also at positions outside the
+    domain and on the quarter-cell lattice, the Jacobi solve at iters
+    around its sweeps a launch and its division over the accepted range
+    of denominators, rk3_substep, dmc_substep, volume_prefilter and
+    vol9_fixup also on 100x200x200 and 37x29x45, rk3_substep from
     positions outside the domain and on the half-cell lattice and in its
-    lattice mode for the kinds c, u, v and w;
+    lattice mode for the kinds c, u, v and w, dmc_substep in both modes
+    through its guard, zero velocities and map positions past the
+    lattice, vol9_fixup at tol 0 and the default tol with mapped
+    positions clamped on every face;
  3. parity on the card (kernels) against the port on the CPU (plain
     versions): 3 steps at 32^3 from one numpy state of the vortex step,
     the moving-obstacle step, MAC_REFLECTION on the vortex scene,
@@ -36,8 +42,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     it (n^3, dt = 8/n, two recentred emitters), 1 warm-up step and
     `--steps` timed steps, every kernel's launch count reset before and
     read after (12 trilerp_sample, 3 x ceil(20/s) jacobi_diffuse, 3
-    rk3_substep, 1 of them in the lattice mode, and 3 volume_prefilter
-    launches a step), rho_max in (0, 10] and every field finite;
+    rk3_substep and 3 dmc_substep, 1 of each in the lattice mode, and 3
+    volume_prefilter launches a step, no plain DMC displacement on the
+    card), rho_max in (0, 10] and every field finite;
  5. the obstacle path: the moving-obstacle scene (buoyant plume, sweeping
     sphere, masked MG-PCG) at n^3 with dt = 1.6/n, warmed up until the
     plume passes CFL 1 (so that both map marches substep), then timed
@@ -164,18 +171,12 @@ def kernel_phase(n, seed):
     import torch.nn.functional as F
 
     from gpufluidsimulation_tpu_torch.core.grids import Grid3D
-    from gpufluidsimulation_tpu_torch.ops import (advect, interp_fast,
-                                                  stencil_kernels)
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     g = Grid3D(n, n, n, 0.2 / n)
     h = g.h
-    u = smooth(g.shape_u, rng, 0.06, dev)
-    v = smooth(g.shape_v, rng, 0.06, dev)
-    w = smooth(g.shape_w, rng, 0.06, dev)
-    maxvel = max(float(t.abs().max()) for t in (u, v, w))
-    sh = float(np.float32(np.float32(h) / np.float32(maxvel)) / np.float32(h))
     results = {}
 
     def compare(name, got, want, tol):
@@ -323,27 +324,10 @@ def kernel_phase(n, seed):
     # the cell lattice
     results["rk3_substep"] = rk3_phase(g, rng, dev, compare)
 
-    # dmc_substep: one backward-map substep of a displaced map
-    maps = torch.stack(positions("c")).contiguous()
-    thresh = interp_fast.dmc_threshold(h)
-    got = interp_fast.dmc_substep(u, v, w, maps, sh, thresh)
-    want = interp_fast.dmc_substep_plain(u, v, w, maps, sh, thresh)
-    tol = 1e-6 * max(1.0, float(want.abs().max()))   # world coords to 0.2
-    err = compare("dmc_substep", got, want, tol)
-    k_ms = cuda_time(lambda: interp_fast.dmc_substep(u, v, w, maps, sh,
-                                                      thresh), 20)
-    p_ms = cuda_time(lambda: interp_fast.dmc_substep_plain(
-        u, v, w, maps, sh, thresh), 3, 1)
-    N = maps[0].numel()
-    b_ms, b_by = bound_ms(4 * (6 * N + u.numel() + v.numel() + w.numel()),
-                          N * (12 + 3 * 10 + 3 + 3 * TRILERP_OPS))
-    results["dmc_substep"] = dict(
-        max_abs_err=err, tol=tol, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None,
-        replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:3143 "
-                  "(_kernel_dmc, pallas_call :3319)"))
-    log(f"[kernels] dmc_substep: {k_ms:.4f} ms (plain {p_ms:.3f}, bound "
-        f"{b_ms:.4f} by {b_by})")
+    # dmc_substep: bit for bit on three grids, displaced and lattice mode,
+    # through the guard, zero velocities and clamped map positions; timed
+    # at n^3 in both modes
+    results["dmc_substep"] = dmc_phase(g, rng, dev, compare)
 
     results["jacobi_diffuse"] = jacobi_phase(g, rng, dev, compare)
     results.update(smoother_phase(n, rng, dev, compare))
@@ -458,6 +442,138 @@ def rk3_phase(g, rng, dev, compare):
                           "(_kernel_rk3/_kernel_rk3_twotier :1745, "
                           "pallas_call :1855) and :1870 (_kernel_rk3_ident, "
                           "pallas_call :2001)"))
+
+
+# float32 operations of one dmc_substep cell in the band, counted from
+# the kernel's source: the 6 face averages (2 each); per axis the
+# exponential step (sign, du, q (2), |du|, the guard's select, exp, 1 - e,
+# the product and the division: 10) and the map coordinate (1); one weight
+# set (3 floors, 3 fractions, 3 x 1 - f); 3 channels x 7 lerps x 3
+DMC_OPS = 6 * 2 + 3 * (10 + 1) + 9 + 3 * 7 * 3
+# the lattice mode: the face averages and steps, then per axis p, disp*h,
+# the subtraction and the clamp (2)
+DMC_LATTICE_OPS = 6 * 2 + 3 * 10 + 3 * 5
+
+
+def dmc_faces(gg, rng, dev):
+    """Three MAC triplets of grid `gg`: smooth faces of size 0.06; the same
+    with a zero slab over the lowest third of k (velocity 0 there, where
+    the kernel's sign test is false); and smooth faces quantized to 0.01
+    with jitter of 0, 0.5, 0.99, 1.01 or 2 times the guard 1e-4 h of
+    either sign, so that |du| is 0, just under and just over the guard."""
+    import torch
+
+    base = [smooth(s, rng, 0.06, dev)
+            for s in (gg.shape_u, gg.shape_v, gg.shape_w)]
+    zero = [f.clone() for f in base]
+    for f in zero:
+        f[:, :, : f.shape[2] // 3] = 0.0
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+    steps = torch.tensor([0.0, 0.5, 0.99, 1.01, 2.0, -0.5, -0.99, -1.01,
+                          -2.0], device=dev) * float(np.float32(1e-4 * gg.h))
+    guard = [torch.round(f * 100.0) / 100.0 + steps[torch.randint(
+        0, len(steps), f.shape, device=dev, generator=gen)] for f in base]
+    return {"smooth": base, "zero slab": zero, "guard": guard}
+
+
+def dmc_phase(g, rng, dev, compare):
+    """Phase 2, dmc_substep: bit for bit against its plain version on the
+    n^3 grid, the reference scene's 100x200x200 and a ragged 37x29x45, for
+    the face sets of ``dmc_faces`` and substeps of both signs that move
+    the fastest face 1 and 3.5 cells (map positions past one cell and
+    outside the lattice on every face); the displaced mode from a map
+    displaced by up to 2 cells, the lattice mode (the identity peel)
+    against its plain version. The run fails unless those cases occur.
+    Timed on the n^3 grid in both modes. The bounds: the faces read once,
+    3 map floats read (none in the lattice mode) and 3 written a cell, or
+    the operations above."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core import interp
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D, band_mask
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    errs = []
+    hit = dict.fromkeys(("|du| <= guard, du != 0", "|du| > guard",
+                         "du == 0", "velocity 0", "displacement > 1 cell",
+                         "map position < 0", "map position > n - 1"), 0)
+    timing = None
+    for shape in (g.shape_c,) + EDGE_SHAPES:
+        gg = Grid3D(*shape, 0.2 / shape[0])
+        tag = "x".join(map(str, shape))
+        h = gg.h
+        thresh = interp_fast.dmc_threshold(h)
+        band = band_mask(shape, (2, 2, 2), (3, 3, 3), dev)
+        lat = torch.stack(gg.node_coords("c", device=dev))
+        maps = (lat + torch.stack([smooth(shape, rng, 2.0 * h, dev)
+                                   for _ in range(3)])).contiguous()
+        for label, (u, v, w) in dmc_faces(gg, rng, dev).items():
+            top = max(float(t.abs().max()) for t in (u, v, w))
+            sh1 = float(np.float32(np.float32(h) / np.float32(top))
+                        / np.float32(h))
+            for sh in (sh1, -sh1, 3.5 * sh1, -3.5 * sh1):
+                name = f"{tag} {label} sh={sh:+.4f}"
+                errs.append(compare(
+                    f"dmc_substep {name}",
+                    interp_fast.dmc_substep(u, v, w, maps, sh, thresh),
+                    interp_fast.dmc_substep_plain(u, v, w, maps, sh, thresh),
+                    0.0))
+                errs.append(compare(
+                    f"dmc_substep_lattice {name}",
+                    interp_fast.dmc_substep_lattice(u, v, w, sh, thresh, h),
+                    interp_fast.dmc_substep_lattice_plain(u, v, w, sh,
+                                                          thresh, h), 0.0))
+                vel = interp.mac_velocity_at_c_3d(u, v, w)
+                signs = [c > 0 for c in vel]
+                disp = interp_fast.dmc_displacements(u, v, w, sh, thresh)
+                for ax, (c, d) in enumerate(zip(vel, disp)):
+                    du = (c - interp_fast._upwind_corner(c, *signs))[band]
+                    hit["|du| <= guard, du != 0"] += int(
+                        ((du.abs() <= thresh) & (du != 0)).sum())
+                    hit["|du| > guard"] += int((du.abs() > thresh).sum())
+                    hit["du == 0"] += int((du == 0).sum())
+                    hit["velocity 0"] += int((c[band] == 0).sum())
+                    hit["displacement > 1 cell"] += int(
+                        (d[band].abs() > 1.0).sum())
+                    idx = torch.arange(shape[ax], device=dev).reshape(
+                        [-1 if a == ax else 1 for a in range(3)])
+                    pos = (idx - d)[band]
+                    hit["map position < 0"] += int((pos < 0).sum())
+                    hit["map position > n - 1"] += int(
+                        (pos > shape[ax] - 1).sum())
+            if shape == g.shape_c and label == "smooth":
+                timing = (u, v, w, maps, sh1, thresh, h)
+    log(f"[kernels] dmc_substep cases (band cells x axes over every run): "
+        f"{json.dumps(hit)}")
+    missing = [k for k, c in hit.items() if c == 0]
+    if missing:
+        raise AssertionError(f"dmc_substep: cases never occurred: {missing}")
+    u, v, w, maps, sh, thresh, h = timing
+    N = maps[0].numel()
+    faces = 4 * (u.numel() + v.numel() + w.numel())
+    variants = []
+    for label, run, plain, nbytes, nops in (
+            ("displaced map",
+             lambda: interp_fast.dmc_substep(u, v, w, maps, sh, thresh),
+             lambda: interp_fast.dmc_substep_plain(u, v, w, maps, sh, thresh),
+             faces + 4 * 6 * N, N * DMC_OPS),
+            ("lattice mode (identity peel)",
+             lambda: interp_fast.dmc_substep_lattice(u, v, w, sh, thresh, h),
+             lambda: interp_fast.dmc_substep_lattice_plain(u, v, w, sh,
+                                                           thresh, h),
+             faces + 4 * 3 * N, N * DMC_LATTICE_OPS)):
+        k_ms = cuda_time(run, 20)
+        p_ms = cuda_time(plain, 3, 1)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        variants.append(dict(variant=label, max_abs_err=max(errs), tol=0.0,
+                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                             bound_by=b_by, library_ms=None))
+        log(f"[kernels] dmc_substep {label}: {k_ms:.4f} ms (plain "
+            f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
+    return dict(variants[0], variants=variants, lattice=variants[1],
+                cases=hit,
+                replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:3143 "
+                          "(_kernel_dmc, pallas_call :3319)"))
 
 
 def jacobi_phase(g, rng, dev, compare):
@@ -638,28 +754,17 @@ def smoother_phase(n, rng, dev, compare):
 
 
 def volume_phase(g, rng, dev, compare, positions):
-    """Phase 2, the two volume-form kernels at the n^3 path's shapes:
-    ``volume_prefilter`` on the u lattice (C=1) and the cell lattice (C=2,
-    rho+T) against its plain version and, as a yardstick, one replicate-
-    padded conv3d with the same 3x3x3 weights; ``vol9_fixup`` through a
-    map displaced by up to ~2 cells, u (C=1, the error stage's clamp and
-    band) and rho+T (C=2, the advect stage's), with every block flagged
-    (tol = 0) and at the default tol, against its plain version. The vol9
-    fields are a smooth patch per channel (u: x < n*3/8; rho: x >= n/2,
-    y < n/2; T: y >= n*5/8) over a faint short wave, so at the default
-    tol only the blocks near a patch are flagged, the two channels' flags
-    differ, and the unflagged nodes' dual values differ from the exact
-    composition by more than the comparison's tolerance: a kernel that
-    ignored the flags, mixed up the block index or read another channel's
-    flag would disagree with the plain version."""
+    """Phase 2, the two volume-form kernels: ``volume_prefilter`` on
+    100x200x200 and 37x29x45 and, timed, at the n^3 path's shapes on the u
+    lattice (C=1) and the cell lattice (C=2, rho+T) against its plain
+    version and, as a yardstick, one replicate-padded conv3d with the same
+    3x3x3 weights; then ``vol9_phase``."""
     import torch
     import torch.nn.functional as F
 
-    from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
     from gpufluidsimulation_tpu_torch.ops import interp_fast
 
     results = {}
-    h = g.h
     fu = smooth(g.shape_u, rng, 0.06, dev)[None].contiguous()
     fc = torch.stack([smooth(g.shape_c, rng, 1.0, dev),
                       smooth(g.shape_c, rng, 50.0, dev)]).contiguous()
@@ -709,8 +814,83 @@ def volume_phase(g, rng, dev, compare, positions):
                   "(_kernel_prefilter, pallas_call :1552 in _prefilter_padded; "
                   "entry volume_prefilter_fast :1571)"))
 
-    maps = torch.stack(positions("c")).contiguous()
-    stats = interp_fast.vol9_map_stats(maps, h, g.shape_c)
+    results.update(vol9_phase(g, rng, dev, compare, positions))
+    return results
+
+
+def vol9_ops(gg, kind, n_any, n_chan):
+    """float32 operations of the exact composition once floors, weights
+    and lerps are shared, as the dual sampler's are (``dual_ops``): per
+    node flagged for any channel, per axis the 3 stencil coordinates (an
+    add and a division each) and their 3 weight sets (floor, fraction,
+    1 - f); per map channel the distinct lerps of the 9 samples, 3
+    operations each (x lerps 2|J||K| + 4, y lerps 4|K| + 2, 9 z lerps,
+    with |J| and |K| the y and z nodes the stencil spans: 3 on the cell
+    lattice, 2 along a face kind's staggered axis, where the three
+    coordinates share one floor); the 27 clamps (2 each); per mapped point
+    the field coordinates (a division and a subtraction per axis) and one
+    weight set (9). Per flagged node and channel: 9 field samples of 7
+    lerps, 7 corner sums and 3 for the blend."""
+    off = gg.off_of(kind)
+    J, K = (3 if o == 0.0 else 2 for o in off[1:])
+    per_node = (3 * (3 * 2 + 3 * 3)
+                + 3 * 3 * (2 * J * K + 4 + 4 * K + 2 + 9)
+                + 27 * 2 + 9 * (3 * 2 + 9))
+    return n_any * per_node + n_chan * (9 * 7 * 3 + 7 + 3)
+
+
+def vol9_map_spread(gg, dev):
+    """The floors of the vol9 kernel's map stencil on the card: for every
+    node coordinate of every kind of grid `gg`, x0 = (i + off) h and the
+    three coordinates (x0 + d h)/h, d = -1/4, 0, 1/4, in float32 with IEEE
+    division as the kernel computes them, must be ordered with floors
+    within floor(c0) and floor(c0) + 1. Returns the coordinates checked."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core import interp
+
+    h = gg.h
+    checked = 0
+    for kind in ("c", "u", "v", "w"):
+        off = gg.off_of(kind)
+        for ax, n in enumerate(gg.shape_of(kind)):
+            x0 = (torch.arange(n, dtype=torch.float32, device=dev)
+                  + off[ax]) * h
+            c = [interp.div_scalar(x0 + float(np.float32(d) * np.float32(h)),
+                                   h) for d in (-0.25, 0.0, 0.25)]
+            b = torch.floor(c[0])
+            ok = ((c[0] <= c[1]) & (c[1] <= c[2])
+                  & (torch.floor(c[2]) - b <= 1))
+            if not bool(ok.all()):
+                raise AssertionError(f"vol9 map stencil on {gg.shape_c} "
+                                     f"{kind} axis {ax}: floors span more "
+                                     "than two nodes")
+            checked += n
+    return checked
+
+
+def vol9_phase(g, rng, dev, compare, positions):
+    """Phase 2, ``vol9_fixup``: bit for bit against its plain version, u
+    (C=1, the error stage's clamp and band) and rho+T (C=2, the advect
+    stage's), with every block flagged (tol = 0) and at the default tol.
+    On 100x200x200 and 37x29x45 through a map stretched to reach 3 cells
+    past the domain on every face (so that mapped positions clamp on
+    every face) with a smooth wobble; on the n^3 grid through a map
+    displaced by up to ~2 cells, timed. The vol9 fields are a smooth
+    patch per channel (u: x < n*3/8; rho: x >= n/2, y < n/2; T: y >= n*5/8)
+    over a faint short wave, so at the default tol only the blocks near a
+    patch are flagged, the two channels' flags differ, and the unflagged
+    nodes' dual values differ from the exact composition: a kernel that
+    ignored the flags, mixed up the block index or read another channel's
+    flag would disagree with the plain version. The floors of the map
+    stencil are checked on the card for every grid (``vol9_map_spread``)."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    h = g.h
 
     def vol9_field(shape, amp, xs, ys):
         """A smooth field of size `amp` on the nodes of x range `xs` and y
@@ -727,6 +907,62 @@ def volume_phase(g, rng, dev, compare, positions):
                          + float(rng.uniform(0, 2 * np.pi)))
         return torch.where(mask, f, 0.0) + (amp / 1000) * wave
 
+    def fields_of(gg):
+        n0, n1 = gg.shape_c[:2]
+        vu = vol9_field(gg.shape_u, 1.0, slice(0, 3 * n0 // 8),
+                        slice(None))[None].contiguous()
+        vc = torch.stack([
+            vol9_field(gg.shape_c, 1.0, slice(n0 // 2, None),
+                       slice(0, n1 // 2)),
+            vol9_field(gg.shape_c, 50.0, slice(None),
+                       slice(5 * n1 // 8, None))]).contiguous()
+        return (("C=1 u", vu, "u", 0.0, 1), ("C=2 c", vc, "c", 1.0, 2))
+
+    def band_of(gg, kind, band_lo):
+        dim = gg.dim_of(kind)
+        return (band_lo + dim[0], band_lo + dim[1], band_lo + dim[2],
+                band_lo + 1)
+
+    errs = []
+    spread = vol9_map_spread(g, dev)
+    for shape in EDGE_SHAPES:
+        gg = Grid3D(*shape, 0.2 / shape[0])
+        hh = gg.h
+        tag = "x".join(map(str, shape))
+        spread += vol9_map_spread(gg, dev)
+        lat = torch.stack(gg.node_coords("c", device=dev))
+        n_ = torch.tensor(shape, dtype=torch.float32, device=dev).reshape(
+            3, 1, 1, 1)
+        maps = (lat * ((n_ + 6.0) / n_) - 3.0 * hh + torch.stack(
+            [smooth(shape, rng, 0.5 * hh, dev) for _ in range(3)]))
+        maps = maps.contiguous()
+        stats = interp_fast.vol9_map_stats(maps, hh, shape)
+        for label, f, kind, clamp, band_lo in fields_of(gg):
+            lo, hi = interp_fast.clamp_bounds(gg, clamp, clamp)
+            for a in range(3):
+                if not (bool((maps[a] < lo[a]).any())
+                        and bool((maps[a] > hi[a]).any())):
+                    raise AssertionError(f"vol9_fixup {tag}: the map does "
+                                         f"not clamp on both faces of {a}")
+            band = band_of(gg, kind, band_lo)
+            p1 = mp.map_at_lattice_3d(gg, maps, kind, clamp, clamp)
+            duals = interp_fast.trilerp_sample(
+                f, *(p.contiguous() for p in p1), hh,
+                (gg.off_of(kind),) * len(f), dual=True)
+            for tol_label, tol in (("tol=0", 0.0), ("default tol", None)):
+                got = interp_fast.vol9_fixup(duals.clone(), f, stats, maps,
+                                             p1, gg, kind, clamp, clamp,
+                                             band=band, tol=tol)
+                want = interp_fast.vol9_fixup_plain(duals, f, stats, maps, p1,
+                                                    gg, kind, clamp, clamp,
+                                                    band=band, tol=tol)
+                errs.append(compare(f"vol9_fixup {tag} {label} {tol_label}",
+                                    got, want, 0.0))
+    log(f"[kernels] vol9_fixup map stencil: {spread} node coordinates, "
+        "floors within two adjacent nodes")
+    results = {}
+    maps = torch.stack(positions("c")).contiguous()
+    stats = interp_fast.vol9_map_stats(maps, h, g.shape_c)
     n0, n1 = g.shape_c[:2]
     vu = vol9_field(g.shape_u, 1.0, slice(0, 3 * n0 // 8),
                     slice(None))[None].contiguous()
@@ -755,7 +991,7 @@ def volume_phase(g, rng, dev, compare, positions):
                                                 kind, clamp, clamp, band=band,
                                                 tol=tol)
             scale = max(1.0, float(want.abs().max()))
-            err = compare(f"vol9_fixup {name}", got, want, 1e-6 * scale)
+            err = compare(f"vol9_fixup {name}", got, want, 0.0)
             out = duals.clone()
             k_ms = cuda_time(lambda: interp_fast.vol9_launch(
                 out, f, maps, flags, g, kind, clamp, clamp), 10)
@@ -765,15 +1001,10 @@ def volume_phase(g, rng, dev, compare, positions):
             p_ms = cuda_time(lambda: interp_fast.vol9_fixup_plain(
                 duals, f, stats, maps, p1, g, kind, clamp, clamp, band=band,
                 tol=tol), 2, 1)
-            # the work of this run's flags. Per node of a block flagged
-            # for any channel, at each of the 9 stencil points: the point
-            # (3 adds in units of h), the map's 3 channels sampled there
-            # (one weight set, 3 x 7 lerps), the clamp (6) and the field
-            # coordinates (3 scales, 3 offsets). Per flagged node and
-            # channel: 9 field trilerps, 7 corner adds, 3 for the blend.
-            # The flags and the flagged share of the map read once, each
-            # flagged node's field read and output written once (the
-            # in-place kernel reads no dual value)
+            # the work of this run's flags: vol9_ops operations; the flags
+            # and the flagged share of the map read once, each flagged
+            # node's field read and output written once (the in-place
+            # kernel reads no dual value)
             _, block, _ = interp_fast.vol9_blocks(g.shape_c)
             node_flags = interp_fast._expand_flags(flags, f.shape[1:], block)
             n_chan = int(node_flags.sum())
@@ -781,10 +1012,7 @@ def volume_phase(g, rng, dev, compare, positions):
             share = n_any / node_flags[0].numel()
             nbytes = (flags.numel() + 4 * share * maps.numel()
                       + 4 * 2 * n_chan)
-            point_ops = 3 + TRILERP_WEIGHTS + 3 * 7 * LERP_OPS + 6 + 6
-            nops = (n_any * 9 * point_ops
-                    + n_chan * (9 * TRILERP_OPS + 7 + 3))
-            b_ms, b_by = bound_ms(nbytes, nops)
+            b_ms, b_by = bound_ms(nbytes, vol9_ops(g, kind, n_any, n_chan))
             flagged = float(flags.float().mean())
             if tol == 0.0:
                 exact = want
@@ -794,8 +1022,7 @@ def volume_phase(g, rng, dev, compare, positions):
                 # channels' flags must differ, or the flags go untested
                 miss = float((exact - duals).abs()[~node_flags].max())
                 log(f"[kernels] vol9_fixup {name}: a kernel that ignored the "
-                    f"flags would be off by {miss:.3e} (tol "
-                    f"{1e-6 * scale:.1e})")
+                    f"flags would be off by {miss:.3e} (scale {scale:.3e})")
                 if not 0.0 < flagged < 1.0 or not miss > 10e-6 * scale:
                     raise AssertionError(
                         f"vol9_fixup {name}: the flags go untested: flagged "
@@ -804,7 +1031,7 @@ def volume_phase(g, rng, dev, compare, positions):
                     raise AssertionError(f"vol9_fixup {name}: the channels' "
                                          "flags are equal")
             variants.append(dict(variant=name, max_abs_err=err,
-                                 tol=1e-6 * scale, ms=k_ms, call_ms=call_ms,
+                                 tol=0.0, ms=k_ms, call_ms=call_ms,
                                  plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
                                  library_ms=None, flagged_share=flagged))
             log(f"[kernels] vol9_fixup {name}: kernel {k_ms:.4f} ms, with "
@@ -812,7 +1039,9 @@ def volume_phase(g, rng, dev, compare, positions):
                 f"{b_ms:.4f} by {b_by}); {100 * flagged:.1f}% of the block "
                 "channels flagged")
     results["vol9_fixup"] = dict(
-        variants[0], variants=variants,
+        variants[0], max_abs_err=max([v["max_abs_err"] for v in variants]
+                                     + errs),
+        variants=variants, edge_max_abs_err=max(errs), spread=spread,
         replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:2816 "
                   "(_kernel_vol9fix, pallas_call :2995 in _vol9_fixup_padded; "
                   "entries vol9_fixup :3012, sample3_vol9 :3075)"))
@@ -1089,23 +1318,27 @@ KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
 MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 # redesigned for Hopper after their first port (PERF.md, kernel table)
 REDESIGNED = ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
-              "volume_prefilter")
-# the rk3_substep kernel's lattice mode, launched under its own count
-LATTICE = "rk3_substep_lattice"
+              "volume_prefilter", "dmc_substep", "vol9_fixup")
+# the lattice modes of rk3_substep and dmc_substep, each launched under its
+# own count
+LATTICE = {"rk3_substep": "rk3_substep_lattice",
+           "dmc_substep": "dmc_substep_lattice"}
 
 
 def wrappers():
-    """Every launching wrapper by name: one per kernel, and LATTICE."""
+    """Every launching wrapper by name: one per kernel, and the lattice
+    modes."""
     from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
 
     return {name: getattr(interp_fast, name, None)
-            or getattr(stencil_kernels, name) for name in KERNELS + (LATTICE,)}
+            or getattr(stencil_kernels, name)
+            for name in KERNELS + tuple(LATTICE.values())}
 
 
 def kernel_launches(counts, name):
-    """Launches of kernel `name` in `counts` (by wrapper); rk3_substep's
-    include those of its lattice mode."""
-    return counts[name] + (counts[LATTICE] if name == "rk3_substep" else 0)
+    """Launches of kernel `name` in `counts` (by wrapper), those of its
+    lattice mode included."""
+    return counts[name] + (counts[LATTICE[name]] if name in LATTICE else 0)
 
 
 def timed_steps(solver, steps, expect, warm=lambda state: True,
@@ -1176,26 +1409,44 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
 
 def main_phase(n, steps, profile):
     """Phase 4: the main path through the entry points, launches counted."""
+    from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
     from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
 
-    from gpufluidsimulation_tpu_torch.ops import stencil_kernels
-
     solver = Smoke3D(bench_config(n))
-    state, res = timed_steps(solver, steps, MAIN_KERNELS)
+    # the identity peel of the backward march is the lattice mode of
+    # dmc_substep: no plain displacement work may run on the card
+    plain_calls = []
+    displacements = interp_fast.dmc_displacements
+
+    def counted(u, *args):
+        if u.is_cuda:
+            plain_calls.append(tuple(u.shape))
+        return displacements(u, *args)
+
+    interp_fast.dmc_displacements = counted
+    try:
+        state, res = timed_steps(solver, steps, MAIN_KERNELS)
+    finally:
+        interp_fast.dmc_displacements = displacements
+    if plain_calls:
+        raise AssertionError(f"the main path computed {len(plain_calls)} "
+                             "plain DMC displacements on the card")
     if not 0.0 < res["rho_max"] <= 10.0:
         raise AssertionError(f"implausible rho_max={res['rho_max']}")
     # 12 dual pull-back samples (3 stages x u, v, w, rho+T), 3 viscosity
-    # solves of 20 sweeps, s sweeps a launch, the forward-map march's 3
-    # substeps (the first from the lattice) and the 3 post-reinit
-    # accumulates' prefilters, per step
+    # solves of 20 sweeps, s sweeps a launch, the forward- and backward-map
+    # marches' 3 substeps each (the first in the lattice mode) and the 3
+    # post-reinit accumulates' prefilters, per step
     counts = res["launches"]
     per_step = {k: kernel_launches(counts, k) / steps
                 for k in ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
-                          "volume_prefilter")}
-    per_step[LATTICE] = counts[LATTICE] / steps
+                          "dmc_substep", "volume_prefilter")}
+    for lattice in LATTICE.values():
+        per_step[lattice] = counts[lattice] / steps
     want = {"trilerp_sample": 12,
             "jacobi_diffuse": 3 * len(stencil_kernels.sweep_chunks(20)),
-            "rk3_substep": 3, "volume_prefilter": 3, LATTICE: 1}
+            "rk3_substep": 3, "dmc_substep": 3, "volume_prefilter": 3,
+            "rk3_substep_lattice": 1, "dmc_substep_lattice": 1}
     if per_step != want:
         raise AssertionError(f"main path launches per step {per_step}, "
                              f"expected {want}")
@@ -1432,26 +1683,48 @@ def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
     """Device time by kernel name over `steps` steps, written to `path`,
     with the card's busy time per step (the sum over kernels) beside
     `ms_per_step`, the step time measured without the profiler: the rest
-    of the step the card waits for the host."""
+    of the step the card waits for the host. The backward-map march runs
+    in a record_function range, whose span on the card is reported
+    beside."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from gpufluidsimulation_tpu_torch.ops import advect
+
+    march = advect.update_backward_map_3d
+
+    def ranged(*args, **kwargs):
+        with torch.profiler.record_function("update_backward_map_3d"):
+            return march(*args, **kwargs)
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            state = solver.step(state)
-        torch.cuda.synchronize()
+    advect.update_backward_map_3d = ranged
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state = solver.step(state)
+            torch.cuda.synchronize()
+    finally:
+        advect.update_backward_map_3d = march
     events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.key != "update_backward_map_3d"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
+    # the range's span on the card: its kernels, launched through ctypes,
+    # are not attributed to the range's CPU side
+    march_ms = sum(e.device_time_total for e in events
+                   if e.key == "update_backward_map_3d"
+                   and e.device_type == DeviceType.CUDA) / 1e3 / steps
     table = events.table(sort_by="cuda_time_total", row_limit=45)
     head = (f"== {title}: {steps} steps under the profiler: device busy "
             f"{busy_ms:.2f} ms/step in {launches:.0f} kernel launches/step, "
             f"against {ms_per_step:.2f} ms/step measured without the "
-            f"profiler: idle {100 * (1 - busy_ms / ms_per_step):.1f}%")
+            f"profiler: idle {100 * (1 - busy_ms / ms_per_step):.1f}%; the "
+            f"backward-map march (update_backward_map_3d) spans {march_ms:.3f} "
+            "ms/step on the card")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, mode) as f:
         f.write(head + "\n" + table + "\n")
@@ -1574,11 +1847,11 @@ def main():
                      tol=r["tol"], ms=r["ms"], kernel_ms=r["ms"],
                      plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
                      bound_by=r["bound_by"], library_ms=r["library_ms"])
-        if name == "rk3_substep":
+        if name in LATTICE:
             entry["lattice_launches_by_path"] = {
-                p: c[LATTICE] for p, c in by_path.items()}
+                p: c[LATTICE[name]] for p, c in by_path.items()}
         for extra in ("variants", "lattice", "one_sweep_ms",
-                      "sweeps_per_launch"):
+                      "sweeps_per_launch", "cases"):
             if extra in r:
                 entry[extra] = r[extra]
         line.append(entry)

@@ -56,6 +56,189 @@ __device__ __forceinline__ float trilerp_clamped(
   return (1.0f - fz) * c0 + fz * c1;
 }
 
+// ---------------------------------------------------------------------------
+// Building blocks of the redesigned samplers (rk3_substep, dmc_substep,
+// trilerp_sample, vol9_fixup). Every one evaluates clamped trilinears with
+// the operands and the x, then y, then z order of trilerp_clamped, so that
+// the results stay bit-identical, but shares floors, weights and offsets
+// between samples, and indexes with unsigned 32-bit offsets (the wrappers
+// raise unless every array holds fewer than 2^31 values): a load then adds
+// the offset to the array's base address in the load itself.
+// ---------------------------------------------------------------------------
+
+// The clamped node of an integral float coordinate. Clamping in float
+// keeps huge or non-finite coordinates at the edge node, as the plain
+// version's integer clamp does.
+__device__ __forceinline__ unsigned clamp_node(float i, int n) {
+  return (unsigned)fminf(fmaxf(i, 0.0f), (float)(n - 1));
+}
+
+// One x or y coordinate of a trilinear sample: its fraction f, 1 - f,
+// and the clamped corner nodes floor(g) and floor(g) + 1.
+struct Coord {
+  float f, w;
+  unsigned lo, hi;
+};
+
+// The z coordinate: f, 1 - f, the first node lo of the loaded pair
+// (lo, lo + 1), and whether both clamped corners sit at lo + 1 (top) or at
+// lo (bottom; also for a NaN, which the plain clamp sends to node 0).
+struct ZPair {
+  float f, w;
+  unsigned lo;
+  bool top, bottom;
+};
+
+__device__ __forceinline__ Coord coord(float g, int n) {
+  Coord c;
+  const float fl = floorf(g);
+  c.f = g - fl;
+  c.w = 1.0f - c.f;
+  c.lo = clamp_node(fl, n);
+  c.hi = clamp_node(fl + 1.0f, n);
+  return c;
+}
+
+// Along z, the innermost axis, the corners are loaded as the pair (lo,
+// lo + 1) with lo = clamp(floor(g), 0, n - 2), two loads from one address;
+// where the plain version's clamped corners coincide (floor(g) <= -1: both
+// 0; floor(g) >= n - 1: both n - 1), the pair's lerped value at that node
+// is taken for both after the x and y lerps, which are the same operations
+// on the same values, so the same bits. Needs n >= 2.
+__device__ __forceinline__ ZPair zpair(float g, int n) {
+  ZPair c;
+  const float fl = floorf(g);
+  c.f = g - fl;
+  c.w = 1.0f - c.f;
+  c.lo = clamp_node(fl, n - 1);
+  c.top = fl >= (float)(n - 1);
+  c.bottom = !(fl >= 0.0f);
+  return c;
+}
+
+// The clamped trilerp of trilerp_clamped from per-axis coordinates, (sx,
+// sy) the field's x and y strides. Samples of several fields of one shape
+// at one position share x, y, z and the offsets.
+__device__ __forceinline__ float trilerp_zpair(const float* __restrict__ f,
+                                               const Coord& x, const Coord& y,
+                                               const ZPair& z, unsigned sx,
+                                               unsigned sy) {
+  const unsigned xa = x.lo * sx, xb = x.hi * sx;
+  const unsigned ya = y.lo * sy, yb = y.hi * sy;
+  const float* aa = f + (xa + ya + z.lo);
+  const float* ba = f + (xb + ya + z.lo);
+  const float* ab = f + (xa + yb + z.lo);
+  const float* bb = f + (xb + yb + z.lo);
+  // the x, then y lerps at z nodes lo and lo + 1
+  const float c00 = x.w * __ldg(aa) + x.f * __ldg(ba);
+  const float c10 = x.w * __ldg(ab) + x.f * __ldg(bb);
+  const float c01 = x.w * __ldg(aa + 1) + x.f * __ldg(ba + 1);
+  const float c11 = x.w * __ldg(ab + 1) + x.f * __ldg(bb + 1);
+  const float l0 = y.w * c00 + y.f * c10;
+  const float l1 = y.w * c01 + y.f * c11;
+  // the plain version's lerps at its two clamped z corners
+  const float c0 = z.top ? l1 : l0;
+  const float c1 = z.bottom ? l0 : l1;
+  return z.w * c0 + z.f * c1;
+}
+
+// One axis of a 3-point stencil whose coordinates c[0] <= c[1] <= c[2]
+// span less than one node (the volume stencils' g - 1/4, g, g + 1/4):
+// their floors lie within B = floor(c[0]) and B + 1, so the fractions f,
+// the offsets (index times stride) of the clamped nodes B, B + 1, B + 2,
+// and whether coordinate q takes its corners at (B+1, B+2) rather than
+// (B, B+1) describe every sample. Coordinate 0 always takes (B, B+1), so
+// its up flag is a constant false (for a NaN c[0], where floor(c[0]) !=
+// B, every clamped node is node 0 and either choice reads the same
+// values): its lerps need no selects.
+struct Axis {
+  float f[3];
+  unsigned node[3];
+  bool up[3];
+};
+
+__device__ __forceinline__ Axis axis3(const float (&c)[3], int n,
+                                      unsigned stride) {
+  Axis a;
+  const float base = floorf(c[0]);
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float fl = floorf(c[q]);
+    a.f[q] = c[q] - fl;
+    a.up[q] = q > 0 && fl != base;
+    a.node[q] = clamp_node(base + (float)q, n) * stride;
+  }
+  return a;
+}
+
+// (1 - f) * lo + f * hi, the blend of the plain version (1 - f is not
+// kept per coordinate: recomputing it costs less than the registers)
+__device__ __forceinline__ float lerp(float f, float lo, float hi) {
+  return (1.0f - f) * lo + f * hi;
+}
+
+// The 9 samples of the volume stencil from a field's clamped 3 x 3 x 3
+// neighbourhood, 27 loads: s[0..7] at the corners (x, y, z coordinates 0
+// or 2) in _VOL3 order (+,+,+) (+,+,-) (+,-,+) (+,-,-) (-,+,+) ... (-,-,-),
+// + coordinate 2 and - coordinate 0, and s[8] at the centre (1, 1, 1). The
+// corners of each sample are picked by selects on the axes' up flags with
+// compile-time register indices (no dynamic indexing, so no local memory),
+// and lerps that two samples share (same x coordinate and the same two
+// nodes) are computed once: the x lerps for all 9 (y, z) node pairs of each
+// x coordinate, the y lerps per (x, y) coordinate pair, then one z lerp per
+// sample.
+__device__ __forceinline__ void stencil9(const float* __restrict__ f,
+                                         const Axis& ax, const Axis& ay,
+                                         const Axis& az, float (&s)[9]) {
+  // one z node at a time: its 9 (x, y) nodes, the x lerps of each y node
+  // for each x coordinate, then the y lerps of the (x, y) coordinate pairs
+  // the 9 samples use, (-,-) (-,+) (+,-) (+,+) and the centre's (0,0):
+  // pair p at x coordinate qx and y coordinate qy
+  float Y[5][3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    float v[3][3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+#pragma unroll
+      for (int b = 0; b < 3; ++b)
+        v[a][b] = __ldg(f + (ax.node[a] + ay.node[b] + az.node[c]));
+    float X[3][3];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+#pragma unroll
+      for (int b = 0; b < 3; ++b) {
+        const float lo = ax.up[q] ? v[1][b] : v[0][b];
+        const float hi = ax.up[q] ? v[2][b] : v[1][b];
+        X[q][b] = lerp(ax.f[q], lo, hi);
+      }
+#pragma unroll
+    for (int p = 0; p < 5; ++p) {
+      const int qx = p == 4 ? 1 : (p < 2 ? 0 : 2);
+      const int qy = p == 4 ? 1 : (p % 2 == 0 ? 0 : 2);
+      const float lo = ay.up[qy] ? X[qx][1] : X[qx][0];
+      const float hi = ay.up[qy] ? X[qx][2] : X[qx][1];
+      Y[p][c] = lerp(ay.f[qy], lo, hi);
+    }
+  }
+  // z lerp of one sample from its (x, y) pair and z coordinate
+  auto zl = [&](int p, int qz) {
+    const float lo = az.up[qz] ? Y[p][1] : Y[p][0];
+    const float hi = az.up[qz] ? Y[p][2] : Y[p][1];
+    return lerp(az.f[qz], lo, hi);
+  };
+  // pair index: (+,+) 3, (+,-) 2, (-,+) 1, (-,-) 0
+  s[0] = zl(3, 2);
+  s[1] = zl(3, 0);
+  s[2] = zl(2, 2);
+  s[3] = zl(2, 0);
+  s[4] = zl(1, 2);
+  s[5] = zl(1, 0);
+  s[6] = zl(0, 2);
+  s[7] = zl(0, 0);
+  s[8] = zl(4, 1);
+}
+
 // Sum of the six axis neighbours of cell (i, j, k) of an (nx, ny, nz)
 // k-fastest field with zero ghosts outside it, in the order of the JAX
 // smoothers: ((((((0 + x[i+1]) + x[i-1]) + x[j+1]) + x[j-1]) + x[k+1]) + x[k-1]).

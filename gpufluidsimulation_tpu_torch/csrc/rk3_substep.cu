@@ -38,11 +38,12 @@
 // pair's lerped value at that node is taken for both after the x and y
 // lerps, which are the same operations on the same values, so the same
 // bits. That halves the address arithmetic of the gathers and needs
-// n >= 2 along z (the wrapper raises for nk < 2). Offsets are unsigned
-// 32-bit (the wrapper raises unless each face and n are below 2^31). Each
-// blend keeps the plain version's operands and its x, then y, then z
-// order, and the library is built with -fmad=false: the result is
-// bit-identical.
+// n >= 2 along z (the wrapper raises for nk < 2); gfs::coord, gfs::zpair
+// and gfs::trilerp_zpair in common.cuh, shared with dmc_substep and
+// vol9_fixup. Offsets are unsigned 32-bit (the wrapper raises unless each
+// face and n are below 2^31). Each blend keeps the plain version's
+// operands and its x, then y, then z order, and the library is built with
+// -fmad=false: the result is bit-identical.
 //
 // Measured (scripts/kernel_variants.py, H100, 256^3): the shared sets
 // took 0.70 to 0.52 ms, the z pairs to 0.46, the 64-register cap (no
@@ -60,74 +61,11 @@ namespace {
 constexpr int kBlockK = 32, kBlockJ = 4, kBlockI = 1;
 constexpr int kMinBlocks = 8;
 
-// One x or y coordinate of a trilinear sample: its fraction f, 1 - f,
-// and the clamped corner nodes floor(g) and floor(g) + 1.
-struct Coord {
-  float f, w;
-  unsigned lo, hi;
-};
-
-// The z coordinate: f, 1 - f, the first node lo of the loaded pair
-// (lo, lo + 1), and whether both clamped corners sit at lo + 1 (top) or at
-// lo (bottom; also for a NaN, which the plain clamp sends to node 0).
-struct ZPair {
-  float f, w;
-  unsigned lo;
-  bool top, bottom;
-};
-
-// The clamped node of an integral float coordinate. Clamping in float
-// keeps huge or non-finite coordinates at the edge node, as the plain
-// version's integer clamp does.
-__device__ __forceinline__ unsigned clamp_node(float i, int n) {
-  return (unsigned)fminf(fmaxf(i, 0.0f), (float)(n - 1));
-}
-
-__device__ __forceinline__ Coord coord(float g, int n) {
-  Coord c;
-  const float fl = floorf(g);
-  c.f = g - fl;
-  c.w = 1.0f - c.f;
-  c.lo = clamp_node(fl, n);
-  c.hi = clamp_node(fl + 1.0f, n);
-  return c;
-}
-
-__device__ __forceinline__ ZPair zpair(float g, int n) {
-  ZPair c;
-  const float fl = floorf(g);
-  c.f = g - fl;
-  c.w = 1.0f - c.f;
-  c.lo = clamp_node(fl, n - 1);
-  c.top = fl >= (float)(n - 1);
-  c.bottom = !(fl >= 0.0f);
-  return c;
-}
-
-// The clamped trilerp of gfs::trilerp_clamped from per-axis coordinates,
-// (sx, sy) the field's x and y strides.
-__device__ __forceinline__ float trilerp(const float* __restrict__ f,
-                                         const Coord& x, const Coord& y,
-                                         const ZPair& z, unsigned sx,
-                                         unsigned sy) {
-  const unsigned xa = x.lo * sx, xb = x.hi * sx;
-  const unsigned ya = y.lo * sy, yb = y.hi * sy;
-  const float* aa = f + (xa + ya + z.lo);
-  const float* ba = f + (xb + ya + z.lo);
-  const float* ab = f + (xa + yb + z.lo);
-  const float* bb = f + (xb + yb + z.lo);
-  // the x, then y lerps at z nodes lo and lo + 1
-  const float c00 = x.w * __ldg(aa) + x.f * __ldg(ba);
-  const float c10 = x.w * __ldg(ab) + x.f * __ldg(bb);
-  const float c01 = x.w * __ldg(aa + 1) + x.f * __ldg(ba + 1);
-  const float c11 = x.w * __ldg(ab + 1) + x.f * __ldg(bb + 1);
-  const float l0 = y.w * c00 + y.f * c10;
-  const float l1 = y.w * c01 + y.f * c11;
-  // the plain version's lerps at its two clamped z corners
-  const float c0 = z.top ? l1 : l0;
-  const float c1 = z.bottom ? l0 : l1;
-  return z.w * c0 + z.f * c1;
-}
+using gfs::Coord;
+using gfs::coord;
+using gfs::trilerp_zpair;
+using gfs::ZPair;
+using gfs::zpair;
 
 // The MAC faces of an (ni, nj, nk) grid: u (ni+1, nj, nk), v (ni, nj+1,
 // nk), w (ni, nj, nk+1), k-fastest.
@@ -147,9 +85,9 @@ __device__ __forceinline__ void mac_velocity(const Faces& F, float gx,
   const Coord y0 = coord(gy, F.nj), y1 = coord(gy + 0.5f, F.nj + 1);
   const ZPair z0 = zpair(gz, F.nk), z1 = zpair(gz + 0.5f, F.nk + 1);
   const unsigned nj = F.nj, nk = F.nk;
-  *ou = trilerp(F.u, x1, y0, z0, nj * nk, nk);
-  *ov = trilerp(F.v, x0, y1, z0, (nj + 1) * nk, nk);
-  *ow = trilerp(F.w, x0, y0, z1, nj * (nk + 1), nk + 1);
+  *ou = trilerp_zpair(F.u, x1, y0, z0, nj * nk, nk);
+  *ov = trilerp_zpair(F.v, x0, y1, z0, (nj + 1) * nk, nk);
+  *ow = trilerp_zpair(F.w, x0, y0, z1, nj * (nk + 1), nk + 1);
 }
 
 struct Params {

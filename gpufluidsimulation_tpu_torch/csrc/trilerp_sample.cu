@@ -36,7 +36,8 @@
 // dynamic indexing, so no local memory). Lerps that two samples share
 // (same x coordinate and the same two nodes) are computed once: the
 // x lerps for all 9 (j, k) node pairs of each x coordinate, the y lerps
-// per (x, y) coordinate pair, then one z lerp per sample. Every lerp sees
+// per (x, y) coordinate pair, then one z lerp per sample (gfs::axis3 and
+// gfs::stencil9 in common.cuh, shared with vol9_fixup). Every lerp sees
 // the operands of the plain version's x, then y, then z blend, the corners
 // are summed in _VOL3 order and blended as 0.5*(acc/8) + 0.5*centre, and
 // the library is built with -fmad=false: the result is bit-identical.
@@ -72,98 +73,27 @@ __device__ __forceinline__ float offset(const Offsets& offs, int c, int a) {
   return o;
 }
 
+using gfs::Axis;
+using gfs::clamp_node;
+
 // One axis of the dual stencil: the coordinates g - 1/4 (index 0), g (1)
-// and g + 1/4 (2); their fractions f; the offsets (index times stride) of
-// the clamped nodes B, B + 1, B + 2 with B = floor(g - 1/4); and whether
-// coordinate 1 or 2 takes its corners at (B+1, B+2) rather than (B, B+1).
-// Coordinate 0 always takes (B, B+1).
-struct Axis {
-  float f[3];
-  unsigned node[3];
-  bool up[3];
-};
-
-// The clamped node of an integral float coordinate, as an unsigned offset
-// (an unsigned 32-bit offset lets the loads add it to the field's base
-// address in the load itself). Clamping in float keeps huge or non-finite
-// coordinates at the edge node, as the plain version's integer clamp does.
-__device__ __forceinline__ unsigned clamp_node(float i, int n) {
-  return (unsigned)fminf(fmaxf(i, 0.0f), (float)(n - 1));
-}
-
+// and g + 1/4 (2), each rounded as g + d in float32 (gfs::axis3).
 __device__ __forceinline__ Axis make_axis(float g, int n, int stride) {
-  Axis a;
   const float c[3] = {g + (-0.25f), g, g + 0.25f};
-  const float base = floorf(c[0]);
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    const float fl = floorf(c[q]);
-    a.f[q] = c[q] - fl;
-    a.up[q] = fl != base;
-    a.node[q] = clamp_node(base + (float)q, n) * (unsigned)stride;
-  }
-  return a;
+  return gfs::axis3(c, n, (unsigned)stride);
 }
 
-// (1 - f) * lo + f * hi, the blend of the plain version (1 - f is not
-// kept per coordinate: recomputing it costs less than the registers)
-__device__ __forceinline__ float lerp(float f, float lo, float hi) {
-  return (1.0f - f) * lo + f * hi;
-}
-
-// The dual volume sample of one channel from its 27-node neighbourhood.
+// The dual volume sample of one channel from its 27-node neighbourhood:
+// the 8 corners summed in _VOL3 order, blended with the centre.
 __device__ __forceinline__ float dual_sample(const float* __restrict__ f,
                                              const Axis& ax, const Axis& ay,
                                              const Axis& az) {
-  // one z node at a time: its 9 (x, y) nodes, the x lerps of each y node
-  // for each x coordinate, then the y lerps of the (x, y) coordinate pairs
-  // the 9 samples use, (-,-) (-,+) (+,-) (+,+) and the centre's (0,0):
-  // pair p at x coordinate qx and y coordinate qy
-  float Y[5][3];
+  float s[9];
+  gfs::stencil9(f, ax, ay, az, s);
+  float acc = s[0];
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float v[3][3];
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        v[a][b] = __ldg(f + (ax.node[a] + ay.node[b] + az.node[c]));
-    float X[3][3];
-#pragma unroll
-    for (int q = 0; q < 3; ++q)
-#pragma unroll
-      for (int b = 0; b < 3; ++b) {
-        const float lo = ax.up[q] ? v[1][b] : v[0][b];
-        const float hi = ax.up[q] ? v[2][b] : v[1][b];
-        X[q][b] = lerp(ax.f[q], lo, hi);
-      }
-#pragma unroll
-    for (int p = 0; p < 5; ++p) {
-      const int qx = p == 4 ? 1 : (p < 2 ? 0 : 2);
-      const int qy = p == 4 ? 1 : (p % 2 == 0 ? 0 : 2);
-      const float lo = ay.up[qy] ? X[qx][1] : X[qx][0];
-      const float hi = ay.up[qy] ? X[qx][2] : X[qx][1];
-      Y[p][c] = lerp(ay.f[qy], lo, hi);
-    }
-  }
-  // z lerp of one sample from its (x, y) pair and z coordinate
-  auto zl = [&](int p, int qz) {
-    const float lo = az.up[qz] ? Y[p][1] : Y[p][0];
-    const float hi = az.up[qz] ? Y[p][2] : Y[p][1];
-    return lerp(az.f[qz], lo, hi);
-  };
-  // _VOL3 order: (+,+,+) (+,+,-) (+,-,+) (+,-,-) (-,+,+) ... (-,-,-);
-  // pair index: (+,+) 3, (+,-) 2, (-,+) 1, (-,-) 0
-  float acc = zl(3, 2);
-  acc = acc + zl(3, 0);
-  acc = acc + zl(2, 2);
-  acc = acc + zl(2, 0);
-  acc = acc + zl(1, 2);
-  acc = acc + zl(1, 0);
-  acc = acc + zl(0, 2);
-  acc = acc + zl(0, 0);
-  const float center = zl(4, 1);
-  return 0.5f * (acc / 8.0f) + 0.5f * center;
+  for (int q = 1; q < 8; ++q) acc = acc + s[q];
+  return 0.5f * (acc / 8.0f) + 0.5f * s[8];
 }
 
 // The clamped trilerp of gfs::trilerp_clamped with int32 offsets.

@@ -272,18 +272,14 @@ def dmc_displacements_3d(grid, u, v, w, substep):
 
 
 def dmc_backward_identity_3d(grid, u, v, w, substep):
-    """One DMC substep applied to the identity backward map, plain torch:
-    sampling the identity at the new position is the position itself
-    clamped to the lattice-value range [0, (n-1)h]."""
-    h = grid.h
-    du, dv, dw = dmc_displacements_3d(grid, u, v, w, substep)
-    px, py, pz = grid.node_coords("c", device=u.device)
-    nx_ = (px - du * h).clamp(0.0, (grid.ni - 1) * h)
-    ny_ = (py - dv * h).clamp(0.0, (grid.nj - 1) * h)
-    nz_ = (pz - dw * h).clamp(0.0, (grid.nk - 1) * h)
-    mask = grid.interior_mask("c", lo=2, hi=3, device=u.device)
-    return (torch.where(mask, nx_, px), torch.where(mask, ny_, py),
-            torch.where(mask, nz_, pz))
+    """One DMC substep applied to the identity backward map: sampling the
+    identity at the new position is the position itself clamped to the
+    lattice-value range [0, (n-1)h]. The lattice mode of ``dmc_substep``,
+    which on the card forms the positions in the kernel."""
+    out = interp_fast.dmc_substep_lattice(
+        u, v, w, float(_sh(substep, grid.h)),
+        interp_fast.dmc_threshold(grid.h), grid.h)
+    return out[0], out[1], out[2]
 
 
 def dmc_backward_step_3d(grid, u, v, w, map_x, map_y, map_z, substep):
@@ -296,19 +292,23 @@ def dmc_backward_step_3d(grid, u, v, w, map_x, map_y, map_z, substep):
 
 def update_backward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
                            from_identity=False):
-    """CFL-substepped backward-map update. ``from_identity=True`` asserts
-    the incoming map is the identity: substep 1 is then the gather-free
-    identity peel in plain torch, the rest are ``dmc_substep`` launches."""
+    """CFL-substepped backward-map update, one ``dmc_substep`` launch a
+    substep. ``from_identity=True`` asserts the incoming map is the
+    identity: substep 1 is then the lattice mode
+    ``dmc_substep_lattice``, which on the card forms the identity in the
+    kernel, so no map, index or displacement tensor is built for it."""
     subs = substeps(cfldt, dt)
-    thresh = interp_fast.dmc_threshold(grid.h)
+    h = grid.h
+    thresh = interp_fast.dmc_threshold(h)
     if from_identity and subs:
-        maps = torch.stack(dmc_backward_identity_3d(grid, u, v, w, subs[0]))
+        maps = interp_fast.dmc_substep_lattice(
+            u, v, w, float(_sh(subs[0], h)), thresh, h)
         subs = subs[1:]
     else:
         maps = torch.stack(list(map_xyz))
     for sub in subs:
-        maps = interp_fast.dmc_substep(u, v, w, maps,
-                                       float(_sh(sub, grid.h)), thresh)
+        maps = interp_fast.dmc_substep(u, v, w, maps, float(_sh(sub, h)),
+                                       thresh)
     return maps[0], maps[1], maps[2]
 
 

@@ -367,33 +367,91 @@ def dmc_substep_plain(u, v, w, maps, sh, thresh):
         for c in range(3)])
 
 
+def dmc_substep_lattice_plain(u, v, w, sh, thresh, h):
+    """Plain version of the lattice mode: the identity backward map
+    (3, ni, nj, nk) after one DMC substep (the identity peel of
+    ``advect.dmc_backward_identity_3d``). Sampling the identity at the new
+    position is the position itself clamped to the lattice-value range:
+    inside the band clamp(p - disp*h, 0, (n-1)h), outside it p, with p the
+    cell lattice formed as ``Grid3D.axis_coords('c')`` forms it."""
+    disp = dmc_displacements(u, v, w, sh, thresh)
+    shape = (v.shape[0], u.shape[1], u.shape[2])
+    band = band_mask(shape, (2, 2, 2), (3, 3, 3), u.device)
+    outs = []
+    for ax, (d, n) in enumerate(zip(disp, shape)):
+        p = torch.arange(n, dtype=torch.float32, device=u.device) * h
+        p = p.reshape([-1 if a == ax else 1 for a in range(3)])
+        outs.append(torch.where(band, (p - d * h).clamp(0.0, (n - 1) * h),
+                                p))
+    return torch.stack(outs)
+
+
+def dmc_check_sizes(cell_shape):
+    """Raise unless the MAC faces and the (3, ni, nj, nk) map of an (ni,
+    nj, nk) grid fit the dmc_substep kernel: nk >= 2 (it loads the z
+    corners in pairs) and 32-bit offsets."""
+    ni, nj, nk = cell_shape
+    if nk < 2:
+        raise ValueError(f"dmc_substep: the kernel needs nk >= 2, got {nk}")
+    check_int32("dmc_substep", u=(ni + 1) * nj * nk, v=ni * (nj + 1) * nk,
+                w=ni * nj * (nk + 1), maps=3 * ni * nj * nk)
+
+
+def _dmc_launch(u, v, w, maps, sh, thresh, h, out):
+    """One dmc_substep kernel launch: the substep of `maps`, or of the
+    identity map of cell size `h` (the lattice mode) where `maps` is
+    None."""
+    shape = (v.shape[0], u.shape[1], u.shape[2])
+    dmc_check_sizes(shape)
+    fn = _build.function(
+        "dmc_substep", "gfs_dmc_substep",
+        [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, ctypes.POINTER(_F), _P,
+         _P])
+    # the lattice mode's clamp, (n - 1)*h rounded to float32 as
+    # torch.clamp rounds its bound
+    hi = (_F * 3)(*[float((n - 1) * h) for n in shape])
+    with torch.cuda.device(out.device):
+        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), *shape,
+                 None if maps is None else _build.ptr(maps), float(sh),
+                 float(thresh), float(h), hi, _build.ptr(out),
+                 _build.stream(out))
+    _build.check(err, "dmc_substep")
+
+
 def dmc_substep(u, v, w, maps, sh, thresh):
     """One fused DMC backward-map substep: `maps` is the stacked (3, ni,
     nj, nk) backward map in world coordinates, `sh` the substep over h,
     `thresh` the float32 1e-4*h guard (dmc_threshold)."""
     if not _build.on_card(maps, "dmc_substep"):
         return dmc_substep_plain(u, v, w, maps, sh, thresh)
-    ni, nj, nk = v.shape[0], u.shape[1], u.shape[2]
-    _build.require(u, "u", shape=(ni + 1, nj, nk))
-    _build.require(v, "v", shape=(ni, nj + 1, nk))
-    _build.require(w, "w", shape=(ni, nj, nk + 1))
-    _build.require(maps, "maps", shape=(3, ni, nj, nk))
-    if not (u.device == v.device == w.device == maps.device):
+    shape = _faces("dmc_substep", u, v, w)
+    _build.require(maps, "maps", shape=(3,) + shape)
+    if maps.device != u.device:
         raise ValueError("dmc_substep: tensors on different devices")
     out = torch.empty_like(maps)
-    fn = _build.function(
-        "dmc_substep", "gfs_dmc_substep",
-        [_P, _P, _P, _I, _I, _I, _P, _F, _F, _P, _P])
-    with torch.cuda.device(maps.device):
-        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), ni, nj, nk,
-                 _build.ptr(maps), float(sh), float(thresh),
-                 _build.ptr(out), _build.stream(maps))
-    _build.check(err, "dmc_substep")
+    _dmc_launch(u, v, w, maps, sh, thresh, 0.0, out)
     dmc_substep.launches += 1
     return out
 
 
 dmc_substep.launches = 0
+
+
+def dmc_substep_lattice(u, v, w, sh, thresh, h):
+    """``dmc_substep`` of the identity backward map of cell size `h` (the
+    first substep of a march from the identity): on the card the kernel
+    forms each cell's position itself and reads no map. Returns (3, ni,
+    nj, nk)."""
+    if not _build.on_card(u, "dmc_substep_lattice"):
+        return dmc_substep_lattice_plain(u, v, w, sh, thresh, h)
+    shape = _faces("dmc_substep_lattice", u, v, w)
+    out = torch.empty((3,) + shape, dtype=torch.float32, device=u.device)
+    _dmc_launch(u, v, w, None, sh, thresh, h, out)
+    dmc_substep_lattice.launches += 1
+    return out
+
+
+dmc_substep_lattice.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -699,6 +757,28 @@ def vol9_fixup(dual_outs, fields, map_stats, maps, p1, grid, kind, clamp_lo,
                        clamp_hi)
 
 
+# the vol9_fixup kernel's thread tile (i, j, k), which must divide the
+# decision block so that a tile lies inside one (csrc/vol9_fixup.cu)
+VOL9_TILE = (1, 4, 32)
+
+
+def vol9_check_sizes(grid_n, kind_shape, C):
+    """Raise unless C fields of `kind_shape` and the (3, ni, nj, nk) map
+    fit the vol9_fixup kernel: 32-bit offsets, at least 2 nodes along z
+    (it loads the field's z corners in pairs), and a decision block that
+    the kernel's tile divides."""
+    _, block, nb = vol9_blocks(grid_n)
+    if kind_shape[2] < 2:
+        raise ValueError(f"vol9_fixup: the kernel needs 2 or more nodes "
+                         f"along z, got {kind_shape[2]}")
+    if any(b % t for b, t in zip(block, VOL9_TILE)):
+        raise ValueError(f"vol9_fixup: the tile {VOL9_TILE} does not divide "
+                         f"the decision block {block}")
+    check_int32("vol9_fixup", maps=3 * int(np.prod(grid_n)),
+                fields=C * int(np.prod(kind_shape)),
+                flags=C * int(np.prod(nb)))
+
+
 def vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
                 clamp_hi):
     """The ``vol9_fixup`` kernel launch alone, with the block flags of
@@ -718,6 +798,7 @@ def vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
     if not (dual_outs.device == maps.device == fields.device
             == flags.device):
         raise ValueError("vol9_fixup: tensors on different devices")
+    vol9_check_sizes(grid.shape_c, fields.shape[1:], C)
     flags = flags.to(torch.uint8).contiguous()
     lo, hi = clamp_bounds(grid, clamp_lo, clamp_hi)
     params = (_F * 9)(*grid.off_of(kind), *lo, *hi)

@@ -3,6 +3,7 @@
 
     python3 scripts/ab_paths.py _archive/parent . . _archive/parent
     python3 scripts/ab_paths.py A B --paths main,maccormack --n 128 --steps 8
+    python3 scripts/ab_paths.py _archive/parent . --paths main --march
 
 Each tree runs in its own process, from its own root, in the order given,
 so each builds its own kernels and imports its own package (a tree is any
@@ -14,7 +15,11 @@ built as that tree's ``chip_smoke.bench_config`` builds it (256^3 by
 default), stepped twice to warm up (the first step of a path allocates
 its working set), then timed over ``--steps`` steps with CUDA events.
 Prints one JSON line per tree and path, then ms/step by path and run.
-Needs a GPU; imports no JAX.
+With ``--march``, each tree's main path also times its backward-map march
+(``advect.update_backward_map_3d`` from the identity, as a step calls it,
+on the state the step saw) with CUDA events, and profiles one call of it:
+its kernels by name, launches and device time. Needs a GPU; imports no
+JAX.
 """
 
 from __future__ import annotations
@@ -25,10 +30,60 @@ import os
 import subprocess
 import sys
 
-PATHS = ("main", "reflection", "maccormack", "bimocq_prefilter")
+PATHS = ("main", "reflection", "maccormack", "bimocq_adaptive",
+         "bimocq_vol9", "bimocq_prefilter")
 
 
-def child(tree, paths, n, steps):
+def march(solver, state, reps=20):
+    """Time and profile the backward-map march of one step of `solver`
+    from `state`: the step's own call is captured, then repeated."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gpufluidsimulation_tpu_torch.ops import advect
+
+    fn = advect.update_backward_map_3d
+    calls = []
+
+    def capture(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    advect.update_backward_map_3d = capture
+    try:
+        solver.step(state)
+    finally:
+        advect.update_backward_map_3d = fn
+    args, kwargs = calls[0]
+    for _ in range(3):
+        fn(*args, **kwargs)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn(*args, **kwargs)
+    end.record()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.profiler.record_function("update_backward_map_3d"):
+            fn(*args, **kwargs)
+        torch.cuda.synchronize()
+    kernels = sorted(((e.key, e.count, e.self_device_time_total / 1e3)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA
+                      and e.key != "update_backward_map_3d"),
+                     key=lambda k: -k[2])
+    return dict(from_identity=kwargs.get("from_identity"),
+                march_ms=start.elapsed_time(end) / reps,
+                profiled_device_ms=sum(k[2] for k in kernels),
+                launches=sum(k[1] for k in kernels),
+                kernels=[dict(name=k[0][:80], count=k[1], device_ms=k[2])
+                         for k in kernels])
+
+
+def child(tree, paths, n, steps, with_march):
     """Time `paths` with the package and chip_smoke of `tree`."""
     sys.path.insert(0, tree)
     import gc
@@ -49,6 +104,9 @@ def child(tree, paths, n, steps):
         "main": dict(),
         "reflection": dict(scheme=Scheme.MAC_REFLECTION),
         "maccormack": dict(scheme=Scheme.MACCORMACK),
+        "bimocq_adaptive": dict(reinit_mode="adaptive"),
+        "bimocq_vol9": dict(reinit_mode="adaptive",
+                            engine_mode=EngineMode(volume_vol9=True)),
         "bimocq_prefilter": dict(engine_mode=EngineMode(volume_dual=False)),
     }
     for path in paths:
@@ -63,10 +121,12 @@ def child(tree, paths, n, steps):
             events[k + 1].record()
         torch.cuda.synchronize()
         per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
-        print(json.dumps(dict(tree=tree, path=path, n=n,
-                              ms_per_step=sum(per_step) / steps,
-                              per_step_ms=per_step,
-                              substeps=state.substeps)), flush=True)
+        res = dict(tree=tree, path=path, n=n,
+                   ms_per_step=sum(per_step) / steps, per_step_ms=per_step,
+                   substeps=state.substeps)
+        if with_march and path == "main":
+            res["march"] = march(solver, state)
+        print(json.dumps(res), flush=True)
         del state, solver
         gc.collect()
         torch.cuda.empty_cache()
@@ -78,11 +138,15 @@ def main():
     ap.add_argument("--paths", default=",".join(PATHS))
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--march", action="store_true",
+                    help="also time and profile the main path's "
+                    "backward-map march")
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     paths = args.paths.split(",")
     if args.child:
-        child(os.path.abspath(args.trees[0]), paths, args.n, args.steps)
+        child(os.path.abspath(args.trees[0]), paths, args.n, args.steps,
+              args.march)
         return 0
 
     import torch
@@ -95,12 +159,14 @@ def main():
                          text=True, timeout=60, check=True).stdout.strip()
     print(smi, flush=True)
     table = {p: [] for p in paths}
+    marches = []
     for run, label in enumerate(args.trees):
         tree = os.path.abspath(label)
         proc = subprocess.run(
             [sys.executable, os.path.abspath(__file__), tree, "--child",
              "--paths", args.paths, "--n", str(args.n), "--steps",
-             str(args.steps)], cwd=tree, capture_output=True, text=True)
+             str(args.steps)] + (["--march"] if args.march else []),
+            cwd=tree, capture_output=True, text=True)
         if proc.returncode:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             raise SystemExit(f"ab_paths: {tree} failed")
@@ -109,8 +175,15 @@ def main():
             res = json.loads(line)
             table[res["path"]].append(f"{run}:{label} "
                                       f"{res['ms_per_step']:.2f}")
+            if "march" in res:
+                marches.append(f"{run}:{label} "
+                               f"{res['march']['march_ms']:.3f} ms in "
+                               f"{res['march']['launches']} launches")
     for path, cells in table.items():
         print(f"[ab] {path} ms/step: " + ", ".join(cells), flush=True)
+    if marches:
+        print("[ab] main backward-map march: " + ", ".join(marches),
+              flush=True)
     print(smi, flush=True)
     return 0
 

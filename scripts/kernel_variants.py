@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
 """Time design variants of the port's redesigned kernels on one GPU.
 
-    python3 scripts/kernel_variants.py            # 256^3 shapes, all four
+    python3 scripts/kernel_variants.py            # 256^3 shapes, all six
     python3 scripts/kernel_variants.py --n 64     # a quick check
-    python3 scripts/kernel_variants.py --kernels rk3_substep,volume_prefilter
+    python3 scripts/kernel_variants.py --kernels dmc_substep,vol9_fixup
+    python3 scripts/kernel_variants.py --kernels vol9_fixup --only shipped,tile
 
 Each variant is the kernel's source in ``gpufluidsimulation_tpu_torch/csrc``
 with textual edits (block or tile shape, rows per thread, the division,
 the offset arithmetic, register caps, segment length, prefetching, a
-shared-memory velocity tile). This is the one place where such
-alternatives are built: the port ships only the chosen design. A variant
-that does not build is reported and skipped. Every variant is built with
-nvcc for sm_90a with the port's flags and ``-Xptxas -v`` (registers and
-spills are printed), run on the inputs of ``chip_smoke.py``'s kernel
-phase, held against the plain PyTorch version (its max abs error is
-printed; the shipped design must show 0) and timed with CUDA events.
-``jacobi_diffuse`` variants are timed per 20-sweep solve at 1, 2, 4 and 8
-sweeps a launch (the shipped source builds 2 and 1; every variant here
-adds 4 and 8), on a smooth field, an all-zero field and one zero on half
-its k range. ``rk3_substep`` variants run from positions displaced by up
-to 2 cells and in the lattice mode (cell kind); ``volume_prefilter``
-variants at C=1 on the u lattice and C=2 on the cell lattice. Each build
-prints its registers, spills and, where the toolkit has cuobjdump, each
-kernel's static SASS instruction count. Builds go to the port's build
-directory
+shared-memory velocity tile, the map neighbourhood); an edit whose text is
+not in the kernel's source applies to the variant's own copy of
+``common.cuh``. This is the one place where such alternatives are built:
+the port ships only the chosen design. A variant that does not build is
+reported and skipped. Every variant is built with nvcc for sm_90a with
+the port's flags and ``-Xptxas -v`` (registers and spills are printed),
+run on the inputs of ``chip_smoke.py``'s kernel phase, held against the
+plain PyTorch version (its max abs error is printed; the shipped design
+must show 0) and timed with CUDA events. ``jacobi_diffuse`` variants are
+timed per 20-sweep solve at 1, 2, 4 and 8 sweeps a launch (the shipped
+source builds 2 and 1; every variant here adds 4 and 8), on a smooth
+field, an all-zero field and one zero on half its k range.
+``rk3_substep`` variants run from positions displaced by up to 2 cells
+and in the lattice mode (cell kind); ``dmc_substep`` variants from a map
+displaced by up to 2 cells and in the lattice mode; ``volume_prefilter``
+variants at C=1 on the u lattice and C=2 on the cell lattice;
+``vol9_fixup`` variants at tol = 0 (every block flagged) for u (C=1) and
+rho+T (C=2) through a map displaced by up to 2 cells. Each build prints
+its registers, spills and, where the toolkit has cuobjdump, each kernel's
+static SASS instruction count. Builds go to the port's build directory
 (``gpufluidsimulation_tpu_torch/_build/variants/``).
 Needs a GPU and nvcc; imports no JAX.
 """
@@ -101,7 +106,7 @@ def _rk3_block(k, j, i):
 
 # the z corners clamped one by one, as the plain version does (this
 # design's first step: 8 addresses a sample)
-_RK3_PER_CORNER = """__device__ __forceinline__ float trilerp(
+_PER_CORNER = """__device__ __forceinline__ float trilerp(
     const float* __restrict__ f, const Coord& x, const Coord& y,
     const Coord& z, unsigned sx, unsigned sy) {
   const unsigned xa = x.lo * sx, xb = x.hi * sx;
@@ -120,7 +125,8 @@ _RK3_PER_CORNER = """__device__ __forceinline__ float trilerp(
   return z.w * c0 + z.f * c1;
 }
 
-// The MAC faces of an (ni, nj, nk) grid"""
+"""
+_RK3_PER_CORNER = _PER_CORNER + "// The MAC faces of an (ni, nj, nk) grid"
 
 # the velocity triplet's tile (the block's nodes and a 2-cell halo, one
 # more node on each axis for the staggered faces) staged in shared memory
@@ -156,7 +162,7 @@ __device__ __forceinline__ float trilerp_tile(
     const float c1 = z.bottom ? l0 : l1;
     return z.w * c0 + z.f * c1;
   }
-  return trilerp(f, x, y, z, sx, sy);
+  return trilerp_zpair(f, x, y, z, sx, sy);
 }
 
 // The MAC faces of an (ni, nj, nk) grid"""
@@ -182,19 +188,22 @@ _RK3_TILE_LOAD = """  const int i = blockIdx.z * kBlockI + threadIdx.z;
   }
   if (k >= d2 || j >= d1 || i >= d0) return;"""
 
-_RK3_Z_PER_CORNER = (
-    "  const ZPair z0 = zpair(gz, F.nk), z1 = zpair(gz + 0.5f, F.nk + 1);",
-    "  const Coord z0 = coord(gz, F.nk), z1 = coord(gz + 0.5f, F.nk + 1);")
+_RK3_Z_PER_CORNER = [
+    ("  const ZPair z0 = zpair(gz, F.nk), z1 = zpair(gz + 0.5f, F.nk + 1);",
+     "  const Coord z0 = coord(gz, F.nk), z1 = coord(gz + 0.5f, F.nk + 1);"),
+    ("  *ou = trilerp_zpair(F.u,", "  *ou = trilerp(F.u,"),
+    ("  *ov = trilerp_zpair(F.v,", "  *ov = trilerp(F.v,"),
+    ("  *ow = trilerp_zpair(F.w,", "  *ow = trilerp(F.w,")]
 
 RK3 = {
     "shipped (32x4x1 block, z pairs, at most 64 registers)": [],
     "no register cap": [(_RK3_BOUNDS, "__global__ void\n")],
     "z corners clamped one by one (8 addresses a sample)": [
         ("// The MAC faces of an (ni, nj, nk) grid", _RK3_PER_CORNER),
-        _RK3_Z_PER_CORNER],
+        *_RK3_Z_PER_CORNER],
     "z corners clamped one by one, no register cap": [
         ("// The MAC faces of an (ni, nj, nk) grid", _RK3_PER_CORNER),
-        _RK3_Z_PER_CORNER, (_RK3_BOUNDS, "__global__ void\n")],
+        *_RK3_Z_PER_CORNER, (_RK3_BOUNDS, "__global__ void\n")],
     "per-component floors (gfs::trilerp_clamped, 64-bit offsets)": [(
         "  const Coord x0 = coord(gx, F.ni), x1 = coord(gx + 0.5f, F.ni + 1);",
         "  *ou = gfs::trilerp_clamped(F.u, F.ni + 1, F.nj, F.nk, gx + 0.5f, "
@@ -212,9 +221,9 @@ RK3 = {
     "velocity tile in shared memory (32x4x2 block, 2-cell halo)": [
         *_rk3_block(32, 4, 2),
         ("// The MAC faces of an (ni, nj, nk) grid", _RK3_TILE_DEFS),
-        ("  *ou = trilerp(F.u,", "  *ou = trilerp_tile<0>(F.u,"),
-        ("  *ov = trilerp(F.v,", "  *ov = trilerp_tile<1>(F.v,"),
-        ("  *ow = trilerp(F.w,", "  *ow = trilerp_tile<2>(F.w,"),
+        ("  *ou = trilerp_zpair(F.u,", "  *ou = trilerp_tile<0>(F.u,"),
+        ("  *ov = trilerp_zpair(F.v,", "  *ov = trilerp_tile<1>(F.v,"),
+        ("  *ow = trilerp_zpair(F.w,", "  *ow = trilerp_tile<2>(F.w,"),
         ("  const int i = blockIdx.z * kBlockI + threadIdx.z;\n"
          "  if (k >= d2 || j >= d1 || i >= d0) return;", _RK3_TILE_LOAD)],
 }
@@ -244,21 +253,222 @@ PREFILTER = {
 }
 
 
+_DMC_SRC = (CSRC / "dmc_substep.cu").read_text()
+_DMC_BLOCK = "constexpr int kBlockK = 32, kBlockJ = 4, kBlockI = 1;"
+# the shipped kernel's face loads, from the centre faces to the upwind ones
+_DMC_FACES = _DMC_SRC[_DMC_SRC.index("  // the faces of cell (i, j, k): u"):
+                      _DMC_SRC.index("  const float disp_x = dmc_disp(")]
+_DMC_RETURN = "  if (k >= nk || j >= nj || i >= ni) return;\n"
+
+# the velocity triplet of the block's cells with a one-cell halo and the
+# upper face (kBlock + 3 nodes an axis, origin one cell below the block)
+# staged in shared memory by the whole block before any cell reads it;
+# every face is then read from the tile
+_DMC_TILE_LOAD = """  constexpr int kTX = kBlockI + 3, kTY = kBlockJ + 3, kTZ = kBlockK + 3;
+  constexpr int kTV = kTX * kTY * kTZ;
+  __shared__ float tile[3][kTV];
+  {
+    const int tid =
+        (threadIdx.z * kBlockJ + threadIdx.y) * kBlockK + threadIdx.x;
+    const int bx = (int)(blockIdx.z * kBlockI) - 1;
+    const int by = (int)(blockIdx.y * kBlockJ) - 1;
+    const int bz = (int)(blockIdx.x * kBlockK) - 1;
+    for (int e = tid; e < 3 * kTV; e += kBlockK * kBlockJ * kBlockI) {
+      const int q = e / kTV, r = e - q * kTV;
+      const int tx = r / (kTY * kTZ), r2 = r - tx * (kTY * kTZ);
+      const int ty = r2 / kTZ, tz = r2 - ty * kTZ;
+      const float* f = q == 0 ? u : (q == 1 ? v : w);
+      const int nx = ni + (q == 0), ny = nj + (q == 1), nz = nk + (q == 2);
+      tile[q][r] = __ldg(f + (gfs::clampi(bx + tx, 0, nx - 1) * ny +
+                              gfs::clampi(by + ty, 0, ny - 1)) * nz +
+                         gfs::clampi(bz + tz, 0, nz - 1));
+    }
+    __syncthreads();
+  }
+""" + _DMC_RETURN
+_DMC_TILE_FACES = """  const unsigned su = (unsigned)nj * nk;
+  const int a = i - (int)(blockIdx.z * kBlockI) + 1;
+  const int b = j - (int)(blockIdx.y * kBlockJ) + 1;
+  const int c = k - (int)(blockIdx.x * kBlockK) + 1;
+  auto at = [&](int q, int x, int y, int z) {
+    return tile[q][(x * kTY + y) * kTZ + z];
+  };
+  const float vu = 0.5f * (at(0, a, b, c) + at(0, a + 1, b, c));
+  const float vv = 0.5f * (at(1, a, b, c) + at(1, a, b + 1, c));
+  const float vw = 0.5f * (at(2, a, b, c) + at(2, a, b, c + 1));
+  const bool sx = vu > 0.0f, sy = vv > 0.0f, sz = vw > 0.0f;
+  const int ua = sx ? a - 1 : a + 1, ub = sy ? b - 1 : b + 1,
+            uc = sz ? c - 1 : c + 1;
+  const float tu_ = 0.5f * (at(0, ua, ub, uc) + at(0, ua + 1, ub, uc));
+  const float tv_ = 0.5f * (at(1, ua, ub, uc) + at(1, ua, ub + 1, uc));
+  const float tw_ = 0.5f * (at(2, ua, ub, uc) + at(2, ua, ub, uc + 1));
+"""
+
+
+def _dmc_block(k, j, i):
+    return [(_DMC_BLOCK, f"constexpr int kBlockK = {k}, kBlockJ = {j}, "
+             f"kBlockI = {i};")]
+
+
+DMC = {
+    "shipped (32x4x1 block, shared weight set, z pairs)": [],
+    "32x1x1 block": _dmc_block(32, 1, 1),
+    "32x2x2 block": _dmc_block(32, 2, 2),
+    "32x8x1 block (256 threads)": _dmc_block(32, 8, 1),
+    "64x2x1 block": _dmc_block(64, 2, 1),
+    "z corners clamped one by one (8 addresses a sample)": [
+        ("struct Params {", _PER_CORNER + "struct Params {"),
+        ("    const ZPair z = zpair((float)k - disp_z, nk);",
+         "    const Coord z = coord((float)k - disp_z, nk);"),
+        ("    out[idx] = trilerp_zpair(maps,", "    out[idx] = trilerp(maps,"),
+        ("    out[n + idx] = trilerp_zpair(maps + n,",
+         "    out[n + idx] = trilerp(maps + n,"),
+        ("    out[2 * n + idx] = trilerp_zpair(maps + 2 * n,",
+         "    out[2 * n + idx] = trilerp(maps + 2 * n,")],
+    "at most 64 registers": [
+        ("__global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)",
+         "__global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI, 8)")],
+    "velocity tile in shared memory (1-cell halo)": [
+        (_DMC_RETURN, _DMC_TILE_LOAD), (_DMC_FACES, _DMC_TILE_FACES)],
+}
+
+_VOL9_TILE = "constexpr int kBlockK = 32, kBlockJ = 4, kBlockI = 1;"
+_VOL9_BOUNDS = ("__global__ void __launch_bounds__(kBlockK * kBlockJ * "
+                "kBlockI)\n")
+# the division of jacobi_diffuse.cu: the hoisted reciprocal refined with
+# the exact remainder, the full division outside its range
+_DIVIDE = """__device__ __forceinline__ float divide(float a, float d, float r) {
+  const float m = fabsf(a);
+  if (m >= 0x1p-64f && m <= 0x1p100f) {
+    const float q = __fmul_rn(a, r);
+    return __fmaf_rn(r, __fmaf_rn(q, -d, a), q);
+  }
+  return a == 0.0f ? a : a / d;
+}
+
+struct Params {"""
+# the 9 map samples each from its own floor set, the 3 map channels
+# sharing it (27 divisions, 9 weight sets and 216 loads a node)
+_VOL9_PER_POINT = """  float m[3][9];
+  const float dh[3] = {-0.25f * h, 0.0f * h, 0.25f * h};
+  constexpr int kQ[9][3] = {{2, 2, 2}, {2, 2, 0}, {2, 0, 2}, {2, 0, 0},
+                            {0, 2, 2}, {0, 2, 0}, {0, 0, 2}, {0, 0, 0},
+                            {1, 1, 1}};
+#pragma unroll
+  for (int q = 0; q < 9; ++q) {
+    const Coord X = coord((x0 + dh[kQ[q][0]]) / h, ni);
+    const Coord Y = coord((y0 + dh[kQ[q][1]]) / h, nj);
+    const ZPair Z = zpair((z0 + dh[kQ[q][2]]) / h, nk);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      m[a][q] = fminf(fmaxf(trilerp_zpair(maps + a * map_size, X, Y, Z,
+                                          (unsigned)nj * nk, (unsigned)nk),
+                            p.lo[a]), p.hi[a]);
+  }
+"""
+# the 27 clamped map samples of each thread kept in shared memory, not in
+# registers, between the map and the field stage
+_VOL9_SHARED_M = """  constexpr int kT = kBlockK * kBlockJ * kBlockI;
+  __shared__ float ms[3][9][kT];
+  const int tid = (threadIdx.z * kBlockJ + threadIdx.y) * kBlockK +
+                  threadIdx.x;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    float s[9];
+    gfs::stencil9(maps + a * map_size, ax, ay, az, s);
+#pragma unroll
+    for (int q = 0; q < 9; ++q)
+      ms[a][q][tid] = fminf(fmaxf(s[q], p.lo[a]), p.hi[a]);
+  }
+
+"""
+_VOL9_SRC = (CSRC / "vol9_fixup.cu").read_text()
+_VOL9_MAP_STAGE = _VOL9_SRC[_VOL9_SRC.index("  float m[3][9];\n"):
+                            _VOL9_SRC.index("  // field stage:")]
+
+
+def _vol9_tile(k, j, i):
+    return [(_VOL9_TILE, f"constexpr int kBlockK = {k}, kBlockJ = {j}, "
+             f"kBlockI = {i};")]
+
+
+VOL9 = {
+    "shipped (32x4x1 tile, 27-node map neighbourhood, IEEE division)": [],
+    "32x2x1 tile": _vol9_tile(32, 2, 1),
+    "32x8x1 tile (256 threads)": _vol9_tile(32, 8, 1),
+    "64x4x1 tile (256 threads)": _vol9_tile(64, 4, 1),
+    "32x4x2 tile (256 threads)": _vol9_tile(32, 4, 2),
+    "at most 96 registers": [(_VOL9_BOUNDS, _VOL9_BOUNDS.replace(
+        "kBlockI)", "kBlockI, 5)"))],
+    "at most 80 registers": [(_VOL9_BOUNDS, _VOL9_BOUNDS.replace(
+        "kBlockI)", "kBlockI, 6)"))],
+    "at most 64 registers": [(_VOL9_BOUNDS, _VOL9_BOUNDS.replace(
+        "kBlockI)", "kBlockI, 8)"))],
+    "hoisted reciprocal and exact-remainder division": [
+        ("struct Params {", _DIVIDE),
+        ("  const float c[3] = {(x0 + -0.25f * h) / h, (x0 + 0.0f * h) / h,\n"
+         "                      (x0 + 0.25f * h) / h};",
+         "  const float r = 1.0f / h;\n"
+         "  const float c[3] = {divide(x0 + -0.25f * h, h, r),\n"
+         "                      divide(x0 + 0.0f * h, h, r),\n"
+         "                      divide(x0 + 0.25f * h, h, r)};"),
+        ("  const unsigned sx = (unsigned)ny * nz, sy = (unsigned)nz;",
+         "  const unsigned sx = (unsigned)ny * nz, sy = (unsigned)nz;\n"
+         "  const float rcp = 1.0f / h;"),
+        ("coord(m[0][q] / h - p.off[0], nx)",
+         "coord(divide(m[0][q], h, rcp) - p.off[0], nx)"),
+        ("coord(m[1][q] / h - p.off[1], ny)",
+         "coord(divide(m[1][q], h, rcp) - p.off[1], ny)"),
+        ("zpair(m[2][q] / h - p.off[2], nz)",
+         "zpair(divide(m[2][q], h, rcp) - p.off[2], nz)")],
+    "map sampled per stencil point (one weight set a point, no "
+    "neighbourhood)": [(_VOL9_MAP_STAGE, _VOL9_PER_POINT)],
+    "map sampled per stencil point, at most 64 registers": [
+        (_VOL9_MAP_STAGE, _VOL9_PER_POINT),
+        (_VOL9_BOUNDS, _VOL9_BOUNDS.replace("kBlockI)", "kBlockI, 8)"))],
+    "coordinate 0's up flag computed (its lerps select)": [
+        ("    a.up[q] = q > 0 && fl != base;", "    a.up[q] = fl != base;")],
+    "1 - f kept per map coordinate (9 registers, 153 subtractions fewer)": [
+        ("  float f[3];\n  unsigned node[3];", "  float f[3], w[3];\n  unsigned node[3];"),
+        ("    a.f[q] = c[q] - fl;\n", "    a.f[q] = c[q] - fl;\n    a.w[q] = 1.0f - a.f[q];\n"),
+        ("        X[q][b] = lerp(ax.f[q], lo, hi);",
+         "        X[q][b] = ax.w[q] * lo + ax.f[q] * hi;"),
+        ("      Y[p][c] = lerp(ay.f[qy], lo, hi);",
+         "      Y[p][c] = ay.w[qy] * lo + ay.f[qy] * hi;"),
+        ("    return lerp(az.f[qz], lo, hi);",
+         "    return az.w[qz] * lo + az.f[qz] * hi;")],
+    "mapped positions staged in shared memory (27 registers fewer)": [
+        (_VOL9_MAP_STAGE, _VOL9_SHARED_M),
+        ("coord(m[0][q] / h", "coord(ms[0][q][tid] / h"),
+        ("coord(m[1][q] / h", "coord(ms[1][q][tid] / h"),
+        ("zpair(m[2][q] / h", "zpair(ms[2][q][tid] / h")],
+}
+
+
 def build(out_dir, tag, source, edits):
     """nvcc the edited source; returns the library and the ptxas lines
-    (None and nvcc's errors if it does not build)."""
+    (None and nvcc's errors if it does not build). An edit applies to the
+    kernel's source or, where its text is not there, to the variant's own
+    copy of common.cuh."""
     from gpufluidsimulation_tpu_torch.ops import _build
 
     text = (CSRC / f"{source}.cu").read_text()
+    header = (CSRC / "common.cuh").read_text()
     for old, new in edits:
-        if old not in text:
+        if old in text:
+            text = text.replace(old, new)
+        elif old in header:
+            header = header.replace(old, new)
+        else:
             raise SystemExit(f"{tag}: edit does not apply: {old[:60]!r}")
-        text = text.replace(old, new)
-    cu = out_dir / f"{tag}.cu"
+    src_dir = out_dir / tag
+    src_dir.mkdir(parents=True, exist_ok=True)
+    (src_dir / "common.cuh").write_text(header)
+    cu = src_dir / f"{source}.cu"
     cu.write_text(text)
     lib = out_dir / f"{tag}.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-           str(CSRC), "-o", str(lib), str(cu)]
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+           str(lib), str(cu)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
         return None, [f"nvcc failed: {res.stdout}{res.stderr}"]
@@ -489,10 +699,113 @@ def prefilter_variants(n, out_dir):
                    f"max_abs_err {err:.3e}")
 
 
+def dmc_variants(n, out_dir):
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    g = Grid3D(n, n, n, 0.2 / n)
+    u, v, w = (cs.smooth(s, rng, 0.06, dev)
+               for s in (g.shape_u, g.shape_v, g.shape_w))
+    top = max(float(t.abs().max()) for t in (u, v, w))
+    sh = float(np.float32(np.float32(g.h) / np.float32(top))
+               / np.float32(g.h))
+    thresh = interp_fast.dmc_threshold(g.h)
+    maps = (torch.stack(g.node_coords("c", device=dev)) + torch.stack(
+        [cs.smooth(g.shape_c, rng, 2.0 * g.h, dev) for _ in range(3)]))
+    maps = maps.contiguous()
+    cases = [("displaced", maps,
+              interp_fast.dmc_substep_plain(u, v, w, maps, sh, thresh)),
+             ("lattice", None, interp_fast.dmc_substep_lattice_plain(
+                 u, v, w, sh, thresh, g.h))]
+    F, I, P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    hi = (F * 3)(*[float((m - 1) * g.h) for m in g.shape_c])
+    for i, (name, edits) in enumerate(DMC.items()):
+        lib, ptxas = build(out_dir, f"dmc_{i}", "dmc_substep", edits)
+        cs.log(f"[dmc_substep] {name}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = lib.gfs_dmc_substep
+        fn.argtypes = [P, P, P, I, I, I, P, F, F, F, ctypes.POINTER(F), P, P]
+        fn.restype = I
+        for label, m, want in cases:
+            out = torch.empty_like(want)
+
+            def run():
+                err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), n, n,
+                         n, None if m is None else _build.ptr(m), sh, thresh,
+                         float(g.h), hi, _build.ptr(out), _build.stream(u))
+                _build.check(err, name)
+
+            run()
+            err = float((out - want).abs().max())
+            ms = cs.cuda_time(run, 30)
+            cs.log(f"[dmc_substep] {name}: {label} {ms:.4f} ms, "
+                   f"max_abs_err {err:.3e}")
+
+
+def vol9_variants(n, out_dir):
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    g = Grid3D(n, n, n, 0.2 / n)
+    maps = (torch.stack(g.node_coords("c", device=dev)) + torch.stack(
+        [cs.smooth(g.shape_c, rng, 2.0 * g.h, dev) for _ in range(3)]))
+    maps = maps.contiguous()
+    _, block, nb = interp_fast.vol9_blocks(g.shape_c)
+    cases = []
+    for label, kind, C, clamp in (("C=1 u", "u", 1, 0.0),
+                                  ("C=2 c", "c", 2, 1.0)):
+        f = torch.stack([cs.smooth(g.shape_of(kind), rng, 1.0, dev)
+                         for _ in range(C)]).contiguous()
+        duals = torch.zeros_like(f)
+        # every block flagged: the work of tol = 0
+        flags = torch.ones((C,) + nb, dtype=torch.bool, device=dev)
+        want = interp_fast._vol9_merge_plain(duals, f, maps, flags, g, kind,
+                                             clamp, clamp)
+        lo, hi = interp_fast.clamp_bounds(g, clamp, clamp)
+        params = (ctypes.c_float * 9)(*g.off_of(kind), *lo, *hi)
+        cases.append((label, f, flags.to(torch.uint8), params, want))
+    F, I, P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    for i, (name, edits) in enumerate(VOL9.items()):
+        lib, ptxas = build(out_dir, f"vol9_{i}", "vol9_fixup", edits)
+        cs.log(f"[vol9_fixup] {name}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = lib.gfs_vol9_fixup
+        fn.argtypes = [P, I, I, I, P, I, I, I, I, P, I, I, I, I, I, I, F,
+                       ctypes.POINTER(F), P, P]
+        fn.restype = I
+        for label, f, flags, params, want in cases:
+            out = torch.zeros_like(f)
+
+            def run():
+                err = fn(_build.ptr(maps), *g.shape_c, _build.ptr(f),
+                         f.shape[0], *f.shape[1:], _build.ptr(flags), *nb,
+                         *block, float(g.h), params, _build.ptr(out),
+                         _build.stream(f))
+                _build.check(err, name)
+
+            run()
+            err = float((out - want).abs().max())
+            ms = cs.cuda_time(run, 10)
+            cs.log(f"[vol9_fixup] {name}: {label} tol=0 {ms:.4f} ms, "
+                   f"max_abs_err {err:.3e}")
+
+
 RUNNERS = {"trilerp_sample": trilerp_variants,
            "jacobi_diffuse": jacobi_variants,
            "rk3_substep": rk3_variants,
-           "volume_prefilter": prefilter_variants}
+           "volume_prefilter": prefilter_variants,
+           "dmc_substep": dmc_variants,
+           "vol9_fixup": vol9_variants}
 
 
 def main():
@@ -500,6 +813,9 @@ def main():
     ap.add_argument("--n", type=int, default=256)
     ap.add_argument("--kernels", default=",".join(RUNNERS),
                     help="comma-separated kernels whose variants to run")
+    ap.add_argument("--only", default="",
+                    help="comma-separated parts of variant names: run only "
+                    "the variants whose name holds one of them")
     ap.add_argument("--out", default=str(ROOT / "gpufluidsimulation_tpu_torch"
                                         / "_build" / "variants"))
     args = ap.parse_args()
@@ -512,6 +828,11 @@ def main():
     out_dir = Path(args.out)
     os.makedirs(out_dir, exist_ok=True)
     cs.log(cs.nvidia_smi_line())
+    if args.only:
+        parts = args.only.split(",")
+        for table in (TRILERP, JACOBI, RK3, PREFILTER, DMC, VOL9):
+            for name in [k for k in table if not any(s in k for s in parts)]:
+                del table[name]
     for name in args.kernels.split(","):
         RUNNERS[name](args.n, out_dir)
     return 0

@@ -22,7 +22,7 @@ import torch
 from gpufluidsimulation_tpu import config
 from gpufluidsimulation_tpu.core import grids as jgrids
 from gpufluidsimulation_tpu.ops import advect as jadvect
-from gpufluidsimulation_tpu_torch.core import grids
+from gpufluidsimulation_tpu_torch.core import grids, interp
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
 
 SHAPE = (16, 20, 24)
@@ -198,3 +198,88 @@ def test_marches_on_cpu_launch_no_kernel():
                                  cfldt, DT, from_identity=True)
     assert (interp_fast.rk3_substep.launches,
             interp_fast.dmc_substep.launches) == counts == (0, 0)
+
+
+def _property_geometry():
+    """The inputs of the JAX package's DMC property test
+    (``tests/test_interp_fast.py::test_dmc_substep_property_random_geometry``)
+    at the example it fails on: 28 x 10 x 128 cells, h 0.1, phase 0,
+    substep 0.0625."""
+    nx, ny, nz, h, phase = 28, 10, 128, 0.1, 0.0
+    jg = jgrids.Grid3D(nx, ny, nz, h)
+    i = np.arange(nx + 1)[:, None, None]
+    j = np.arange(ny + 1)[None, :, None]
+    k = np.arange(nz + 1)[None, None, :]
+    u = np.broadcast_to(np.sin(2 * np.pi * j[:, :ny, :] / ny + phase)
+                        * np.cos(2 * np.pi * k[..., :nz] / nz),
+                        (nx + 1, ny, nz)).astype(np.float32)
+    v = np.broadcast_to(np.cos(2 * np.pi * i[:nx] / nx + phase)
+                        * np.sin(2 * np.pi * k[..., :nz] / nz),
+                        (nx, ny + 1, nz)).astype(np.float32)
+    w = np.broadcast_to(np.sin(2 * np.pi * i[:nx] / nx + phase)
+                        * np.cos(2 * np.pi * j[:, :ny, :] / ny),
+                        (nx, ny, nz + 1)).astype(np.float32)
+    px, py, pz = jg.node_coords("c")
+    maps = [px + 0.3 * h * jnp.sin(px / (nx * h) * 2 * np.pi + phase),
+            py + 0.2 * h * jnp.cos(py / (ny * h) * 2 * np.pi),
+            pz + 0.25 * h * jnp.sin(pz / (nz * h) * 2 * np.pi)]
+    return jg, [np.ascontiguousarray(a) for a in (u, v, w)], [
+        np.asarray(m) for m in maps], 0.0625
+
+
+def test_dmc_step_at_the_jax_property_tests_failing_example():
+    """The port's DMC substep where the JAX package's DMC property test
+    fails. Against the JAX DMC kernel (interpret mode) it holds at
+    POS_ATOL (measured 1.9e-6 world: 2 ulp of the 12.8 z coordinates).
+    Against the JAX exact step run op by op (``jax.disable_jit()``) it
+    holds at the exact-path bound 2e-5 world (measured 6.7e-6) on every
+    cell whose upwind neighbour both pick alike. Phase 0 puts stagnation
+    lines of v and w on the lattice (cos(2 pi 21/28) is -1.8e-16, not 0):
+    there the op-by-op exact path's trilinear velocity at the cell centre
+    (p/h is not exactly i, so its weights are not exactly 1/2) rounds to
+    the other sign than the face average of the kernel and the port, takes
+    the other upwind cell and moves the map by up to 0.1 cell. Those cells
+    alone fail the property test; the jitted step agrees with the kernel
+    there (measured 5.4e-4 world, inside the test's 2.5e-3)."""
+    import jax
+
+    from gpufluidsimulation_tpu.core import interp as jinterp
+    from gpufluidsimulation_tpu.ops import interp_fast as jfast
+
+    jg, vel, maps, sub = _property_geometry()
+    h = jg.h
+    tg = grids.Grid3D(*jg.shape_c, h)
+    got = advect.dmc_backward_step_3d(tg, *map(_t, vel), *map(_t, maps), sub)
+    got = [a.numpy() for a in got]
+    u, v, w = (jnp.asarray(a) for a in vel)
+    packed = jnp.stack([
+        jnp.pad(u, ((0, 0), (0, 1), (0, 1)), mode="edge"),
+        jnp.pad(v, ((0, 1), (0, 0), (0, 1)), mode="edge"),
+        jnp.pad(w, ((0, 1), (0, 1), (0, 0)), mode="edge")])
+    packed = jfast.pad_fields(packed, jg.shape_c, 2)
+    kernel = jfast.dmc_substep_fast(packed, jnp.stack(maps), sub, h,
+                                    jg.shape_c, Rr=2, interpret=True)
+    for a, b in zip(got, kernel):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=0, atol=POS_ATOL)
+    with config.engine_mode_scope(config.EngineMode(fast_interp=False)):
+        with jax.disable_jit():
+            step = jadvect.dmc_backward_step_3d(jg, u, v, w, *(
+                jnp.asarray(m) for m in maps), sub)
+            centre = jinterp.mac_velocity_3d(u, v, w, *jg.node_coords("c"),
+                                             h)
+    # cells where the exact path's centre velocity takes another sign than
+    # the face average
+    faces = interp.mac_velocity_at_c_3d(*map(_t, vel))
+    flipped = np.zeros(jg.shape_c, bool)
+    for a, b in zip(faces, centre):
+        flipped |= (a.numpy() > 0) != (np.asarray(b) > 0)
+    assert flipped.any()
+    off = 0.0
+    for a, b, k in zip(got, step, kernel):
+        b, k = np.asarray(b), np.asarray(k)
+        np.testing.assert_allclose(a[~flipped], b[~flipped], rtol=0,
+                                   atol=2e-5)
+        off = max(off, float(np.abs(k - b)[flipped].max()))
+    # where the signs differ the op-by-op step leaves the kernel by more
+    # than the property test's tolerance (0.025 h)
+    assert off > 0.025 * h
