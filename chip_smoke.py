@@ -6,22 +6,27 @@
                                      # every phase at a small size
     python3 chip_smoke.py --profile out/profile.txt
                                      # also write per-kernel time tables of
-                                     # 2 steps of the main, obstacle and
-                                     # phase-7 paths to that file, with
-                                     # the backward-map march's device
-                                     # time
+                                     # 2 steps of the main, obstacle,
+                                     # MG-PCG and phase-7 paths to that
+                                     # file, with the backward-map march's
+                                     # and the smoothers' device time
 
 Phases, each of which fails loudly (non-zero exit, no result line):
  1. print the card's name and power limit; build the ten CUDA kernels
     from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once, and
-    print each kernel's registers and spills (the six redesigned ones,
+    print each kernel's registers and spills (the eight redesigned ones,
     trilerp_sample, jacobi_diffuse, rk3_substep, volume_prefilter,
-    dmc_substep and vol9_fixup, must not spill);
- 2. at the paths' 256^3 shapes (and 100x200x200 for the smoothers and
-    the Jacobi solve), hold each kernel against its plain PyTorch version
-    on the same inputs and time both with CUDA events; trilerp_sample,
-    jacobi_diffuse, rk3_substep, dmc_substep, volume_prefilter and
-    vol9_fixup bit for bit, the sampler also at positions outside the
+    dmc_substep, vol9_fixup, rbgs_smooth and masked_rbgs_smooth, must not
+    spill);
+ 2. at the paths' 256^3 shapes (and 100x200x200 for the Jacobi solve),
+    hold each kernel against its plain PyTorch version on the same inputs
+    and time both with CUDA events; trilerp_sample, jacobi_diffuse,
+    rk3_substep, dmc_substep, volume_prefilter, vol9_fixup and the two
+    smoothers bit for bit, the smoothers on 256^3, 100x200x200, 37x29x45
+    and every level of their V-cycle hierarchies in every mode (iters
+    1-4, reverse, x=None; the masked one with the obstacle scene's
+    coarsened flags), their 2-sweep call timed on each level the V-cycle
+    smooths with them, the sampler also at positions outside the
     domain and on the quarter-cell lattice, the Jacobi solve at iters
     around its sweeps a launch and its division over the accepted range
     of denominators, rk3_substep, dmc_substep, volume_prefilter and
@@ -48,8 +53,11 @@ Phases, each of which fails loudly (non-zero exit, no result line):
  5. the obstacle path: the moving-obstacle scene (buoyant plume, sweeping
     sphere, masked MG-PCG) at n^3 with dt = 1.6/n, warmed up until the
     plume passes CFL 1 (so that both map marches substep), then timed
-    steps with the launch counts reset before and read after;
- 6. the vortex path with the MG-PCG projection (spectral solve off);
+    steps with the launch counts reset before and read after, and every
+    masked_rbgs_smooth call held to ceil(2 iters / levels a launch)
+    launches (one for the V-cycle's 2-sweep calls);
+ 6. the vortex path with the MG-PCG projection (spectral solve off), its
+    rbgs_smooth calls held the same way;
  7. five more vortex paths built like the main path: `reflection`
     (MAC_REFLECTION, the scene's own default scheme), `maccormack`,
     `bimocq_adaptive` (adaptive reinit, blend 1), `bimocq_vol9` (the
@@ -107,6 +115,27 @@ def cuda_time(fn, reps, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps, key):
+    """Mean device milliseconds per fn() call of the kernels whose name
+    holds `key`, from torch.profiler over `reps` calls: the kernel's own
+    time where a call is too short for CUDA events around the calls to see
+    past the host's launch overhead."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and key in e.key
+               ) / 1e3 / reps
 
 
 def bound_ms(nbytes, nops):
@@ -330,7 +359,7 @@ def kernel_phase(n, seed):
     results["dmc_substep"] = dmc_phase(g, rng, dev, compare)
 
     results["jacobi_diffuse"] = jacobi_phase(g, rng, dev, compare)
-    results.update(smoother_phase(n, rng, dev, compare))
+    results.update(smoother_phase(n, rng, dev))
     results.update(volume_phase(g, rng, dev, compare, positions))
     results.update(pullback_phase(g, rng, dev, compare))
     return results
@@ -660,96 +689,228 @@ def division_sweep(rng, dev, s):
     return worst
 
 
-def smoother_phase(n, rng, dev, compare):
-    """Phase 2, the two red-black Gauss-Seidel smoothers: every mode
-    against the plain version, the one-sweep call timed against its
-    bound (each input read once, the output written once, per full
-    red+black sweep)."""
+def smoother_shapes(n):
+    """The grids on which the two smoothers are held bit for bit: n^3,
+    100x200x200 and 37x29x45 with every level of their V-cycle
+    hierarchies."""
+    from gpufluidsimulation_tpu_torch.ops import poisson
+
+    shapes = []
+    for top in ((n, n, n),) + EDGE_SHAPES:
+        for s in poisson.mg_shapes(top):
+            if s not in shapes:
+                shapes.append(s)
+    return shapes
+
+
+def obstacle_flag_levels(top, dev):
+    """The obstacle scene's frame-0 cell flags (uint8) on a `top` grid and
+    on each level of its V-cycle hierarchy, coarsened as the masked
+    V-cycle coarsens them."""
     import torch
 
-    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+    from gpufluidsimulation_tpu_torch.ops import poisson
     from gpufluidsimulation_tpu_torch.scenes.scenes3d import (
         moving_obstacle_config)
     from gpufluidsimulation_tpu_torch.solvers import smoke3d
 
-    results = {}
-    variants = []
-    for shape in ((n, n, n), (100, 200, 200)):
-        b = smooth(shape, rng, 1.0, dev)
-        x = smooth(shape, rng, 1.0, dev)
-        tag = "x".join(str(s) for s in shape)
-        for bc, iters, reverse, from_zero in (
-                ("dirichlet", 1, False, False), ("neumann", 1, False, False),
-                ("dirichlet", 2, False, True), ("neumann", 2, True, False)):
-            x0 = None if from_zero else x
-            label = (f"{tag} {bc} iters={iters}"
-                     + (" reverse" if reverse else "")
-                     + (" x=None" if from_zero else ""))
-            got = sk.rbgs_smooth(x0, b, bc, iters, reverse=reverse)
-            want = sk.rbgs_smooth_plain(x0, b, bc, iters, reverse)
-            tol = 1e-6 * max(1.0, float(want.abs().max()))
-            err = compare(f"rbgs_smooth {label}", got, want, tol)
-            if from_zero:
-                zeros = sk.rbgs_smooth(torch.zeros_like(b), b, bc, iters,
-                                       reverse=reverse)
-                if not torch.equal(got, zeros):
-                    raise AssertionError(f"rbgs_smooth {label}: x=None is "
-                                         "not bitwise the explicit zeros")
-            k_ms = cuda_time(lambda: sk.rbgs_smooth(
-                x0, b, bc, iters, reverse=reverse), 20)
-            p_ms = cuda_time(lambda: sk.rbgs_smooth_plain(
-                x0, b, bc, iters, reverse), 3, 1)
-            inputs = 1 if from_zero else 2
-            b_ms, b_by = bound_ms(4 * (inputs + 1) * b.numel(),
-                                  b.numel() * 2 * iters * 8)
-            variants.append(dict(variant=label, max_abs_err=err, tol=tol,
-                                 ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=None))
-            log(f"[kernels] rbgs_smooth {label}: {k_ms:.4f} ms (plain "
-                f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
-    results["rbgs_smooth"] = dict(
-        variants[0], variants=variants,
-        replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:93 "
-                  "(_rbgs_kernel, pallas_call :179)"))
-
-    # masked: the obstacle scene's own flags at n^3, frame 0
-    cfg = moving_obstacle_config(ni=n, nj=n, nk=n)
-    flags = smoke3d._update_boundary(
+    cfg = moving_obstacle_config(ni=top[0], nj=top[1], nk=top[2])
+    f = smoke3d._update_boundary(
         cfg, cfg.grid, 0, cfg.dt,
         smoke3d.boundary_base_flags(cfg.grid, dev))[0]
-    shape = tuple(flags.shape)
-    b = smooth(shape, rng, 1.0, dev)
-    x = smooth(shape, rng, 1.0, dev)     # nonzero on non-fluid cells too
-    variants = []
-    for iters, reverse, from_zero in ((1, False, False), (2, False, True),
-                                      (2, True, False)):
-        x0 = None if from_zero else x
-        label = (f"iters={iters}" + (" reverse" if reverse else "")
-                 + (" x=None" if from_zero else ""))
-        got = sk.masked_rbgs_smooth(x0, b, flags, iters, reverse=reverse)
-        want = sk.masked_rbgs_smooth_plain(x0, b, flags, iters, reverse)
-        tol = 1e-6 * max(1.0, float(want.abs().max()))
-        err = compare(f"masked_rbgs_smooth {label}", got, want, tol)
-        if from_zero and not torch.equal(got, sk.masked_rbgs_smooth(
-                torch.zeros_like(b), b, flags, iters, reverse=reverse)):
-            raise AssertionError(f"masked_rbgs_smooth {label}: x=None is "
-                                 "not bitwise the explicit zeros")
-        k_ms = cuda_time(lambda: sk.masked_rbgs_smooth(
-            x0, b, flags, iters, reverse=reverse), 20)
-        p_ms = cuda_time(lambda: sk.masked_rbgs_smooth_plain(
-            x0, b, flags, iters, reverse), 3, 1)
-        inputs = 1 if from_zero else 2
-        b_ms, b_by = bound_ms((4 * (inputs + 1) + 1) * b.numel(),
-                              b.numel() * 2 * iters * 14)
-        variants.append(dict(variant=label, max_abs_err=err, tol=tol,
-                             ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                             bound_by=b_by, library_ms=None))
-        log(f"[kernels] masked_rbgs_smooth {label}: {k_ms:.4f} ms (plain "
-            f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
-    results["masked_rbgs_smooth"] = dict(
-        variants[0], variants=variants,
-        replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:311 "
-                  "(_masked_rbgs_kernel, pallas_call :385)"))
+    levels = {}
+    for s in poisson.mg_shapes(top):
+        f = (f if s == top else poisson.coarsen_flags(f, s))
+        levels[s] = f.to(torch.uint8).contiguous()
+    return levels
+
+
+def smoother_division_sweep(rng, dev):
+    """The smoothers' division by the integral diagonal against the plain
+    versions' a / diag, bit for bit, on a 24x40x66 field: random flags that
+    give the fluid cells every
+    diagonal 1..6, b with random signs and magnitudes 2^-140 .. 2^110, x
+    magnitudes 2^-140 .. 2^90, a tenth of each zero, and x zero on the
+    lower half of k, so that there the first level's numerators are b
+    itself: zero, subnormal, normal and large numerators divided by every
+    diagonal. The masked smoother and the plain one (Neumann diagonals
+    3..6, Dirichlet 6), iters 1 and 2, from x and from zero. Returns the
+    largest abs error in float64."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+
+    shape = (24, 40, 66)
+
+    def field(top):
+        mag = np.exp2(rng.uniform(-140.0, top, shape))
+        v = (mag * rng.choice([-1.0, 1.0], shape)).astype(np.float32)
+        v[rng.random(shape) < 0.1] = 0.0
+        return v
+
+    x, b = field(90.0), field(110.0)
+    x[:, :, :33] = 0.0
+    x, b = torch.from_numpy(x).to(dev), torch.from_numpy(b).to(dev)
+    flags = torch.from_numpy(rng.choice(
+        np.arange(4, dtype=np.uint8), shape,
+        p=[0.5, 0.15, 0.2, 0.15])).to(dev)
+    diags = sk.masked_diag(flags)[flags == 0]
+    seen = sorted({int(d) for d in diags.unique().tolist()})
+    if seen != [1, 2, 3, 4, 5, 6]:
+        raise AssertionError(f"division sweep: diagonals {seen}")
+    worst, mismatched = 0.0, 0
+    for iters in (1, 2):
+        for x0 in (x, None):
+            pairs = [(sk.masked_rbgs_smooth(x0, b, flags, iters),
+                      sk.masked_rbgs_smooth_plain(x0, b, flags, iters))]
+            pairs += [(sk.rbgs_smooth(x0, b, bc, iters),
+                       sk.rbgs_smooth_plain(x0, b, bc, iters))
+                      for bc in ("neumann", "dirichlet")]
+            for got, want in pairs:
+                mismatched += int((got.view(torch.int32)
+                                   != want.view(torch.int32)).sum())
+                worst = max(worst, float((got.double() - want.double())
+                                         .abs().max()))
+    log(f"[kernels] smoother division sweep: diagonals {seen}, numerators "
+        f"2^-140 .. 2^110: {mismatched} cells differ in their bits, "
+        f"max_abs_err={worst:.3e} tol=0.0e+00")
+    if mismatched or not np.isfinite(worst) or worst > 0.0:
+        raise AssertionError(f"smoother division sweep: {mismatched} cells "
+                             f"differ (max abs err {worst})")
+    return worst
+
+
+def smoother_phase(n, rng, dev):
+    """Phase 2, the two red-black Gauss-Seidel smoothers, bit for bit
+    against their plain versions on every grid of ``smoother_shapes`` in
+    every mode: iters 1-4, forward and reverse, from x and from x=None (which
+    must equal the explicit zeros bit for bit); the plain smoother for both
+    bcs, the masked one with the obstacle scene's frame-0 flags coarsened by
+    ``poisson.coarsen_flags`` to each level and an x that is nonzero on the
+    non-fluid cells. Then the 2-sweep call, the V-cycle's unit, timed on
+    each level that the V-cycle smooths with these kernels (its post-
+    smoother form: from x, reverse; at n^3 also its pre-smoother form, from
+    x=None) against its one-pass bound (each input read once, the result
+    written once; per sweep 8 operations a cell that updates, and the
+    masked operator's diagonal, 7 a cell, once)."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import poisson
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+
+    modes = [(iters, reverse, from_zero) for iters in (1, 2, 3, 4)
+             for reverse in (False, True) for from_zero in (False, True)]
+    shapes = smoother_shapes(n)
+    flags_of = {}
+    for top in ((n, n, n),) + EDGE_SHAPES:
+        for s, f in obstacle_flag_levels(top, dev).items():
+            flags_of.setdefault(s, f)
+    kinds = {s: [int((f == v).sum()) for v in range(4)]
+             for s, f in flags_of.items()}
+    log(f"[kernels] smoother grids {shapes}; masked flags (fluid, air, "
+        f"wall, object) by grid {kinds}")
+    errs = {"rbgs_smooth": [], "masked_rbgs_smooth": []}
+    for shape in shapes:
+        b = smooth(shape, rng, 1.0, dev)
+        x = smooth(shape, rng, 1.0, dev)   # nonzero on non-fluid cells too
+        flags = flags_of[shape]
+        for iters, reverse, from_zero in modes:
+            x0 = None if from_zero else x
+            label = ("x".join(map(str, shape)) + f" iters={iters}"
+                     + (" reverse" if reverse else "")
+                     + (" x=None" if from_zero else ""))
+            cases = [("rbgs_smooth", bc,
+                      lambda x0, bc=bc: sk.rbgs_smooth(x0, b, bc, iters,
+                                                       reverse=reverse),
+                      lambda x0, bc=bc: sk.rbgs_smooth_plain(x0, b, bc, iters,
+                                                             reverse))
+                     for bc in ("dirichlet", "neumann")]
+            cases.append(("masked_rbgs_smooth", "masked",
+                          lambda x0: sk.masked_rbgs_smooth(
+                              x0, b, flags, iters, reverse=reverse),
+                          lambda x0: sk.masked_rbgs_smooth_plain(
+                              x0, b, flags, iters, reverse)))
+            for name, tag, kernel, plain in cases:
+                got = kernel(x0)
+                want = plain(x0)
+                err = float((got - want).abs().max())
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{name} {tag} {label}: kernel "
+                                         f"differs from its plain version "
+                                         f"(max abs err {err})")
+                if from_zero and not torch.equal(
+                        got, kernel(torch.zeros_like(b))):
+                    raise AssertionError(f"{name} {tag} {label}: x=None is "
+                                         "not bitwise the explicit zeros")
+                errs[name].append(err)
+    for name, e in errs.items():
+        log(f"[kernels] {name}: {len(e)} cases on {len(shapes)} grids, "
+            f"max_abs_err={max(e):.3e} tol=0.0e+00")
+    division = smoother_division_sweep(rng, dev)
+    for e in errs.values():
+        e.append(division)
+
+    # the 2-sweep call timed on the levels the V-cycle smooths with these
+    # kernels
+    levels = [s for s in poisson.mg_shapes((n, n, n))
+              if poisson._use_rbgs(s, 2)]
+    results = {}
+    for name in ("rbgs_smooth", "masked_rbgs_smooth"):
+        masked = name == "masked_rbgs_smooth"
+        per_level = []
+        for shape in levels:
+            b = smooth(shape, rng, 1.0, dev)
+            x = smooth(shape, rng, 1.0, dev)
+            flags = flags_of[shape]
+            cells = b.numel()
+            fluid = int((flags == 0).sum()) if masked else cells
+            forms = [("from x, reverse", x, True)]
+            if shape == levels[0]:
+                forms.append(("x=None", None, False))
+            for form, x0, reverse in forms:
+                if masked:
+                    def kernel(x0=x0, reverse=reverse):
+                        return sk.masked_rbgs_smooth(x0, b, flags, 2,
+                                                     reverse=reverse)
+
+                    def plain(x0=x0, reverse=reverse):
+                        return sk.masked_rbgs_smooth_plain(x0, b, flags, 2,
+                                                           reverse)
+                else:
+                    def kernel(x0=x0, reverse=reverse):
+                        return sk.rbgs_smooth(x0, b, "neumann", 2,
+                                              reverse=reverse)
+
+                    def plain(x0=x0, reverse=reverse):
+                        return sk.rbgs_smooth_plain(x0, b, "neumann", 2,
+                                                    reverse)
+                inputs = 1 if x0 is None else 2
+                nbytes = 4 * (inputs + 1) * cells + (cells if masked else 0)
+                nops = 2 * 8 * fluid + (7 * cells if masked else 0)
+                b_ms, b_by = bound_ms(nbytes, nops)
+                reps = 200 if cells <= 64 ** 3 else 40
+                k_ms = cuda_time(kernel, reps)
+                # the kernel alone (the call above is host-bound on the
+                # small levels)
+                d_ms = device_ms(kernel, 20, "levels_kernel")
+                p_ms = cuda_time(plain, 3, 1) if shape == levels[0] else None
+                per_level.append(dict(shape=list(shape), form=form, ms=k_ms,
+                                      device_ms=d_ms, plain_ms=p_ms,
+                                      bound_ms=b_ms, bound_by=b_by))
+                log(f"[kernels] {name} 2-sweep call {'x'.join(map(str, shape))}"
+                    f" {form}: {k_ms:.4f} ms a call, {d_ms:.4f} ms on the "
+                    f"card (plain {p_ms}, bound {b_ms:.4f} by {b_by})")
+        main = per_level[0]
+        results[name] = dict(
+            max_abs_err=max(errs[name]), tol=0.0, ms=main["ms"],
+            plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+            bound_by=main["bound_by"], library_ms=None, variants=per_level,
+            levels_per_launch=sk.LEVELS_PER_LAUNCH,
+            cases=len(errs[name]),
+            replaces=("gpufluidsimulation_tpu/ops/pallas_kernels.py:311 "
+                      "(_masked_rbgs_kernel, pallas_call :385)" if masked else
+                      "gpufluidsimulation_tpu/ops/pallas_kernels.py:93 "
+                      "(_rbgs_kernel, pallas_call :179)"))
     return results
 
 
@@ -1318,7 +1479,8 @@ KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
 MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 # redesigned for Hopper after their first port (PERF.md, kernel table)
 REDESIGNED = ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
-              "volume_prefilter", "dmc_substep", "vol9_fixup")
+              "volume_prefilter", "dmc_substep", "vol9_fixup", "rbgs_smooth",
+              "masked_rbgs_smooth")
 # the lattice modes of rk3_substep and dmc_substep, each launched under its
 # own count
 LATTICE = {"rk3_substep": "rk3_substep_lattice",
@@ -1342,12 +1504,13 @@ def kernel_launches(counts, name):
 
 
 def timed_steps(solver, steps, expect, warm=lambda state: True,
-                max_warmup=150):
+                max_warmup=150, on_reset=lambda: None):
     """Drive one path: from the initial state, warm-up steps until
     `warm(state)` (at least one, at most `max_warmup`), then reset every
-    launch count, run and time `steps` steps with CUDA events and read the
-    counts; fail if a kernel of `expect` never launched or a field is not
-    finite. The state lives only here, so the peak memory is one path's."""
+    launch count (and call `on_reset`), run and time `steps` steps with
+    CUDA events and read the counts; fail if a kernel of `expect` never
+    launched or a field is not finite. The state lives only here, so the
+    peak memory is one path's."""
     import torch
 
     from gpufluidsimulation_tpu_torch.ops import interp_fast
@@ -1368,6 +1531,7 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
     for fn in fns.values():
         fn.launches = 0
     interp_fast.reset_vol9_block_counts()
+    on_reset()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     per_step = []
@@ -1405,6 +1569,46 @@ def timed_steps(solver, steps, expect, warm=lambda state: True,
                peak_mem_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
                held_before_gib=held / 2 ** 30)
     return state, res
+
+
+def observe_smoother_calls(calls):
+    """Record every smoother call in `calls` as (kernel, iters, launches it
+    made) until the returned function is called. Only observes: the call
+    runs as it would."""
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+
+    launch = sk._launch_levels
+
+    def observed(wrapper, name, fn, x, b, extra, iters, reverse):
+        before = wrapper.launches
+        out = launch(wrapper, name, fn, x, b, extra, iters, reverse)
+        calls.append((name, int(iters), wrapper.launches - before))
+        return out
+
+    sk._launch_levels = observed
+
+    def restore():
+        sk._launch_levels = launch
+    return restore
+
+
+def smoother_stats(calls, name, steps):
+    """Calls and launches a step of smoother `name` in the timed steps;
+    fails unless each call made ceil(2 iters / LEVELS_PER_LAUNCH) launches
+    (one for the V-cycle's 2-sweep calls)."""
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+
+    mine = [c for c in calls if c[0] == name]
+    wrong = [c for c in mine
+             if c[2] != -(-2 * c[1] // sk.LEVELS_PER_LAUNCH)]
+    if not mine or wrong:
+        raise AssertionError(f"{name}: {len(mine)} calls, launches not "
+                             f"ceil(2 iters / {sk.LEVELS_PER_LAUNCH}) in "
+                             f"{wrong[:5]}")
+    return dict(calls_per_step=len(mine) / steps,
+                launches_per_step=sum(c[2] for c in mine) / steps,
+                iters=sorted({c[1] for c in mine}),
+                levels_per_launch=sk.LEVELS_PER_LAUNCH)
 
 
 def main_phase(n, steps, profile):
@@ -1466,11 +1670,17 @@ def obstacle_phase(n, steps, profile):
 
     cfg = obstacle_config(n)
     solver = smoke3d.Smoke3D(cfg)
-    state, res = timed_steps(
-        solver, steps,
-        ("masked_rbgs_smooth", "rk3_substep", "dmc_substep",
-         "trilerp_sample", "jacobi_diffuse"),
-        warm=lambda state: state.substeps >= 2)
+    calls = []
+    restore = observe_smoother_calls(calls)
+    try:
+        state, res = timed_steps(
+            solver, steps,
+            ("masked_rbgs_smooth", "rk3_substep", "dmc_substep",
+             "trilerp_sample", "jacobi_diffuse"),
+            warm=lambda state: state.substeps >= 2, on_reset=calls.clear)
+    finally:
+        restore()
+    res["smoother"] = smoother_stats(calls, "masked_rbgs_smooth", steps)
     if max(res["proj_iters"]) >= cfg.proj_max_iters:
         raise AssertionError(f"projection hit its iteration limit: "
                              f"{res['proj_iters']}")
@@ -1507,22 +1717,33 @@ def obstacle_phase(n, steps, profile):
     if profile:
         profile_steps(solver, state, profile, "obstacle path", "a",
                       res["ms_per_step"])
-    return res["launches"]
+    return res["launches"], res["smoother"]
 
 
-def mgpcg_phase(n, steps):
+def mgpcg_phase(n, steps, profile):
     """Phase 6: the vortex path with the MG-PCG projection."""
     from gpufluidsimulation_tpu_torch.config import EngineMode
     from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
 
     cfg = bench_config(n, engine_mode=EngineMode(spectral_poisson=False))
     solver = Smoke3D(cfg)
-    state, res = timed_steps(solver, steps, MAIN_KERNELS + ("rbgs_smooth",))
+    calls = []
+    restore = observe_smoother_calls(calls)
+    try:
+        state, res = timed_steps(solver, steps,
+                                 MAIN_KERNELS + ("rbgs_smooth",),
+                                 on_reset=calls.clear)
+    finally:
+        restore()
+    res["smoother"] = smoother_stats(calls, "rbgs_smooth", steps)
     if not res["proj_res"] <= cfg.proj_tol or (
             max(res["proj_iters"]) >= cfg.proj_max_iters):
         raise AssertionError(f"MG-PCG missed proj_tol: {res}")
     log("[mgpcg] " + json.dumps(res))
-    return res["launches"]
+    if profile:
+        profile_steps(solver, state, profile, "MG-PCG path", "a",
+                      res["ms_per_step"])
+    return res["launches"], res["smoother"]
 
 
 def scheme_phase(n, steps, profile):
@@ -1713,6 +1934,10 @@ def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
                and e.key != "update_backward_map_3d"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     launches = sum(e.count for e in kernels) / steps
+    # the two smoothers' kernels (gs::levels_kernel<levels, masked>)
+    gs = [e for e in kernels if "levels_kernel" in e.key]
+    gs_ms = sum(e.self_device_time_total for e in gs) / 1e3 / steps
+    gs_launches = sum(e.count for e in gs) / steps
     # the range's span on the card: its kernels, launched through ctypes,
     # are not attributed to the range's CPU side
     march_ms = sum(e.device_time_total for e in events
@@ -1724,7 +1949,8 @@ def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
             f"against {ms_per_step:.2f} ms/step measured without the "
             f"profiler: idle {100 * (1 - busy_ms / ms_per_step):.1f}%; the "
             f"backward-map march (update_backward_map_3d) spans {march_ms:.3f} "
-            "ms/step on the card")
+            f"ms/step on the card; the smoothers take {gs_ms:.3f} ms/step in "
+            f"{gs_launches:.1f} launches/step")
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, mode) as f:
         f.write(head + "\n" + table + "\n")
@@ -1752,7 +1978,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH",
                     help="write torch.profiler tables of 2 steps of the "
-                    "main, obstacle and phase-7 paths to PATH")
+                    "main, obstacle, MG-PCG and phase-7 paths to PATH")
     args = ap.parse_args()
 
     import torch
@@ -1817,11 +2043,13 @@ def main():
                  "bimocq adaptive blend 0.5 prefilter volume")
     multi_parity_phase()
     mgpcg_parity_phase()
-    by_path = {
-        "main": main_phase(args.n, args.steps, args.profile),
-        "obstacle": obstacle_phase(args.obstacle_n, args.obstacle_steps,
-                                   args.profile),
-        "mgpcg": mgpcg_phase(args.obstacle_n, args.obstacle_steps)}
+    by_path = {"main": main_phase(args.n, args.steps, args.profile)}
+    by_path["obstacle"], obstacle_calls = obstacle_phase(
+        args.obstacle_n, args.obstacle_steps, args.profile)
+    by_path["mgpcg"], mgpcg_calls = mgpcg_phase(
+        args.obstacle_n, args.obstacle_steps, args.profile)
+    results["masked_rbgs_smooth"].update(obstacle_calls)
+    results["rbgs_smooth"].update(mgpcg_calls)
     by_path.update(scheme_phase(args.scheme_n, args.scheme_steps,
                                 args.profile))
     by_path["pullback_multi"] = pullback_multi_phase(args.scheme_n, 5)
@@ -1851,7 +2079,8 @@ def main():
             entry["lattice_launches_by_path"] = {
                 p: c[LATTICE[name]] for p, c in by_path.items()}
         for extra in ("variants", "lattice", "one_sweep_ms",
-                      "sweeps_per_launch", "cases"):
+                      "sweeps_per_launch", "levels_per_launch", "cases",
+                      "calls_per_step", "launches_per_step"):
             if extra in r:
                 entry[extra] = r[extra]
         line.append(entry)

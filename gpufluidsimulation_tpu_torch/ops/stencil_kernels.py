@@ -11,9 +11,11 @@ buffer.
 
 ``rbgs_smooth`` and ``masked_rbgs_smooth`` run ``iters`` red+black
 Gauss-Seidel sweeps of L x = b (``ops.poisson.laplacian`` and
-``ops.poisson.masked_laplacian``); on a CUDA tensor each colour half-sweep
-is one launch (``csrc/rbgs_smooth.cu``, ``csrc/masked_rbgs_smooth.cu``):
-the first one out of place into a fresh output, the rest in place on it.
+``ops.poisson.masked_laplacian``); on a CUDA tensor the 2*iters colour
+half-sweeps go in launches of ``LEVELS_PER_LAUNCH`` and one of the
+remainder (``level_chunks``), each of ``csrc/rbgs_smooth.cu`` or
+``csrc/masked_rbgs_smooth.cu`` out of place into a ping-pong buffer: the
+V-cycle's 2-sweep call is one launch.
 
 On a CPU tensor every wrapper takes its plain version. ``<wrapper>.launches``
 counts kernel launches and nothing else.
@@ -171,32 +173,45 @@ def rbgs_smooth_plain(x, b, bc, iters, reverse=False):
                       iters, reverse)
 
 
-def _launch_half_sweeps(wrapper, name, first, half, x, b, extra, iters,
-                        reverse):
-    """The 2*iters colour half-sweeps of one smoother call: the first out
-    of place from `x` (None = exactly zero) into a fresh tensor, the rest
-    in place on it. `extra` are the arguments between the shape and the
-    colour (bc flag, or the flags pointer placed before the shape)."""
-    out = torch.empty_like(b)
-    colours = (1, 0) if reverse else (0, 1)
+# colour levels (half-sweeps) per launch of the two smoothers (kLevels in
+# csrc/gs_wavefront.cuh, whose kernels build only this count and 2): the
+# V-cycle's 2-sweep call in one launch (PERF.md, rows 10 and 12)
+LEVELS_PER_LAUNCH = 4
+
+
+def level_chunks(iters, per_launch=LEVELS_PER_LAUNCH):
+    """The colour levels of each launch of an `iters`-sweep smoother call:
+    2*iters levels in full launches of `per_launch`, then the remainder as
+    one shorter launch. Every chunk is even, so each launch starts with the
+    call's first colour."""
+    return sweep_chunks(2 * int(iters), per_launch)
+
+
+def _launch_levels(wrapper, name, fn, x, b, extra, iters, reverse):
+    """The launches of one smoother call: the first from `x` (None =
+    exactly zero), each out of place into one of two buffers. `extra` are
+    the arguments between b and the colour (the shape and the bc flag, or
+    the flags pointer and the shape)."""
+    chunks = level_chunks(iters)
+    bufs = [torch.empty_like(b) for _ in range(min(2, len(chunks)))]
+    src = None if x is None else _build.ptr(x)
     with torch.cuda.device(b.device):
         stream = _build.stream(b)
-        for s in range(2 * int(iters)):
-            colour = colours[s % 2]
-            if s == 0:
-                x_ptr = None if x is None else _build.ptr(x)
-                err = first(x_ptr, _build.ptr(b), *extra, colour,
-                            _build.ptr(out), stream)
-            else:
-                err = half(_build.ptr(out), _build.ptr(b), *extra, colour,
-                           stream)
+        for n, levels in enumerate(chunks):
+            dst = bufs[n % 2]
+            err = fn(src, _build.ptr(b), *extra, int(bool(reverse)), levels,
+                     _build.ptr(dst), stream)
             _build.check(err, name)
             wrapper.launches += 1
-    return out
+            src = _build.ptr(dst)
+    return bufs[(len(chunks) - 1) % 2]
 
 
 def _require_pair(name, x, b):
     _build.require(b, "b", ndim=3)
+    if b.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: 32-bit offsets need fewer than 2^31 "
+                         f"cells, got {b.numel()}")
     if x is not None:
         _build.require(x, "x", shape=b.shape)
         if x.device != b.device:
@@ -219,13 +234,11 @@ def rbgs_smooth(x, b, bc, iters, reverse=False):
         return rbgs_smooth_plain(x, b, bc, iters, reverse)
     _require_pair("rbgs_smooth", x, b)
     P, I = ctypes.c_void_p, ctypes.c_int
-    first = _build.function("rbgs_smooth", "gfs_rbgs_first",
-                            [P, P, I, I, I, I, I, P, P])
-    half = _build.function("rbgs_smooth", "gfs_rbgs_half",
-                           [P, P, I, I, I, I, I, P])
+    fn = _build.function("rbgs_smooth", "gfs_rbgs_smooth",
+                         [P, P, I, I, I, I, I, I, P, P])
     extra = (*b.shape, int(bc == "neumann"))
-    return _launch_half_sweeps(rbgs_smooth, "rbgs_smooth", first, half, x, b,
-                               extra, iters, reverse)
+    return _launch_levels(rbgs_smooth, "rbgs_smooth", fn, x, b, extra, iters,
+                          reverse)
 
 
 rbgs_smooth.launches = 0
@@ -272,13 +285,11 @@ def masked_rbgs_smooth(x, b, flags, iters, reverse=False):
             f"b's shape on b's device, got {flags.dtype} "
             f"{tuple(flags.shape)} on {flags.device}")
     P, I = ctypes.c_void_p, ctypes.c_int
-    first = _build.function("masked_rbgs_smooth", "gfs_masked_rbgs_first",
-                            [P, P, P, I, I, I, I, P, P])
-    half = _build.function("masked_rbgs_smooth", "gfs_masked_rbgs_half",
-                           [P, P, P, I, I, I, I, P])
+    fn = _build.function("masked_rbgs_smooth", "gfs_masked_rbgs_smooth",
+                         [P, P, P, I, I, I, I, I, P, P])
     extra = (_build.ptr(flags), *b.shape)
-    return _launch_half_sweeps(masked_rbgs_smooth, "masked_rbgs_smooth",
-                               first, half, x, b, extra, iters, reverse)
+    return _launch_levels(masked_rbgs_smooth, "masked_rbgs_smooth", fn, x, b,
+                          extra, iters, reverse)
 
 
 masked_rbgs_smooth.launches = 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time design variants of the port's redesigned kernels on one GPU.
 
-    python3 scripts/kernel_variants.py            # 256^3 shapes, all six
+    python3 scripts/kernel_variants.py            # 256^3 shapes, all eight
     python3 scripts/kernel_variants.py --n 64     # a quick check
     python3 scripts/kernel_variants.py --kernels dmc_substep,vol9_fixup
     python3 scripts/kernel_variants.py --kernels vol9_fixup --only shipped,tile
@@ -26,7 +26,11 @@ and in the lattice mode (cell kind); ``dmc_substep`` variants from a map
 displaced by up to 2 cells and in the lattice mode; ``volume_prefilter``
 variants at C=1 on the u lattice and C=2 on the cell lattice;
 ``vol9_fixup`` variants at tol = 0 (every block flagged) for u (C=1) and
-rho+T (C=2) through a map displaced by up to 2 cells. Each build prints
+rho+T (C=2) through a map displaced by up to 2 cells; ``rbgs_smooth`` and
+``masked_rbgs_smooth`` variants (region shapes, rows a thread, the segment
+rule, a register cap, the division, the masked diagonal recounted at every
+level) per 2-sweep call at
+n^3 and 32^3, at 4 and at 2 colour levels a launch. Each build prints
 its registers, spills and, where the toolkit has cuobjdump, each kernel's
 static SASS instruction count. Builds go to the port's build directory
 (``gpufluidsimulation_tpu_torch/_build/variants/``).
@@ -445,25 +449,110 @@ VOL9 = {
 }
 
 
+# the two smoothers share csrc/gs_wavefront.cuh: region shapes, rows a
+# thread and the segment rule are its constants
+_GS_KERNEL = ("template <int L, Op kOp>\n__global__ void "
+              "__launch_bounds__(kThreads, kMinBlocks)")
+# a / d from RN(1/d) for the integral diagonals and one correction by the
+# exact remainder (Markstein), zero and out-of-range numerators by a / d
+_GS_QUOTIENT = """__constant__ float kReciprocal[8] = {0.0f, 1.0f, 0x1p-1f, 0x1.555556p-2f,
+                                     0x1p-2f, 0x1.99999ap-3f, 0x1.555556p-3f,
+                                     0x1.24924ap-3f};
+
+__device__ __forceinline__ float quotient(float a, int d) {
+  const float df = (float)d, m = fabsf(a);
+  if (d >= 1 && m >= 0x1p-64f && m <= 0x1p100f) {
+    const float r = kReciprocal[d & 7];
+    const float q = __fmul_rn(a, r);
+    return __fmaf_rn(r, __fmaf_rn(q, -df, a), q);
+  }
+  return d >= 1 && a == 0.0f ? a : a / df;
+}
+
+"""
+_GS_WARPS = "constexpr int kWarpsJ = 16;"
+_GS_ROWS = "constexpr int kRegionJ = 32;"
+RBGS = {
+    "shipped (32x64 region, 16 warps, 2 rows a thread)": [],
+    "32x64 region, 8 warps, 4 rows a thread": [
+        (_GS_WARPS, "constexpr int kWarpsJ = 8;")],
+    "16x64 region (8 warps)": [
+        (_GS_ROWS, "constexpr int kRegionJ = 16;"),
+        (_GS_WARPS, "constexpr int kWarpsJ = 8;")],
+    "blocks fill the card twice over (two waves)": [
+        ("constexpr int kWaves = 1;", "constexpr int kWaves = 2;")],
+    "segments of at least 2L planes (fewer blocks on small grids)": [
+        ("segs = min(segs, max(1, nx / L));",
+         "segs = min(segs, max(1, nx / (2 * L)));")],
+    "registers for 2 blocks an SM (at most 64)": [
+        ("constexpr int kMinBlocks = 1;", "constexpr int kMinBlocks = 2;")],
+    "update computed on every row and cell, kept where it applies": [
+        ("""        float2 v = cur[t - 1][q];
+        if (u) {""", """        float2 v = cur[t - 1][q];
+        {"""),
+        ("""          if (e)
+            v.y = res;
+          else
+            v.x = res;""", """          if (u && e)
+            v.y = res;
+          else if (u)
+            v.x = res;""")],
+    "remainder division (RN(1/d) from a table, one correction)": [
+        (_GS_KERNEL, _GS_QUOTIENT + _GS_KERNEL),
+        ("(nb + (e ? bq[t - 1][q].y : bq[t - 1][q].x)) / (float)d;",
+         "quotient(nb + (e ? bq[t - 1][q].y : bq[t - 1][q].x), d);")],
+}
+# the masked operator's diagonal recounted at every level from the flags
+# (6 byte loads an update through L1, as the first port did) instead of
+# formed once per plane at load
+_GS_RECOUNT = """__device__ __forceinline__ unsigned opened(
+    const uint8_t* __restrict__ f, unsigned off) {
+  return __ldg(f + off) <= 1u ? 1u : 0u;
+}
+
+__device__ __forceinline__ unsigned recount(const uint8_t* __restrict__ f,
+                                            unsigned off, int i, int j,
+                                            int k, int nx, int ny, int nz,
+                                            unsigned ps) {
+  return (i < nx - 1 ? opened(f, off + ps) : 0u) +
+         (i > 0 ? opened(f, off - ps) : 0u) +
+         (j < ny - 1 ? opened(f, off + (unsigned)nz) : 0u) +
+         (j > 0 ? opened(f, off - (unsigned)nz) : 0u) +
+         (k < nz - 1 ? opened(f, off + 1u) : 0u) +
+         (k > 0 ? opened(f, off - 1u) : 0u);
+}
+
+"""
+MASKED_RBGS = dict(RBGS)
+MASKED_RBGS["diagonal recounted at every level from the flags"] = [
+    (_GS_KERNEL, _GS_RECOUNT + _GS_KERNEL),
+    ("""            d = max((int)((cnt[q] >> (6 * (t - 1) + 3 * e)) & 7u), 1);""",
+     """            d = max((int)recount(flags, col[q] + e + (unsigned)i * ps, i,
+                                 j0 + jr[q], k0 + 2 * lp + e, nx, ny, nz,
+                                 ps), 1);""")]
+
+
 def build(out_dir, tag, source, edits):
     """nvcc the edited source; returns the library and the ptxas lines
     (None and nvcc's errors if it does not build). An edit applies to the
     kernel's source or, where its text is not there, to the variant's own
-    copy of common.cuh."""
+    copy of the header that holds it."""
     from gpufluidsimulation_tpu_torch.ops import _build
 
     text = (CSRC / f"{source}.cu").read_text()
-    header = (CSRC / "common.cuh").read_text()
+    headers = {h.name: h.read_text() for h in sorted(CSRC.glob("*.cuh"))}
     for old, new in edits:
         if old in text:
             text = text.replace(old, new)
-        elif old in header:
-            header = header.replace(old, new)
-        else:
+            continue
+        name = next((h for h, body in headers.items() if old in body), None)
+        if name is None:
             raise SystemExit(f"{tag}: edit does not apply: {old[:60]!r}")
+        headers[name] = headers[name].replace(old, new)
     src_dir = out_dir / tag
     src_dir.mkdir(parents=True, exist_ok=True)
-    (src_dir / "common.cuh").write_text(header)
+    for name, body in headers.items():
+        (src_dir / name).write_text(body)
     cu = src_dir / f"{source}.cu"
     cu.write_text(text)
     lib = out_dir / f"{tag}.so"
@@ -800,12 +889,116 @@ def vol9_variants(n, out_dir):
                    f"max_abs_err {err:.3e}")
 
 
+def smoother_variants(name, table, n, out_dir, rounds=4):
+    """Each build's 2-sweep call (the V-cycle's post-smoother form: from x,
+    reverse) at n^3 and 32^3, at 4 colour levels a launch (one launch) and
+    at 2 (two launches, ping-ponged), against the plain version, timed on
+    the card by torch.profiler (the 32^3 call is host-bound under CUDA
+    events); the masked kernel on the obstacle scene's flags coarsened to
+    each grid. Every variant is built first; after a second of load that
+    brings the card's clocks up, the variants are timed in `rounds`
+    rounds, forward and backward in turn, and each reports its median, so
+    that no variant gains from its place in the order."""
+    import time
+
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import _build
+    from gpufluidsimulation_tpu_torch.ops import stencil_kernels as sk
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    masked = name == "masked_rbgs_smooth"
+    levels = cs.obstacle_flag_levels((n, n, n), dev)
+    cases = []
+    for shape in dict.fromkeys([(n, n, n), (32, 32, 32)]):
+        b = cs.smooth(shape, rng, 1.0, dev)
+        x = cs.smooth(shape, rng, 1.0, dev)
+        flags = levels.get(shape)
+        if flags is None:
+            flags = cs.obstacle_flag_levels(shape, dev)[shape]
+        want = (sk.masked_rbgs_smooth_plain(x, b, flags, 2, True) if masked
+                else sk.rbgs_smooth_plain(x, b, "neumann", 2, True))
+        cases.append(("x".join(map(str, shape)), x, b, flags, want))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    symbol = "gfs_masked_rbgs_smooth" if masked else "gfs_rbgs_smooth"
+    built = []
+    for i, (label, edits) in enumerate(table.items()):
+        # each build in its own namespace: libraries whose kernels share a
+        # mangled name must not meet in one process
+        unique = [("namespace gs {", f"namespace gs{i} {{"),
+                  ("gs::", f"gs{i}::")]
+        lib, ptxas = build(out_dir, f"{name}_{i}", name, edits + unique)
+        cs.log(f"[{name}] {label}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = getattr(lib, symbol)
+        fn.argtypes = [P, P] + ([P, I, I, I] if masked else [I] * 4) + [
+            I, I, P, P]
+        fn.restype = I
+        built.append((label, fn))
+
+    def call(fn, label, x, b, flags, per, bufs):
+        src = x
+        for k, levels_ in enumerate(sk.level_chunks(2, per)):
+            extra = ([_build.ptr(flags)] if masked else [])
+            err = fn(_build.ptr(src), _build.ptr(b), *extra, *b.shape,
+                     *([] if masked else [1]), 1, levels_,
+                     _build.ptr(bufs[k % 2]), _build.stream(b))
+            _build.check(err, label)
+            src = bufs[k % 2]
+        return src
+
+    for shape, x, b, flags, want in cases:
+        bufs = [torch.empty_like(b), torch.empty_like(b)]
+        errs, times = {}, {}
+        for label, fn in built:
+            for per in (4, 2):
+                try:
+                    got = call(fn, label, x, b, flags, per, bufs)
+                    errs[label, per] = float((got - want).abs().max())
+                except RuntimeError as exc:
+                    errs[label, per] = str(exc)
+        runnable = [(label, fn) for label, fn in built
+                    if not isinstance(errs[label, 4], str)]
+        t0 = time.time()
+        while time.time() - t0 < 1.0:
+            for label, fn in runnable:
+                call(fn, label, x, b, flags, 4, bufs)
+            torch.cuda.synchronize()
+        for r in range(rounds):
+            for label, fn in (runnable if r % 2 == 0 else runnable[::-1]):
+                for per in (4, 2):
+                    if isinstance(errs[label, per], str):
+                        continue
+                    times.setdefault((label, per), []).append(cs.device_ms(
+                        lambda: call(fn, label, x, b, flags, per, bufs), 20,
+                        "levels_kernel"))
+        for label, _ in built:
+            parts = []
+            for per in (4, 2):
+                if isinstance(errs[label, per], str):
+                    parts.append(f"{per} levels a launch: {errs[label, per]}")
+                    continue
+                ms = times[label, per]
+                parts.append(f"{per} levels a launch {np.median(ms):.4f} ms "
+                             f"on the card (median of {len(ms)}, "
+                             f"{min(ms):.4f}-{max(ms):.4f}; max_abs_err "
+                             f"{errs[label, per]:.3e})")
+            cs.log(f"[{name}] {label}: {shape} 2-sweep call: "
+                   + ", ".join(parts))
+
+
 RUNNERS = {"trilerp_sample": trilerp_variants,
            "jacobi_diffuse": jacobi_variants,
            "rk3_substep": rk3_variants,
            "volume_prefilter": prefilter_variants,
            "dmc_substep": dmc_variants,
-           "vol9_fixup": vol9_variants}
+           "vol9_fixup": vol9_variants,
+           "rbgs_smooth": lambda n, out: smoother_variants(
+               "rbgs_smooth", RBGS, n, out),
+           "masked_rbgs_smooth": lambda n, out: smoother_variants(
+               "masked_rbgs_smooth", MASKED_RBGS, n, out)}
 
 
 def main():
@@ -830,7 +1023,8 @@ def main():
     cs.log(cs.nvidia_smi_line())
     if args.only:
         parts = args.only.split(",")
-        for table in (TRILERP, JACOBI, RK3, PREFILTER, DMC, VOL9):
+        for table in (TRILERP, JACOBI, RK3, PREFILTER, DMC, VOL9, RBGS,
+                      MASKED_RBGS):
             for name in [k for k in table if not any(s in k for s in parts)]:
                 del table[name]
     for name in args.kernels.split(","):
