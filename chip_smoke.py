@@ -14,15 +14,12 @@
 Phases, each of which fails loudly (non-zero exit, no result line):
  1. print the card's name and power limit; build the ten CUDA kernels
     from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once, and
-    print each kernel's registers and spills (the eight redesigned ones,
-    trilerp_sample, jacobi_diffuse, rk3_substep, volume_prefilter,
-    dmc_substep, vol9_fixup, rbgs_smooth and masked_rbgs_smooth, must not
-    spill);
+    print each kernel's registers and spills (all ten are redesigned for
+    Hopper, and none may spill);
  2. at the paths' 256^3 shapes (and 100x200x200 for the Jacobi solve),
     hold each kernel against its plain PyTorch version on the same inputs
-    and time both with CUDA events; trilerp_sample, jacobi_diffuse,
-    rk3_substep, dmc_substep, volume_prefilter, vol9_fixup and the two
-    smoothers bit for bit, the smoothers on 256^3, 100x200x200, 37x29x45
+    and time both with CUDA events, every kernel bit for bit: the
+    smoothers on 256^3, 100x200x200, 37x29x45
     and every level of their V-cycle hierarchies in every mode (iters
     1-4, reverse, x=None; the masked one with the obstacle scene's
     coarsened flags), their 2-sweep call timed on each level the V-cycle
@@ -35,7 +32,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     lattice mode for the kinds c, u, v and w, dmc_substep in both modes
     through its guard, zero velocities and map positions past the
     lattice, vol9_fixup at tol 0 and the default tol with mapped
-    positions clamped on every face;
+    positions clamped on every face; minmax_sample on 256^3, 100x200x200
+    and 37x29x45 at C=1 and 2, equal and differing offsets, from
+    displaced, outside and quarter-cell positions, its sample mode also
+    against trilerp_sample_plain, timed beside the two launches the
+    sample mode replaces; pullback_sample on the same grids for the kind
+    sets (u, v, w), (c, c), (u, c, c) and (u, v, w, c) at clamps (1, 1)
+    and (0, 0), the clip both hit and missed;
  3. parity on the card (kernels) against the port on the CPU (plain
     versions): 3 steps at 32^3 from one numpy state of the vortex step,
     the moving-obstacle step, MAC_REFLECTION on the vortex scene,
@@ -63,7 +66,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     `bimocq_adaptive` (adaptive reinit, blend 1), `bimocq_vol9` (the
     same in the vol9 volume form, with the share of flagged block
     channels) and `bimocq_prefilter` (the main path in the prefilter
-    volume form), 1 warm-up and `--scheme-steps` timed steps each;
+    volume form), 1 warm-up and `--scheme-steps` timed steps each; on
+    reflection and maccormack the trace clamp must make one minmax_sample
+    launch a step, in its sample mode, and no fallback trilerp_sample
+    launch;
  8. `pullback_multi`: the parked fused multi-kind pull-back at the
     `--scheme-n` width, on a stepped state whose maps and prev tier are
     live, launches counted, against and timed beside the per-kind
@@ -316,35 +322,7 @@ def kernel_phase(n, seed):
                   "pallas_call :995) and :1306 (_kernel_multi, pallas_call "
                   ":1421)"))
 
-    # minmax_sample: the rho+T trace clamp (C=2) at the cell lattice,
-    # positions displaced by up to ~2 cells, some outside the domain
-    pos = [(p + smooth(g.shape_c, rng, 2.5 * h, dev)).contiguous()
-           for p in g.node_coords("c", device=dev)]
-    outside = float(((pos[0] < 0) | (pos[0] > (n - 1) * h)).float().mean())
-    offs = (g.OFF_C,) * 2
-    got = interp_fast.minmax_sample(fc, *pos, h, offs)
-    want = interp_fast.minmax_sample_plain(fc, *pos, h, offs)
-    err = max(compare("minmax_sample mn", got[0], want[0], 0.0),
-              compare("minmax_sample mx", got[1], want[1], 0.0))
-    k_ms = cuda_time(lambda: interp_fast.minmax_sample(fc, *pos, h, offs),
-                     20)
-    p_ms = cuda_time(lambda: interp_fast.minmax_sample_plain(
-        fc, *pos, h, offs), 3, 1)
-    N = pos[0].numel()
-    C = fc.shape[0]
-    # positions read once, each channel's field read once and its two
-    # bounds written once; per channel 3 subtractions, 3 floors, 14 min/max
-    b_ms, b_by = bound_ms(4 * (3 * N + C * N + 2 * C * N),
-                          N * (3 + C * 20))
-    results["minmax_sample"] = dict(
-        max_abs_err=err, tol=0.0, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, outside_share=outside,
-        replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:1177 "
-                  "(_kernel_minmax, pallas_call :1282; entry minmax3_fast "
-                  ":1212)"))
-    log(f"[kernels] minmax_sample C=2: {k_ms:.4f} ms (plain {p_ms:.3f}, "
-        f"bound {b_ms:.4f} by {b_by}); {100 * outside:.2f}% of the "
-        "positions outside the domain in x")
+    results["minmax_sample"] = minmax_phase(g, fc, rng, dev, compare)
 
     # rk3_substep: bit for bit on three grids, from displaced positions,
     # from positions outside the clamp box and the domain, and from each
@@ -363,6 +341,109 @@ def kernel_phase(n, seed):
     results.update(volume_phase(g, rng, dev, compare, positions))
     results.update(pullback_phase(g, rng, dev, compare))
     return results
+
+
+def minmax_phase(g, fc, rng, dev, compare):
+    """Phase 2, minmax_sample: bit for bit against its plain version on the
+    n^3 grid, the reference scene's 100x200x200 and a ragged 37x29x45, at
+    C=1 and C=2 with equal offsets (the trace clamp's only case: rho+T at
+    the cell lattice) and with differing ones, from cell-lattice positions
+    displaced by up to 2.5 cells (some outside the domain), stretched to
+    reach 3 cells outside every face, and on the quarter-cell lattice
+    within 3 cells of each node (h = 1/4, so that g and its floor are
+    exact lattice planes); the sample mode also against
+    trilerp_sample_plain. Timed on the n^3 grid at C=2 from the displaced
+    positions: the min/max alone, the sample mode, and the two launches
+    that the sample mode replaces (the min/max, then trilerp_sample's
+    plain C=2 sample at the same positions). The bounds: positions read
+    once, each field read once, 2 (3 with the sample) outputs a channel
+    written once; per output the 3 divisions and per channel 3
+    subtractions, 3 floors and 14 min/max, with the sample 7 lerps more."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    mm, mm_plain = interp_fast.minmax_sample, interp_fast.minmax_sample_plain
+    errs, variants = [], []
+    for shape in (g.shape_c,) + EDGE_SHAPES:
+        gg = g if shape == g.shape_c else Grid3D(*shape, 0.2 / shape[0])
+        tag = "x".join(map(str, shape))
+        fields = fc if gg is g else torch.stack(
+            [smooth(shape, rng, 1.0, dev), smooth(shape, rng, 50.0, dev)])
+        lat = torch.meshgrid(*[torch.arange(m, dtype=torch.float32,
+                                            device=dev) for m in shape],
+                             indexing="ij")
+        gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+        starts = {
+            "displaced": ([p + smooth(shape, rng, 2.5 * gg.h, dev)
+                           for p in gg.node_coords("c", device=dev)], gg.h),
+            "outside": ([p * ((m + 5.0) / (m - 1.0)) - 3.0 * gg.h
+                         for p, m in zip(gg.node_coords("c", device=dev),
+                                         shape)], gg.h),
+            "quarter": ([0.25 * (q + torch.randint(
+                -12, 13, q.shape, device=dev, generator=gen) / 4.0)
+                for q in lat], 0.25)}
+        for label, (pos, h) in starts.items():
+            pos = [p.contiguous() for p in pos]
+            for offs in ((g.OFF_C,), (g.OFF_U,), (g.OFF_C,) * 2,
+                         (g.OFF_C, g.OFF_W)):
+                C = len(offs)
+                f = fields[:C]
+                name = f"minmax_sample {tag} {label} C={C} offs {offs}"
+                got = mm(f, *pos, h, offs, sample=True)
+                want = mm_plain(f, *pos, h, offs, sample=True)
+                for q, what in enumerate(("mn", "mx", "sample")):
+                    errs.append(compare(f"{name} {what}", got[q], want[q],
+                                        0.0))
+                errs.append(compare(f"{name} sample vs trilerp_sample_plain",
+                                    got[2], interp_fast.trilerp_sample_plain(
+                                        f, *pos, h, offs), 0.0))
+                pair = mm(f, *pos, h, offs)
+                errs.append(compare(f"{name} min/max alone", torch.stack(
+                    pair), torch.stack(want[:2]), 0.0))
+        if gg is not g:
+            continue
+        pos = [p.contiguous() for p in starts["displaced"][0]]
+        h = g.h
+        outside = float(((pos[0] < 0) | (pos[0] > (g.ni - 1) * h)).float()
+                        .mean())
+        offs = (g.OFF_C,) * 2
+        N, C = pos[0].numel(), 2
+
+        def two_launches():
+            mm(fc, *pos, h, offs)
+            interp_fast.trilerp_sample(fc, *pos, h, offs)
+
+        for label, run, plain, outs, lerps in (
+                ("C=2 rho+T min/max", lambda: mm(fc, *pos, h, offs),
+                 lambda: mm_plain(fc, *pos, h, offs), 2, 0),
+                ("C=2 rho+T sample mode", lambda: mm(fc, *pos, h, offs,
+                                                     sample=True),
+                 lambda: mm_plain(fc, *pos, h, offs, sample=True), 3, 7),
+                ("C=2 rho+T min/max and trilerp_sample (two launches)",
+                 two_launches, None, 3, 7)):
+            k_ms = cuda_time(run, 20)
+            p_ms = None if plain is None else cuda_time(plain, 3, 1)
+            b_ms, b_by = bound_ms(4 * (3 * N + C * N + outs * C * N),
+                                  N * (3 + C * (20 + lerps * LERP_OPS)))
+            variants.append(dict(variant=label, tol=0.0, ms=k_ms,
+                                 plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                                 library_ms=None, outside_share=outside))
+            log(f"[kernels] minmax_sample {label}: {k_ms:.4f} ms (plain "
+                f"{p_ms}, bound {b_ms:.4f} by {b_by}); {100 * outside:.2f}% "
+                "of the positions outside the domain in x")
+        trilerp_ms = cuda_time(lambda: interp_fast.trilerp_sample(
+            fc, *pos, h, offs), 20)
+        variants[-1]["trilerp_sample_ms"] = trilerp_ms
+        log(f"[kernels] trilerp_sample C=2 plain at the same positions: "
+            f"{trilerp_ms:.4f} ms")
+    for v_ in variants:
+        v_["max_abs_err"] = max(errs)
+    return dict(variants[0], variants=variants, sample_mode=variants[1],
+                replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:1177 "
+                          "(_kernel_minmax, pallas_call :1282; entry "
+                          "minmax3_fast :1212)"))
 
 
 # float32 operations of one rk3_substep node, counted from the kernel's
@@ -1210,10 +1291,11 @@ def vol9_phase(g, rng, dev, compare, positions):
 
 
 def pullback_fields(g, kinds, rng, device):
-    """One smooth field per kind: velocity components of size 0.06, or
-    rho and T (sizes 1 and 50) for the cell kind."""
-    return [smooth(g.shape_of(k), rng, (1.0, 50.0)[i] if k == "c" else 0.06,
-                   device).contiguous() for i, k in enumerate(kinds)]
+    """One smooth field per kind: velocity components of size 0.06, and
+    for the cell kind rho and T (sizes 1 and 50) in turn."""
+    scales = iter((1.0, 50.0) * 2)
+    return [smooth(g.shape_of(k), rng, next(scales) if k == "c" else 0.06,
+                   device).contiguous() for k in kinds]
 
 
 def wobbled_map(g, rng, amp_cells, device):
@@ -1225,102 +1307,128 @@ def wobbled_map(g, rng, amp_cells, device):
                        ).contiguous()
 
 
-# the fused pull-back's kind sets: the velocity triplet and rho+T
+# the fused pull-back's kind sets: the velocity triplet and rho+T, timed;
+# and mixed sets with a repeated kind, compared only
 PULLBACK_KINDS = (("u", "v", "w"), ("c", "c"))
+PULLBACK_MIXED = (("u", "c", "c"), ("u", "v", "w", "c"))
 
 
-def pullback_phase(g, rng, dev, compare):
-    """Phase 2, the fused multi-kind pull-back at the n^3 path's shapes:
-    the velocity triplet (C=3) and rho+T (C=2), clamps (1, 1) and (0, 0),
-    through a map displaced by a smooth wobble of up to 3 cells, so that
-    some nodes near the faces are clipped and most are not; against its
-    plain version, to the bit. No one PyTorch call computes the function
-    (the map at each kind's lattice, the clip and the sample of fields of
-    several shapes), so its library time is null; as a yardstick for the
-    sampling part alone, grid_sample (border, align_corners) of the same
-    fields at the positions the kernel samples is timed beside it."""
+def pullback_clip(maps, dims, h, n3, extent, clamp):
+    """The share of a pull-back's outputs whose map position is clipped,
+    and for each channel the grid_sample grid (border, align_corners) of
+    the positions it samples."""
     import torch
-    import torch.nn.functional as F
 
     from gpufluidsimulation_tpu_torch.ops import interp_fast
 
-    h, n3 = g.h, g.shape_c
-    maps = wobbled_map(g, rng, 3.0, dev)
-    variants = []
-    for kinds in PULLBACK_KINDS:
-        fields = pullback_fields(g, kinds, rng, dev)
-        dims = [g.dim_of(k) for k in kinds]
-        for clamp in (1.0, 0.0):
-            label = f"{''.join(kinds)} clamp ({clamp:g}, {clamp:g})"
-            args = (maps, fields, dims, h, n3, clamp, clamp)
-            got = interp_fast.pullback_sample(*args)
-            want = interp_fast.pullback_sample_plain(*args)
-            err = compare(f"pullback_sample {label}", got, want, 0.0)
-            # the positions each channel samples, and the share clipped
-            grids5, clipped = [], 0.0
-            for d in dims:
-                pos = interp_fast.pullback_positions(maps, d, h, n3,
-                                                     got.shape[1:])
-                hit = torch.zeros_like(pos[0], dtype=torch.bool)
-                gpos = []
-                for p, n, s in zip(pos, n3, d):
-                    hit |= (p < clamp) | (p > n - clamp)
-                    gpos.append(p.clamp(clamp, n - clamp) + 0.5 * s)
-                clipped += float(hit.float().mean()) / len(dims)
-                ext = [n + s for n, s in zip(n3, d)]
-                grids5.append(torch.stack([
-                    gpos[a] * (2.0 / (ext[a] - 1)) - 1.0 for a in (2, 1, 0)],
-                    dim=-1)[None])
-            if not 0.0 < clipped < 1.0:
-                raise AssertionError(f"pullback_sample {label}: clipped "
-                                     f"share {clipped}, the clip goes "
-                                     "untested")
-            # one grid_sample per distinct kind: (c, c) shares its positions
-            calls = []
-            for kind in dict.fromkeys(kinds):
-                idx = [i for i, k in enumerate(kinds) if k == kind]
-                src = torch.stack([fields[i] for i in idx])[None]
-                calls.append((idx, src, grids5[idx[0]]))
+    grids5, clipped = [], 0.0
+    for d in dims:
+        pos = interp_fast.pullback_positions(maps, d, h, n3, extent)
+        hit = torch.zeros_like(pos[0], dtype=torch.bool)
+        gpos = []
+        for p, n, s in zip(pos, n3, d):
+            hit |= (p < clamp) | (p > n - clamp)
+            gpos.append(p.clamp(clamp, n - clamp) + 0.5 * s)
+        clipped += float(hit.float().mean()) / len(dims)
+        ext = [n + s for n, s in zip(n3, d)]
+        grids5.append(torch.stack([
+            gpos[a] * (2.0 / (ext[a] - 1)) - 1.0 for a in (2, 1, 0)],
+            dim=-1)[None])
+    return clipped, grids5
 
-            def yardstick():
-                return [F.grid_sample(src, grid5, mode="bilinear",
-                                      padding_mode="border",
-                                      align_corners=True)
-                        for _, src, grid5 in calls]
 
-            lib_err = max(float((r[0, q] - got[i]).abs().max())
-                          for (idx, _, _), r in zip(calls, yardstick())
-                          for q, i in enumerate(idx))
-            k_ms = cuda_time(lambda: interp_fast.pullback_sample(*args), 20)
-            p_ms = cuda_time(lambda: interp_fast.pullback_sample_plain(*args),
-                             3, 1)
-            y_ms = cuda_time(yardstick, 20)
-            # the map and each field read once, each output written once;
-            # per output and map channel a division and the clip (2), on a
-            # staggered kind one more division, the add and the halving,
-            # then the half-cell shift and one trilerp
-            n_out = got[0].numel()
-            nbytes = 4 * (maps.numel() + sum(f.numel() for f in fields)
-                          + got.numel())
-            nops = n_out * sum(9 + (10 if any(d) else 0) + TRILERP_OPS
-                               for d in dims)
-            b_ms, b_by = bound_ms(nbytes, nops)
-            variants.append(dict(
-                variant=label, max_abs_err=err, tol=0.0, ms=k_ms,
-                plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-                clipped_share=clipped, sampling_grid_sample_ms=y_ms,
-                sampling_grid_sample_max_abs_err=lib_err))
-            log(f"[kernels] pullback_sample {label}: {k_ms:.4f} ms (plain "
-                f"{p_ms:.3f}, bound {b_ms:.4f} by {b_by}; grid_sample of the "
-                f"sampling part alone {y_ms:.4f} ms, max_abs_err {lib_err:.3e} "
-                f"against the kernel); {100 * clipped:.2f}% of the outputs "
-                "clipped")
-    results = {"pullback_sample": dict(
+def pullback_phase(g, rng, dev, compare):
+    """Phase 2, the fused multi-kind pull-back: bit for bit against its
+    plain version on the n^3 grid, the reference scene's 100x200x200 and a
+    ragged 37x29x45, for the velocity triplet (C=3), rho+T (C=2), (u, c,
+    c) and (u, v, w, c), clamps (1, 1) and (0, 0), through a map displaced
+    by a smooth wobble of up to 3 cells, so that some nodes near the faces
+    are clipped and most are not (the run fails otherwise). The velocity
+    triplet and rho+T are timed on the n^3 grid. No one PyTorch call
+    computes the function (the map at each kind's lattice, the clip and
+    the sample of fields of several shapes), so its library time is null;
+    as a yardstick for the sampling part alone, grid_sample (border,
+    align_corners) of the same fields at the positions the kernel samples
+    is timed beside it."""
+    import torch
+    import torch.nn.functional as F
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    variants, errs = [], []
+    for shape in (g.shape_c,) + EDGE_SHAPES:
+        gg = g if shape == g.shape_c else Grid3D(*shape, 0.2 / shape[0])
+        h, n3 = gg.h, gg.shape_c
+        maps = wobbled_map(gg, rng, 3.0, dev)
+        for kinds in PULLBACK_KINDS + PULLBACK_MIXED:
+            fields = pullback_fields(gg, kinds, rng, dev)
+            dims = [gg.dim_of(k) for k in kinds]
+            for clamp in (1.0, 0.0):
+                label = (f"{''.join(kinds)} clamp ({clamp:g}, {clamp:g})"
+                         + ("" if gg is g else " " + "x".join(map(str, shape))))
+                args = (maps, fields, dims, h, n3, clamp, clamp)
+                got = interp_fast.pullback_sample(*args)
+                want = interp_fast.pullback_sample_plain(*args)
+                errs.append(compare(f"pullback_sample {label}", got, want,
+                                    0.0))
+                clipped, grids5 = pullback_clip(maps, dims, h, n3,
+                                                got.shape[1:], clamp)
+                if not 0.0 < clipped < 1.0:
+                    raise AssertionError(f"pullback_sample {label}: clipped "
+                                         f"share {clipped}, the clip goes "
+                                         "untested")
+                if gg is not g or kinds not in PULLBACK_KINDS:
+                    continue
+                # one grid_sample per distinct kind: (c, c) shares its
+                # positions
+                calls = []
+                for kind in dict.fromkeys(kinds):
+                    idx = [i for i, k in enumerate(kinds) if k == kind]
+                    src = torch.stack([fields[i] for i in idx])[None]
+                    calls.append((idx, src, grids5[idx[0]]))
+
+                def yardstick():
+                    return [F.grid_sample(src, grid5, mode="bilinear",
+                                          padding_mode="border",
+                                          align_corners=True)
+                            for _, src, grid5 in calls]
+
+                lib_err = max(float((r[0, q] - got[i]).abs().max())
+                              for (idx, _, _), r in zip(calls, yardstick())
+                              for q, i in enumerate(idx))
+                k_ms = cuda_time(lambda: interp_fast.pullback_sample(*args),
+                                 20)
+                p_ms = cuda_time(lambda: interp_fast.pullback_sample_plain(
+                    *args), 3, 1)
+                y_ms = cuda_time(yardstick, 20)
+                # the map and each field read once, each output written
+                # once; per output and map channel a division and the clip
+                # (2), on a staggered kind one more division, the add and
+                # the halving, then the half-cell shift and one trilerp
+                n_out = got[0].numel()
+                nbytes = 4 * (maps.numel() + sum(f.numel() for f in fields)
+                              + got.numel())
+                nops = n_out * sum(9 + (10 if any(d) else 0) + TRILERP_OPS
+                                   for d in dims)
+                b_ms, b_by = bound_ms(nbytes, nops)
+                variants.append(dict(
+                    variant=label, tol=0.0, ms=k_ms, plain_ms=p_ms,
+                    bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                    clipped_share=clipped, sampling_grid_sample_ms=y_ms,
+                    sampling_grid_sample_max_abs_err=lib_err))
+                log(f"[kernels] pullback_sample {label}: {k_ms:.4f} ms "
+                    f"(plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by}; "
+                    f"grid_sample of the sampling part alone {y_ms:.4f} ms, "
+                    f"max_abs_err {lib_err:.3e} against the kernel); "
+                    f"{100 * clipped:.2f}% of the outputs clipped")
+    for v_ in variants:
+        v_["max_abs_err"] = max(errs)
+    return {"pullback_sample": dict(
         variants[0], variants=variants,
         replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:2154 "
                   "(_kernel_pullback, pallas_call :2291 in _pullback_padded; "
                   "entry sample3_pullback :2344)"))}
-    return results
 
 
 def bench_config(n, scheme=None, **overrides):
@@ -1480,7 +1588,7 @@ MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 # redesigned for Hopper after their first port (PERF.md, kernel table)
 REDESIGNED = ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
               "volume_prefilter", "dmc_substep", "vol9_fixup", "rbgs_smooth",
-              "masked_rbgs_smooth")
+              "masked_rbgs_smooth", "minmax_sample", "pullback_sample")
 # the lattice modes of rk3_substep and dmc_substep, each launched under its
 # own count
 LATTICE = {"rk3_substep": "rk3_substep_lattice",
@@ -1609,6 +1717,43 @@ def smoother_stats(calls, name, steps):
                 launches_per_step=sum(c[2] for c in mine) / steps,
                 iters=sorted({c[1] for c in mine}),
                 levels_per_launch=sk.LEVELS_PER_LAUNCH)
+
+
+def observe_trace_clamps(calls):
+    """Record, until the returned function is called, every minmax_sample
+    call that ops/advect.py makes as ("minmax_sample", sample mode), and
+    every trilerp_sample call it makes at the positions of its last
+    minmax_sample call as ("fallback", False): the trace clamp's fallback
+    sample made by a launch of its own. advect's calls go through an
+    observer of the module; the wrappers themselves, and their counts,
+    are untouched."""
+    from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
+
+    last = []
+
+    class Observer:
+        def __getattr__(self, name):
+            return getattr(interp_fast, name)
+
+        @staticmethod
+        def minmax_sample(fields, px, *args, sample=False):
+            calls.append(("minmax_sample", bool(sample)))
+            last[:] = [px]
+            return interp_fast.minmax_sample(fields, px, *args,
+                                             sample=sample)
+
+        @staticmethod
+        def trilerp_sample(fields, px, *args, **kwargs):
+            if last and px is last[0]:
+                calls.append(("fallback", False))
+            return interp_fast.trilerp_sample(fields, px, *args, **kwargs)
+
+    advect.interp_fast = Observer()
+
+    def restore():
+        advect.interp_fast = interp_fast
+        last.clear()
+    return restore
 
 
 def main_phase(n, steps, profile):
@@ -1774,7 +1919,24 @@ def scheme_phase(n, steps, profile):
     by_path = {}
     for name, (cfg, expect) in paths.items():
         solver = Smoke3D(cfg)
-        state, res = timed_steps(solver, steps, expect)
+        clamps = []
+        restore = observe_trace_clamps(clamps)
+        try:
+            state, res = timed_steps(solver, steps, expect,
+                                     on_reset=clamps.clear)
+        finally:
+            restore()
+        if "minmax_sample" in expect:
+            # the trace clamp of rho+T: one minmax_sample launch a step in
+            # its sample mode, and no fallback trilerp_sample launch
+            want = [("minmax_sample", True)] * steps
+            if (clamps != want
+                    or res["launches"]["minmax_sample"] != steps):
+                raise AssertionError(
+                    f"{name}: trace clamp calls {clamps} and "
+                    f"{res['launches']['minmax_sample']} minmax_sample "
+                    f"launches in {steps} steps, expected {want}")
+            res["trace_clamp_calls_per_step"] = len(clamps) / steps
         if not 0.0 < res["rho_max"] <= 10.0:
             raise AssertionError(f"{name}: implausible rho_max "
                                  f"{res['rho_max']}")

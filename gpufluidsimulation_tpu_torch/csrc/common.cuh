@@ -116,6 +116,47 @@ __device__ __forceinline__ ZPair zpair(float g, int n) {
   return c;
 }
 
+// The 8 values a clamped trilerp reads, loaded as 4 z pairs: v[q][p] at
+// the (x, y) corner q = (x.lo, y.lo), (x.hi, y.lo), (x.lo, y.hi),
+// (x.hi, y.hi) and z node z.lo + p; (sx, sy) the field's x and y strides.
+struct Corners {
+  float v[4][2];
+};
+
+__device__ __forceinline__ Corners corners_zpair(const float* __restrict__ f,
+                                                 const Coord& x,
+                                                 const Coord& y,
+                                                 const ZPair& z, unsigned sx,
+                                                 unsigned sy) {
+  const unsigned xa = x.lo * sx, xb = x.hi * sx;
+  const unsigned ya = y.lo * sy, yb = y.hi * sy;
+  const float* row[4] = {f + (xa + ya + z.lo), f + (xb + ya + z.lo),
+                         f + (xa + yb + z.lo), f + (xb + yb + z.lo)};
+  Corners c;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    c.v[q][0] = __ldg(row[q]);
+    c.v[q][1] = __ldg(row[q] + 1);
+  }
+  return c;
+}
+
+// The blend of trilerp_clamped from the corners of corners_zpair.
+__device__ __forceinline__ float blend_zpair(const Corners& c, const Coord& x,
+                                             const Coord& y, const ZPair& z) {
+  // the x, then y lerps at z nodes lo and lo + 1
+  const float c00 = x.w * c.v[0][0] + x.f * c.v[1][0];
+  const float c10 = x.w * c.v[2][0] + x.f * c.v[3][0];
+  const float c01 = x.w * c.v[0][1] + x.f * c.v[1][1];
+  const float c11 = x.w * c.v[2][1] + x.f * c.v[3][1];
+  const float l0 = y.w * c00 + y.f * c10;
+  const float l1 = y.w * c01 + y.f * c11;
+  // the plain version's lerps at its two clamped z corners
+  const float c0 = z.top ? l1 : l0;
+  const float c1 = z.bottom ? l0 : l1;
+  return z.w * c0 + z.f * c1;
+}
+
 // The clamped trilerp of trilerp_clamped from per-axis coordinates, (sx,
 // sy) the field's x and y strides. Samples of several fields of one shape
 // at one position share x, y, z and the offsets.
@@ -123,23 +164,7 @@ __device__ __forceinline__ float trilerp_zpair(const float* __restrict__ f,
                                                const Coord& x, const Coord& y,
                                                const ZPair& z, unsigned sx,
                                                unsigned sy) {
-  const unsigned xa = x.lo * sx, xb = x.hi * sx;
-  const unsigned ya = y.lo * sy, yb = y.hi * sy;
-  const float* aa = f + (xa + ya + z.lo);
-  const float* ba = f + (xb + ya + z.lo);
-  const float* ab = f + (xa + yb + z.lo);
-  const float* bb = f + (xb + yb + z.lo);
-  // the x, then y lerps at z nodes lo and lo + 1
-  const float c00 = x.w * __ldg(aa) + x.f * __ldg(ba);
-  const float c10 = x.w * __ldg(ab) + x.f * __ldg(bb);
-  const float c01 = x.w * __ldg(aa + 1) + x.f * __ldg(ba + 1);
-  const float c11 = x.w * __ldg(ab + 1) + x.f * __ldg(bb + 1);
-  const float l0 = y.w * c00 + y.f * c10;
-  const float l1 = y.w * c01 + y.f * c11;
-  // the plain version's lerps at its two clamped z corners
-  const float c0 = z.top ? l1 : l0;
-  const float c1 = z.bottom ? l0 : l1;
-  return z.w * c0 + z.f * c1;
+  return blend_zpair(corners_zpair(f, x, y, z, sx, sy), x, y, z);
 }
 
 // One axis of a 3-point stencil whose coordinates c[0] <= c[1] <= c[2]

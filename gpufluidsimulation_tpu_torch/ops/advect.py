@@ -197,8 +197,10 @@ def _trace_clamp(grid, kind, srcs, fwds, backs, packed, dt):
     the min/max of src's 8 corners there. `packed` is the MAC triplet
     (interp.mac_pack_3d); both midpoint stages sample it with one C=3
     ``trilerp_sample`` launch each (stage 1 at the lattice itself, the
-    staggered average there). The positions are not clamped into the
-    domain: near walls the corner indices clamp instead."""
+    staggered average there). One ``minmax_sample`` launch in its sample
+    mode gives the min/max and the fallback sample from the same 8
+    corners. The positions are not clamped into the domain: near walls
+    the corner indices clamp instead."""
     h = grid.h
     pos, ax = _cropped_positions(grid, kind, srcs[0].device)
     px, py, pz = pos * h      # the kind's world lattice, as node_coords
@@ -211,8 +213,8 @@ def _trace_clamp(grid, kind, srcs, fwds, backs, packed, dt):
     bx, by, bz = px - dt * vel2[0], py - dt * vel2[1], pz - dt * vel2[2]
     stacked = torch.stack(list(srcs))
     offs = (grid.off_of(kind),) * len(srcs)
-    mn, mx = interp_fast.minmax_sample(stacked, bx, by, bz, h, offs)
-    fallback = interp_fast.trilerp_sample(stacked, bx, by, bz, h, offs)
+    mn, mx, fallback = interp_fast.minmax_sample(stacked, bx, by, bz, h, offs,
+                                                 sample=True)
     crop = tuple(slice(0, s) for s in px.shape)
     outs = []
     for c, (src, fwd, back) in enumerate(zip(srcs, fwds, backs)):

@@ -132,9 +132,10 @@ trilerp_sample.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def minmax_sample_plain(fields, px, py, pz, h, offs):
+def minmax_sample_plain(fields, px, py, pz, h, offs, sample=False):
     """Plain version: (mn, mx), each (C, *px.shape), the min and max of
-    the 8 clamped trilinear corner values of each field."""
+    the 8 clamped trilinear corner values of each field; with `sample`
+    also ``trilerp_sample_plain``'s samples at the same positions."""
     x, y, z = (interp.div_scalar(p, h) for p in (px, py, pz))
     mns, mxs = [], []
     for c in range(fields.shape[0]):
@@ -146,33 +147,53 @@ def minmax_sample_plain(fields, px, py, pz, h, offs):
             mx = torch.maximum(mx, val)
         mns.append(mn)
         mxs.append(mx)
+    if sample:
+        return (torch.stack(mns), torch.stack(mxs),
+                trilerp_sample_plain(fields, px, py, pz, h, offs))
     return torch.stack(mns), torch.stack(mxs)
 
 
-def minmax_sample(fields, px, py, pz, h, offs):
+def minmax_check_sizes(field_shape, C, n_out):
+    """Raise unless C fields of `field_shape` and `n_out` positions fit the
+    minmax_sample kernel: at least 2 nodes along z (it loads the z corners
+    in pairs) and 32-bit offsets."""
+    if field_shape[2] < 2:
+        raise ValueError(f"minmax_sample: the kernel needs 2 or more nodes "
+                         f"along z, got {field_shape[2]}")
+    check_int32("minmax_sample", fields=C * int(np.prod(field_shape)),
+                outputs=C * n_out)
+
+
+def minmax_sample(fields, px, py, pz, h, offs, sample=False):
     """Min and max over the 8 trilinear corners of C stacked same-shape
     fields (C, nx, ny, nz) at world positions (px, py, pz), channel c on
     the lattice (i + offs[c])*h; corner indices are clamped to the field,
     so positions outside the domain are taken as they come. Returns
-    (mn, mx), each (C, *px.shape)."""
+    (mn, mx), each (C, *px.shape); with `sample` also the clamped
+    trilinear samples there, which ``trilerp_sample`` (dual=False) gives,
+    blended from the same corners in the same launch."""
     if not _build.on_card(fields, "minmax_sample"):
-        return minmax_sample_plain(fields, px, py, pz, h, offs)
+        return minmax_sample_plain(fields, px, py, pz, h, offs, sample)
     C = _check_sample_args("minmax_sample", fields, offs, px, py, pz)
-    out = torch.empty((2, C) + tuple(px.shape), dtype=torch.float32,
-                      device=fields.device)
+    minmax_check_sizes(fields.shape[1:], C, px.numel())
+    out = torch.empty((3 if sample else 2, C) + tuple(px.shape),
+                      dtype=torch.float32, device=fields.device)
     offs_host = (_F * (3 * C))(*[float(o) for off in offs for o in off])
     fn = _build.function(
         "minmax_sample", "gfs_minmax_sample",
-        [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _F,
-         ctypes.POINTER(_F), _P, _P, _P])
+        [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _F,
+         ctypes.POINTER(_F), _P, _P, _P, _P])
+    # the kernel tiles the output lattice by its last two extents
+    d1, d2 = ((1,) * 2 + tuple(px.shape))[-2:]
     with torch.cuda.device(fields.device):
         err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
-                 _build.ptr(py), _build.ptr(pz), px.numel(), float(h),
-                 offs_host, _build.ptr(out[0]), _build.ptr(out[1]),
+                 _build.ptr(py), _build.ptr(pz), px.numel(), d1, d2,
+                 float(h), offs_host, _build.ptr(out[0]), _build.ptr(out[1]),
+                 _build.ptr(out[2]) if sample else None,
                  _build.stream(fields))
     _build.check(err, "minmax_sample")
     minmax_sample.launches += 1
-    return out[0], out[1]
+    return tuple(out)
 
 
 minmax_sample.launches = 0
@@ -897,6 +918,28 @@ def pullback_sample_plain(maps, fields, dims, h, grid_n, clamp_lo, clamp_hi):
     return torch.stack(outs)
 
 
+def pullback_kind_order(dims):
+    """The pull-back kernel's channel order: the channels of one kind
+    adjacent, kinds in the order they first appear, channels of a kind in
+    their own order, so that a kind forms its sample coordinates once."""
+    kinds = list(dict.fromkeys(tuple(d) for d in dims))
+    return sorted(range(len(dims)), key=lambda c: kinds.index(tuple(dims[c])))
+
+
+def pullback_check_sizes(grid_n, field_shapes, extent):
+    """Raise unless the (3, ni, nj, nk) map, fields of `field_shapes` and
+    the (C, *extent) output fit the pullback_sample kernel: at least 2
+    nodes along z in every field (it loads the z corners in pairs) and
+    32-bit offsets."""
+    for c, shape in enumerate(field_shapes):
+        if shape[2] < 2:
+            raise ValueError(f"pullback_sample: the kernel needs 2 or more "
+                             f"nodes along z, fields[{c}] has {shape[2]}")
+    check_int32("pullback_sample", maps=3 * int(np.prod(grid_n)),
+                fields=max(int(np.prod(s)) for s in field_shapes),
+                outputs=len(field_shapes) * int(np.prod(extent)))
+
+
 def pullback_sample(maps, fields, dims, h, grid_n, clamp_lo, clamp_hi):
     """Pull C <= 4 fields of mixed lattice kinds back through one world
     map (3, ni, nj, nk) in one launch: channel c is fields[c] (its kind's
@@ -911,20 +954,24 @@ def pullback_sample(maps, fields, dims, h, grid_n, clamp_lo, clamp_hi):
     _build.require(maps, "maps")
     for c, f in enumerate(fields):
         _build.require(f, f"fields[{c}]")
+    pullback_check_sizes(grid_n, [f.shape for f in fields], extent)
     C = len(fields)
     out = torch.empty((C,) + extent, dtype=torch.float32, device=maps.device)
-    ptrs = (_P * C)(*[f.data_ptr() for f in fields])
-    shapes = (_I * (3 * C))(*[n for f in fields for n in f.shape])
-    stag = (_I * C)(*[list(d).index(1) if any(d) else -1 for d in dims])
+    order = pullback_kind_order(dims)
+    ptrs = (_P * C)(*[fields[c].data_ptr() for c in order])
+    shapes = (_I * (3 * C))(*[n for c in order for n in fields[c].shape])
+    stag = (_I * C)(*[list(dims[c]).index(1) if any(dims[c]) else -1
+                      for c in order])
+    slot = (_I * C)(*order)
     hi = (_F * 3)(*[float(n - clamp_hi) for n in grid_n])
     fn = _build.function(
         "pullback_sample", "gfs_pullback_sample",
         [_P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I),
-         ctypes.POINTER(_I), _I, _I, _I, _I, _F, _F, ctypes.POINTER(_F), _P,
-         _P])
+         ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _I, _I, _I, _F, _F,
+         ctypes.POINTER(_F), _P, _P])
     with torch.cuda.device(maps.device):
-        err = fn(_build.ptr(maps), *grid_n, ptrs, shapes, stag, C, *extent,
-                 float(h), float(clamp_lo), hi, _build.ptr(out),
+        err = fn(_build.ptr(maps), *grid_n, ptrs, shapes, stag, slot, C,
+                 *extent, float(h), float(clamp_lo), hi, _build.ptr(out),
                  _build.stream(maps))
     _build.check(err, "pullback_sample")
     pullback_sample.launches += 1

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Time design variants of the port's redesigned kernels on one GPU.
 
-    python3 scripts/kernel_variants.py            # 256^3 shapes, all eight
+    python3 scripts/kernel_variants.py            # 256^3 shapes, all ten
     python3 scripts/kernel_variants.py --n 64     # a quick check
     python3 scripts/kernel_variants.py --kernels dmc_substep,vol9_fixup
     python3 scripts/kernel_variants.py --kernels vol9_fixup --only shipped,tile
+    python3 scripts/kernel_variants.py --kernels minmax_sample,pullback_sample \
+        --parent _archive/parent     # also that tree's designs, same rounds
 
 Each variant is the kernel's source in ``gpufluidsimulation_tpu_torch/csrc``
 with textual edits (block or tile shape, rows per thread, the division,
@@ -30,7 +32,15 @@ rho+T (C=2) through a map displaced by up to 2 cells; ``rbgs_smooth`` and
 ``masked_rbgs_smooth`` variants (region shapes, rows a thread, the segment
 rule, a register cap, the division, the masked diagonal recounted at every
 level) per 2-sweep call at
-n^3 and 32^3, at 4 and at 2 colour levels a launch. Each build prints
+n^3 and 32^3, at 4 and at 2 colour levels a launch; ``minmax_sample``
+variants (per-channel floors, eight corner loads, a block shape) at C=2
+with and without the sample mode and at C=1, beside the two launches the
+sample mode replaces; ``pullback_sample`` variants (the k below-node by a
+warp shuffle, a thread a (channel, node), block shapes) for u, v, w and
+rho+T. The smoother, minmax and pull-back builds are all made before any
+is timed, each in its own namespace, then timed in interleaved rounds
+(medians); ``--parent DIR`` adds that tree's minmax_sample and
+pullback_sample, through its own C interface. Each build prints
 its registers, spills and, where the toolkit has cuobjdump, each kernel's
 static SASS instruction count. Builds go to the port's build directory
 (``gpufluidsimulation_tpu_torch/_build/variants/``).
@@ -532,15 +542,265 @@ MASKED_RBGS["diagonal recounted at every level from the flags"] = [
                                  ps), 1);""")]
 
 
-def build(out_dir, tag, source, edits):
+_MM_BODY = """    const Corners v =
+        gfs::corners_zpair(fields + c * field_size, cx, cy, cz, sx, sy);
+    float lo[2], hi[2];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      lo[p] = fminf(fminf(v.v[0][p], v.v[1][p]), fminf(v.v[2][p], v.v[3][p]));
+      hi[p] = fmaxf(fmaxf(v.v[0][p], v.v[1][p]), fmaxf(v.v[2][p], v.v[3][p]));
+    }
+    const unsigned o = c * n_out + idx;
+    mn_out[o] = cz.top ? lo[1] : (cz.bottom ? lo[0] : fminf(lo[0], lo[1]));
+    mx_out[o] = cz.top ? hi[1] : (cz.bottom ? hi[0] : fmaxf(hi[0], hi[1]));
+    if (kSample) sample_out[o] = gfs::blend_zpair(v, cx, cy, cz);"""
+# the first port's corners: both z corners clamped one by one, eight
+# addresses, the min and max over all eight, the plain blend
+_MM_EIGHT = """    const float* f = fields + c * field_size;
+    const unsigned xa = cx.lo * sx, xb = cx.hi * sx;
+    const unsigned ya = cy.lo * sy, yb = cy.hi * sy;
+    float v[2][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const unsigned zz = p ? cz.hi : cz.lo;
+      v[p][0] = __ldg(f + (xa + ya + zz));
+      v[p][1] = __ldg(f + (xb + ya + zz));
+      v[p][2] = __ldg(f + (xa + yb + zz));
+      v[p][3] = __ldg(f + (xb + yb + zz));
+    }
+    float lo = v[0][0], hi = v[0][0];
+#pragma unroll
+    for (int q = 1; q < 8; ++q) {
+      lo = fminf(lo, v[q / 4][q % 4]);
+      hi = fmaxf(hi, v[q / 4][q % 4]);
+    }
+    const unsigned o = c * n_out + idx;
+    mn_out[o] = lo;
+    mx_out[o] = hi;
+    if (kSample) {
+      const float c00 = cx.w * v[0][0] + cx.f * v[0][1];
+      const float c10 = cx.w * v[0][2] + cx.f * v[0][3];
+      const float c01 = cx.w * v[1][0] + cx.f * v[1][1];
+      const float c11 = cx.w * v[1][2] + cx.f * v[1][3];
+      const float l0 = cy.w * c00 + cy.f * c10;
+      const float l1 = cy.w * c01 + cy.f * c11;
+      sample_out[o] = cz.w * l0 + cz.f * l1;
+    }"""
+MINMAX = {
+    "shipped (32x4x1 block, shared floors, z pairs)": [],
+    "per-channel floors": [
+        ("shared = shared && offs.o[c][a] == offs.o[0][a];",
+         "shared = false;")],
+    "eight loads (z corners clamped one by one)": [
+        ("  ZPair cz;\n", "  Coord cz;\n"),
+        ("cz = zpair(z - offs.o[c][2], nz);", "cz = coord(z - offs.o[c][2], "
+         "nz);"),
+        (_MM_BODY, _MM_EIGHT)],
+    "32x2x2 block": [("kBlockK = 32, kBlockJ = 4, kBlockI = 1;",
+                      "kBlockK = 32, kBlockJ = 2, kBlockI = 2;")],
+}
+
+_PB_BLOCK = "constexpr int kBlockK = 32, kBlockJ = 2, kBlockI = 2;"
+_PB_BELOW = """        const unsigned below = bi * si + bj * sj + bk;
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          g[a] = 0.5f * (__ldg(maps + (a * map_size + below)) / h + g[a]);"""
+# the node one lower along k is the neighbouring lane's node: its divided
+# map values come by a shuffle (lane 0 of each warp loads its own), so no
+# thread may leave before the shuffle
+_PB_SHUFFLE = [
+    ("  if (k >= ez || j >= ey || i >= ex) return;\n",
+     "  const bool inside = k < ez && j < ey && i < ex;\n"),
+    ("    out[ch.slot[c] * n_node + idx] =\n",
+     "    if (inside) out[ch.slot[c] * n_node + idx] =\n"),
+    (_PB_BELOW, """        const unsigned below = bi * si + bj * sj + bk;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          float b;
+          if (s == 2) {
+            b = __shfl_up_sync(0xffffffffu, m[a], 1);
+            if (threadIdx.x == 0)
+              b = __ldg(maps + (a * map_size + below)) / h;
+          } else {
+            b = __ldg(maps + (a * map_size + below)) / h;
+          }
+          g[a] = 0.5f * (b + g[a]);
+        }""")]
+_PB_SRC = (CSRC / "pullback_sample.cu").read_text()
+_PB_KERNEL = _PB_SRC[_PB_SRC.index("__global__ void __launch_bounds__"):
+                     _PB_SRC.index("}  // namespace")]
+# one thread a (channel, node): blockIdx.z runs over the channels' block
+# rows, each thread loads the map values its channel needs and samples it
+_PB_PER_CHANNEL = """__global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
+    pullback_sample_kernel(const float* __restrict__ maps, int ni, int nj,
+                           int nk, Channels ch, int C, int ex, int ey, int ez,
+                           float h, float lo, float hx, float hy, float hz,
+                           float* __restrict__ out) {
+  const int nbi = (ex + kBlockI - 1) / kBlockI;
+  const int c = blockIdx.z / nbi;
+  const int k = blockIdx.x * kBlockK + threadIdx.x;
+  const int j = blockIdx.y * kBlockJ + threadIdx.y;
+  const int i = (blockIdx.z - c * nbi) * kBlockI + threadIdx.z;
+  if (k >= ez || j >= ey || i >= ex) return;
+  const float* f = ch.f[0];
+  int nx = ch.n[0][0], ny = ch.n[0][1], nz = ch.n[0][2];
+  int s = ch.stag[0], slot = ch.slot[0];
+#pragma unroll
+  for (int q = 1; q < kMaxC; ++q)
+    if (c == q) {
+      f = ch.f[q];
+      nx = ch.n[q][0];
+      ny = ch.n[q][1];
+      nz = ch.n[q][2];
+      s = ch.stag[q];
+      slot = ch.slot[q];
+    }
+  const unsigned n_node = (unsigned)ex * ey * ez;
+  const unsigned idx = ((unsigned)i * ey + j) * ez + k;
+  const unsigned sj = nk, si = (unsigned)nj * nk, map_size = si * ni;
+  const int ci = min(i, ni - 1), cj = min(j, nj - 1), ck = min(k, nk - 1);
+  const unsigned at = ci * si + cj * sj + ck;
+  float g[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) g[a] = __ldg(maps + (a * map_size + at)) / h;
+  if (s >= 0) {
+    const int bi = max(min(i - (s == 0), ni - 1), 0);
+    const int bj = max(min(j - (s == 1), nj - 1), 0);
+    const int bk = max(min(k - (s == 2), nk - 1), 0);
+    const unsigned below = bi * si + bj * sj + bk;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      g[a] = 0.5f * (__ldg(maps + (a * map_size + below)) / h + g[a]);
+  }
+  const float hi[3] = {hx, hy, hz};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    g[a] = fminf(fmaxf(g[a], lo), hi[a]) + (s == a ? 0.5f : 0.0f);
+  const Coord cx = coord(g[0], nx), cy = coord(g[1], ny);
+  const ZPair cz = zpair(g[2], nz);
+  out[slot * n_node + idx] =
+      gfs::trilerp_zpair(f, cx, cy, cz, (unsigned)ny * nz, nz);
+}
+
+"""
+# the block's map values in grid units staged in shared memory with the
+# face one node lower along each staggered axis: each value divided once a
+# block, the below-nodes read from the tile
+_PB_TILE = """__global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
+    pullback_sample_kernel(const float* __restrict__ maps, int ni, int nj,
+                           int nk, Channels ch, int C, int ex, int ey, int ez,
+                           float h, float lo, float hx, float hy, float hz,
+                           float* __restrict__ out) {
+  __shared__ float tile[3][kBlockI + 1][kBlockJ + 1][kBlockK + 1];
+  const int tk = threadIdx.x, tj = threadIdx.y, ti = threadIdx.z;
+  const int k = blockIdx.x * kBlockK + tk;
+  const int j = blockIdx.y * kBlockJ + tj;
+  const int i = blockIdx.z * kBlockI + ti;
+  const bool inside = k < ez && j < ey && i < ex;
+  const unsigned n_node = (unsigned)ex * ey * ez;
+  const unsigned idx = ((unsigned)i * ey + j) * ez + k;
+  const unsigned sj = nk, si = (unsigned)nj * nk, map_size = si * ni;
+  const int ci = min(i, ni - 1), cj = min(j, nj - 1), ck = min(k, nk - 1);
+  const unsigned at = ci * si + cj * sj + ck;
+  float m[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    m[a] = __ldg(maps + (a * map_size + at)) / h;
+    tile[a][ti + 1][tj + 1][tk + 1] = m[a];
+  }
+  int mask = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c)
+    if (c < C && ch.stag[c] >= 0) mask |= 1 << ch.stag[c];
+  if ((mask & 1) && ti == 0) {
+    const unsigned b = max(min(i - 1, ni - 1), 0) * si + cj * sj + ck;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      tile[a][0][tj + 1][tk + 1] = __ldg(maps + (a * map_size + b)) / h;
+  }
+  if ((mask & 2) && tj == 0) {
+    const unsigned b = ci * si + max(min(j - 1, nj - 1), 0) * sj + ck;
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      tile[a][ti + 1][0][tk + 1] = __ldg(maps + (a * map_size + b)) / h;
+  }
+  if ((mask & 4) && tk == 0) {
+    const unsigned b = ci * si + cj * sj + max(min(k - 1, nk - 1), 0);
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      tile[a][ti + 1][tj + 1][0] = __ldg(maps + (a * map_size + b)) / h;
+  }
+  __syncthreads();
+  if (!inside) return;
+  const float hi[3] = {hx, hy, hz};
+  Coord cx, cy;
+  ZPair cz;
+#pragma unroll
+  for (int c = 0; c < kMaxC; ++c) {
+    if (c >= C) break;
+    const int s = ch.stag[c];
+    if (c == 0 || s != ch.stag[c - 1]) {
+      float g[3] = {m[0], m[1], m[2]};
+      if (s >= 0) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          g[a] = 0.5f * (tile[a][ti + 1 - (s == 0)][tj + 1 - (s == 1)]
+                             [tk + 1 - (s == 2)] + g[a]);
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        g[a] = fminf(fmaxf(g[a], lo), hi[a]) + (s == a ? 0.5f : 0.0f);
+      cx = coord(g[0], ch.n[c][0]);
+      cy = coord(g[1], ch.n[c][1]);
+      cz = zpair(g[2], ch.n[c][2]);
+    }
+    const unsigned sz = ch.n[c][2], sy = (unsigned)ch.n[c][1] * sz;
+    out[ch.slot[c] * n_node + idx] =
+        gfs::trilerp_zpair(ch.f[c], cx, cy, cz, sy, sz);
+  }
+}
+
+"""
+# a cost probe, not an exact design: the divisions by h as products with
+# 1/h (the results differ in the last bits)
+_PB_PRODUCT = [
+    ("  for (int a = 0; a < 3; ++a) m[a] = __ldg(maps + (a * map_size + at)) / h;",
+     "  const float rh = 1.0f / h;\n"
+     "  for (int a = 0; a < 3; ++a) m[a] = __ldg(maps + (a * map_size + at)) * rh;"),
+    ("          g[a] = 0.5f * (__ldg(maps + (a * map_size + below)) / h + g[a]);",
+     "          g[a] = 0.5f * (__ldg(maps + (a * map_size + below)) * rh + g[a]);")]
+_PB_GRID = "                  (ex + kBlockI - 1) / kBlockI);"
+
+
+def _pb_block(k, j, i):
+    return [(_PB_BLOCK, f"constexpr int kBlockK = {k}, kBlockJ = {j}, "
+             f"kBlockI = {i};")]
+
+
+PULLBACK = {
+    "shipped (32x2x2 block, a thread a node, below-nodes loaded)": [],
+    "below node along k from the warp (shuffle)": _PB_SHUFFLE,
+    "a thread a (channel, node), 32x2x2 block": [
+        (_PB_KERNEL, _PB_PER_CHANNEL),
+        (_PB_GRID, "                  C * ((ex + kBlockI - 1) / kBlockI));")],
+    "map tile in shared memory (each value divided once a block)": [
+        (_PB_KERNEL, _PB_TILE)],
+    "probe, inexact: products with 1/h for the divisions": _PB_PRODUCT,
+    "32x4x1 block": _pb_block(32, 4, 1),
+    "32x8x1 block (256 threads)": _pb_block(32, 8, 1),
+}
+
+
+def build(out_dir, tag, source, edits, csrc=CSRC):
     """nvcc the edited source; returns the library and the ptxas lines
     (None and nvcc's errors if it does not build). An edit applies to the
     kernel's source or, where its text is not there, to the variant's own
-    copy of the header that holds it."""
+    copy of the header that holds it. `csrc`: the kernel sources' folder
+    (another tree's, for its design)."""
     from gpufluidsimulation_tpu_torch.ops import _build
 
-    text = (CSRC / f"{source}.cu").read_text()
-    headers = {h.name: h.read_text() for h in sorted(CSRC.glob("*.cuh"))}
+    text = (csrc / f"{source}.cu").read_text()
+    headers = {h.name: h.read_text() for h in sorted(csrc.glob("*.cuh"))}
     for old, new in edits:
         if old in text:
             text = text.replace(old, new)
@@ -989,6 +1249,196 @@ def smoother_variants(name, table, n, out_dir, rounds=4):
                    + ", ".join(parts))
 
 
+def _own_namespace(i):
+    """Edits that put a build's kernels in namespace v<i>: libraries whose
+    kernels share a mangled name must not meet in one process."""
+    return [("namespace {", f"namespace v{i} {{"),
+            ("}  // namespace", f"}}  // namespace\nusing namespace v{i};")]
+
+
+def _interleaved(entries, rounds, reps=20):
+    """Median ms of each (key, fn) in `entries` over `rounds` rounds, the
+    order reversed every other round, after a second of load that brings
+    the card's clocks up; (median, min, max) by key."""
+    import time
+
+    import torch
+
+    t0 = time.time()
+    while time.time() - t0 < 1.0:
+        for _, fn in entries:
+            fn()
+        torch.cuda.synchronize()
+    times = {}
+    for r in range(rounds):
+        for key, fn in (entries if r % 2 == 0 else entries[::-1]):
+            times.setdefault(key, []).append(cs.cuda_time(fn, reps))
+    return {k: (float(np.median(v)), min(v), max(v)) for k, v in times.items()}
+
+
+def _parent_csrc(parent):
+    return Path(parent) / "gpufluidsimulation_tpu_torch" / "csrc"
+
+
+def minmax_variants(n, out_dir, parent=None, rounds=4):
+    """Each build's C=2 rho+T min/max and sample mode and its C=1 min/max
+    at n^3, from the trace clamp's kind of positions (the cell lattice
+    displaced by up to 2.5 cells, some outside the domain), held against
+    the plain version; beside them the two launches that the sample mode
+    replaces (the port's min/max and trilerp_sample). With `parent`, that
+    tree's minmax_sample is built too (its design, its C interface: no
+    sample mode). All built first, each in its own namespace, then timed
+    in interleaved rounds."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    g = Grid3D(n, n, n, 0.2 / n)
+    h = g.h
+    pos = [(p + cs.smooth(g.shape_c, rng, 2.5 * h, dev)).contiguous()
+           for p in g.node_coords("c", device=dev)]
+    fc = torch.stack([cs.smooth(g.shape_c, rng, 1.0, dev),
+                      cs.smooth(g.shape_c, rng, 50.0, dev)]).contiguous()
+    cases = [("C=2", fc), ("C=1", fc[:1])]
+    wants = {label: interp_fast.minmax_sample_plain(
+        f, *pos, h, (g.OFF_C,) * len(f), sample=True) for label, f in cases}
+    F, I, P, LL = ctypes.c_float, ctypes.c_int, ctypes.c_void_p, \
+        ctypes.c_longlong
+    table = list(MINMAX.items())
+    if parent:
+        table.append(("parent (first port)", None))
+    entries, errs = [], {}
+    for i, (label, edits) in enumerate(table):
+        lib, ptxas = build(out_dir, f"minmax_{i}", "minmax_sample",
+                           (edits or []) + _own_namespace(i),
+                           CSRC if edits is not None else _parent_csrc(parent))
+        cs.log(f"[minmax_sample] {label}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = lib.gfs_minmax_sample
+        fn.restype = I
+        first = edits is None
+        fn.argtypes = ([P, I, I, I, I, P, P, P, LL, F, ctypes.POINTER(F), P,
+                        P, P] if first else
+                       [P, I, I, I, I, P, P, P, LL, I, I, F,
+                        ctypes.POINTER(F), P, P, P, P])
+        for case, f in cases:
+            C = f.shape[0]
+            out = torch.empty((3, C) + g.shape_c, device=dev)
+            offs = (F * (3 * C))(*[float(x) for x in g.OFF_C * C])
+            for sample in ((False,) if first else (False, True)):
+                if case == "C=1" and sample:
+                    continue
+
+                def run(fn=fn, f=f, C=C, out=out, offs=offs, sample=sample,
+                        first=first):
+                    p3 = [_build.ptr(q) for q in pos]
+                    size = (pos[0].numel(),) if first else (
+                        pos[0].numel(), n, n)
+                    err = fn(_build.ptr(f), C, *f.shape[1:], *p3, *size,
+                             float(h), offs, _build.ptr(out[0]),
+                             _build.ptr(out[1]),
+                             *(() if first else (
+                                 _build.ptr(out[2]) if sample else None,)),
+                             _build.stream(f))
+                    _build.check(err, label)
+
+                run()
+                want = wants[case]
+                q = 3 if sample else 2
+                key = (label, f"{case} {'sample mode' if sample else 'min/max'}")
+                errs[key] = max(float((out[a] - want[a]).abs().max())
+                                for a in range(q))
+                entries.append((key, run))
+    offs2 = (g.OFF_C,) * 2
+    entries.append((("port", "C=2 min/max and trilerp_sample (two "
+                     "launches)"), lambda: (
+        interp_fast.minmax_sample(fc, *pos, h, offs2),
+        interp_fast.trilerp_sample(fc, *pos, h, offs2))))
+    times = _interleaved(entries, rounds)
+    for key, (med, lo, hi) in times.items():
+        cs.log(f"[minmax_sample] {key[0]}: {key[1]} {med:.4f} ms (median "
+               f"of {rounds}, {lo:.4f}-{hi:.4f}; max_abs_err "
+               f"{errs.get(key, 'not compared')})")
+
+
+def pullback_variants(n, out_dir, parent=None, rounds=4):
+    """Each build's fused pull-back of the velocity triplet and of rho+T at
+    n^3, clamp (1, 1), through a map displaced by a smooth wobble of up to
+    3 cells (chip_smoke.py's inputs), held against the plain version. With
+    `parent`, that tree's pullback_sample is built too (its design, its C
+    interface: the channels in their own order). All built first, each in
+    its own namespace, then timed in interleaved rounds."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    g = Grid3D(n, n, n, 0.2 / n)
+    maps = cs.wobbled_map(g, rng, 3.0, dev)
+    cases = []
+    for kinds in cs.PULLBACK_KINDS:
+        fields = cs.pullback_fields(g, kinds, rng, dev)
+        dims = [g.dim_of(k) for k in kinds]
+        args = (maps, fields, dims, g.h, g.shape_c, 1.0, 1.0)
+        want = interp_fast.pullback_sample_plain(*args)
+        cases.append(("".join(kinds), fields, dims, want))
+    F, I, P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    IP = ctypes.POINTER(I)
+    hi = (F * 3)(*[float(m - 1.0) for m in g.shape_c])
+    table = list(PULLBACK.items())
+    if parent:
+        table.append(("parent (first port)", None))
+    entries, errs = [], {}
+    for i, (label, edits) in enumerate(table):
+        lib, ptxas = build(out_dir, f"pullback_{i}", "pullback_sample",
+                           (edits or []) + _own_namespace(i),
+                           CSRC if edits is not None else _parent_csrc(parent))
+        cs.log(f"[pullback_sample] {label}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = lib.gfs_pullback_sample
+        fn.restype = I
+        first = edits is None
+        fn.argtypes = ([P, I, I, I, ctypes.POINTER(P), IP, IP] + ([] if first
+                                                                 else [IP])
+                       + [I, I, I, I, F, F, ctypes.POINTER(F), P, P])
+        for case, fields, dims, want in cases:
+            C = len(fields)
+            order = (list(range(C)) if first
+                     else interp_fast.pullback_kind_order(dims))
+            ptrs = (P * C)(*[fields[c].data_ptr() for c in order])
+            shapes = (I * (3 * C))(*[m for c in order
+                                     for m in fields[c].shape])
+            stag = (I * C)(*[list(dims[c]).index(1) if any(dims[c]) else -1
+                             for c in order])
+            slot = (I * C)(*order)
+            out = torch.empty_like(want)
+
+            def run(fn=fn, ptrs=ptrs, shapes=shapes, stag=stag, slot=slot,
+                    C=C, out=out, first=first):
+                err = fn(_build.ptr(maps), *g.shape_c, ptrs, shapes, stag,
+                         *(() if first else (slot,)), C, *out.shape[1:],
+                         float(g.h), 1.0, hi, _build.ptr(out),
+                         _build.stream(maps))
+                _build.check(err, label)
+
+            run()
+            key = (label, case)
+            errs[key] = float((out - want).abs().max())
+            entries.append((key, run))
+    times = _interleaved(entries, rounds)
+    for key, (med, lo, hi_) in times.items():
+        cs.log(f"[pullback_sample] {key[0]}: {key[1]} {med:.4f} ms (median "
+               f"of {rounds}, {lo:.4f}-{hi_:.4f}; max_abs_err "
+               f"{errs[key]:.3e})")
+
+
 RUNNERS = {"trilerp_sample": trilerp_variants,
            "jacobi_diffuse": jacobi_variants,
            "rk3_substep": rk3_variants,
@@ -998,7 +1448,11 @@ RUNNERS = {"trilerp_sample": trilerp_variants,
            "rbgs_smooth": lambda n, out: smoother_variants(
                "rbgs_smooth", RBGS, n, out),
            "masked_rbgs_smooth": lambda n, out: smoother_variants(
-               "masked_rbgs_smooth", MASKED_RBGS, n, out)}
+               "masked_rbgs_smooth", MASKED_RBGS, n, out),
+           "minmax_sample": minmax_variants,
+           "pullback_sample": pullback_variants}
+# the runners that also build a parent tree's design (--parent)
+WITH_PARENT = ("minmax_sample", "pullback_sample")
 
 
 def main():
@@ -1009,6 +1463,10 @@ def main():
     ap.add_argument("--only", default="",
                     help="comma-separated parts of variant names: run only "
                     "the variants whose name holds one of them")
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of another tree (git archive): "
+                    "minmax_sample and pullback_sample also build its "
+                    "design and time it in the same rounds")
     ap.add_argument("--out", default=str(ROOT / "gpufluidsimulation_tpu_torch"
                                         / "_build" / "variants"))
     args = ap.parse_args()
@@ -1024,11 +1482,14 @@ def main():
     if args.only:
         parts = args.only.split(",")
         for table in (TRILERP, JACOBI, RK3, PREFILTER, DMC, VOL9, RBGS,
-                      MASKED_RBGS):
+                      MASKED_RBGS, MINMAX, PULLBACK):
             for name in [k for k in table if not any(s in k for s in parts)]:
                 del table[name]
     for name in args.kernels.split(","):
-        RUNNERS[name](args.n, out_dir)
+        if name in WITH_PARENT:
+            RUNNERS[name](args.n, out_dir, args.parent)
+        else:
+            RUNNERS[name](args.n, out_dir)
     return 0
 
 
