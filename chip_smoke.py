@@ -45,7 +45,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     MACCORMACK on the obstacle scene, BiMocq with adaptive reinit and
     blend 0.5 in the dual, exact, vol9 and prefilter volume forms; the
     fused multi-kind pull-back (bimocq_advect_multi_3d) of the velocity
-    triplet and of rho+T; one MG-PCG solve;
+    triplet and of rho+T; one MG-PCG solve; the obstacle scene with its
+    sphere replaced by a voxel level set (mesh_to_sdf of an octasphere);
+    a moving voxel emitter with trans and emit_velocity; the MG-PCG vortex
+    path with EngineMode(rbgs=False) (the Jacobi-smoothed V-cycle);
  4. the main path: the 3D BiMocq vortex-collision step as bench.py builds
     it (n^3, dt = 8/n, two recentred emitters), 1 warm-up step and
     `--steps` timed steps, every kernel's launch count reset before and
@@ -60,7 +63,10 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     masked_rbgs_smooth call held to ceil(2 iters / levels a launch)
     launches (one for the V-cycle's 2-sweep calls);
  6. the vortex path with the MG-PCG projection (spectral solve off), its
-    rbgs_smooth calls held the same way;
+    rbgs_smooth calls held the same way; then the same path with
+    EngineMode(rbgs=False), `--scheme-steps` timed steps with no
+    rbgs_smooth launch, its ms/step and proj_iters beside the red-black
+    path's;
  7. five more vortex paths built like the main path: `reflection`
     (MAC_REFLECTION, the scene's own default scheme), `maccormack`,
     `bimocq_adaptive` (adaptive reinit, blend 1), `bimocq_vol9` (the
@@ -73,7 +79,19 @@ Phases, each of which fails loudly (non-zero exit, no result line):
  8. `pullback_multi`: the parked fused multi-kind pull-back at the
     `--scheme-n` width, on a stepped state whose maps and prev tier are
     live, launches counted, against and timed beside the per-kind
-    prefilter path.
+    prefilter path;
+ 9. the CLI (``gpufluidsimulation_tpu_torch.cli.main``, in-process,
+    --out in a temporary directory): sim3d 0 at --cli-res (100: 100 x
+    200 x 200), 4 frames with a checkpoint every 2; --resume from the
+    checkpoint of frame 1, whose frames 3-4 must read back bit-identical
+    to the first run's; sim3d 3 (reflection), 2 frames; sim3d 0
+    --example 1 (the obstacle scene) at --cli-obstacle-res (64), 3
+    frames. Each run's launch counts are set to 0 before and read after
+    it, and it must launch each kernel of its path; every frame file
+    reads back as its state's rho; each frame's step ms (the CLI's
+    FrameTimer), write_volume ms and checkpoint ms are logged, and the
+    output's split (device-to-host copy, pack_vdb, hand-off, disk write;
+    each volume format; a checkpoint's copies against its compression).
 Then it prints one JSON line with every kernel's numbers and, last, the
 device line. It never imports JAX or the JAX package.
 """
@@ -81,7 +99,9 @@ device line. It never imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import os
 import re
@@ -1541,6 +1561,86 @@ def mgpcg_parity_phase(n=32, seed=1):
         raise AssertionError("mgpcg: card and cpu disagree")
 
 
+def octasphere(r, sub=2):
+    """A triangle mesh of a sphere of radius r: the octahedron subdivided
+    `sub` times with its vertices pushed onto the sphere."""
+    verts = [np.array(v, float) for v in
+             ((1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+              (0, 0, -1))]
+    faces = [(0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4), (2, 0, 5),
+             (1, 2, 5), (3, 1, 5), (0, 3, 5)]
+    for _ in range(sub):
+        cache = {}
+
+        def mid(i, j):
+            key = (min(i, j), max(i, j))
+            if key not in cache:
+                m = (verts[i] + verts[j]) / 2
+                cache[key] = len(verts)
+                verts.append(m / np.linalg.norm(m))
+            return cache[key]
+
+        faces = [t for a, b, c in faces
+                 for ab, bc, ca in [(mid(a, b), mid(b, c), mid(c, a))]
+                 for t in ((a, ab, ca), (ab, b, bc), (ca, bc, c),
+                           (ab, bc, ca))]
+    return ((np.array(verts) * r).astype(np.float32),
+            np.asarray(faces, np.int32))
+
+
+def voxel_obstacle_config(n, **overrides):
+    """The obstacle configuration with its sphere replaced by a voxel level
+    set: ``mesh_to_sdf`` of an octasphere of the same radius on a cube of
+    cells around it, placed so that the level set's centre is the
+    sphere's, moving by the scene's own trans."""
+    import dataclasses
+
+    from gpufluidsimulation_tpu_torch.io_utils import mesh
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Boundary3D
+
+    cfg = obstacle_config(n, **overrides)
+    (bd,) = cfg.boundaries
+    h = cfg.h
+    m = int(np.ceil(2 * bd.radius / h)) + 4
+    half = (m - 1) * h / 2
+    verts, faces = octasphere(bd.radius, sub=3)
+    sdf = mesh.mesh_to_sdf(verts + half, faces, (m, m, m), h)
+    voxel = Boundary3D(center=tuple(c - half for c in bd.center),
+                       kind="voxel", sdf_grid=sdf, trans=bd.trans)
+    return dataclasses.replace(cfg, boundaries=(voxel,))
+
+
+def voxel_emitter_config(n, **overrides):
+    """The main-path configuration with one moving voxel emitter: a sphere
+    level set of radius 0.015 (8 cells a side at 32^3) moving 0.002 a
+    frame in x and emitting the velocity (0.05, 0.01 sin(40 y), 0) of its
+    emit_velocity."""
+    import dataclasses
+
+    import torch
+
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Emitter3D
+
+    h = 0.2 / n
+    m = int(np.ceil(0.03 / h)) + 4
+    x = np.arange(m) * h
+    X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
+    c = (m - 1) * h / 2
+    sdf = (np.sqrt((X - c) ** 2 + (Y - c) ** 2 + (Z - c) ** 2)
+           - 0.015).astype(np.float32)
+
+    def trans(frame):
+        return (np.float32(0.002) * frame, 0.0, 0.0)
+
+    def emit_velocity(X, Y, Z):
+        return (0.05 * torch.ones_like(X), 0.01 * torch.sin(40.0 * Y),
+                torch.zeros_like(Z))
+
+    em = Emitter3D(center=(0.04 - c, 0.1 - c, 0.1 - c), sdf_grid=sdf,
+                   trans=trans, emit_velocity=emit_velocity)
+    return dataclasses.replace(bench_config(n, **overrides), emitters=(em,))
+
+
 def multi_parity_phase(n=32, seed=2, blend=0.5):
     """Phase 3: ``bimocq_advect_multi_3d`` (the fused prefilter form) on
     the card against the port on the CPU, the same numpy inputs, for the
@@ -1888,7 +1988,34 @@ def mgpcg_phase(n, steps, profile):
     if profile:
         profile_steps(solver, state, profile, "MG-PCG path", "a",
                       res["ms_per_step"])
-    return res["launches"], res["smoother"]
+    return res
+
+
+def jacobi_mgpcg_phase(n, steps, mgpcg_res):
+    """Phase 6b: the MG-PCG vortex path with EngineMode(rbgs=False), every
+    V-cycle level smoothed by damped Jacobi in plain torch (the JAX
+    package's V-cycle with use_rbgs off): no rbgs_smooth launch, and
+    ms/step and proj_iters logged beside the red-black path of this run
+    (`mgpcg_res`)."""
+    from gpufluidsimulation_tpu_torch.config import EngineMode
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+
+    cfg = bench_config(n, engine_mode=EngineMode(spectral_poisson=False,
+                                                 rbgs=False))
+    solver = Smoke3D(cfg)
+    if solver.ctx.rbgs:
+        raise AssertionError("rbgs=False built a red-black MG context")
+    state, res = timed_steps(solver, steps, MAIN_KERNELS)
+    if res["launches"]["rbgs_smooth"]:
+        raise AssertionError("the Jacobi-smoothed path launched "
+                             f"{res['launches']['rbgs_smooth']} rbgs_smooth")
+    if not res["proj_res"] <= cfg.proj_tol or (
+            max(res["proj_iters"]) >= cfg.proj_max_iters):
+        raise AssertionError(f"Jacobi MG-PCG missed proj_tol: {res}")
+    res["beside_rbgs"] = dict(ms_per_step=mgpcg_res["ms_per_step"],
+                              proj_iters=mgpcg_res["proj_iters"])
+    log("[mgpcg_jacobi] " + json.dumps(res))
+    return res["launches"]
 
 
 def scheme_phase(n, steps, profile):
@@ -2062,6 +2189,251 @@ def pullback_multi_phase(n, reps):
     return launches
 
 
+ANSI = re.compile(r"\x1b\[[0-9;]*m")
+# what each CLI run must launch (sim3d 0 on either scene carries the
+# main path's kernels; reflection the trace clamp's minmax_sample)
+CLI_REFLECTION = ("trilerp_sample", "minmax_sample", "rk3_substep",
+                  "jacobi_diffuse")
+
+
+def observe_cli(records):
+    """Record, until the returned function is called, every frame of a
+    CLI run: the step's milliseconds (the CLI's FrameTimer, fenced on the
+    card), its launches by wrapper, proj_iters, substeps, cfl and its rho
+    (the tensor, read after the run); every write_volume's milliseconds
+    (the device-to-host copy, pack_vdb and the hand-off to the writer
+    thread) and every checkpoint's. Only observes: each call runs as it
+    would."""
+    from gpufluidsimulation_tpu_torch.io_utils import checkpoint, volume
+    from gpufluidsimulation_tpu_torch.utils import timing
+
+    fns = wrappers()
+    write, save = volume.write_volume, checkpoint.save_state
+    time_step = timing.FrameTimer.time_step
+
+    def timed_step(self, step_fn, state, *args):
+        before = {k: fn.launches for k, fn in fns.items()}
+        out, ms = time_step(self, step_fn, state, *args)
+        records.append(dict(
+            kind="step", ms=ms, proj_iters=out.proj_iters,
+            substeps=out.substeps, cfl=out.cfl, rho=out.rho, state=out,
+            launches={k: fn.launches - before[k] for k, fn in fns.items()
+                      if fn.launches > before[k]}))
+        return out, ms
+
+    def timed(kind, fn):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            records.append(dict(kind=kind, path=out,
+                                ms=(time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    volume.write_volume = timed("write_volume", write)
+    checkpoint.save_state = timed("checkpoint", save)
+    timing.FrameTimer.time_step = timed_step
+
+    def restore():
+        volume.write_volume, checkpoint.save_state = write, save
+        timing.FrameTimer.time_step = time_step
+    return restore
+
+
+def cli_run(argv, expect):
+    """One in-process run of the port's CLI (``cli.main(argv)``), every
+    launch count set to 0 just before and read just after; fails unless it
+    exits 0 and launched each kernel of `expect`. Returns (summary,
+    records, printed output)."""
+    from gpufluidsimulation_tpu_torch import cli
+
+    fns = wrappers()
+    records = []
+    for fn in fns.values():
+        fn.launches = 0
+    buf = io.StringIO()
+    restore = observe_cli(records)
+    t0 = time.time()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        restore()
+    wall_s = time.time() - t0
+    launches = {k: fn.launches for k, fn in fns.items()}
+    printed = ANSI.sub("", buf.getvalue())
+    for line in printed.splitlines():
+        log(f"[cli] {line}")
+    if rc != 0:
+        raise AssertionError(f"cli {' '.join(argv)} exited {rc}")
+    missing = [k for k in expect if kernel_launches(launches, k) == 0]
+    if missing:
+        raise AssertionError(f"cli {' '.join(argv)} never launched "
+                             f"{missing}")
+    steps = [r for r in records if r["kind"] == "step"]
+    summary = dict(
+        argv=" ".join(argv), wall_s=wall_s, launches=launches,
+        step_ms=[r["ms"] for r in steps],
+        write_volume_ms=[r["ms"] for r in records
+                         if r["kind"] == "write_volume"],
+        checkpoint_ms=[r["ms"] for r in records if r["kind"] == "checkpoint"],
+        proj_iters=[r["proj_iters"] for r in steps],
+        substeps=[r["substeps"] for r in steps],
+        cfl=[r["cfl"] for r in steps],
+        launches_by_frame=[r["launches"] for r in steps])
+    return summary, records, printed
+
+
+def frame_readback(path, rho):
+    """The frame file at `path` read back through read_volume against the
+    state's rho: equal above the 1e-4 threshold, zero below it (a vdb
+    reads back to the extent of its 8^3 leaves, background outside)."""
+    from gpufluidsimulation_tpu_torch.io_utils import volume
+
+    dense, _ = volume.read_volume(path)
+    want = rho.cpu().numpy()
+    want = np.where(want > volume.DENSITY_THRESHOLD, want, 0.0)
+    inside = tuple(slice(0, n) for n in want.shape)
+    rest = dense.copy()
+    rest[inside] = 0.0
+    got = np.zeros(want.shape, np.float32)
+    part = dense[inside]
+    got[tuple(slice(0, n) for n in part.shape)] = part
+    if rest.any() or not np.array_equal(got, want):
+        raise AssertionError(f"{path} does not read back as the frame's rho")
+    if not (np.isfinite(got).all() and 0.0 < got.max() <= 10.0):
+        raise AssertionError(f"{path}: implausible rho max {got.max()}")
+    return dense
+
+
+def median_ms(fn, reps=3):
+    """Median wall milliseconds of fn() over `reps` calls."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def output_split(state, out_dir):
+    """Where a CLI frame's output time goes, on one stepped state: the
+    device-to-host copy of rho, pack_vdb, the hand-off to the writer
+    thread and the thread's disk write (flush); write_volume whole in
+    each of its formats; and a checkpoint's device-to-host copies against
+    its compressed write (np.savez_compressed, as save_state writes it)
+    and an uncompressed np.savez of the same arrays. Medians of 3."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch import convert, native
+    from gpufluidsimulation_tpu_torch.io_utils import vdb, volume
+
+    h = 0.2 / state.rho.shape[0]
+    torch.cuda.synchronize()
+    dense = state.rho.cpu().numpy()
+    payload = vdb.pack_vdb(dense, h, threshold=volume.DENSITY_THRESHOLD)
+    writer = native.load()
+    path = os.path.join(out_dir, "split.vdb")
+    res = dict(
+        rho_d2h_ms=median_ms(lambda: state.rho.cpu()),
+        pack_vdb_ms=median_ms(lambda: vdb.pack_vdb(
+            dense, h, threshold=volume.DENSITY_THRESHOLD)),
+        hand_off_ms=median_ms(lambda: writer.async_write(path, payload)),
+        flush_ms=median_ms(volume.flush_volumes), vdb_bytes=len(payload),
+        active_voxels=int((dense > volume.DENSITY_THRESHOLD).sum()))
+    failed = volume.flush_volumes()
+    for fmt in ("vdb", "gfsvol", "npz"):
+        def write():
+            volume.write_volume(0, out_dir, h, state.rho, fmt=fmt)
+            if volume.flush_volumes() != failed:
+                raise AssertionError(f"write_volume {fmt} failed")
+        res[f"write_volume_{fmt}_ms"] = median_ms(write)
+    arrays = {}
+    res["checkpoint_d2h_ms"] = median_ms(
+        lambda: arrays.update(convert.state_to_numpy(state)))
+    res["checkpoint_bytes_raw"] = sum(a.nbytes for a in arrays.values())
+    for label, save in (("savez_compressed", np.savez_compressed),
+                        ("savez", np.savez)):
+        dest = os.path.join(out_dir, f"{label}.npz")
+        res[f"checkpoint_{label}_ms"] = median_ms(lambda: save(dest,
+                                                               **arrays))
+        res[f"checkpoint_{label}_bytes"] = os.path.getsize(dest)
+    return res
+
+
+def cli_phase(res, obstacle_res):
+    """Phase 9: the port's CLI, in-process, with --out in a temporary
+    directory: sim3d 0 at res x 2res x 2res (the vortex collision under
+    BiMocq), 4 frames, a checkpoint every 2; a resume from the checkpoint
+    of frame 1 into a second directory, whose frames 3-4 must read back
+    bit-identical to the first run's; sim3d 3 (reflection, the
+    reference's default scheme), 2 frames; sim3d 0 --example 1 (the
+    obstacle scene through masked MG-PCG) at obstacle_res, 3 frames. Each
+    run's launches are counted alone; every frame file reads back as its
+    state's rho. Logs each frame's step ms, write_volume ms and
+    checkpoint ms, the obstacle run's proj_iters a frame, and where the
+    first run's output time goes (output_split)."""
+    import tempfile
+
+    from gpufluidsimulation_tpu_torch.io_utils import volume
+
+    by_run, summaries = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        first, second = os.path.join(tmp, "run"), os.path.join(tmp, "resumed")
+        base = ["sim3d", "0", "--res", str(res)]
+        summary, records, _ = cli_run(
+            base + ["--frames", "4", "--checkpoint-every", "2", "--out",
+                    first], MAIN_KERNELS)
+        frames = os.path.join(first, "0-BiMocq-Gpu")
+        steps = [r for r in records if r["kind"] == "step"]
+        written = {}
+        for k, r in enumerate(steps):
+            name = f"{k + 1:04d}.vdb"
+            written[name] = frame_readback(os.path.join(frames, name),
+                                           r["rho"])
+        ckpts = [os.path.basename(r["path"]) for r in records
+                 if r["kind"] == "checkpoint"]
+        if ckpts != ["ckpt_0001.npz", "ckpt_0003.npz"]:
+            raise AssertionError(f"checkpoints written: {ckpts}")
+        summary["output_split"] = output_split(steps[-1]["state"], tmp)
+        summaries["sim3d_0"] = summary
+        del steps, records
+        ckpt = os.path.join(frames, "ckpt_0001.npz")
+        summary, records, printed = cli_run(
+            base + ["--frames", "4", "--resume", ckpt, "--out", second],
+            MAIN_KERNELS)
+        if f"resumed from {ckpt} at frame 2" not in printed:
+            raise AssertionError("the resumed run did not start at frame 2")
+        resumed = os.path.join(second, "0-BiMocq-Gpu")
+        names = sorted(os.listdir(resumed))
+        if names != ["0003.vdb", "0004.vdb"]:
+            raise AssertionError(f"resumed run wrote {names}")
+        for name in names:
+            again, _ = volume.read_volume(os.path.join(resumed, name))
+            if not np.array_equal(again, written[name]):
+                err = float(np.abs(again - written[name]).max()) if (
+                    again.shape == written[name].shape) else float("inf")
+                raise AssertionError(f"resumed {name} differs from the "
+                                     f"uninterrupted run by {err}")
+        summary["frames_bit_identical"] = names
+        summaries["sim3d_0_resume"] = summary
+        summaries["sim3d_3"], _, _ = cli_run(
+            ["sim3d", "3", "--res", str(res), "--frames", "2", "--out",
+             os.path.join(tmp, "reflection")], CLI_REFLECTION)
+        summaries["sim3d_0_example_1"], records, _ = cli_run(
+            ["sim3d", "0", "--example", "1", "--res", str(obstacle_res),
+             "--frames", "3", "--out", os.path.join(tmp, "obstacle")],
+            MAIN_KERNELS + ("masked_rbgs_smooth",))
+        obstacle = os.path.join(tmp, "obstacle", "0-BiMocq-Gpu")
+        for k, r in enumerate(r for r in records if r["kind"] == "step"):
+            frame_readback(os.path.join(obstacle, f"{k + 1:04d}.vdb"),
+                           r["rho"])
+    for label, summary in summaries.items():
+        log(f"[cli] {label} " + json.dumps(summary))
+        by_run[f"cli_{label}"] = summary.pop("launches")
+    return by_run
+
+
 def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
     """Device time by kernel name over `steps` steps, written to `path`,
     with the card's busy time per step (the sum over kernels) beside
@@ -2137,6 +2509,11 @@ def main():
                     "paths")
     ap.add_argument("--scheme-steps", type=int, default=3,
                     help="timed steps of each of those paths")
+    ap.add_argument("--cli-res", type=int, default=100,
+                    help="--res of the CLI phase's vortex runs (res x 2res "
+                    "x 2res)")
+    ap.add_argument("--cli-obstacle-res", type=int, default=64,
+                    help="--res of the CLI phase's obstacle run")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH",
                     help="write torch.profiler tables of 2 steps of the "
@@ -2205,16 +2582,25 @@ def main():
                  "bimocq adaptive blend 0.5 prefilter volume")
     multi_parity_phase()
     mgpcg_parity_phase()
+    parity_phase(voxel_obstacle_config(32), "voxel obstacle (mesh_to_sdf)")
+    parity_phase(voxel_emitter_config(32),
+                 "voxel emitter with trans and emit_velocity")
+    parity_phase(bench_config(32, engine_mode=EngineMode(
+        spectral_poisson=False, rbgs=False)), "mgpcg jacobi (rbgs=False)")
     by_path = {"main": main_phase(args.n, args.steps, args.profile)}
     by_path["obstacle"], obstacle_calls = obstacle_phase(
         args.obstacle_n, args.obstacle_steps, args.profile)
-    by_path["mgpcg"], mgpcg_calls = mgpcg_phase(
-        args.obstacle_n, args.obstacle_steps, args.profile)
+    mgpcg_res = mgpcg_phase(args.obstacle_n, args.obstacle_steps,
+                            args.profile)
+    by_path["mgpcg"] = mgpcg_res["launches"]
+    by_path["mgpcg_jacobi"] = jacobi_mgpcg_phase(
+        args.obstacle_n, args.scheme_steps, mgpcg_res)
     results["masked_rbgs_smooth"].update(obstacle_calls)
-    results["rbgs_smooth"].update(mgpcg_calls)
+    results["rbgs_smooth"].update(mgpcg_res["smoother"])
     by_path.update(scheme_phase(args.scheme_n, args.scheme_steps,
                                 args.profile))
     by_path["pullback_multi"] = pullback_multi_phase(args.scheme_n, 5)
+    by_path.update(cli_phase(args.cli_res, args.cli_obstacle_res))
     # each kernel's count comes from the path that was added for it
     path_of = dict.fromkeys(KERNELS, "main")
     path_of.update(masked_rbgs_smooth="obstacle", rbgs_smooth="mgpcg",

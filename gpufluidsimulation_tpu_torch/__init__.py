@@ -8,11 +8,17 @@ CUDA C++ kernels under ``csrc/``, built with nvcc on first use
 beside it: a CPU tensor takes the plain version, a CUDA tensor launches the
 kernel or raises.
 
-The 3D schemes BIMOCQ (every ``reinit_mode`` and blend; the dual, exact,
-vol9 and prefilter volume forms), SEMILAG, MACCORMACK and MAC_REFLECTION
-are ported, on the open box and with analytic moving obstacles; ``convert``
-carries every volume form between the two packages. Voxel (``sdf_grid``)
-boundaries and emitters and emitter ``trans``/``emit_velocity`` raise
-``NotImplementedError``. The 2D solver, the CLI, I/O and the sharded step
-are not ported.
+The 3D engine is ported whole: the schemes BIMOCQ (every
+``reinit_mode`` and blend; the dual, exact, vol9 and prefilter volume
+forms), SEMILAG, MACCORMACK and MAC_REFLECTION, on the open box and with
+moving obstacles (analytic, or voxel level sets from ``io_utils.mesh``),
+analytic and voxel emitters with ``trans`` and ``emit_velocity``, the
+spectral and MG-PCG projections (red-black or, with
+``EngineMode(rbgs=False)``, Jacobi-smoothed V-cycles), ``step_checked``,
+checkpoints in the JAX package's format (``io_utils.checkpoint``), sparse
+volume output (``io_utils.volume``, ``io_utils.vdb``, the native writer
+in ``native/``) and the ``sim3d`` CLI (``python -m
+gpufluidsimulation_tpu_torch.cli``); ``convert`` carries configurations
+and states between the two packages. The 2D solver and ``sim2d``, the
+particle solvers and the sharded step are not ported.
 """

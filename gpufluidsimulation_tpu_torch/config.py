@@ -30,12 +30,19 @@ class EngineMode:
     ``volume_dual=False`` takes the source-prefilter form and turns vol9
     off with the dual form; ``volume_vol9=True`` (with the dual form)
     adds the sparse exact fixup to every dual stage. Otherwise the dual
-    form (the accelerator default)."""
+    form (the accelerator default).
+
+    ``rbgs``: None or True smooths the fine levels of every MG V-cycle
+    (plain and masked) with the red-black Gauss-Seidel kernels (the
+    accelerator default); False smooths every level with damped Jacobi
+    in plain torch, as the JAX package computes it with ``use_rbgs`` off
+    (its CPU default)."""
 
     spectral_poisson: bool | None = None
     volume_exact: bool | None = None
     volume_dual: bool | None = None
     volume_vol9: bool | None = None
+    rbgs: bool | None = None
 
     @property
     def volume_mode(self) -> str:

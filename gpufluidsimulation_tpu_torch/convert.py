@@ -30,24 +30,41 @@ _MAP_KEYS = ("fwd", "bwd", "bwd_prev")
 
 
 def _tensor(a, device):
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(device)
+    """float32 tensor of `a` with its shape (0-d arrays stay 0-d)."""
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(
+        device)
 
 
-def state_from_numpy(arrays: dict, cfg: Smoke3DConfig, device) -> Smoke3DState:
-    """Build a state from flat numpy arrays; keys the dict lacks keep
-    ``init_state``'s values, and ``None`` leaves of the dieted state stay
-    ``None``."""
-    s = init_state(cfg, device)
+def state_leaves(state: Smoke3DState):
+    """(flat key, value) of every non-None leaf of `state` in field order:
+    tensors, host ints and the float ``cfl``; a mapping's leaves are
+    ``<field>.fwd``, ``.bwd``, ``.bwd_prev`` and ``.reinit_count``."""
+    for f in dataclasses.fields(state):
+        val = getattr(state, f.name)
+        if isinstance(val, MappingState):
+            for k in _MAP_KEYS:
+                m = getattr(val, k)
+                if m is not None:
+                    yield f"{f.name}.{k}", m
+            yield f"{f.name}.reinit_count", val.reinit_count
+        elif val is not None:
+            yield f.name, val
+
+
+def fill_state(template: Smoke3DState, arrays: dict) -> Smoke3DState:
+    """`template` with the leaves that `arrays` names replaced by its flat
+    numpy values, each tensor on its template leaf's device; keys the dict
+    lacks keep the template's values, and ``None`` leaves stay ``None``."""
     kw = {}
-    for f in dataclasses.fields(s):
+    for f in dataclasses.fields(template):
         name = f.name
-        cur = getattr(s, name)
+        cur = getattr(template, name)
         if isinstance(cur, MappingState):
             mkw = {}
             for k in _MAP_KEYS:
                 key = f"{name}.{k}"
                 if key in arrays and getattr(cur, k) is not None:
-                    mkw[k] = _tensor(arrays[key], device)
+                    mkw[k] = _tensor(arrays[key], getattr(cur, k).device)
             key = f"{name}.reinit_count"
             if key in arrays:
                 mkw["reinit_count"] = int(arrays[key])
@@ -58,41 +75,57 @@ def state_from_numpy(arrays: dict, cfg: Smoke3DConfig, device) -> Smoke3DState:
             elif name in _FLOAT_KEYS:
                 kw[name] = float(arrays[name])
             elif cur is not None:
-                kw[name] = _tensor(arrays[name], device)
-    return dataclasses.replace(s, **kw)
+                kw[name] = _tensor(arrays[name], cur.device)
+    return dataclasses.replace(template, **kw)
+
+
+def state_from_numpy(arrays: dict, cfg: Smoke3DConfig, device) -> Smoke3DState:
+    """Build a state from flat numpy arrays (``fill_state`` of
+    ``init_state(cfg, device)``)."""
+    return fill_state(init_state(cfg, device), arrays)
 
 
 def state_to_numpy(state: Smoke3DState) -> dict:
-    """Flat numpy arrays of every non-None leaf of `state`."""
+    """Flat numpy arrays of every non-None leaf of `state`: float32 arrays
+    for tensors and ``cfl``, int32 for the counters."""
     out = {}
-    for f in dataclasses.fields(state):
-        val = getattr(state, f.name)
-        if val is None:
-            continue
-        if isinstance(val, MappingState):
-            for k in _MAP_KEYS:
-                m = getattr(val, k)
-                if m is not None:
-                    out[f"{f.name}.{k}"] = m.detach().cpu().numpy()
-            out[f"{f.name}.reinit_count"] = np.int32(val.reinit_count)
-        elif isinstance(val, torch.Tensor):
-            out[f.name] = val.detach().cpu().numpy()
-        elif f.name in _FLOAT_KEYS:
-            out[f.name] = np.float32(val)
+    for key, val in state_leaves(state):
+        if isinstance(val, torch.Tensor):
+            out[key] = val.detach().cpu().numpy()
+        elif key in _FLOAT_KEYS:
+            out[key] = np.float32(val)
         else:
-            out[f.name] = np.int32(val)
+            out[key] = np.int32(val)
     return out
 
 
 _EMITTER_KEYS = {f.name for f in dataclasses.fields(Emitter3D)}
+_BOUNDARY_KEYS = {f.name for f in dataclasses.fields(Boundary3D)}
 
 
-def _emitter(e) -> Emitter3D:
+def _callable(d, key, mine, what):
+    """Replace field `key` of `d` (a callable of the JAX package, a
+    closure over ``jax.numpy``, never carried across) by the port's own
+    `mine`; with `mine` None the field must be None."""
+    if d.pop(key, None) is not None and mine is None:
+        raise ValueError(f"{what} {key} is a callable of the other package: "
+                         f"pass the port's own through {what}_{key}")
+    d[key] = mine
+
+
+def _voxel_grid(d):
+    """A voxel level set crosses as a float32 numpy array."""
+    if d.get("sdf_grid") is not None:
+        d["sdf_grid"] = np.array(d["sdf_grid"], dtype=np.float32)
+
+
+def _emitter(e, trans=None, emit_velocity=None) -> Emitter3D:
+    """An emitter from its plain field values; `trans` and `emit_velocity`
+    are the port's own callables for the JAX emitter's."""
     d = dict(e) if isinstance(e, dict) else dict(vars(e))
-    for extra in ("sdf_grid", "trans", "emit_velocity"):
-        if d.pop(extra, None) is not None:
-            raise NotImplementedError(
-                f"emitter {extra} is not ported (analytic spheres only)")
+    _callable(d, "trans", trans, "emitter")
+    _callable(d, "emit_velocity", emit_velocity, "emitter")
+    _voxel_grid(d)
     unknown = set(d) - _EMITTER_KEYS
     if unknown:
         raise ValueError(f"unknown emitter fields {sorted(unknown)}")
@@ -100,29 +133,19 @@ def _emitter(e) -> Emitter3D:
     return Emitter3D(**d)
 
 
-_BOUNDARY_KEYS = {f.name for f in dataclasses.fields(Boundary3D)}
-
-
 def _boundary(b, trans=None) -> Boundary3D:
-    """A boundary from its plain field values. A callable ``trans`` of the
-    JAX package (a closure over ``jax.numpy``) is never carried across:
-    pass the port's own as `trans`, or the field must be None."""
+    """A boundary from its plain field values; `trans` is the port's own
+    callable for the JAX boundary's."""
     d = dict(b) if isinstance(b, dict) else dict(vars(b))
-    if d.pop("sdf_grid", None) is not None or d.get("kind") == "voxel":
-        raise NotImplementedError(
-            "voxel boundaries are not ported (analytic sphere and box only)")
-    their_trans = d.pop("trans", None)
-    if their_trans is not None and trans is None:
-        raise ValueError(
-            "boundary trans is a callable of the other package: pass the "
-            "port's own through boundary_trans")
+    _callable(d, "trans", trans, "boundary")
+    _voxel_grid(d)
     unknown = set(d) - _BOUNDARY_KEYS
     if unknown:
         raise ValueError(f"unknown boundary fields {sorted(unknown)}")
     for key in ("center", "velocity", "half_extents"):
         if key in d:
             d[key] = tuple(float(c) for c in d[key])
-    return Boundary3D(trans=trans, **d)
+    return Boundary3D(**d)
 
 
 # EngineMode fields of the JAX package whose value changes nothing the port
@@ -137,14 +160,15 @@ _MODE_REQUIRED = {"interp_bf16": False, "sharded_sampling": ()}
 
 def _engine_mode(m):
     """The port's EngineMode from the JAX mode's plain fields: carries
-    ``spectral_poisson``, ``volume_dual`` and ``volume_vol9`` across, maps
-    the JAX package's exact volume form (``fast_interp=False`` or
-    ``volume_exact=True``) to ``volume_exact=True`` and its window
-    sampler without adaptive taps (``interp_adaptive=False``, which
-    leaves the JAX package the prefilter form) to ``volume_dual=False``,
-    accepts fields that do not change the result, and raises for a value
-    the port cannot honour: the red-black smoother off (which
-    ``fast_interp=False`` implies unless ``rbgs`` is given), bf16 windows
+    ``spectral_poisson``, ``volume_dual``, ``volume_vol9`` and ``rbgs``
+    across, maps the JAX package's exact volume form (``fast_interp=False``
+    or ``volume_exact=True``) to ``volume_exact=True``, its red-black
+    smoother off (``rbgs=False``, which ``fast_interp=False`` implies
+    unless ``rbgs`` is given) to the Jacobi-smoothed V-cycle
+    (``rbgs=False``) and its window sampler without adaptive taps
+    (``interp_adaptive=False``, which leaves the JAX package the prefilter
+    form) to ``volume_dual=False``, accepts fields that do not change the
+    result, and raises for a value the port cannot honour: bf16 windows
     and sharded sampling."""
     if m is None or isinstance(m, config.EngineMode):
         return m
@@ -153,9 +177,8 @@ def _engine_mode(m):
     fast = d.pop("fast_interp", None)
     exact = bool(d.pop("volume_exact", None)) or fast is False
     rbgs = d.pop("rbgs", None)
-    if rbgs is False or (rbgs is None and fast is False):
-        raise NotImplementedError("engine_mode.rbgs=False is not ported "
-                                  "(the Jacobi-smoothed V-cycle)")
+    if rbgs is None and fast is False:
+        rbgs = False
     for key in _MODE_IGNORED:
         d.pop(key, None)
     dual = d.pop("volume_dual", None)
@@ -173,15 +196,25 @@ def _engine_mode(m):
         raise ValueError(f"unknown engine_mode fields {sorted(d)}")
     return config.EngineMode(spectral_poisson=spectral,
                              volume_exact=True if exact else None,
-                             volume_dual=dual, volume_vol9=vol9)
+                             volume_dual=dual, volume_vol9=vol9,
+                             rbgs=False if rbgs is False else None)
 
 
-def config_from_dict(d: dict, boundary_trans=()) -> Smoke3DConfig:
+def _per_item(callables, n):
+    return tuple(callables) + (None,) * n
+
+
+def config_from_dict(d: dict, boundary_trans=(), emitter_trans=(),
+                     emitter_emit_velocity=()) -> Smoke3DConfig:
     """The port's config from the JAX config's plain field values
     (``dataclasses.asdict`` of it, or the same keys by hand).
-    ``engine_mode`` keeps its projection and its volume form;
-    `boundary_trans` gives the port's own ``trans(frame)`` for each
-    boundary that moves by one (None for the others)."""
+    ``engine_mode`` keeps its projection, its smoother and its volume
+    form; voxel level sets (``sdf_grid``) cross as numpy arrays. The
+    callables of the JAX config are not carried across: `boundary_trans`
+    gives the port's own ``trans(frame)`` for each boundary,
+    `emitter_trans` and `emitter_emit_velocity` the port's own
+    ``trans(frame)`` and ``emit_velocity(X, Y, Z)`` for each emitter
+    (None where the JAX field is None)."""
     d = dict(d)
     d["engine_mode"] = _engine_mode(d.get("engine_mode"))
     known = {f.name for f in dataclasses.fields(Smoke3DConfig)}
@@ -191,9 +224,14 @@ def config_from_dict(d: dict, boundary_trans=()) -> Smoke3DConfig:
     if "scheme" in d:
         d["scheme"] = Scheme(int(d["scheme"]))
     if "emitters" in d:
-        d["emitters"] = tuple(_emitter(e) for e in d["emitters"])
+        n = len(d["emitters"])
+        d["emitters"] = tuple(
+            _emitter(e, t, v) for e, t, v in zip(
+                d["emitters"], _per_item(emitter_trans, n),
+                _per_item(emitter_emit_velocity, n)))
     if "boundaries" in d:
-        trans = tuple(boundary_trans) + (None,) * len(d["boundaries"])
-        d["boundaries"] = tuple(_boundary(b, t)
-                                for b, t in zip(d["boundaries"], trans))
+        n = len(d["boundaries"])
+        d["boundaries"] = tuple(
+            _boundary(b, t) for b, t in zip(d["boundaries"],
+                                            _per_item(boundary_trans, n)))
     return Smoke3DConfig(**d)

@@ -119,3 +119,29 @@ def clamp_pos_3d(px, py, pz, h, ni, nj, nk, lo=1.0, hi=1.0):
         py.clamp(lo * h, nj * h - hi * h),
         pz.clamp(lo * h, nk * h - hi * h),
     )
+
+
+def sample3_separable(field, dx, dy, dz, h):
+    """Trilinear lookup of a voxel grid at a uniformly shifted lattice:
+    each world offset varies along its own axis only (dx over x, dy over
+    y, dz over z: ``Grid3D.axis_coords`` minus a position, or full grids),
+    as in the voxel boundary and emitter lookups. The clamped corner
+    indices of ``trilerp_grid`` and its x, y, z blend order, as one
+    ``index_select`` of both corner planes an axis; a node far outside
+    the grid reads the nearest edge value."""
+    out = field
+    for axis, d in enumerate((dx, dy, dz)):
+        along = [0, 0, 0]
+        along[axis] = slice(None)
+        g = div_scalar(d[tuple(along)], h)
+        n = field.shape[axis]
+        i0f = torch.floor(g)
+        f = g - i0f
+        i0 = i0f.long()
+        both = torch.cat([i0.clamp(0, n - 1), (i0 + 1).clamp(0, n - 1)])
+        a0, a1 = out.index_select(axis, both).split(g.numel(), dim=axis)
+        shape = [1, 1, 1]
+        shape[axis] = g.numel()
+        f = f.reshape(shape)
+        out = (1 - f) * a0 + f * a1
+    return out

@@ -10,7 +10,9 @@ projection on cell flags (``project_masked_3d``).
 The V-cycles smooth with the red-black Gauss-Seidel kernels of
 ``ops/stencil_kernels.py`` on every level with at most 4 sweeps and at
 least 16 cells an axis; coarser levels and the 40-sweep coarse solve are
-damped Jacobi in plain torch. The transfer operators are per-axis float32
+damped Jacobi in plain torch. An ``MGContext`` built with ``rbgs=False``
+smooths every level with damped Jacobi (the JAX package's V-cycle with
+``use_rbgs`` off). The transfer operators are per-axis float32
 matrices applied with ``tensordot`` (TF32 must be off, as ``Smoke3D``
 sets it); the prolongation matrix equals a half-pixel-centre linear
 resize, so the masked cycle uses the same matrices.
@@ -171,21 +173,24 @@ def prolong_linear(e, fine_shape):
     return _apply_axis_mats(e, _prolong_mats(e.shape, fine_shape, e.device))
 
 
-def _use_rbgs(shape, iters):
-    """The levels that smooth with the red-black Gauss-Seidel kernels."""
-    return iters <= 4 and len(shape) == 3 and min(shape) >= 16
+def _use_rbgs(shape, iters, rbgs=True):
+    """The levels that smooth with the red-black Gauss-Seidel kernels:
+    none when `rbgs` is False."""
+    return rbgs and iters <= 4 and len(shape) == 3 and min(shape) >= 16
 
 
 class MGContext:
     """Per-(shape, bc, device) level shapes, Jacobi diagonals and per-axis
-    restriction/prolongation matrices (3D)."""
+    restriction/prolongation matrices (3D). ``rbgs=False`` smooths every
+    level of its V-cycles (plain and masked) with damped Jacobi."""
 
-    def __init__(self, shape, bc, device=None):
+    def __init__(self, shape, bc, device=None, rbgs=True):
         if bc not in ("dirichlet", "neumann"):
             raise NotImplementedError(f"MGContext: unsupported bc {bc!r}")
         if len(shape) != 3:
             raise NotImplementedError("MGContext: 3D only")
         self.bc = bc
+        self.rbgs = bool(rbgs)
         self.shapes = mg_shapes(shape)
         self.diags = [torch.from_numpy(_diag(s, bc)).to(device)
                       for s in self.shapes]
@@ -195,7 +200,7 @@ class MGContext:
 
     def _smooth(self, x, b, level, iters, omega, reverse=False):
         """Per-level smoother; ``x=None`` is an exactly-zero guess."""
-        if _use_rbgs(self.shapes[level], iters):
+        if _use_rbgs(self.shapes[level], iters, self.rbgs):
             return stencil_kernels.rbgs_smooth(x, b, self.bc, iters,
                                                reverse=reverse)
         if x is None:
@@ -452,11 +457,11 @@ def masked_jacobi_smooth(x, b, flags, diag, iters, omega=0.8, count=None):
 
 
 def _masked_smooth(x, r, flags, diag, iters, omega, shape, reverse=False,
-                   count=None):
+                   count=None, rbgs=True):
     """Per-level masked smoother: the masked red-black Gauss-Seidel kernel
-    on the fine levels, masked damped Jacobi elsewhere. ``x=None`` is an
-    exactly-zero guess."""
-    if _use_rbgs(shape, iters):
+    on the fine levels (unless `rbgs` is False), masked damped Jacobi
+    elsewhere. ``x=None`` is an exactly-zero guess."""
+    if _use_rbgs(shape, iters, rbgs):
         return stencil_kernels.masked_rbgs_smooth(x, r, flags, iters,
                                                   reverse=reverse)
     if x is None:
@@ -493,14 +498,14 @@ def masked_v_cycle(r, hierarchy, ctx: MGContext, level=0, n_pre=2, n_post=2,
                                  n_coarse, omega, count)
         return torch.where(fluid, e, 0.0)
     e = _masked_smooth(None, r, flags, diag, n_pre, omega, shapes[level],
-                       count=count)
+                       count=count, rbgs=ctx.rbgs)
     rr = torch.where(fluid, r - masked_laplacian(e, flags, count), 0.0)
     rc = 4.0 * _apply_axis_mats(rr, ctx.rmats[level])
     ec = masked_v_cycle(rc, hierarchy, ctx, level + 1, n_pre, n_post,
                         n_coarse, omega)
     e = e + _apply_axis_mats(ec, ctx.pmats[level])
     e = _masked_smooth(e, r, flags, diag, n_post, omega, shapes[level],
-                       reverse=True, count=count)
+                       reverse=True, count=count, rbgs=ctx.rbgs)
     return torch.where(fluid, e, 0.0)
 
 

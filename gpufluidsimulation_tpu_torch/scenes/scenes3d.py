@@ -108,3 +108,6 @@ def make_moving_obstacle(scheme: Scheme = Scheme.BIMOCQ, device=None,
 
 
 SCENES_3D = {0: make_vortex_collision, 1: make_moving_obstacle}
+
+
+TOTAL_FRAMES = 300  # frames of the reference's 3D executable (main.cpp:34)

@@ -24,3 +24,12 @@ class Scheme(enum.IntEnum):
             Scheme.POLYPIC: "PolyPIC",
             Scheme.BIMOCQ: "BiMocq",
         }[self]
+
+
+# argv[1] of the 3D executable (bimocq3D/BimocqSolver.h:29)
+SCHEME_3D_ARGV = {
+    0: Scheme.BIMOCQ,
+    1: Scheme.SEMILAG,
+    2: Scheme.MACCORMACK,
+    3: Scheme.MAC_REFLECTION,
+}

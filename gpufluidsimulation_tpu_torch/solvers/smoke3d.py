@@ -8,12 +8,13 @@ the four volume forms of the engine mode: dual by default, vol9 with
 ``volume_exact=True``), SEMILAG, MACCORMACK and MAC_REFLECTION; analytic
 sphere emitters; analytic sphere and box obstacles (``Boundary3D``) with
 the masked MG-PCG projection; the spectral projection or, with
-``EngineMode(spectral_poisson=False)``, MG-PCG. Under BIMOCQ with
-always/blend 1 the two-level (prev) tier, the scalar advector's maps and
-the accumulates are statically dead, so the state carries ``None`` for
-them, as the JAX package's dieted state does (``_aux_dead``). Voxel
-boundaries and emitters and emitter ``trans``/``emit_velocity`` raise
-``NotImplementedError`` (``check_supported``; ``convert`` refuses them).
+``EngineMode(spectral_poisson=False)``, MG-PCG, its V-cycles smoothed
+with damped Jacobi under ``EngineMode(rbgs=False)``; voxel level-set
+(``sdf_grid``) boundaries and emitters, emitter motion (``trans``) and
+emission velocity (``emit_velocity``). Under BIMOCQ with always/blend 1
+the two-level (prev) tier, the scalar advector's maps and the accumulates
+are statically dead, so the state carries ``None`` for them, as the JAX
+package's dieted state does (``_aux_dead``).
 
 Host syncs per step: one to read max|vel| (the CFL substep count is
 decided on the host in float32, ops/advect.substeps); one for the
@@ -44,18 +45,37 @@ import torch
 from gpufluidsimulation_tpu_torch import config
 from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+from gpufluidsimulation_tpu_torch.core.interp import sample3_separable
 from gpufluidsimulation_tpu_torch.ops import (advect, forces, interp_fast,
                                           poisson)
 from gpufluidsimulation_tpu_torch.ops.advect import substeps
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 
 
+def _f32_offset(trans, frame):
+    """trans(frame) at ``np.float32(frame)`` as three ``np.float32``."""
+    return tuple(np.float32(o) for o in trans(np.float32(frame)))
+
+
+def _f32_add(center, offset):
+    return tuple(np.float32(np.float32(c) + o)
+                 for c, o in zip(center, offset))
+
+
 @dataclasses.dataclass(frozen=True)
 class Emitter3D:
-    """Analytic sphere emitter: rho/T set inside `radius`, theta-modulated
-    x-velocity sign*0.06*(1 + 0.01 cos 8 theta), v/w zeroed, for the first
-    `emit_frames` frames. The JAX package's voxel-SDF emitters, `trans`
-    and `emit_velocity` are not ported."""
+    """Smoke emitter, for the first `emit_frames` frames.
+
+    Analytic sphere (no `sdf_grid`): rho/T set inside `radius`,
+    theta-modulated x-velocity sign*0.06*(1 + 0.01 cos 8 theta), v/w
+    zeroed. Voxel level set (`sdf_grid`, on the cell lattice x = i*h with
+    the simulation's h, placed at `center`): rho/T and each velocity
+    component set where the SDF <= 0, the velocity from
+    `emit_velocity(X, Y, Z) -> (u, v, w)` at the component's world node
+    coordinates (zero without one; analytic emitters ignore it, as in the
+    JAX package). `trans(frame) -> (dx, dy, dz)` moves either kind by a
+    world offset; it receives the frame as ``np.float32`` and should
+    compute in float32."""
 
     center: Tuple[float, float, float]
     radius: float = 0.015
@@ -63,6 +83,16 @@ class Emitter3D:
     temperature: float = 50.0
     sign: float = 1.0
     emit_frames: int = 10
+    sdf_grid: object = dataclasses.field(default=None, compare=False)
+    trans: object = dataclasses.field(default=None, compare=False)
+    emit_velocity: object = dataclasses.field(default=None, compare=False)
+
+    def position_at(self, frame: int):
+        """The centre at a frame, three ``np.float32``: `center` plus
+        trans(frame) in float32, as the JAX step adds them."""
+        if self.trans is None:
+            return tuple(np.float32(c) for c in self.center)
+        return _f32_add(self.center, _f32_offset(self.trans, frame))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,12 +101,14 @@ class Boundary3D:
     rigid velocity; in a shell of `half_width` cells outside it the
     advected fields are replaced by their semi-Lagrangian fallback.
 
-    Shapes: analytic 'sphere' (`radius`) or 'box' (`half_extents`); the
-    JAX package's voxel level sets (`sdf_grid`, kind 'voxel') are not
-    ported. Motion: constant `velocity`, or a closed-form `trans(frame)`
-    world offset (dx, dy, dz) whose rigid velocity is the one-frame
-    finite difference. `trans` receives the frame as ``np.float32`` and
-    should compute in float32."""
+    Shapes: analytic 'sphere' (`radius`) or 'box' (`half_extents`), or a
+    voxel level set (`sdf_grid`, kind 'voxel' or any kind with a grid: on
+    the cell lattice x = i*h with the simulation's h, placed at `center`;
+    ``io_utils.mesh.mesh_to_sdf`` converts OBJ meshes). Motion: constant
+    `velocity`, or a closed-form `trans(frame)` world offset (dx, dy, dz)
+    whose rigid velocity is the one-frame finite difference. `trans`
+    receives the frame as ``np.float32`` and should compute in
+    float32."""
 
     center: Tuple[float, float, float]
     radius: float = 0.02
@@ -87,12 +119,21 @@ class Boundary3D:
     sdf_grid: object = dataclasses.field(default=None, compare=False)
     trans: object = dataclasses.field(default=None, compare=False)
 
-    def sdf(self, x, y, z, pos):
-        """Signed distance at (broadcastable) world coordinates for the
-        obstacle centred at `pos`."""
+    @property
+    def is_voxel(self) -> bool:
+        return self.sdf_grid is not None or self.kind == "voxel"
+
+    def sdf(self, x, y, z, pos, h=None):
+        """Signed distance at world coordinates for the obstacle centred
+        at `pos`; x, y and z are the axis views of ``Grid3D.axis_coords``
+        (or full grids) and `h` the grid spacing of a voxel level set."""
         dx = x - float(pos[0])
         dy = y - float(pos[1])
         dz = z - float(pos[2])
+        if self.is_voxel:
+            grid = torch.as_tensor(self.sdf_grid, dtype=torch.float32,
+                                   device=x.device)
+            return sample3_separable(grid, dx, dy, dz, h)
         if self.kind == "sphere":
             return torch.sqrt(dx * dx + dy * dy + dz * dz) - self.radius
         ax = dx.abs() - self.half_extents[0]
@@ -108,11 +149,10 @@ class Boundary3D:
         f32 = np.float32
         f = f32(frame)
         if self.trans is not None:
-            o0 = [f32(o) for o in self.trans(f)]
-            o1 = [f32(o) for o in self.trans(f32(f + f32(1.0)))]
-            pos = tuple(f32(f32(c) + o) for c, o in zip(self.center, o0))
+            o0 = _f32_offset(self.trans, frame)
+            o1 = _f32_offset(self.trans, f32(f + f32(1.0)))
             vel = tuple(f32(f32(b - a) / f32(dt)) for a, b in zip(o0, o1))
-            return pos, vel
+            return _f32_add(self.center, o0), vel
         t = f32(f * f32(dt))
         pos = tuple(f32(f32(c) + f32(f32(v) * t))
                     for c, v in zip(self.center, self.velocity))
@@ -198,9 +238,13 @@ def check_supported(cfg: Smoke3DConfig) -> None:
     for bd in cfg.boundaries:
         if not isinstance(bd, Boundary3D):
             problems.append(f"boundary {bd!r} (Boundary3D only)")
-        elif bd.sdf_grid is not None or bd.kind not in ("sphere", "box"):
-            problems.append(f"boundary kind {bd.kind!r} with a voxel level "
-                            "set (analytic sphere and box only)")
+        elif bd.is_voxel:
+            if bd.sdf_grid is None or np.ndim(bd.sdf_grid) != 3:
+                problems.append(f"boundary kind {bd.kind!r} without a 3D "
+                                "sdf_grid (a voxel level set needs one)")
+        elif bd.kind not in ("sphere", "box"):
+            problems.append(f"boundary kind {bd.kind!r} (sphere, box or "
+                            "voxel)")
     if cfg.scheme == Scheme.BIMOCQ and cfg.reinit_mode not in REINIT_MODES:
         problems.append(f"reinit_mode {cfg.reinit_mode!r} (one of "
                         f"{REINIT_MODES})")
@@ -208,7 +252,9 @@ def check_supported(cfg: Smoke3DConfig) -> None:
         problems.append(f"bc {cfg.bc!r} (dirichlet or neumann)")
     for em in cfg.emitters:
         if not isinstance(em, Emitter3D):
-            problems.append(f"emitter {em!r} (analytic spheres only)")
+            problems.append(f"emitter {em!r} (Emitter3D only)")
+        elif em.sdf_grid is not None and np.ndim(em.sdf_grid) != 3:
+            problems.append("emitter sdf_grid (a 3D voxel level set)")
     if cfg.engine_mode is not None and not isinstance(
             cfg.engine_mode, config.EngineMode):
         problems.append(f"engine_mode {cfg.engine_mode!r} (the port's "
@@ -275,14 +321,19 @@ def _max_velocity(u, v, w) -> np.float32:
 
 
 def _emit_smoke(cfg: Smoke3DConfig, g: Grid3D, u, v, w, rho, T, frame: int):
-    """Analytic sphere emission, gated per emitter on frame < emit_frames
-    (a host decision: `frame` is a host int)."""
+    """Smoke emission, gated per emitter on frame < emit_frames (a host
+    decision: `frame` is a host int). Analytic spheres use the
+    theta-modulated sphere kernels (GPU_kernel.cu:736-802), voxel level
+    sets the hybrid solver's wsSample loop (``_emit_voxel``)."""
     h = g.h
     dev = u.device
     for em in cfg.emitters:
         if not frame < em.emit_frames:
             continue
-        cx, cy, cz = em.center
+        if em.sdf_grid is not None:
+            u, v, w, rho, T = _emit_voxel(em, g, u, v, w, rho, T, frame)
+            continue
+        cx, cy, cz = (float(c) for c in em.position_at(frame))
 
         def field_mask(shape, x_is_staggered):
             nx, ny, nz = shape
@@ -311,6 +362,36 @@ def _emit_smoke(cfg: Smoke3DConfig, g: Grid3D, u, v, w, rho, T, frame: int):
         inside_c, _, _ = field_mask(rho.shape, False)
         rho = torch.where(inside_c, em.density, rho)
         T = torch.where(inside_c, em.temperature, T)
+    return u, v, w, rho, T
+
+
+def _emit_voxel(em: Emitter3D, g: Grid3D, u, v, w, rho, T, frame: int):
+    """Voxel-SDF emitter: the level set, moved to this frame's centre, is
+    sampled on every field's lattice; where it is <= 0, rho/T take the
+    emitter's values and each velocity component its `emit_velocity`."""
+    dev = u.device
+    grid_vals = torch.as_tensor(em.sdf_grid, dtype=torch.float32, device=dev)
+    pos = [float(c) for c in em.position_at(frame)]
+
+    def inside_at(kind):
+        x, y, z = g.axis_coords(kind, device=dev)
+        sd = sample3_separable(grid_vals, x - pos[0], y - pos[1],
+                               z - pos[2], g.h)
+        return sd <= 0.0
+
+    def velocity(kind, axis, field):
+        if em.emit_velocity is None:
+            return 0.0
+        vel = em.emit_velocity(*g.node_coords(kind, device=dev))[axis]
+        return torch.as_tensor(vel, dtype=torch.float32,
+                               device=dev).expand(field.shape)
+
+    u = torch.where(inside_at("u"), velocity("u", 0, u), u)
+    v = torch.where(inside_at("v"), velocity("v", 1, v), v)
+    w = torch.where(inside_at("w"), velocity("w", 2, w), w)
+    inside_c = inside_at("c")
+    rho = torch.where(inside_c, em.density, rho)
+    T = torch.where(inside_c, em.temperature, T)
     return u, v, w, rho, T
 
 
@@ -354,7 +435,7 @@ def _update_boundary(cfg: Smoke3DConfig, g: Grid3D, frame: int, dt, base):
         pos, bvel = bd.pose_at(frame, dt)
         shell_w = bd.half_width * g.h
         for axis, kind in enumerate(("u", "v", "w", "c")):
-            sd = bd.sdf(*g.axis_coords(kind, device=dev), pos)
+            sd = bd.sdf(*g.axis_coords(kind, device=dev), pos, g.h)
             if kind == "c":
                 flags = torch.where(sd <= 0.0, poisson.OBJECT, flags)
             else:
@@ -646,7 +727,9 @@ class Smoke3D:
     once per solver (the MG context and the static boundary flags).
 
     ``device=None`` runs on the card and raises when there is none; pass
-    ``device="cpu"`` for the plain PyTorch versions of every kernel."""
+    ``device="cpu"`` for the plain PyTorch versions of every kernel.
+    ``EngineMode(rbgs=False)`` builds the MG context whose V-cycles
+    smooth with damped Jacobi only."""
 
     def __init__(self, cfg: Smoke3DConfig, device=None):
         check_supported(cfg)
@@ -655,7 +738,9 @@ class Smoke3D:
         self.device = config.resolve_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.ctx = (poisson.MGContext(self.grid.shape_c, cfg.bc, self.device)
+        rbgs = cfg.engine_mode is None or cfg.engine_mode.rbgs is not False
+        self.ctx = (poisson.MGContext(self.grid.shape_c, cfg.bc, self.device,
+                                      rbgs=rbgs)
                     if _uses_mgpcg(cfg) else None)
         self._base_flags = (boundary_base_flags(self.grid, self.device)
                             if cfg.boundaries else None)
@@ -667,3 +752,13 @@ class Smoke3D:
     def step(self, state: Smoke3DState) -> Smoke3DState:
         return self._step(self.cfg, self.grid, self.ctx, self._base_flags,
                           state)
+
+    def step_checked(self, state: Smoke3DState):
+        """The JAX package's contract-enforcing step, returning (state,
+        retried). There a frame whose windowed samplers overflowed
+        (``interp_overflow > 0``) is recomputed from a saved copy of the
+        state on the exact-gather engine. The port's kernels gather
+        exactly, so ``interp_overflow`` is always 0 and no frame is ever
+        recomputed: this is ``(self.step(state), False)``, with no copy
+        of the state kept."""
+        return self.step(state), False

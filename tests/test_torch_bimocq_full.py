@@ -316,8 +316,8 @@ def test_full_state_round_trip_and_dieted_choice():
 def test_engine_mode_volume_form_across():
     """The JAX exact form (fast_interp=False, or volume_exact) maps to the
     port's volume_exact; the prefilter and vol9 forms are carried with the
-    JAX precedence (mapping._volume_mode); the rbgs-off smoother is
-    refused."""
+    JAX precedence (mapping._volume_mode); the rbgs-off smoother maps to
+    the port's Jacobi-smoothed V-cycle."""
     def port_mode(**kw):
         return convert._engine_mode(dataclasses.asdict(
             config.EngineMode(**kw)))
@@ -341,8 +341,11 @@ def test_engine_mode_volume_form_across():
         with config.engine_mode_scope(config.EngineMode(**kw)):
             assert jmp._volume_mode() == form, kw
         assert port_mode(**kw).volume_mode == form, kw
-    with pytest.raises(NotImplementedError, match="rbgs"):
-        port_mode(fast_interp=False)
+    # without rbgs, fast_interp=False is the JAX package's red-black
+    # smoother off too: the port's Jacobi-smoothed V-cycle
+    jacobi = port_mode(fast_interp=False)
+    assert jacobi.rbgs is False and jacobi.volume_exact is True
+    assert jacobi.volume_mode == "exact"
 
 
 # ---------------------------------------------------------------------------

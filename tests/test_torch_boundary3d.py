@@ -198,20 +198,24 @@ def test_obstacle_config_across_and_refusals(jax_obstacle_run):
     voxel = dict(static, boundaries=(dict(center=(0.1, 0.1, 0.1),
                                           kind="voxel",
                                           sdf_grid=np.zeros((4, 4, 4))),))
-    with pytest.raises(NotImplementedError):
-        convert.config_from_dict(voxel)
-    for field, value in (("rbgs", False), ("interp_bf16", True)):
-        mode = dict(d["engine_mode"], **{field: value})
-        with pytest.raises(NotImplementedError, match=field):
-            convert.config_from_dict(dict(static, engine_mode=mode))
+    vbd = convert.config_from_dict(voxel).boundaries[0]
+    assert vbd.kind == "voxel" and vbd.is_voxel
+    assert vbd.sdf_grid.dtype == np.float32 and vbd.sdf_grid.shape == (4,) * 3
+    # the Jacobi-smoothed V-cycle is carried across; bf16 windows are not
+    mode = dict(d["engine_mode"], rbgs=False)
+    assert convert.config_from_dict(dict(
+        static, engine_mode=mode)).engine_mode.rbgs is False
+    mode = dict(d["engine_mode"], interp_bf16=True)
+    with pytest.raises(NotImplementedError, match="interp_bf16"):
+        convert.config_from_dict(dict(static, engine_mode=mode))
     # the prefilter and vol9 volume forms are carried across
     for field, value, form in (("volume_dual", False, "prefilter"),
                                ("volume_vol9", True, "vol9")):
         mode = dict(d["engine_mode"], **{field: value})
         em = convert.config_from_dict(dict(static, engine_mode=mode)).engine_mode
         assert getattr(em, field) is value and em.volume_mode == form
-    # the exact volume form is carried across; a non-analytic emitter is
-    # still refused
+    # the exact volume form is carried across; an emitter that is not an
+    # Emitter3D is refused
     exact = convert.config_from_dict(dict(static, engine_mode=dict(
         d["engine_mode"], volume_exact=True)))
     assert exact.engine_mode.volume_exact is True

@@ -73,6 +73,41 @@ def test_port_import_leaves_jax_unloaded():
     assert out.stdout.strip() == "ok 1"
 
 
+def test_native_writer_builds_only_the_ports_source(tmp_path):
+    """The port's writer compiles its own gfs_io.c into _build/ and loads
+    it as its own module; nothing of gpufluidsimulation_tpu/native/ is
+    imported, built or touched."""
+    theirs = REPO / "gpufluidsimulation_tpu" / "native"
+    code = (
+        "import os, sys\n"
+        "import numpy as np\n"
+        f"theirs = {str(theirs)!r}\n"
+        "def listing():\n"
+        "    return sorted((n, os.stat(os.path.join(theirs, n)).st_mtime_ns)\n"
+        "                  for n in os.listdir(theirs))\n"
+        "before = listing()\n"
+        "from gpufluidsimulation_tpu_torch import native\n"
+        "from gpufluidsimulation_tpu_torch.io_utils import volume\n"
+        f"out = volume.write_volume(1, {str(tmp_path)!r}, 0.01, "
+        "np.ones((4, 4, 4), np.float32), fmt='gfsvol')\n"
+        "assert volume.flush_volumes() == 0 and os.path.exists(out)\n"
+        "mod = native.loaded()\n"
+        "assert mod.__name__ == 'gpufluidsimulation_tpu_torch.native.gfs_io'\n"
+        "assert os.path.dirname(mod.__file__) == str(native.BUILD_DIR)\n"
+        "assert native.SOURCE.parent == native.BUILD_DIR.parent / 'native'\n"
+        "assert listing() == before\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env, cwd=str(REPO))
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    assert not (PORT / "native" / "gfs_io.c").is_symlink()
+
+
 def test_wrappers_take_plain_path_on_cpu():
     n = 8
     u = torch.rand(n + 1, n, n) * 0.1

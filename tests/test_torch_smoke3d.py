@@ -155,16 +155,33 @@ def test_default_device_raises_without_cuda(monkeypatch, jax_run):
     dict(boundaries=(object(),)), dict(bc="periodic"),
     dict(boundaries=(smoke3d.Boundary3D(center=(0.1, 0.1, 0.1),
                                         kind="voxel"),)),
-    dict(boundaries=(smoke3d.Boundary3D(center=(0.1, 0.1, 0.1),
-                                        sdf_grid=np.zeros((4, 4, 4))),)),
     dict(engine_mode=config.EngineMode(spectral_poisson=False)),
 ])
 def test_unported_configs_raise(jax_run, change):
-    """What the port still lacks raises: non-analytic emitters, the JAX
-    package's own mode objects (vol9 among them), voxel or unknown
-    boundaries, other bcs and reinit modes. MACCORMACK, MAC_REFLECTION,
+    """What the port does not run raises: emitters and boundaries that
+    are not its own classes, the JAX package's own mode objects (vol9
+    among them), unknown boundary kinds, a voxel boundary without its
+    level set, other bcs and reinit modes. MACCORMACK, MAC_REFLECTION,
     counter/adaptive reinit and blends below 1 run since the third slice
-    (tests/test_torch_maccormack_step.py, test_torch_bimocq_full.py)."""
+    (tests/test_torch_maccormack_step.py, test_torch_bimocq_full.py),
+    voxel level sets since the twelfth (tests/test_torch_voxel.py)."""
     cfg = dataclasses.replace(_port_cfg(jax_run[0]), **change)
     with pytest.raises(NotImplementedError):
         smoke3d.Smoke3D(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("change", [
+    dict(boundaries=(smoke3d.Boundary3D(center=(0.1, 0.1, 0.1),
+                                        sdf_grid=np.zeros((4, 4, 4))),)),
+])
+def test_configs_that_now_run(change):
+    """Configurations the port refused before and runs now: a voxel level
+    set given as ``sdf_grid`` on a boundary of the default kind (here a
+    zero level set, inside everywhere, so every cell is the object's)."""
+    cfg = dataclasses.replace(_port_cfg(_jax_cfg()), **change)
+    solver = smoke3d.Smoke3D(cfg, device="cpu")
+    st = solver.step(solver.init_state())
+    assert st.frame == 1 and bool(torch.isfinite(st.u).all())
+    flags = smoke3d._update_boundary(cfg, cfg.grid, 0, cfg.dt,
+                                     smoke3d.boundary_base_flags(cfg.grid))[0]
+    assert bool((flags == 3).all())
