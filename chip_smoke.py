@@ -12,10 +12,10 @@
                                      # and the smoothers' device time
 
 Phases, each of which fails loudly (non-zero exit, no result line):
- 1. print the card's name and power limit; build the ten CUDA kernels
-    from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once, and
-    print each kernel's registers and spills (all ten are redesigned for
-    Hopper, and none may spill);
+ 1. print the card's name and power limit; build the eleven CUDA
+    kernels from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once,
+    and print each kernel's registers and spills (the ten 3D kernels are
+    redesigned for Hopper, and none of them may spill);
  2. at the paths' 256^3 shapes (and 100x200x200 for the Jacobi solve),
     hold each kernel against its plain PyTorch version on the same inputs
     and time both with CUDA events, every kernel bit for bit: the
@@ -91,7 +91,26 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     reads back as its state's rho; each frame's step ms (the CLI's
     FrameTimer), write_volume ms and checkpoint ms are logged, and the
     output's split (device-to-host copy, pack_vdb, hand-off, disk write;
-    each volume format; a checkpoint's copies against its compression).
+    each volume format; a checkpoint's copies against its compression);
+10. the 2D kernel bilerp_sample in its sample and mac modes against its
+    plain versions, bit for bit, on 256^2, 256x1280 and 37x29 (C=1, C=2
+    on the 5-point stencil's (5, ni, nj) batch, C=2 on two lattices, the
+    mac mode; each also from positions 3 cells outside the domain), timed
+    at 256^2 beside its plain version, its bound and grid_sample;
+11. 2D parity: SEMILAG, MACCORMACK, BFECC, MAC_REFLECTION and BIMOCQ
+    (blend 0.5, remap gaps 2 and 1) at 32x48 and BIMOCQ in the level-set
+    mode, 3 steps on the card against the port on the CPU, within 2e-3 of
+    each field's scale, every counter equal;
+12. the 2D paths: BiMocq on example 0 (the Taylor vortex, 256^2, dt
+    0.025; README: sim2d 7 0) and example 2 (Rayleigh-Taylor, 256x1280,
+    pure Neumann), `--steps-2d` timed steps each with the launch counts
+    reset before and read after, the host syncs of a step
+    (torch.cuda.set_sync_debug_mode) and the card's idle share
+    (torch.profiler);
+13. the CLI's sim2d in-process: 7 0 (3 frames), 3 2 (2 frames) and 7 3
+    (the Zalesak level set, CFL-driven substeps, 1 frame), each run's
+    launches counted alone, every BMP a 24-bit image of the grid's size,
+    the level-set file finite and equal to the frame's rho.
 Then it prints one JSON line with every kernel's numbers and, last, the
 device line. It never imports JAX or the JAX package.
 """
@@ -147,7 +166,8 @@ def device_ms(fn, reps, key):
     """Mean device milliseconds per fn() call of the kernels whose name
     holds `key`, from torch.profiler over `reps` calls: the kernel's own
     time where a call is too short for CUDA events around the calls to see
-    past the host's launch overhead."""
+    past the host's launch overhead: the sum over the kernel events, each
+    launch's own duration on the card."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -159,8 +179,8 @@ def device_ms(fn, reps, key):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and key in e.key
+    return sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA and key in e.name
                ) / 1e3 / reps
 
 
@@ -214,7 +234,7 @@ def smooth(shape, rng, amp, device):
                       indexing="ij")
     f = np.zeros(shape)
     for _ in range(2):
-        k = rng.uniform(0.5, 3.0, 3) * 2 * np.pi / np.array(shape)
+        k = rng.uniform(0.5, 3.0, len(shape)) * 2 * np.pi / np.array(shape)
         ph = rng.uniform(0, 2 * np.pi)
         f += np.sin(sum(kk * ii for kk, ii in zip(k, idx)) + ph)
     return torch.from_numpy((amp * f / 2).astype(np.float32)).to(device)
@@ -1682,7 +1702,8 @@ def multi_parity_phase(n=32, seed=2, blend=0.5):
 
 KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
            "rbgs_smooth", "masked_rbgs_smooth", "minmax_sample",
-           "volume_prefilter", "vol9_fixup", "pullback_sample")
+           "volume_prefilter", "vol9_fixup", "pullback_sample",
+           "bilerp_sample")
 # the kernels of the main path
 MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 # redesigned for Hopper after their first port (PERF.md, kernel table)
@@ -1693,22 +1714,25 @@ REDESIGNED = ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
 # own count
 LATTICE = {"rk3_substep": "rk3_substep_lattice",
            "dmc_substep": "dmc_substep_lattice"}
+# every kernel's second mode with a wrapper and a count of its own: the
+# lattice modes and bilerp_sample's mac mode
+MODES = dict(LATTICE, bilerp_sample="bilerp_sample_mac")
 
 
 def wrappers():
-    """Every launching wrapper by name: one per kernel, and the lattice
+    """Every launching wrapper by name: one per kernel, and the second
     modes."""
     from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
 
     return {name: getattr(interp_fast, name, None)
             or getattr(stencil_kernels, name)
-            for name in KERNELS + tuple(LATTICE.values())}
+            for name in KERNELS + tuple(MODES.values())}
 
 
 def kernel_launches(counts, name):
     """Launches of kernel `name` in `counts` (by wrapper), those of its
-    lattice mode included."""
-    return counts[name] + (counts[LATTICE[name]] if name in LATTICE else 0)
+    second mode included."""
+    return counts[name] + (counts[MODES[name]] if name in MODES else 0)
 
 
 def timed_steps(solver, steps, expect, warm=lambda state: True,
@@ -2492,6 +2516,409 @@ def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
     log("[profile] " + "\n".join(table.splitlines()[:30]))
 
 
+# ---------------------------------------------------------------------------
+# The 2D solver (phases 10-13)
+# ---------------------------------------------------------------------------
+
+# float32 operations of one bilerp_sample output, counted from the kernel's
+# source: 2 divisions by h a position; per run of channels sharing an
+# offset 2 subtractions, 2 floors, 2 fractions and 2 complements; per
+# channel the blend's 6 products and 3 sums
+BILERP_POS_OPS, BILERP_OFFSET_OPS, BILERP_CHANNEL_OPS = 2, 8, 9
+
+
+def bilerp_phase(rng):
+    """Phase 10: bilerp_sample in both modes against its plain versions,
+    bit for bit, on 256^2, 256x1280 (the Rayleigh-Taylor grid) and 37x29:
+    the sample mode at C=1 (a cell field at positions wandering 2 cells),
+    C=2 (rho and T on the 5-point volume stencil's (5, ni, nj) batch, 0.3
+    cells) and C=2 with differing offsets (u's and v's lattices), the
+    mac mode at positions wandering 1.5 cells; each also at positions
+    stretched to 3 cells outside the domain. At 256^2 each is timed: the
+    kernel's own device time (torch.profiler), the plain version, and for
+    the sample modes grid_sample (bilinear, border padding,
+    align_corners) on the same samples."""
+    import torch
+    import torch.nn.functional as F
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    dev = torch.device("cuda")
+
+    def compare(name, got, want, tol):
+        err = float((got - want).abs().max())
+        log(f"[kernels] {name}: max_abs_err={err:.3e} tol={tol:.1e}")
+        if not np.isfinite(err) or err > tol:
+            raise AssertionError(f"{name}: kernel disagrees with its plain "
+                                 f"version: {err} > {tol}")
+        return err
+
+    variants, edges = [], []
+    for ni, nj in ((256, 256), (256, 1280), (37, 29)):
+        g = Grid2D(ni, nj, 1.0 / ni)
+        h = g.h
+
+        def wander(kind, cells, reps=None):
+            out = []
+            for p in g.node_coords(kind, dev):
+                if reps is None:
+                    out.append((p + smooth(p.shape, rng, cells * h, dev))
+                               .contiguous())
+                else:
+                    out.append(torch.stack([
+                        p + smooth(p.shape, rng, cells * h, dev)
+                        for _ in range(reps)]).contiguous())
+            return out
+
+        def outside(pos):
+            """The positions stretched to reach 3 cells past every
+            edge."""
+            return [(p * ((m + 6.0) / m) - 3.0 * h).contiguous()
+                    for p, m in zip(pos, (ni, nj))]
+
+        rho = smooth(g.shape_c, rng, 1.0, dev)
+        T = smooth(g.shape_c, rng, 50.0, dev)
+        u = smooth(g.shape_u, rng, 1.0, dev)
+        v = smooth(g.shape_v, rng, 1.0, dev)
+        uv = torch.stack([u[:ni], v[:, :nj]]).contiguous()
+        cases = (
+            ("sample C=1 c", rho[None].contiguous(), wander("c", 2.0),
+             (g.OFF_C,)),
+            ("sample C=2 c stencil", torch.stack([rho, T]),
+             wander("c", 0.3, reps=5), (g.OFF_C,) * 2),
+            ("sample C=2 u,v offsets", uv, wander("c", 2.0),
+             (g.OFF_U, g.OFF_V)),
+            ("mac", None, wander("c", 1.5), None))
+        for label, fields, pos, offs in cases:
+            name = f"bilerp_sample {label} {ni}x{nj}"
+            for where, p in ((" outside", outside(pos)), ("", pos)):
+                if fields is None:
+                    got = interp_fast.bilerp_sample_mac(u, v, *p, h)
+                    want = interp_fast.bilerp_sample_mac_plain(u, v, *p, h)
+                else:
+                    got = interp_fast.bilerp_sample(fields, *p, h, offs)
+                    want = interp_fast.bilerp_sample_plain(fields, *p, h,
+                                                           offs)
+                err = compare(name + where, got, want, 0.0)
+                if where:
+                    edges.append(dict(variant=f"{label} {ni}x{nj} outside",
+                                      max_abs_err=err, tol=0.0))
+            if (ni, nj) != (256, 256):
+                edges.append(dict(variant=f"{label} {ni}x{nj}",
+                                  max_abs_err=err, tol=0.0))
+                continue
+            n_out = pos[0].numel()
+            if fields is None:
+                run = lambda: interp_fast.bilerp_sample_mac(u, v, *pos, h)
+                plain = lambda: interp_fast.bilerp_sample_mac_plain(
+                    u, v, *pos, h)
+                C, runs, field_values = 2, 2, u.numel() + v.numel()
+            else:
+                run = lambda: interp_fast.bilerp_sample(fields, *pos, h,
+                                                        offs)
+                plain = lambda: interp_fast.bilerp_sample_plain(
+                    fields, *pos, h, offs)
+                C = fields.shape[0]
+                runs = 1 + sum(a != b for a, b in zip(offs, offs[1:]))
+                field_values = fields.numel()
+            nbytes = 4 * (field_values + 2 * n_out + C * n_out)
+            nops = n_out * (BILERP_POS_OPS + runs * BILERP_OFFSET_OPS
+                            + C * BILERP_CHANNEL_OPS)
+            b_ms, b_by = bound_ms(nbytes, nops)
+            k_ms = device_ms(run, 20, "bilerp_sample_kernel")
+            call_ms = cuda_time(run, 50)
+            p_ms = cuda_time(plain, 10)
+            lib_ms = lib_err = None
+            if fields is not None:
+                # yardstick only: grid_sample computes the same clamped
+                # bilinear (border padding, align_corners) channel by
+                # channel; one call a run of shared offsets
+                shape = pos[0].shape
+                flat = [q.reshape(1, -1, shape[-1]) for q in pos]
+                grids = [torch.stack([
+                    (flat[1] / h - off[1]) * (2.0 / (nj - 1)) - 1.0,
+                    (flat[0] / h - off[0]) * (2.0 / (ni - 1)) - 1.0],
+                    dim=-1) for off in dict.fromkeys(offs)]
+                if len(grids) == 1:
+                    lib = lambda: F.grid_sample(
+                        fields[None], grids[0], mode="bilinear",
+                        padding_mode="border", align_corners=True)
+                    ref = lib()[0].reshape((C,) + tuple(shape))
+                else:
+                    lib = lambda: [F.grid_sample(
+                        fields[c][None, None], grids[c], mode="bilinear",
+                        padding_mode="border", align_corners=True)
+                        for c in range(C)]
+                    ref = torch.stack([r[0, 0].reshape(shape)
+                                       for r in lib()])
+                lib_err = float((ref - got).abs().max())
+                lib_ms = device_ms(lib, 20, "grid_sampler")
+            variants.append(dict(
+                variant=f"{label} {ni}x{nj}", max_abs_err=err, tol=0.0,
+                ms=k_ms, call_ms=call_ms, plain_ms=p_ms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib_ms,
+                library_max_abs_err=lib_err))
+            log(f"[kernels] bilerp_sample {label} {ni}x{nj}: {k_ms:.4f} ms "
+                f"on the card ({call_ms:.4f} ms a call with its launch; "
+                f"plain {p_ms:.3f}, bound {b_ms:.5f} by {b_by}, grid_sample "
+                f"{lib_ms} ms, max_abs_err {lib_err} against the kernel)")
+    return dict(variants[0], variants=variants + edges, replaces=(
+        "gpufluidsimulation_tpu/ops/interp_fast.py:915 (_kernel, "
+        "pallas_call :995) as the 2D solver reaches it: sample2_fast :3450 "
+        "(core/interp.py:187 sample2_lattice) and mac2_fast :3483 "
+        "(core/interp.py:204 mac_velocity_2d_lattice)"))
+
+
+STATE_2D = ("u", "v", "u_temp", "v_temp", "rho", "T", "u_init", "v_init",
+            "u_origin", "v_origin", "du", "dv", "du_prev", "dv_prev",
+            "rho_init", "rho_orig", "drho", "drho_prev", "T_init", "T_orig",
+            "dT", "dT_prev", "vel_map.fwd", "vel_map.bwd", "vel_map.bwd_prev",
+            "scalar_map.fwd", "scalar_map.bwd", "scalar_map.bwd_prev")
+COUNTERS_2D = ("frame", "last_remeshing", "rho_last_remeshing",
+               "total_resample_count", "total_scalar_resample", "proj_iters",
+               "substeps")
+
+
+def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
+    """Phase 11: each grid scheme at ni x nj (spectral projection, buoyancy
+    on, dt 0.4: 2 or more CFL substeps) and BiMocq in the level-set mode,
+    3 steps on the card against the port on the CPU from one numpy state
+    of smooth seeded velocities; BiMocq at blend 0.5 with remap gaps 2
+    and 1, so the two-level pull-back and both remaps run. Every field and
+    map within 2e-3 of its scale (the 3D gate), every counter (proj_iters,
+    remap frames, substeps) equal."""
+    from gpufluidsimulation_tpu_torch import convert
+    from gpufluidsimulation_tpu_torch.solvers import smoke2d
+    from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+
+    rng = np.random.default_rng(seed)
+    start = dict(u=smooth((ni + 1, nj), rng, 0.2, "cpu").numpy(),
+                 v=smooth((ni, nj + 1), rng, 0.2, "cpu").numpy(),
+                 rho=np.abs(smooth((ni, nj), rng, 2.0, "cpu").numpy()),
+                 T=smooth((ni, nj), rng, 1.0, "cpu").numpy())
+    out = {}
+    for label, scheme, extra in (
+            ("semilag", Scheme.SEMILAG, {}),
+            ("maccormack", Scheme.MACCORMACK, {}),
+            ("bfecc", Scheme.BFECC, {}),
+            ("reflection", Scheme.MAC_REFLECTION, {}),
+            ("bimocq", Scheme.BIMOCQ, dict(blend_coeff=0.5, vel_remap_gap=2,
+                                           rho_remap_gap=1)),
+            ("bimocq levelset", Scheme.BIMOCQ, dict(advect_levelset=True))):
+        cfg = smoke2d.Smoke2DConfig(ni=ni, nj=nj, L=1.0, scheme=scheme,
+                                    alpha=0.2, beta=0.05, proj_tol=1e-5,
+                                    **extra)
+        gpu = smoke2d.Smoke2D(cfg)
+        cpu = smoke2d.Smoke2D(cfg, device="cpu")
+        arrays = dict(convert.state_to_numpy(cpu.init_state()), **start)
+        sg = convert.state_from_numpy(arrays, cfg, gpu.device)
+        sc = convert.state_from_numpy(arrays, cfg, "cpu")
+        iters = []
+        for k in range(steps):
+            sg, sc = gpu.step(sg, 0.4), cpu.step(sc, 0.4)
+            for key in COUNTERS_2D:
+                if getattr(sg, key) != getattr(sc, key):
+                    raise AssertionError(
+                        f"parity 2D {label} step {k}: {key} "
+                        f"{getattr(sg, key)} (card) != {getattr(sc, key)}")
+            iters.append(sg.proj_iters)
+        a, b = convert.state_to_numpy(sg), convert.state_to_numpy(sc)
+        worst = {}
+        for key in STATE_2D:
+            err = float(np.abs(a[key].astype(np.float64) - b[key]).max())
+            scale = max(1.0, float(np.abs(b[key]).max()))
+            worst[key] = err
+            if not np.isfinite(err) or err > 2e-3 * scale:
+                raise AssertionError(f"parity 2D {label} {key}: card vs cpu "
+                                     f"{err}")
+        log(f"[parity] 2D {label} {ni}x{nj}, {steps} steps, proj_iters "
+            f"{iters}, substeps {sg.substeps}, remaps (vel, scalar) "
+            f"{(sg.total_resample_count, sg.total_scalar_resample)}, card vs "
+            "cpu max abs err (bound 2e-3 of scale): "
+            + json.dumps({k: v for k, v in worst.items() if v}))
+        out[label] = max(worst.values())
+    return out
+
+
+def count_syncs(fn):
+    """fn() and the synchronizing CUDA operations it made, as
+    torch.cuda.set_sync_debug_mode reports them: their count and the
+    port's source lines that made them."""
+    import traceback
+    import warnings
+
+    import torch
+
+    where = []
+
+    def show(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            frames = [f for f in traceback.extract_stack()
+                      if "gpufluidsimulation_tpu_torch" in f.filename]
+            where.append(f"{os.path.basename(frames[-1].filename)}:"
+                         f"{frames[-1].lineno}" if frames else filename)
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, len(where), where
+
+
+def busy_ms(fn, steps):
+    """Device-busy milliseconds a step and kernel launches a step over
+    `steps` calls of fn(), from torch.profiler (the sum over the card's
+    kernels and copies)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / steps,
+            sum(e.count for e in events) / steps, prof)
+
+
+def path_2d_phase(label, example, steps, profile):
+    """Phase 12: a 2D scene as the CLI builds it (``make_scene_2d`` with
+    BiMocq, the scene's init on the card, its fixed dt), 2 warm-up steps,
+    then `steps` steps timed with CUDA events, every launch count set to
+    0 just before and read just after; the host syncs of one step
+    (torch.cuda.set_sync_debug_mode) and the device's busy time and
+    launches over 2 profiled steps, whose ratio to the step time is the
+    card's idle share."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.scenes import scenes2d
+    from gpufluidsimulation_tpu_torch.solvers import smoke2d
+    from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+
+    scene = scenes2d.make_scene_2d(example, Scheme.BIMOCQ)
+    solver = smoke2d.Smoke2D(scene.cfg)
+    t0 = time.time()
+    state = scene.init(solver, solver.init_state())
+    torch.cuda.synchronize()
+    init_s = time.time() - t0
+    for _ in range(2):
+        state = solver.step(state, scene.dt)
+    fns = wrappers()
+    torch.cuda.synchronize()
+    for fn in fns.values():
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.time()
+    start.record()
+    for _ in range(steps):
+        state = solver.step(state, scene.dt)
+    end.record()
+    torch.cuda.synchronize()
+    host_ms = (time.time() - t0) / steps * 1e3
+    ms = start.elapsed_time(end) / steps
+    launches = {k: fn.launches for k, fn in fns.items()}
+    if kernel_launches(launches, "bilerp_sample") == 0:
+        raise AssertionError(f"the 2D path {label} never launched "
+                             "bilerp_sample")
+    state, syncs, sync_lines = count_syncs(
+        lambda: solver.step(state, scene.dt))
+    holder = [state]
+
+    def one():
+        holder[0] = solver.step(holder[0], scene.dt)
+
+    busy, kernels, prof = busy_ms(one, 2)
+    state = holder[0]
+    for key in ("u", "v", "rho", "T"):
+        if not bool(torch.isfinite(getattr(state, key)).all()):
+            raise AssertionError(f"2D path {label}: non-finite {key}")
+    g = solver.grid
+    res = dict(
+        scene=scene.name, grid=[g.ni, g.nj], dt=scene.dt, steps=steps,
+        init_s=init_s, ms_per_step=ms, host_ms_per_step=host_ms,
+        bilerp_sample_per_step=launches["bilerp_sample"] / steps,
+        bilerp_sample_mac_per_step=launches["bilerp_sample_mac"] / steps,
+        syncs_per_step=syncs, sync_lines=sync_lines,
+        device_busy_ms_per_step=busy,
+        device_launches_per_step=kernels,
+        idle_share=1.0 - busy / ms, substeps=state.substeps,
+        proj_iters=state.proj_iters, cfl=state.cfl,
+        remaps=[state.total_resample_count, state.total_scalar_resample],
+        rho_max=float(state.rho.max()))
+    log(f"[path2d] {label} " + json.dumps(res))
+    if profile:
+        table = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=25)
+        with open(profile, "a") as f:
+            f.write(f"== 2D path {label}: 2 steps under the profiler, "
+                    f"busy {busy:.3f} ms/step of {ms:.3f}\n{table}\n")
+    return launches
+
+
+def cli_2d_phase():
+    """Phase 13: the CLI's sim2d, in-process, --out in a temporary
+    directory: sim2d 7 0 (BiMocq, the Taylor vortex at 256^2), 3 frames;
+    sim2d 3 2 (reflection, Rayleigh-Taylor at 256x1280), 2 frames; sim2d
+    7 3 (BiMocq, the Zalesak level set, CFL-driven substeps), 1 frame.
+    Each run's launches are counted alone; every BMP must be a 24-bit
+    image of the grid's size and every level-set file finite, of the
+    grid's shape and equal to the frame's rho to its printed digits."""
+    import tempfile
+
+    by_run = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli2d_") as tmp:
+        for label, argv, files, shape in (
+                ("sim2d_7_0", ["sim2d", "7", "0", "--frames", "3"],
+                 [os.path.join("2D_Taylor_vortex", "BiMocq",
+                               f"vort_{k:04d}.bmp") for k in range(3)],
+                 (256, 256)),
+                ("sim2d_3_2", ["sim2d", "3", "2", "--frames", "2"],
+                 [os.path.join("2D_RayleighTaylor", "Reflection",
+                               f"density_{k:04d}.bmp") for k in range(2)],
+                 (256, 1280)),
+                ("sim2d_7_3", ["sim2d", "7", "3", "--frames", "1"],
+                 [os.path.join("2D_Zalesak", "BiMocq",
+                               "levelset_0000.txt")], (200, 200))):
+            summary, records, _ = cli_run(
+                argv + ["--out", os.path.join(tmp, label)],
+                ("bilerp_sample",))
+            steps = [r for r in records if r["kind"] == "step"]
+            for name in files:
+                path = os.path.join(tmp, label, name)
+                if name.endswith(".bmp"):
+                    raw = open(path, "rb").read()
+                    width, height = np.frombuffer(raw[18:26], "<i4")
+                    row = (3 * shape[0] + 3) & ~3
+                    if (raw[:2] != b"BM" or (width, height) != shape
+                            or len(raw) != 54 + row * shape[1]
+                            or not any(raw[54:])):
+                        raise AssertionError(f"{label}: bad image {name}")
+                else:
+                    got = np.loadtxt(path)
+                    want = steps[-1]["rho"].cpu().numpy()
+                    if (got.shape != shape or not np.isfinite(got).all()
+                            or not np.allclose(got, want, rtol=1e-5,
+                                               atol=1e-7)):
+                        raise AssertionError(f"{label}: bad level set")
+            summary["files"] = files
+            summary.pop("write_volume_ms")
+            summary.pop("checkpoint_ms")
+            log(f"[cli] {label} " + json.dumps(summary))
+            by_run[f"cli_{label}"] = summary.pop("launches")
+    return by_run
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=256, help="main-path grid n^3")
@@ -2514,6 +2941,8 @@ def main():
                     "x 2res)")
     ap.add_argument("--cli-obstacle-res", type=int, default=64,
                     help="--res of the CLI phase's obstacle run")
+    ap.add_argument("--steps-2d", type=int, default=10,
+                    help="timed steps of each 2D path")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", metavar="PATH",
                     help="write torch.profiler tables of 2 steps of the "
@@ -2555,6 +2984,7 @@ def main():
         raise AssertionError(f"redesigned kernels spill: {spills}")
 
     results = kernel_phase(args.kernel_n, args.seed)
+    rng2d = np.random.default_rng(args.seed + 2)
     parity_phase(bench_config(32), "vortex")
     parity_phase(obstacle_config(32), "obstacle")
     parity_phase(bench_config(32, scheme=Scheme.MAC_REFLECTION),
@@ -2601,12 +3031,22 @@ def main():
                                 args.profile))
     by_path["pullback_multi"] = pullback_multi_phase(args.scheme_n, 5)
     by_path.update(cli_phase(args.cli_res, args.cli_obstacle_res))
+    t2d = time.time()
+    results["bilerp_sample"] = bilerp_phase(rng2d)
+    parity_2d_phase()
+    by_path["sim2d_bimocq"] = path_2d_phase("sim2d_bimocq", 0,
+                                            args.steps_2d, args.profile)
+    by_path["sim2d_rt"] = path_2d_phase("sim2d_rt", 2, args.steps_2d,
+                                        args.profile)
+    by_path.update(cli_2d_phase())
+    log(f"[path2d] the 2D phases took {time.time() - t2d:.1f} s")
     # each kernel's count comes from the path that was added for it
     path_of = dict.fromkeys(KERNELS, "main")
     path_of.update(masked_rbgs_smooth="obstacle", rbgs_smooth="mgpcg",
                    minmax_sample="reflection", vol9_fixup="bimocq_vol9",
                    volume_prefilter="bimocq_prefilter",
-                   pullback_sample="pullback_multi")
+                   pullback_sample="pullback_multi",
+                   bilerp_sample="sim2d_bimocq")
 
     line = []
     for name in KERNELS:
@@ -2626,6 +3066,9 @@ def main():
         if name in LATTICE:
             entry["lattice_launches_by_path"] = {
                 p: c[LATTICE[name]] for p, c in by_path.items()}
+        elif name in MODES:
+            entry["mac_launches_by_path"] = {
+                p: c[MODES[name]] for p, c in by_path.items()}
         for extra in ("variants", "lattice", "one_sweep_ms",
                       "sweeps_per_launch", "levels_per_launch", "cases",
                       "calls_per_step", "launches_per_step"):

@@ -19,6 +19,12 @@ checkpoints in the JAX package's format (``io_utils.checkpoint``), sparse
 volume output (``io_utils.volume``, ``io_utils.vdb``, the native writer
 in ``native/``) and the ``sim3d`` CLI (``python -m
 gpufluidsimulation_tpu_torch.cli``); ``convert`` carries configurations
-and states between the two packages. The 2D solver and ``sim2d``, the
-particle solvers and the sharded step are not ported.
+and states between the two packages.
+
+The 2D solver (``solvers/smoke2d.py``) runs the grid schemes SEMILAG,
+MACCORMACK, BFECC, MAC_REFLECTION and BIMOCQ, also in the level-set mode,
+with the spectral or MG-PCG projection, the five examples of
+``scenes/scenes2d.py`` and the ``sim2d`` CLI; every 2D sample is a launch
+of the ``bilerp_sample`` kernel. The particle schemes (FLIP, APIC,
+POLYPIC) and the sharded step are not ported.
 """

@@ -1,6 +1,6 @@
-"""BiMocq characteristic-mapping engine, 3D.
+"""BiMocq characteristic-mapping engine, 3D and 2D.
 
-Counterpart of the 3D half of ``gpufluidsimulation_tpu.bimocq.mapping``:
+Counterpart of ``gpufluidsimulation_tpu.bimocq.mapping``. In 3D:
 the map state and its marches, the pull-back with BFECC compensation and
 the two-level (``bwd_prev``) blend, the accumulates through the forward
 map, the distortion estimate and reinitialization. Four volume forms,
@@ -22,6 +22,15 @@ chosen by ``mode`` as the JAX package's ``mapping._volume_mode`` chooses:
   9-point composition field(M(p + d)), every map and field sample one
   ``trilerp_sample(dual=False)`` launch over the 9 stacked stencil points.
 
+The 2D half (``update_mapping_2d`` .. ``estimate_distortion_2d``) is the
+JAX package's 2D pull-back, correction, accumulate and distortion on the
+5-point volume stencil (4 corners at +-h/4 weighted 1/8, the centre 1/2),
+the stencil's 5 positions batched on a leading axis. Every map and field
+sample goes through the ``bilerp_sample`` kernel; fields sampled at the
+same positions (a map's x and y; rho's and T's terms; a delta's two
+changes) share one launch. ``init_mapping`` and ``reinitialize`` take a
+``Grid2D`` as they take a ``Grid3D``.
+
 The identity accumulate after a reinitialization is the prefilter itself
 in every form but the exact one. The multi-kind pull-back
 (``bimocq_advect_multi_3d``, each sampling stage one ``pullback_sample``
@@ -37,6 +46,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from gpufluidsimulation_tpu_torch.core import interp
 from gpufluidsimulation_tpu_torch.core.grids import band_mask
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
 
@@ -47,8 +57,9 @@ VOLUME_MODES = ("dual", "vol9", "prefilter", "exact")
 @dataclasses.dataclass
 class MappingState:
     """Forward/backward/backward-prev maps, stacked (3, ni, nj, nk) world
-    coordinates. ``None`` maps mark a counter-only alias (see
-    init_mapping); ``reinit_count`` is a host int."""
+    coordinates ((2, ni, nj) on a ``Grid2D``). ``None`` maps mark a
+    counter-only alias (see init_mapping); ``reinit_count`` is a host
+    int."""
 
     fwd: Optional[torch.Tensor]
     bwd: Optional[torch.Tensor]
@@ -504,3 +515,189 @@ def estimate_distortion_3d(grid, mapping: MappingState, exclude_mask=None):
     if exclude_mask is not None:
         d = torch.where(exclude_mask, 0.0, d)
     return torch.sqrt(d.max())
+
+
+# ---------------------------------------------------------------------------
+# 2D pull-back / correction / push-forward
+# ---------------------------------------------------------------------------
+
+# the 5-point stencil's corners (units of h): weight 1/8 each, the centre 1/2
+_VOL2 = ((-0.25, -0.25), (0.25, -0.25), (-0.25, 0.25), (0.25, 0.25))
+
+# Guard tables in _band2(shape, a, b) form: a[d] < idx < n_d - b[d], n_d
+# the buffer extent (u = (ni+1, nj), v = (ni, nj+1)), as the JAX package
+# derives them from the reference's loops
+_BANDS_2D_ADVECT = {"u": ((1, 1), (2, 2)), "v": ((1, 1), (2, 2)),
+                    "c": ((0, 1), (1, 1))}
+_BANDS_2D_CORRECT = {"u": ((1, 0), (2, 1)), "v": ((0, 1), (1, 2)),
+                     "c": ((1, 0), (1, 1))}
+_BANDS_2D_ACCUM = {"u": ((1, 0), (2, 1)), "v": ((0, 1), (1, 2)),
+                   "c": ((1, 0), (1, 1))}
+
+
+def identity_map_2d(grid, device=None) -> torch.Tensor:
+    return torch.stack(grid.node_coords("c", device))
+
+
+def update_mapping_2d(mapping: MappingState, grid, u, v, cfldt,
+                      dt) -> MappingState:
+    """Backward (DMC substepped) then forward (RK3) march of both 2D
+    maps; `cfldt` is the float32 host substep."""
+    bx, by = advect.update_backward_map_2d(
+        grid, u, v, (mapping.bwd[0], mapping.bwd[1]), cfldt, dt)
+    fx, fy = advect.update_forward_map_2d(
+        grid, u, v, (mapping.fwd[0], mapping.fwd[1]), cfldt, dt)
+    return dataclasses.replace(mapping, bwd=torch.stack([bx, by]),
+                               fwd=torch.stack([fx, fy]))
+
+
+def _band2(shape, a, b, device=None):
+    """Mask for the guard `a[d] < idx_d < n_d - b[d]` on both axes."""
+    nx, ny = shape
+    ii = torch.arange(nx, device=device)[:, None]
+    jj = torch.arange(ny, device=device)[None, :]
+    return (ii > a[0]) & (ii < nx - b[0]) & (jj > a[1]) & (jj < ny - b[1])
+
+
+def _map_sample_2d(grid, maps, px, py):
+    """A (2, ni, nj) map sampled at world positions (one C=2 launch), the
+    result clamped into [h, L - h]."""
+    out = advect._sample_map_2d(grid, maps, px, py)
+    return interp.clamp_pos_2d(out[0], out[1], grid.h, grid.ni, grid.nj)
+
+
+def _volume_positions_2d(grid, kind, device):
+    """The 5 stencil positions of every node of `kind`, (5, nx, ny) each:
+    the 4 corners p + d*h in _VOL2 order, then the node itself."""
+    px, py = grid.node_coords(kind, device)
+    h = np.float32(grid.h)
+    # each offset d*h rounded to float32, as the JAX package scales its
+    # float32 offset table by h
+    offs = [(float(np.float32(dx) * h), float(np.float32(dy) * h))
+            for dx, dy in _VOL2 + ((0.0, 0.0),)]
+    return (torch.stack([px + dx for dx, _ in offs]),
+            torch.stack([py + dy for _, dy in offs]))
+
+
+def _volume_sum_2d(vals):
+    """0.125 * (the 4 corner values) + 0.5 * the centre, over a leading
+    axis of 5."""
+    return (0.125 * (((vals[0] + vals[1]) + vals[2]) + vals[3])
+            + 0.5 * vals[4])
+
+
+def _volume_eval_2d(grid, kind, eval_fn, device=None):
+    """The 5-point volume average of eval_fn(px, py), the stencil batched
+    on a leading axis of 5."""
+    return _volume_sum_2d(eval_fn(*_volume_positions_2d(grid, kind,
+                                                        device)))
+
+
+def _sample_at(grid, kind, fields, px, py):
+    """Same-kind fields sampled at shared world positions, one launch:
+    (C, *px.shape)."""
+    return interp.sample2_lattice_multi(fields, px, py, grid.h,
+                                        (grid.off_of(kind),) * len(fields))
+
+
+def advect_bimocq_multi_2d(grid, kind, semis, inits, origins, dfields,
+                           dfield_prevs, bwd, bwd_prev, blend_coeff):
+    """Two-level blended pull-back of one or two same-kind fields through
+    the same maps (advectVelocity/advectScalars):
+
+      out = (1-b) * vol< origin(B_prev(B(x))) + d(B(x)) + d_prev(B_prev(B(x))) >
+          +  b    * vol< init(B(x)) + d(B(x)) >
+
+    with the semi-Lagrangian result kept outside the band. At b = 1 the
+    level-2 term has weight 0 and is not evaluated."""
+    dev = semis[0].device
+    bx, by = _volume_positions_2d(grid, kind, dev)
+    p1 = _map_sample_2d(grid, bwd, bx, by)
+    s1 = _sample_at(grid, kind, [f for pair in zip(inits, dfields)
+                                 for f in pair], *p1)
+    vals = [s1[2 * k] + s1[2 * k + 1] for k in range(len(semis))]
+    if blend_coeff != 1.0:
+        p2 = _map_sample_2d(grid, bwd_prev, *p1)
+        s2 = _sample_at(grid, kind, [f for pair in zip(origins, dfield_prevs)
+                                     for f in pair], *p2)
+        b = float(np.float32(blend_coeff))
+        omb = float(np.float32(1.0 - blend_coeff))
+        vals = [b * one + omb * ((s2[2 * k] + s1[2 * k + 1]) + s2[2 * k + 1])
+                for k, one in enumerate(vals)]
+    a, bb = _BANDS_2D_ADVECT[kind]
+    band = _band2(semis[0].shape, a, bb, dev)
+    return [torch.where(band, _volume_sum_2d(val), semi)
+            for val, semi in zip(vals, semis)]
+
+
+def advect_bimocq_2d(grid, kind, semi_field, init_field, origin_field,
+                     dfield, dfield_prev, bwd, bwd_prev, blend_coeff):
+    return advect_bimocq_multi_2d(
+        grid, kind, [semi_field], [init_field], [origin_field], [dfield],
+        [dfield_prev], bwd, bwd_prev, blend_coeff)[0]
+
+
+def correct_multi_2d(grid, kind, fields, field_inits, dfields, fwd, bwd):
+    """Back-and-forth error correction of same-kind fields through the
+    same maps (correctVelocity/correctScalars):
+
+      tmp  = vol< field(F(x)) > - d(x), 0 outside the band;
+      tmp  = 0.5*(tmp - field_init)
+      out  = field - vol< tmp(B(x)) > in the band
+      final= the 9-point clamp of out around field."""
+    dev = fields[0].device
+    a, b = _BANDS_2D_CORRECT[kind]
+    band = _band2(fields[0].shape, a, b, dev)
+    bx, by = _volume_positions_2d(grid, kind, dev)
+    s = _sample_at(grid, kind, fields, *_map_sample_2d(grid, fwd, bx, by))
+    tmps = []
+    for k, (d, init) in enumerate(zip(dfields, field_inits)):
+        tmp = torch.where(band, _volume_sum_2d(s[k]) - d, 0.0)
+        tmps.append(0.5 * (tmp - init))
+    c = _sample_at(grid, kind, tmps, *_map_sample_2d(grid, bwd, bx, by))
+    return [advect.clamp_extrema_neighborhood(
+        f, torch.where(band, f - _volume_sum_2d(c[k]), f))
+        for k, f in enumerate(fields)]
+
+
+def correct_2d(grid, kind, field, field_init, dfield, fwd, bwd):
+    return correct_multi_2d(grid, kind, [field], [field_init], [dfield],
+                            fwd, bwd)[0]
+
+
+def accumulate_multi_2d(grid, kind, groups, fwd):
+    """dfield += vol< coeff * change(F(x)) > change by change, in order,
+    for `groups` = [(dfield, [(change, coeff), ...]), ...] of one kind
+    (accumulateVelocity/Scalars without error correction): every change
+    sampled at the forward map's stencil positions in one launch."""
+    dev = groups[0][0].device
+    changes = [c for _, pairs in groups for c, _ in pairs]
+    bx, by = _volume_positions_2d(grid, kind, dev)
+    s = _sample_at(grid, kind, changes, *_map_sample_2d(grid, fwd, bx, by))
+    a, b = _BANDS_2D_ACCUM[kind]
+    band = _band2(groups[0][0].shape, a, b, dev)
+    outs, q = [], 0
+    for base, pairs in groups:
+        for _, coeff in pairs:
+            base = torch.where(band, base + _volume_sum_2d(coeff * s[q]),
+                               base)
+            q += 1
+        outs.append(base)
+    return outs
+
+
+def accumulate_2d(grid, kind, dfield, change, fwd, coeff=1.0):
+    return accumulate_multi_2d(grid, kind, [(dfield, [(change, coeff)])],
+                               fwd)[0]
+
+
+def estimate_distortion_2d(grid, bwd, fwd):
+    """max over the band i, j in [3, n-4] of max(|x - B(F(x))|,
+    |x - F(B(x))|) (not squared), a 0-dim tensor on the maps' device."""
+    px, py = grid.node_coords("c", bwd.device)
+    b = advect._sample_map_2d(grid, bwd, fwd[0], fwd[1])
+    d1 = torch.sqrt((b[0] - px) ** 2 + (b[1] - py) ** 2)
+    f = advect._sample_map_2d(grid, fwd, bwd[0], bwd[1])
+    d2 = torch.sqrt((f[0] - px) ** 2 + (f[1] - py) ** 2)
+    band = _band2(px.shape, (2, 2), (3, 3), bwd.device)
+    return torch.where(band, torch.maximum(d1, d2), 0.0).max()

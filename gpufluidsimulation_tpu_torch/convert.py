@@ -2,7 +2,11 @@
 
 The port never sees a JAX object: callers flatten the JAX package's state
 into numpy arrays under flat keys (``u``, ``rho``, ``vel_map.fwd``,
-``vel_map.bwd``, ``frame``, ...) and its config into plain field values.
+``vel_map.bwd``, ``frame``, ...; the 2D state's particle columns as
+``particles.pos`` .. ``particles.C_T``) and its config into plain field
+values. The same functions carry the 3D state (``Smoke3DState``) and the
+2D one (``Smoke2DState``); ``config_from_dict`` builds a
+``Smoke3DConfig``, ``config_2d_from_dict`` a ``Smoke2DConfig``.
 """
 
 from __future__ import annotations
@@ -14,19 +18,18 @@ import torch
 
 from gpufluidsimulation_tpu_torch import config
 from gpufluidsimulation_tpu_torch.bimocq.mapping import MappingState
+from gpufluidsimulation_tpu_torch.solvers import smoke2d
+from gpufluidsimulation_tpu_torch.solvers.particles import ParticleState
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 from gpufluidsimulation_tpu_torch.solvers.smoke3d import (
     Boundary3D,
     Emitter3D,
     Smoke3DConfig,
-    Smoke3DState,
     init_state,
 )
 
-_INT_KEYS = ("frame", "vel_last_reinit", "scalar_last_reinit", "proj_iters",
-             "interp_overflow", "substeps")
-_FLOAT_KEYS = ("cfl",)
-_MAP_KEYS = ("fwd", "bwd", "bwd_prev")
+# the state's nested records, flattened as "<field>.<subfield>"
+_NESTED = (MappingState, ParticleState)
 
 
 def _tensor(a, device):
@@ -35,23 +38,33 @@ def _tensor(a, device):
         device)
 
 
-def state_leaves(state: Smoke3DState):
+def state_leaves(state):
     """(flat key, value) of every non-None leaf of `state` in field order:
-    tensors, host ints and the float ``cfl``; a mapping's leaves are
-    ``<field>.fwd``, ``.bwd``, ``.bwd_prev`` and ``.reinit_count``."""
+    tensors, host ints and the float ``cfl``; a nested record's leaves
+    (a mapping's ``fwd``, ``bwd``, ``bwd_prev`` and ``reinit_count``, the
+    particle columns) are ``<field>.<subfield>``."""
     for f in dataclasses.fields(state):
         val = getattr(state, f.name)
-        if isinstance(val, MappingState):
-            for k in _MAP_KEYS:
-                m = getattr(val, k)
-                if m is not None:
-                    yield f"{f.name}.{k}", m
-            yield f"{f.name}.reinit_count", val.reinit_count
+        if isinstance(val, _NESTED):
+            for g in dataclasses.fields(val):
+                sub = getattr(val, g.name)
+                if sub is not None:
+                    yield f"{f.name}.{g.name}", sub
         elif val is not None:
             yield f.name, val
 
 
-def fill_state(template: Smoke3DState, arrays: dict) -> Smoke3DState:
+def _leaf(value, cur):
+    """A flat numpy value as the template leaf `cur` holds it: a tensor
+    on its device, a host int or a host float."""
+    if isinstance(cur, torch.Tensor):
+        return _tensor(value, cur.device)
+    if isinstance(cur, float):
+        return float(value)
+    return int(value)
+
+
+def fill_state(template, arrays: dict):
     """`template` with the leaves that `arrays` names replaced by its flat
     numpy values, each tensor on its template leaf's device; keys the dict
     lacks keep the template's values, and ``None`` leaves stay ``None``."""
@@ -59,40 +72,34 @@ def fill_state(template: Smoke3DState, arrays: dict) -> Smoke3DState:
     for f in dataclasses.fields(template):
         name = f.name
         cur = getattr(template, name)
-        if isinstance(cur, MappingState):
-            mkw = {}
-            for k in _MAP_KEYS:
-                key = f"{name}.{k}"
-                if key in arrays and getattr(cur, k) is not None:
-                    mkw[k] = _tensor(arrays[key], getattr(cur, k).device)
-            key = f"{name}.reinit_count"
-            if key in arrays:
-                mkw["reinit_count"] = int(arrays[key])
-            kw[name] = dataclasses.replace(cur, **mkw)
-        elif name in arrays:
-            if name in _INT_KEYS:
-                kw[name] = int(arrays[name])
-            elif name in _FLOAT_KEYS:
-                kw[name] = float(arrays[name])
-            elif cur is not None:
-                kw[name] = _tensor(arrays[name], cur.device)
+        if isinstance(cur, _NESTED):
+            kw[name] = dataclasses.replace(cur, **{
+                g.name: _leaf(arrays[f"{name}.{g.name}"], getattr(cur, g.name))
+                for g in dataclasses.fields(cur)
+                if f"{name}.{g.name}" in arrays
+                and getattr(cur, g.name) is not None})
+        elif name in arrays and cur is not None:
+            kw[name] = _leaf(arrays[name], cur)
     return dataclasses.replace(template, **kw)
 
 
-def state_from_numpy(arrays: dict, cfg: Smoke3DConfig, device) -> Smoke3DState:
-    """Build a state from flat numpy arrays (``fill_state`` of
-    ``init_state(cfg, device)``)."""
+def state_from_numpy(arrays: dict, cfg, device):
+    """Build a state from flat numpy arrays (``fill_state`` of the
+    configuration's initial state on `device`): a ``Smoke3DState`` for a
+    ``Smoke3DConfig``, a ``Smoke2DState`` for a ``Smoke2DConfig``."""
+    if isinstance(cfg, smoke2d.Smoke2DConfig):
+        return fill_state(smoke2d.init_state(cfg, device), arrays)
     return fill_state(init_state(cfg, device), arrays)
 
 
-def state_to_numpy(state: Smoke3DState) -> dict:
+def state_to_numpy(state) -> dict:
     """Flat numpy arrays of every non-None leaf of `state`: float32 arrays
     for tensors and ``cfl``, int32 for the counters."""
     out = {}
     for key, val in state_leaves(state):
         if isinstance(val, torch.Tensor):
             out[key] = val.detach().cpu().numpy()
-        elif key in _FLOAT_KEYS:
+        elif isinstance(val, float):
             out[key] = np.float32(val)
         else:
             out[key] = np.int32(val)
@@ -235,3 +242,19 @@ def config_from_dict(d: dict, boundary_trans=(), emitter_trans=(),
             _boundary(b, t) for b, t in zip(d["boundaries"],
                                             _per_item(boundary_trans, n)))
     return Smoke3DConfig(**d)
+
+
+def config_2d_from_dict(d: dict) -> smoke2d.Smoke2DConfig:
+    """The port's 2D config from the JAX 2D config's plain field values
+    (``dataclasses.asdict`` of it). ``engine_mode`` keeps its projection
+    (``spectral_poisson``); its other fields change nothing a 2D step
+    computes here."""
+    d = dict(d)
+    d["engine_mode"] = _engine_mode(d.get("engine_mode"))
+    known = {f.name for f in dataclasses.fields(smoke2d.Smoke2DConfig)}
+    unknown = set(d) - known
+    if unknown:
+        raise ValueError(f"unknown 2D config fields {sorted(unknown)}")
+    if "scheme" in d:
+        d["scheme"] = Scheme(int(d["scheme"]))
+    return smoke2d.Smoke2DConfig(**d)

@@ -1,8 +1,14 @@
-"""3D MAC-grid descriptor (3D conventions of ``gpufluidsimulation_tpu``).
+"""MAC-grid descriptors (the 3D and 2D conventions of
+``gpufluidsimulation_tpu``).
 
-Cell centers sit at world position ``i*h``; a staggered field's own nodes
-sit at ``(i - 0.5*dim)*h`` per axis (u at -0.5h in x, v in y, w in z).
-Fields are float32 tensors of shape (ni[+1], nj[+1], nk[+1]), k fastest.
+3D: cell centers sit at world position ``i*h``; a staggered field's own
+nodes sit at ``(i - 0.5*dim)*h`` per axis (u at -0.5h in x, v in y, w in
+z). Fields are float32 tensors of shape (ni[+1], nj[+1], nk[+1]), k
+fastest.
+
+2D (``Grid2D``, the 2D reference's conventions): a field's nodes sit at
+``(i + off)*h`` with off (0.5, 0.5) for cells, (0, 0.5) for u and
+(0.5, 0) for v; u is (ni+1, nj), v (ni, nj+1), c (ni, nj).
 """
 
 from __future__ import annotations
@@ -103,3 +109,54 @@ class Grid3D:
         dim = self.dim_of(kind) if hi_add_dim else (0, 0, 0)
         return band_mask(self.shape_of(kind), (lo,) * 3,
                          tuple(hi + d for d in dim), device)
+
+
+Offset2 = Tuple[float, float]
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid2D:
+    """2D MAC grid: ni x nj cells of size h; 2D reference conventions."""
+
+    ni: int
+    nj: int
+    h: float
+
+    OFF_C: Offset2 = (0.5, 0.5)
+    OFF_U: Offset2 = (0.0, 0.5)
+    OFF_V: Offset2 = (0.5, 0.0)
+
+    @property
+    def shape_c(self) -> Tuple[int, int]:
+        return (self.ni, self.nj)
+
+    @property
+    def shape_u(self) -> Tuple[int, int]:
+        return (self.ni + 1, self.nj)
+
+    @property
+    def shape_v(self) -> Tuple[int, int]:
+        return (self.ni, self.nj + 1)
+
+    @property
+    def shape_curl(self) -> Tuple[int, int]:
+        return (self.ni + 1, self.nj + 1)
+
+    def shape_of(self, kind: str) -> Tuple[int, int]:
+        return {"c": self.shape_c, "u": self.shape_u, "v": self.shape_v}[kind]
+
+    def off_of(self, kind: str) -> Offset2:
+        return {"c": self.OFF_C, "u": self.OFF_U, "v": self.OFF_V}[kind]
+
+    def node_coords(self, kind: str, device=None):
+        """World coordinates (X, Y) of every node of `kind`, x = (i +
+        off)*h in float32, full-size contiguous tensors."""
+        off = self.off_of(kind)
+        nx, ny = self.shape_of(kind)
+        x = (torch.arange(nx, dtype=DTYPE, device=device) + off[0]) * self.h
+        y = (torch.arange(ny, dtype=DTYPE, device=device) + off[1]) * self.h
+        return (x[:, None].expand(nx, ny).contiguous(),
+                y[None, :].expand(nx, ny).contiguous())
+
+    def zeros(self, kind: str, device=None):
+        return torch.zeros(self.shape_of(kind), dtype=DTYPE, device=device)

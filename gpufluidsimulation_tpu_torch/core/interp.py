@@ -145,3 +145,81 @@ def sample3_separable(field, dx, dy, dz, h):
         f = f.reshape(shape)
         out = (1 - f) * a0 + f * a1
     return out
+
+
+# ---------------------------------------------------------------------------
+# 2D: the 2D reference conventions (lattice (i + off)*h, offsets of
+# ``Grid2D``), the samplers of gpufluidsimulation_tpu.core.interp
+# ---------------------------------------------------------------------------
+
+# u at (i, j + 0.5)h, v at (i + 0.5, j)h
+MAC_OFFS_2D = ((0.0, 0.5), (0.5, 0.0))
+
+
+def bilerp_grid(field, gx, gy):
+    """Bilinear sample of a 2D `field` at grid coordinates with per-corner
+    index clamping, blended as ``sample2`` blends: x first, then y."""
+    nx, ny = field.shape
+    ia, ib, fx = _axis_corners(gx, nx)
+    ja, jb, fy = _axis_corners(gy, ny)
+    flat = field.reshape(-1)
+    v00, v10 = flat[ia * ny + ja], flat[ib * ny + ja]
+    v01, v11 = flat[ia * ny + jb], flat[ib * ny + jb]
+    return ((1 - fy) * ((1 - fx) * v00 + fx * v10)
+            + fy * ((1 - fx) * v01 + fx * v11))
+
+
+def sample2(field, px, py, h, off):
+    """Bilinear sample of `field` at world positions (px, py); the
+    field's lattice is x = (i + off)*h per axis."""
+    return bilerp_grid(field, div_scalar(px, h) - off[0],
+                       div_scalar(py, h) - off[1])
+
+
+def mac_velocity_2d(u, v, px, py, h):
+    """The 2D MAC velocity (us, vs) at world positions: out-of-band
+    samples are 0, not clamped. The bands, on the float floors of the grid
+    coordinates: u for i0 in [0, ni-1], j0 in [0, nj-2]; v for i0 in
+    [0, ni-2], j0 in [0, nj-1] (ni x nj cells)."""
+    ni, nj = v.shape[0], u.shape[1]
+    x, y = div_scalar(px, h), div_scalar(py, h)
+    out = []
+    for f, (ox, oy), (bx, by) in zip((u, v), MAC_OFFS_2D,
+                                     ((ni - 1, nj - 2), (ni - 2, nj - 1))):
+        gx, gy = x - ox, y - oy
+        i0, j0 = torch.floor(gx), torch.floor(gy)
+        valid = (i0 >= 0) & (i0 <= bx) & (j0 >= 0) & (j0 <= by)
+        out.append(torch.where(valid, bilerp_grid(f, gx, gy), 0.0))
+    return out[0], out[1]
+
+
+def clamp_pos_2d(px, py, h, ni, nj, eps=1.0):
+    """Clamp world positions to [eps*h, L - eps*h] per axis."""
+    return (px.clamp(eps * h, ni * h - eps * h),
+            py.clamp(eps * h, nj * h - eps * h))
+
+
+def sample2_lattice(field, px, py, h, off):
+    """``sample2`` through the ``bilerp_sample`` kernel: on a CUDA tensor
+    one launch, on a CPU tensor its plain version."""
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    return interp_fast.bilerp_sample(field[None], px, py, h, (off,))[0]
+
+
+def sample2_lattice_multi(fields, px, py, h, offs):
+    """``sample2`` of C <= 4 same-shape fields at the same positions, one
+    ``bilerp_sample`` launch: (C, *px.shape)."""
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    return interp_fast.bilerp_sample(torch.stack(list(fields)), px, py, h,
+                                     tuple(offs))
+
+
+def mac_velocity_2d_lattice(u, v, px, py, h):
+    """``mac_velocity_2d`` through the ``bilerp_sample`` kernel's mac
+    mode: one launch for both components."""
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    out = interp_fast.bilerp_sample_mac(u, v, px, py, h)
+    return out[0], out[1]

@@ -32,7 +32,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("trilerp_sample", "minmax_sample", "rk3_substep", "dmc_substep",
            "jacobi_diffuse", "rbgs_smooth", "masked_rbgs_smooth",
-           "volume_prefilter", "vol9_fixup", "pullback_sample")
+           "volume_prefilter", "vol9_fixup", "pullback_sample",
+           "bilerp_sample")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 

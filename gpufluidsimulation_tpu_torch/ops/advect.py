@@ -1,7 +1,7 @@
-"""3D map marches, semi-Lagrangian and MacCormack transport and the
-27-point extrema clamp.
+"""Map marches, semi-Lagrangian, MacCormack and BFECC transport and the
+neighbourhood extrema clamps, 3D and 2D.
 
-Counterpart of the 3D half of ``gpufluidsimulation_tpu.ops.advect``.
+Counterpart of ``gpufluidsimulation_tpu.ops.advect``.
 The CFL substep loops run on the host: ``cfldt`` arrives as a float32 host
 value (one device sync per step, in the solver) and the substep schedule
 repeats the JAX ``lax.while_loop`` arithmetic in ``np.float32`` — in
@@ -28,6 +28,17 @@ correction and one of two clamps: the 27-point neighbourhood clamp
 corners at a two-stage midpoint backtrace (``minmax_sample``) with the
 trilinear sample there as fallback, as the JAX package's exact path
 computes it.
+
+The 2D half (``trace_rk3_2d`` .. ``update_forward_map_2d``) follows the
+JAX package's 2D functions operation for operation on world positions;
+every velocity sample is one launch of the ``bilerp_sample`` kernel in
+its mac mode (both components) and every field sample one in its sample
+mode, several fields at the same positions stacked into one launch. What
+the JAX package computes twice with the same inputs is computed once
+here: the backtrace of MacCormack's and BFECC's clamp is the forward
+stage's own (so is the clamp's fallback sample, the forward stage's
+result), and the DMC march's velocity, upwind samples and slopes, which
+no substep changes, are taken once a march.
 """
 
 from __future__ import annotations
@@ -320,14 +331,205 @@ def update_backward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
 
 
 def clamp_extrema_neighborhood(before, after):
-    """27-point neighbourhood clamp of `after` to the min/max of `before`
-    (SAME window), interior nodes only."""
-    if before.dim() != 3:
-        raise NotImplementedError("the port's extrema clamp is 3D only")
+    """Neighbourhood clamp of `after` to the min/max of `before` over the
+    SAME window: in 3D the 27 points, interior nodes only; in 2D the 9
+    points, every node (the window padded with -inf/+inf)."""
     x = before[None, None]
+    if before.dim() == 2:
+        mx = torch.nn.functional.max_pool2d(x, 3, stride=1, padding=1)[0, 0]
+        mn = -torch.nn.functional.max_pool2d(-x, 3, stride=1,
+                                             padding=1)[0, 0]
+        return torch.minimum(torch.maximum(after, mn), mx)
+    if before.dim() != 3:
+        raise ValueError(f"extrema clamp of a {before.dim()}-D field")
     mx = torch.nn.functional.max_pool3d(x, 3, stride=1, padding=1)[0, 0]
     mn = -torch.nn.functional.max_pool3d(-x, 3, stride=1, padding=1)[0, 0]
     clamped = torch.minimum(torch.maximum(after, mn), mx)
     out = after.clone()
     out[1:-1, 1:-1, 1:-1] = clamped[1:-1, 1:-1, 1:-1]
     return out
+
+
+# ---------------------------------------------------------------------------
+# 2D
+# ---------------------------------------------------------------------------
+
+
+def trace_rk3_2d(u, v, h, dt, px, py):
+    """One Ralston RK3 step of world positions by the signed float32 `dt`
+    through the 2D MAC velocity (three mac-mode ``bilerp_sample``
+    launches), clamped to [0.001h, L - 0.001h]."""
+    ni, nj = v.shape[0], u.shape[1]
+    a, b, c1, c2, c3 = interp_fast.rk3_coefficients(dt)
+    u1, v1 = interp.mac_velocity_2d_lattice(u, v, px, py, h)
+    u2, v2 = interp.mac_velocity_2d_lattice(u, v, px + a * u1, py + a * v1,
+                                            h)
+    u3, v3 = interp.mac_velocity_2d_lattice(u, v, px + b * u2, py + b * v2,
+                                            h)
+    ox = px + c1 * u1 + c2 * u2 + c3 * u3
+    oy = py + c1 * v1 + c2 * v2 + c3 * v3
+    return interp.clamp_pos_2d(ox, oy, h, ni, nj, eps=0.001)
+
+
+def trace_2d(u, v, h, cfldt, dt, px, py):
+    """CFL-substepped RK3 trace of world positions by `dt` (signed), on
+    the float32 substep schedule of the JAX loop."""
+    sign = np.float32(1.0 if dt >= 0 else -1.0)
+    for sub in substeps(cfldt, abs(np.float32(dt))):
+        px, py = trace_rk3_2d(u, v, h, sign * sub, px, py)
+    return px, py
+
+
+def _semilag_2d_at(grid, kind, fields, u, v, cfldt, dt):
+    """Backtrace `kind`'s nodes by -dt once and sample every field of
+    `fields` there (one launch). Returns (samples, bx, by)."""
+    px, py = grid.node_coords(kind, u.device)
+    bx, by = trace_2d(u, v, grid.h, cfldt, -np.float32(dt), px, py)
+    off = grid.off_of(kind)
+    out = interp.sample2_lattice_multi(fields, bx, by, grid.h,
+                                       (off,) * len(fields))
+    return list(out), bx, by
+
+
+def semilag_multi_2d(grid, kind, fields, u, v, cfldt, dt):
+    """2D semiLagAdvect of several same-kind fields sharing one trace:
+    each node of `kind` is traced by -dt and the fields sampled there."""
+    return _semilag_2d_at(grid, kind, fields, u, v, cfldt, dt)[0]
+
+
+def semilag_2d(grid, kind, field_src, u, v, w_unused, cfldt, dt):
+    """2D semiLagAdvect: traces `kind`'s nodes with -dt."""
+    del w_unused
+    return semilag_multi_2d(grid, kind, [field_src], u, v, cfldt, dt)[0]
+
+
+def _clamp_2d_at(grid, kind, srcs, dsts, bx, by, fallbacks):
+    """The corner clamp of solveMaccormack: where a field's dst leaves the
+    min/max of src's 4 clamped bilinear corners at (bx, by), take the
+    fallback sample there (plain torch gathers, as the JAX package's XLA
+    gathers)."""
+    h = grid.h
+    off = grid.off_of(kind)
+    gx = interp.div_scalar(bx, h) - off[0]
+    gy = interp.div_scalar(by, h) - off[1]
+    outs = []
+    for src, dst, fb in zip(srcs, dsts, fallbacks):
+        nx, ny = src.shape
+        ia, ib, _ = interp._axis_corners(gx, nx)
+        ja, jb, _ = interp._axis_corners(gy, ny)
+        flat = src.reshape(-1)
+        v00, v10 = flat[ia * ny + ja], flat[ib * ny + ja]
+        v01, v11 = flat[ia * ny + jb], flat[ib * ny + jb]
+        mn = torch.minimum(torch.minimum(v00, v10), torch.minimum(v01, v11))
+        mx = torch.maximum(torch.maximum(v00, v10), torch.maximum(v01, v11))
+        outs.append(torch.where((dst < mn) | (dst > mx), fb, dst))
+    return outs
+
+
+def _maccormack_clamp_2d(grid, kind, src, dst, u, v, cfldt, dt):
+    """Corner min/max fallback clamp of solveMaccormack, standalone: its
+    own backtrace by -dt and fallback sample of src there."""
+    fallback, bx, by = _semilag_2d_at(grid, kind, [src], u, v, cfldt, dt)
+    return _clamp_2d_at(grid, kind, [src], [dst], bx, by, fallback)[0]
+
+
+def maccormack_multi_2d(grid, kind, srcs, u, v, cfldt, dt):
+    """solveMaccormack of several same-kind fields sharing every trace:
+    fwd = SL(src, dt), back = SL(fwd, -dt), dst = fwd + 0.5*(src - back),
+    clamped at fwd's backtrace with fwd as the fallback."""
+    fwds, bx, by = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt)
+    backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt))
+    dsts = [f + 0.5 * (s - b) for s, f, b in zip(srcs, fwds, backs)]
+    return _clamp_2d_at(grid, kind, srcs, dsts, bx, by, fwds)
+
+
+def maccormack_2d(grid, kind, src, u, v, cfldt, dt):
+    return maccormack_multi_2d(grid, kind, [src], u, v, cfldt, dt)[0]
+
+
+def bfecc_multi_2d(grid, kind, srcs, u, v, cfldt, dt):
+    """solveBFECC of several same-kind fields sharing every trace: fwd =
+    SL(src, dt), back = SL(fwd, -dt), dst = SL(0.5*(3 src - back), dt)
+    (sampled at fwd's backtrace), clamped there with fwd as fallback."""
+    fwds, bx, by = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt)
+    backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt))
+    mids = [0.5 * (3.0 * s - b) for s, b in zip(srcs, backs)]
+    off = grid.off_of(kind)
+    dsts = interp.sample2_lattice_multi(mids, bx, by, grid.h,
+                                        (off,) * len(mids))
+    return _clamp_2d_at(grid, kind, srcs, list(dsts), bx, by, fwds)
+
+
+def bfecc_2d(grid, kind, src, u, v, cfldt, dt):
+    return bfecc_multi_2d(grid, kind, [src], u, v, cfldt, dt)[0]
+
+
+def _dmc_newpos(pos, vel, a, substep):
+    """The DMC position update: the exponential step where |a| > 1e-4,
+    explicit Euler elsewhere."""
+    big = a.abs() > 1e-4
+    safe_a = torch.where(big, a, 1.0)
+    exp_step = pos - (1.0 - torch.exp(-safe_a * substep)) * vel / safe_a
+    return torch.where(big, exp_step, pos - vel * substep)
+
+
+def _dmc_slopes_2d(grid, u, v):
+    """What a 2D DMC substep takes from the velocity alone: the cell
+    lattice (px, py), the MAC velocity there, and the upwind slopes
+    a = (vel - vel(upwind)) / (p - p_upwind) per axis (two mac-mode
+    launches)."""
+    h = grid.h
+    px, py = grid.node_coords("c", u.device)
+    vel_u, vel_v = interp.mac_velocity_2d_lattice(u, v, px, py, h)
+    tx = torch.where(vel_u > 0, px - h, px + h)
+    ty = torch.where(vel_v > 0, py - h, py + h)
+    tu, tv = interp.mac_velocity_2d_lattice(u, v, tx, ty, h)
+    return (px, py, vel_u, vel_v, (vel_u - tu) / (px - tx),
+            (vel_v - tv) / (py - ty))
+
+
+def _dmc_positions_2d(grid, slopes, substep):
+    """The DMC-traced positions of one substep, clamped to [h, L - h]."""
+    px, py, vel_u, vel_v, ax, ay = slopes
+    nx_ = _dmc_newpos(px, vel_u, ax, substep)
+    ny_ = _dmc_newpos(py, vel_v, ay, substep)
+    return interp.clamp_pos_2d(nx_, ny_, grid.h, grid.ni, grid.nj)
+
+
+def _sample_map_2d(grid, maps, px, py):
+    """The stacked (2, ni, nj) map sampled at world positions (one C=2
+    launch), not clamped."""
+    return interp_fast.bilerp_sample(maps, px, py, grid.h,
+                                     (grid.OFF_C, grid.OFF_C))
+
+
+def dmc_backward_step_2d(grid, u, v, map_x, map_y, substep):
+    """One 2D DMC substep (semiLagAdvectDMC): the cell-centre map sampled
+    at the DMC-traced position, clamped to [h, L - h]."""
+    nx_, ny_ = _dmc_positions_2d(grid, _dmc_slopes_2d(grid, u, v), substep)
+    out = _sample_map_2d(grid, torch.stack([map_x, map_y]), nx_, ny_)
+    return out[0], out[1]
+
+
+def update_backward_map_2d(grid, u, v, map_xy, cfldt, dt):
+    """CFL-substepped 2D backward-map update: one C=2 map sample a
+    substep, at positions that depend on the substep alone (computed once
+    for each distinct substep)."""
+    maps = torch.stack(list(map_xy))
+    subs = substeps(cfldt, dt)
+    if not subs:
+        return maps[0], maps[1]
+    slopes = _dmc_slopes_2d(grid, u, v)
+    positions = {}
+    for sub in subs:
+        if sub not in positions:
+            positions[sub] = _dmc_positions_2d(grid, slopes, sub)
+        maps = _sample_map_2d(grid, maps, *positions[sub])
+    return maps[0], maps[1]
+
+
+def update_forward_map_2d(grid, u, v, map_xy, cfldt, dt):
+    """2D forward-map march X <- trace(X, +dt), clamped to [h, L - h]."""
+    mx, my = map_xy
+    ox, oy = trace_2d(u, v, grid.h, cfldt, dt, mx, my)
+    return interp.clamp_pos_2d(ox, oy, grid.h, grid.ni, grid.nj)

@@ -1,11 +1,15 @@
-"""Body forces and viscosity (3D).
+"""Body forces, viscosity and the 2D vorticity.
 
-Counterpart of ``gpufluidsimulation_tpu.ops.forces``: ``buoyancy_3d`` in
-plain torch, ``diffuse_3d`` through the ``jacobi_diffuse`` kernel
-(``ops/stencil_kernels.py``).
+Counterpart of ``gpufluidsimulation_tpu.ops.forces``: ``buoyancy_3d``,
+``buoyancy_2d`` and ``curl_2d`` in plain torch, ``diffuse_3d`` through the
+``jacobi_diffuse`` kernel (``ops/stencil_kernels.py``). The JAX
+package's ``diffuse_2d`` has no caller there and is not ported.
 """
 
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from gpufluidsimulation_tpu_torch.ops import stencil_kernels
 
@@ -24,3 +28,26 @@ def diffuse_3d(field, iters, coef):
     only, the boundary ring held."""
     return stencil_kernels.jacobi_diffuse(field, field, int(iters),
                                           float(coef))
+
+
+def buoyancy_2d(v, rho, temperature, alpha, beta, dt):
+    """f = 0.5*dt*(-alpha*rho - beta*T) added to the v faces from both
+    adjacent cells: interior faces receive f of the cell below, then of
+    the cell above; each wall face the one adjacent cell's. `dt` is taken
+    in float32."""
+    f = float(np.float32(0.5) * np.float32(dt)) * (-alpha * rho
+                                                   - beta * temperature)
+    v = v.clone()
+    v[:, :-1] += f
+    v[:, 1:] += f
+    return v
+
+
+def curl_2d(u, v, h):
+    """Node vorticity curl(i, j) = (u(i,j) - u(i,j-1) + v(i-1,j) - v(i,j))/h
+    on the (ni+1, nj+1) corner lattice; the boundary ring stays zero."""
+    ni, nj = v.shape[0], u.shape[1]
+    curl = torch.zeros((ni + 1, nj + 1), dtype=u.dtype, device=u.device)
+    curl[1:ni, 1:nj] = (u[1:ni, 1:nj] - u[1:ni, 0:nj - 1]
+                        + v[0:ni - 1, 1:nj] - v[1:ni, 1:nj]) / h
+    return curl

@@ -1,6 +1,10 @@
 """Sampler, corner min/max, RK3-substep, DMC-substep, volume-prefilter,
 vol9-fixup and fused multi-kind pull-back kernels with their plain
 versions: every TPU kernel of the JAX module has its counterpart here.
+The 2D solver's samples (the JAX package's ``sample2_fast`` and
+``mac2_fast``, its 3D window sampler lifted onto a singleton axis) go
+through a 2D kernel of their own, ``bilerp_sample`` (and its mac mode
+``bilerp_sample_mac``).
 
 Counterpart of ``gpufluidsimulation_tpu.ops.interp_fast``. Each wrapper
 takes the plain PyTorch version for a CPU tensor and launches its CUDA
@@ -207,7 +211,8 @@ minmax_sample.launches = 0
 def rk3_coefficients(sh):
     """float32 stage coefficients (a, b, c1, c2, c3) of one substep with
     signed substep-over-h `sh` (a float32 value), rounded as the JAX
-    kernel rounds them."""
+    kernel rounds them; of a 2D RK3 step with the signed substep itself
+    (``advect.trace_rk3_2d``)."""
     sh = np.float32(sh)
     return tuple(float(np.float32(k) * sh) for k in
                  (0.5, 0.75, 2.0 / 9.0, 3.0 / 9.0, 4.0 / 9.0))
@@ -981,3 +986,98 @@ def pullback_sample(maps, fields, dims, h, grid_n, clamp_lo, clamp_hi):
 pullback_sample.launches = 0
 # the JAX package's name for the fused pull-back
 sample3_pullback = pullback_sample
+
+
+# ---------------------------------------------------------------------------
+# bilerp_sample (2D)
+# ---------------------------------------------------------------------------
+
+
+def bilerp_sample_plain(fields, px, py, h, offs):
+    """Plain version: (C, *px.shape) clamped bilinear samples of the C
+    stacked 2D fields (C, nx, ny), channel c on the lattice
+    (i + offs[c])*h (``interp.sample2`` channel by channel)."""
+    x, y = interp.div_scalar(px, h), interp.div_scalar(py, h)
+    return torch.stack([interp.bilerp_grid(fields[c], x - offs[c][0],
+                                           y - offs[c][1])
+                        for c in range(fields.shape[0])])
+
+
+def bilerp_sample_mac_plain(u, v, px, py, h):
+    """Plain version of the mac mode: (2, *px.shape), the 2D MAC velocity
+    of ``interp.mac_velocity_2d`` (zero outside its bands)."""
+    return torch.stack(interp.mac_velocity_2d(u, v, px, py, h))
+
+
+def _bilerp_launch(name, fields, offs, bands, px, py, h):
+    """One bilerp_sample kernel launch over the 2D float32 CUDA tensors
+    `fields` (each its own shape) at positions (px, py)."""
+    C = len(fields)
+    if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
+        raise ValueError(f"{name}: need 1..{MAX_CHANNELS} fields with one "
+                         f"offset each, got {C} and {len(offs)}")
+    for c, f in enumerate(fields):
+        _build.require(f, f"fields[{c}]", ndim=2)
+    for pname, p in (("px", px), ("py", py)):
+        _build.require(p, pname, shape=px.shape)
+        if p.device != fields[0].device:
+            raise ValueError(f"{name}: {pname} on {p.device}, fields on "
+                             f"{fields[0].device}")
+    check_int32(name, fields=max(f.numel() for f in fields),
+                outputs=C * px.numel())
+    out = torch.empty((C,) + tuple(px.shape), dtype=torch.float32,
+                      device=px.device)
+    if px.numel() == 0:
+        return out
+    fn = _build.function(
+        "bilerp_sample", "gfs_bilerp_sample",
+        [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F),
+         ctypes.POINTER(_F), _I, _P, _P, _LL, _F, _P, _P])
+    ptrs = (_P * C)(*[f.data_ptr() for f in fields])
+    dims = (_I * (2 * C))(*[n for f in fields for n in f.shape])
+    offs_host = (_F * (2 * C))(*[float(o) for off in offs for o in off])
+    bands_host = (None if bands is None else
+                  (_F * (2 * C))(*[float(b) for band in bands for b in band]))
+    with torch.cuda.device(px.device):
+        err = fn(ptrs, dims, offs_host, bands_host, C, _build.ptr(px),
+                 _build.ptr(py), px.numel(), float(h), _build.ptr(out),
+                 _build.stream(px))
+    _build.check(err, name)
+    return out
+
+
+def bilerp_sample(fields, px, py, h, offs):
+    """Clamped bilinear samples of C <= 4 stacked same-shape 2D fields
+    (C, nx, ny) at world positions (px, py) of any shape, channel c on
+    the lattice (i + offs[c])*h: ``interp.sample2`` of each channel, in
+    one launch. Returns (C, *px.shape)."""
+    if not _build.on_card(fields, "bilerp_sample"):
+        return bilerp_sample_plain(fields, px, py, h, offs)
+    _build.require(fields, "fields", ndim=3)
+    out = _bilerp_launch("bilerp_sample", list(fields), offs, None, px, py,
+                         h)
+    bilerp_sample.launches += 1
+    return out
+
+
+bilerp_sample.launches = 0
+
+
+def bilerp_sample_mac(u, v, px, py, h):
+    """The 2D MAC velocity at world positions (px, py), u (ni+1, nj) and
+    v (ni, nj+1): ``interp.mac_velocity_2d`` in one launch of the
+    bilerp_sample kernel in its mac mode, the band test on the float
+    floors and the zero outside it in the kernel. Returns (2,
+    *px.shape)."""
+    if not _build.on_card(u, "bilerp_sample_mac"):
+        return bilerp_sample_mac_plain(u, v, px, py, h)
+    ni, nj = v.shape[0], u.shape[1]
+    _build.require(u, "u", shape=(ni + 1, nj))
+    _build.require(v, "v", shape=(ni, nj + 1))
+    out = _bilerp_launch("bilerp_sample_mac", [u, v], interp.MAC_OFFS_2D,
+                         ((ni - 1, nj - 2), (ni - 2, nj - 1)), px, py, h)
+    bilerp_sample_mac.launches += 1
+    return out
+
+
+bilerp_sample_mac.launches = 0

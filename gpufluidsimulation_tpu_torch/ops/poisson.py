@@ -1,11 +1,14 @@
-"""Pressure projection (3D): spectral, MG-PCG and voxel-boundary (masked).
+"""Pressure projection: spectral, MG-PCG and voxel-boundary (masked).
 
 Counterpart of ``gpufluidsimulation_tpu.ops.poisson``: MAC divergence and
 gradient in grid units, the unscaled Laplacian L p = 6p - sum(nbrs), the
 direct spectral solve with at most one refinement pass, the geometric
 multigrid V-cycle and the CG it preconditions (``MGContext``, ``mgpcg``),
-the small solvers ``cg``/``pcg``/``jacobi_solve``, and the boundary-aware
-projection on cell flags (``project_masked_3d``).
+the small solvers ``cg``/``pcg``/``jacobi_solve``, the boundary-aware
+projection on cell flags (``project_masked_3d``), and the 2D open-box
+projection (``project_2d``: 5-point stencil, the same spectral solve and
+the same ndim-generic MG context, whose 2D V-cycles smooth with damped
+Jacobi on every level, as the JAX package's do).
 
 The V-cycles smooth with the red-black Gauss-Seidel kernels of
 ``ops/stencil_kernels.py`` on every level with at most 4 sweeps and at
@@ -31,6 +34,23 @@ import torch
 import torch.nn.functional as F
 
 from gpufluidsimulation_tpu_torch.ops import spectral, stencil_kernels
+
+
+def divergence_2d(u, v):
+    return (u[1:] - u[:-1]) + (v[:, 1:] - v[:, :-1])
+
+
+def subtract_gradient_2d(u, v, p, bc):
+    if bc == "neumann":
+        u, v = u.clone(), v.clone()
+        u[1:-1] += -(p[1:] - p[:-1])
+        v[:, 1:-1] += -(p[:, 1:] - p[:, :-1])
+        return u, v
+    gp = F.pad(p, (0, 0, 1, 1))
+    u = u - (gp[1:] - gp[:-1])
+    gp = F.pad(p, (1, 1, 0, 0))
+    v = v - (gp[:, 1:] - gp[:, :-1])
+    return u, v
 
 
 def divergence_3d(u, v, w):
@@ -181,14 +201,16 @@ def _use_rbgs(shape, iters, rbgs=True):
 
 class MGContext:
     """Per-(shape, bc, device) level shapes, Jacobi diagonals and per-axis
-    restriction/prolongation matrices (3D). ``rbgs=False`` smooths every
-    level of its V-cycles (plain and masked) with damped Jacobi."""
+    restriction/prolongation matrices, for a 3D or a 2D grid. ``rbgs=False``
+    smooths every level of its V-cycles (plain and masked) with damped
+    Jacobi; 2D levels always do (``_use_rbgs``)."""
 
     def __init__(self, shape, bc, device=None, rbgs=True):
         if bc not in ("dirichlet", "neumann"):
             raise NotImplementedError(f"MGContext: unsupported bc {bc!r}")
-        if len(shape) != 3:
-            raise NotImplementedError("MGContext: 3D only")
+        if len(shape) not in (2, 3):
+            raise NotImplementedError(f"MGContext: a 2D or 3D shape, got "
+                                      f"{tuple(shape)}")
         self.bc = bc
         self.rbgs = bool(rbgs)
         self.shapes = mg_shapes(shape)
@@ -346,18 +368,30 @@ def _spectral_solve(b, bc, tol, max_iters):
     return p, 1 + int(refine), res, hist
 
 
+def _solve(b, bc, tol, max_iters, ctx):
+    """The spectral solve without an ``MGContext``, MG-PCG with one."""
+    if ctx is None:
+        return _spectral_solve(b, bc, tol, max_iters)
+    if ctx.bc != bc:
+        raise ValueError(f"ctx is for bc {ctx.bc!r}, asked for {bc!r}")
+    return mgpcg(b, ctx, tol, max_iters)
+
+
+def project_2d(u, v, bc="dirichlet", tol=1e-6, max_iters=200, ctx=None):
+    """Solve L p = -div (5-point stencil) and subtract the face gradients;
+    the spectral solve, or MG-PCG with an ``MGContext`` as `ctx`. Returns
+    (u, v, p, iters, res)."""
+    p, iters, res, _ = _solve(-divergence_2d(u, v), bc, tol, max_iters, ctx)
+    u, v = subtract_gradient_2d(u, v, p, bc)
+    return u, v, p, iters, res
+
+
 def project_3d(u, v, w, bc="dirichlet", tol=1e-4, max_iters=100, ctx=None):
     """Solve L p = -div and subtract the face gradients. With an
     ``MGContext`` as `ctx` the solve is MG-PCG; without one it is the
     direct spectral solve. Returns (u, v, w, p, iters, res, hist)."""
-    div = divergence_3d(u, v, w)
-    if ctx is None:
-        p, iters, res, hist = _spectral_solve(-div, bc, tol, max_iters)
-    else:
-        if ctx.bc != bc:
-            raise ValueError(f"project_3d: ctx is for bc {ctx.bc!r}, "
-                             f"asked for {bc!r}")
-        p, iters, res, hist = mgpcg(-div, ctx, tol, max_iters)
+    p, iters, res, hist = _solve(-divergence_3d(u, v, w), bc, tol,
+                                 max_iters, ctx)
     u, v, w = subtract_gradient_3d(u, v, w, p, bc)
     return u, v, w, p, iters, res, hist
 

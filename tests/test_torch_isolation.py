@@ -22,7 +22,8 @@ WRAPPERS = (interp_fast.trilerp_sample, interp_fast.minmax_sample,
             interp_fast.dmc_substep, stencil_kernels.jacobi_diffuse,
             stencil_kernels.rbgs_smooth, stencil_kernels.masked_rbgs_smooth,
             interp_fast.volume_prefilter, interp_fast.vol9_fixup,
-            interp_fast.pullback_sample)
+            interp_fast.pullback_sample, interp_fast.bilerp_sample,
+            interp_fast.bilerp_sample_mac)
 
 
 def _imports(path):
@@ -55,6 +56,12 @@ def test_port_import_leaves_jax_unloaded():
         "from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D\n"
         "from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme\n"
         "from gpufluidsimulation_tpu_torch import convert\n"
+        "from gpufluidsimulation_tpu_torch import cli\n"
+        "from gpufluidsimulation_tpu_torch.scenes import scenes2d\n"
+        "from gpufluidsimulation_tpu_torch.solvers.smoke2d import Smoke2D\n"
+        "s2 = Smoke2D(scenes2d.make_scene_2d(3, Scheme.BIMOCQ).cfg, "
+        "device='cpu')\n"
+        "assert s2.step(s2.init_state(), 0.1).frame == 1\n"
         "cfg = vortex_collision_config(ni=8, nj=8, nk=8, "
         "scheme=Scheme.BIMOCQ, dt=1.0)\n"
         "s = Smoke3D(cfg, device='cpu')\n"
@@ -147,6 +154,13 @@ def test_wrappers_take_plain_path_on_cpu():
         maps, [u, v, w, u[:-1]], [g.dim_of(k) for k in "uvwc"], h, g.shape_c,
         1.0, 1.0)
     assert out.shape == (4, n + 1, n + 1, n + 1)   # the block grid's extent
+    u2, v2 = u[:, :, 0].contiguous(), v[:, :, 0].contiguous()
+    out = interp_fast.bilerp_sample(u2[None], *(grid[:2, :, :, 0] * h), h,
+                                    ((0.0, 0.5),))
+    assert out.shape == (1, n, n)
+    out = interp_fast.bilerp_sample_mac(u2[:, :n - 1], v2[:n - 1],
+                                        *(grid[:2, :, :, 0] * h), h)
+    assert out.shape == (2, n, n)
     assert [fn.launches for fn in WRAPPERS] == before == [0] * len(WRAPPERS)
 
 
@@ -167,6 +181,9 @@ def test_wrappers_refuse_other_devices():
         interp_fast.pullback_sample(torch.empty(3, 4, 4, 4, device="meta"),
                                     [p], [(0, 0, 0)], 1.0, (4, 4, 4), 0.0,
                                     0.0)
+    with pytest.raises(ValueError):
+        interp_fast.bilerp_sample(torch.empty(1, 4, 4, device="meta"),
+                                  p[0], p[0], 1.0, ((0.5, 0.5),))
     with pytest.raises(ValueError):
         _build.require(torch.zeros(3), "x")
 
