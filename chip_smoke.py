@@ -12,7 +12,7 @@
                                      # and the smoothers' device time
 
 Phases, each of which fails loudly (non-zero exit, no result line):
- 1. print the card's name and power limit; build the eleven CUDA
+ 1. print the card's name and power limit; build the twelve CUDA
     kernels from gpufluidsimulation_tpu_torch/csrc with nvcc, all at once,
     and print each kernel's registers and spills (the ten 3D kernels are
     redesigned for Hopper, and none of them may spill);
@@ -92,25 +92,37 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     FrameTimer), write_volume ms and checkpoint ms are logged, and the
     output's split (device-to-host copy, pack_vdb, hand-off, disk write;
     each volume format; a checkpoint's copies against its compression);
-10. the 2D kernel bilerp_sample in its sample and mac modes against its
-    plain versions, bit for bit, on 256^2, 256x1280 and 37x29 (C=1, C=2
-    on the 5-point stencil's (5, ni, nj) batch, C=2 on two lattices, the
-    mac mode; each also from positions 3 cells outside the domain), timed
-    at 256^2 beside its plain version, its bound and grid_sample;
+10. the 2D kernel bilerp_sample in its sample, mac and cp modes against
+    its plain versions, bit for bit, on 256^2, 256x1280 and 37x29 (C=1,
+    C=2 on the 5-point stencil's (5, ni, nj) batch, C=2 on two lattices,
+    the mac mode, calculateCp of u, v, rho and T; each also from
+    positions 3 cells outside the domain), timed at 256^2 beside its
+    plain version, its bound and grid_sample; the P2G kernel p2g_splat in
+    its FLIP, APIC and PolyPIC modes on 256^2 with 1,048,576 particles
+    (12,000 of them piled on one clamp-ring node): bit for bit against
+    its plain version on the CPU, within 1e-5 of each output's scale
+    against its plain version on the card (atomics), two launches bit for
+    bit, timed beside the plain version, its bound and index_add_ of the
+    same tap payloads;
 11. 2D parity: SEMILAG, MACCORMACK, BFECC, MAC_REFLECTION and BIMOCQ
-    (blend 0.5, remap gaps 2 and 1) at 32x48 and BIMOCQ in the level-set
-    mode, 3 steps on the card against the port on the CPU, within 2e-3 of
-    each field's scale, every counter equal;
+    (blend 0.5, remap gaps 2 and 1) at 32x48, BIMOCQ in the level-set
+    mode and FLIP, APIC and POLYPIC, 3 steps on the card against the port
+    on the CPU, within 2e-3 of each field's and particle column's scale,
+    every counter equal;
 12. the 2D paths: BiMocq on example 0 (the Taylor vortex, 256^2, dt
     0.025; README: sim2d 7 0) and example 2 (Rayleigh-Taylor, 256x1280,
-    pure Neumann), `--steps-2d` timed steps each with the launch counts
-    reset before and read after, the host syncs of a step
+    pure Neumann); FLIP, APIC and POLYPIC on example 0 (1,048,576
+    particles) and FLIP on example 2 (5,242,880); `--steps-2d` timed
+    steps each with the launch counts reset before and read after (a
+    particle path must launch p2g_splat every step, the cp mode on APIC
+    and POLYPIC, and call no plain splat), the host syncs of a step
     (torch.cuda.set_sync_debug_mode) and the card's idle share
     (torch.profiler);
-13. the CLI's sim2d in-process: 7 0 (3 frames), 3 2 (2 frames) and 7 3
-    (the Zalesak level set, CFL-driven substeps, 1 frame), each run's
-    launches counted alone, every BMP a 24-bit image of the grid's size,
-    the level-set file finite and equal to the frame's rho.
+13. the CLI's sim2d in-process: 7 0 (3 frames), 3 2 (2 frames), 7 3
+    (the Zalesak level set, CFL-driven substeps, 1 frame), 4 0 (FLIP, 2
+    frames) and 6 2 (PolyPIC, 1 frame), each run's launches counted
+    alone, every BMP a 24-bit image of the grid's size, the level-set
+    file finite and equal to the frame's rho.
 Then it prints one JSON line with every kernel's numbers and, last, the
 device line. It never imports JAX or the JAX package.
 """
@@ -1703,7 +1715,7 @@ def multi_parity_phase(n=32, seed=2, blend=0.5):
 KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep", "jacobi_diffuse",
            "rbgs_smooth", "masked_rbgs_smooth", "minmax_sample",
            "volume_prefilter", "vol9_fixup", "pullback_sample",
-           "bilerp_sample")
+           "bilerp_sample", "p2g_splat")
 # the kernels of the main path
 MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 # redesigned for Hopper after their first port (PERF.md, kernel table)
@@ -1714,25 +1726,26 @@ REDESIGNED = ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
 # own count
 LATTICE = {"rk3_substep": "rk3_substep_lattice",
            "dmc_substep": "dmc_substep_lattice"}
-# every kernel's second mode with a wrapper and a count of its own: the
-# lattice modes and bilerp_sample's mac mode
-MODES = dict(LATTICE, bilerp_sample="bilerp_sample_mac")
+# every kernel's other modes with a wrapper and a count of their own: the
+# lattice modes and bilerp_sample's mac and cp modes
+MODES = {name: (mode,) for name, mode in LATTICE.items()}
+MODES["bilerp_sample"] = ("bilerp_sample_mac", "bilerp_sample_cp")
 
 
 def wrappers():
-    """Every launching wrapper by name: one per kernel, and the second
+    """Every launching wrapper by name: one per kernel, and the other
     modes."""
     from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
 
     return {name: getattr(interp_fast, name, None)
             or getattr(stencil_kernels, name)
-            for name in KERNELS + tuple(MODES.values())}
+            for name in KERNELS + sum(MODES.values(), ())}
 
 
 def kernel_launches(counts, name):
     """Launches of kernel `name` in `counts` (by wrapper), those of its
-    second mode included."""
-    return counts[name] + (counts[MODES[name]] if name in MODES else 0)
+    other modes included."""
+    return counts[name] + sum(counts[m] for m in MODES.get(name, ()))
 
 
 def timed_steps(solver, steps, expect, warm=lambda state: True,
@@ -2525,6 +2538,11 @@ def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
 # offset 2 subtractions, 2 floors, 2 fractions and 2 complements; per
 # channel the blend's 6 products and 3 sums
 BILERP_POS_OPS, BILERP_OFFSET_OPS, BILERP_CHANNEL_OPS = 2, 8, 9
+# ... and in the cp mode: per run of channels sharing an offset 2
+# subtractions, 2 floors and 2 fractions; per channel qx, qy, a, b (4), c0
+# (8 products, 3 sums, a division), c1 and c2 (a negation, 4 products, 3
+# sums, a division each), c3 (3 sums, a division) and the band's select
+CP_OFFSET_OPS, CP_CHANNEL_OPS = 6, 4 + 12 + 9 + 9 + 4 + 1
 
 
 def bilerp_phase(rng):
@@ -2533,16 +2551,19 @@ def bilerp_phase(rng):
     the sample mode at C=1 (a cell field at positions wandering 2 cells),
     C=2 (rho and T on the 5-point volume stencil's (5, ni, nj) batch, 0.3
     cells) and C=2 with differing offsets (u's and v's lattices), the
-    mac mode at positions wandering 1.5 cells; each also at positions
-    stretched to 3 cells outside the domain. At 256^2 each is timed: the
-    kernel's own device time (torch.profiler), the plain version, and for
-    the sample modes grid_sample (bilinear, border padding,
-    align_corners) on the same samples."""
+    mac mode at positions wandering 1.5 cells, the cp mode (calculateCp of
+    u, v, rho and T, each in its own band) at 4 positions a cell; each
+    also at positions stretched to 3 cells outside the domain (outside
+    every cp band too). At 256^2 each is timed: the kernel's own device
+    time (torch.profiler), the plain version, and for the sample modes
+    grid_sample (bilinear, border padding, align_corners) on the same
+    samples."""
     import torch
     import torch.nn.functional as F
 
     from gpufluidsimulation_tpu_torch.core.grids import Grid2D
     from gpufluidsimulation_tpu_torch.ops import interp_fast
+    from gpufluidsimulation_tpu_torch.solvers import particles
 
     dev = torch.device("cuda")
 
@@ -2582,6 +2603,9 @@ def bilerp_phase(rng):
         u = smooth(g.shape_u, rng, 1.0, dev)
         v = smooth(g.shape_v, rng, 1.0, dev)
         uv = torch.stack([u[:ni], v[:, :nj]]).contiguous()
+        cp_fields = [u, v, rho, T]
+        cp_offs = (g.OFF_U, g.OFF_V, g.OFF_C, g.OFF_C)
+        cp_bands = particles.cp_bands(g)
         cases = (
             ("sample C=1 c", rho[None].contiguous(), wander("c", 2.0),
              (g.OFF_C,)),
@@ -2589,11 +2613,28 @@ def bilerp_phase(rng):
              wander("c", 0.3, reps=5), (g.OFF_C,) * 2),
             ("sample C=2 u,v offsets", uv, wander("c", 2.0),
              (g.OFF_U, g.OFF_V)),
-            ("mac", None, wander("c", 1.5), None))
+            ("mac", None, wander("c", 1.5), None),
+            # calculateCp of u, v, rho and T (APIC/PolyPIC's G2P) at
+            # particle-like positions: 4 a cell, wandering 0.5 cell
+            ("cp C=4 u,v,rho,T", cp_fields, [
+                q.reshape(-1).repeat(4) + smooth((4 * q.numel(),), rng,
+                                                 0.5 * h, dev)
+                for q in g.node_coords("c", dev)], cp_offs))
         for label, fields, pos, offs in cases:
             name = f"bilerp_sample {label} {ni}x{nj}"
             for where, p in ((" outside", outside(pos)), ("", pos)):
-                if fields is None:
+                if label.startswith("cp"):
+                    got = interp_fast.bilerp_sample_cp(fields, *p, h, offs,
+                                                       cp_bands)
+                    want = interp_fast.bilerp_sample_cp_plain(
+                        fields, *p, h, offs, cp_bands)
+                    if where:
+                        # the stretched positions leave every band
+                        inside = (want != 0).any(-1)
+                        if bool(inside.all()) or not bool(inside.any()):
+                            raise AssertionError(f"{name}{where}: the "
+                                                 "positions miss a band edge")
+                elif fields is None:
                     got = interp_fast.bilerp_sample_mac(u, v, *p, h)
                     want = interp_fast.bilerp_sample_mac_plain(u, v, *p, h)
                 else:
@@ -2609,7 +2650,14 @@ def bilerp_phase(rng):
                                   max_abs_err=err, tol=0.0))
                 continue
             n_out = pos[0].numel()
-            if fields is None:
+            if label.startswith("cp"):
+                run = lambda: interp_fast.bilerp_sample_cp(
+                    fields, *pos, h, offs, cp_bands)
+                plain = lambda: interp_fast.bilerp_sample_cp_plain(
+                    fields, *pos, h, offs, cp_bands)
+                C, runs = 4, 3
+                field_values = sum(f.numel() for f in fields)
+            elif fields is None:
                 run = lambda: interp_fast.bilerp_sample_mac(u, v, *pos, h)
                 plain = lambda: interp_fast.bilerp_sample_mac_plain(
                     u, v, *pos, h)
@@ -2622,15 +2670,20 @@ def bilerp_phase(rng):
                 C = fields.shape[0]
                 runs = 1 + sum(a != b for a, b in zip(offs, offs[1:]))
                 field_values = fields.numel()
-            nbytes = 4 * (field_values + 2 * n_out + C * n_out)
-            nops = n_out * (BILERP_POS_OPS + runs * BILERP_OFFSET_OPS
-                            + C * BILERP_CHANNEL_OPS)
+            if label.startswith("cp"):
+                nbytes = 4 * (field_values + 2 * n_out + 4 * C * n_out)
+                nops = n_out * (BILERP_POS_OPS + runs * CP_OFFSET_OPS
+                                + C * CP_CHANNEL_OPS)
+            else:
+                nbytes = 4 * (field_values + 2 * n_out + C * n_out)
+                nops = n_out * (BILERP_POS_OPS + runs * BILERP_OFFSET_OPS
+                                + C * BILERP_CHANNEL_OPS)
             b_ms, b_by = bound_ms(nbytes, nops)
             k_ms = device_ms(run, 20, "bilerp_sample_kernel")
             call_ms = cuda_time(run, 50)
             p_ms = cuda_time(plain, 10)
             lib_ms = lib_err = None
-            if fields is not None:
+            if fields is not None and not label.startswith("cp"):
                 # yardstick only: grid_sample computes the same clamped
                 # bilinear (border padding, align_corners) channel by
                 # channel; one call a run of shared offsets
@@ -2670,11 +2723,180 @@ def bilerp_phase(rng):
         "(core/interp.py:204 mac_velocity_2d_lattice)"))
 
 
+# float32 operations one particle needs in p2g_splat's function: its 2
+# divisions by h; per lattice (3) the 2 offset subtractions and the 2 x
+# and 2 y hats (4 each: subtraction, |.|, 1 - ., max); per tap (4 a
+# lattice) the weight's product and the weight sum's add; per tap and
+# channel (4 channels over the 3 lattices) a product and an add (FLIP),
+# or the polynomial (4 operations, 7 with PolyPIC's dx dy term) on dx and
+# dy formed once per x and y tap (2 each, 8 a lattice), then a product
+# and an add; per node the weight's + 1e-4 and a division a channel
+P2G_PARTICLE_OPS, P2G_LATTICE_OPS, P2G_TAP_OPS = 2, 2 + 16, 2
+P2G_CHANNEL_OPS = {"flip": 2, "apic": 6, "polypic": 9}
+P2G_TOL = 1e-5
+
+
+def p2g_ops(order, P, nodes, outputs):
+    lattice = P2G_LATTICE_OPS + (0 if order == "flip" else 8)
+    per_particle = (P2G_PARTICLE_OPS + 3 * lattice + 12 * P2G_TAP_OPS
+                    + 4 * 4 * P2G_CHANNEL_OPS[order])
+    return P * per_particle + nodes + outputs
+
+
+def p2g_phase(rng, pile=12000):
+    """Phase 10, P2G: the p2g_splat kernel in its FLIP, APIC and PolyPIC
+    modes on 256^2 (the Taylor vortex's grid, 1,048,576 particles seeded
+    4 x 4 a cell and jittered half a cell, clamped to [h, (n-1)h]) with
+    `pile` of them piled on the clamp ring at x = h, y = (nj-1)h, held
+    against its plain version three ways: on the CPU bit for bit (the
+    kernel sums every tap's run in order and the taps in the plain
+    version's order, and the CPU's index_add_ sums in order); on the card
+    within P2G_TOL of each output's scale (the card's index_add_ adds
+    with atomics in a run-dependent order: shuffling the particles of a
+    CPU run moved each output by at most 9.9e-7 of its scale at this size
+    and pile-up); and against its own second launch, bit for bit. Timed:
+    the kernel's device time, a call with its bin bounds (one
+    searchsorted) and launch, the plain version on the card, its bound
+    and, as a yardstick, index_add_ of the same tap payloads (one call a
+    tap, 14 calls) alone."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core import interp
+    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+    from gpufluidsimulation_tpu_torch.solvers import particles
+
+    dev = torch.device("cuda")
+    n = 256
+    g = Grid2D(n, n, 2 * np.pi / n)
+    h = g.h
+    seeded = particles.seed_particles(g, 4, dev)
+    P = seeded.pos.shape[0]
+    jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, (P, 2)).astype(
+        np.float32)).to(dev) * h
+    pos = seeded.pos + jitter
+    pos = torch.stack([pos[:, 0].clamp(h, (n - 1) * h),
+                       pos[:, 1].clamp(h, (n - 1) * h)], dim=-1)
+    corner = torch.tensor([h, (n - 1) * h], dtype=torch.float32, device=dev)
+    pos[5000:5000 + pile] = corner
+
+    def col(*shape, positive=False):
+        x = (rng.uniform(0, 2, shape) if positive
+             else rng.normal(0, 1, shape))
+        return torch.from_numpy(x.astype(np.float32)).to(dev)
+
+    state = particles.ParticleState(
+        pos=pos, vel=col(P, 2), rho=col(P, positive=True), T=col(P),
+        C_x=col(P, 4), C_y=col(P, 4), C_rho=col(P, 4), C_T=col(P, 4))
+    state, keys = particles.bin_sort(g, state, return_keys=True)
+    on_corner = int((state.pos == corner).all(1).sum())
+    if on_corner < pile:
+        raise AssertionError(f"p2g_splat: {on_corner} particles on the ring "
+                             f"corner, expected {pile} or more")
+    cpu = particles.ParticleState(**{k: getattr(state, k).cpu()
+                                     for k in particles._COLUMNS})
+    nodes = (n + 1) * n + n * (n + 1) + n * n
+    W = interp_fast.p2g_bin_width(n)
+    variants = []
+    for order in ("flip", "apic", "polypic"):
+        def cols(p):
+            if order == "flip":
+                return (p.vel[:, 0], p.vel[:, 1], p.rho, p.T)
+            return (p.C_x, p.C_y, p.C_rho, p.C_T)
+
+        run = lambda: interp_fast.p2g_splat(state.pos, cols(state), h, n, n,
+                                            keys, order)
+        plain = lambda: interp_fast.p2g_splat_plain(state.pos, cols(state),
+                                                    h, n, n, order)
+        got, again = run(), run()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"p2g_splat {order}: two launches differ")
+        t0 = time.time()
+        want_cpu = interp_fast.p2g_splat_plain(cpu.pos, cols(cpu), h, n, n,
+                                               order)
+        cpu_s = time.time() - t0
+        cpu_err = max(float((a.cpu() - b).abs().max())
+                      for a, b in zip(got, want_cpu))
+        log(f"[kernels] p2g_splat {order} 256x256 vs the plain version on "
+            f"the CPU: max_abs_err={cpu_err:.3e} tol=0.0e+00 ({cpu_s:.1f} s "
+            "on the CPU)")
+        if cpu_err != 0.0:
+            raise AssertionError(f"p2g_splat {order}: kernel differs from "
+                                 f"its plain version on the CPU: {cpu_err}")
+        want = plain()
+        errs, rels = [], []
+        for name, a, b in zip(("u", "v", "rho", "T"), got, want):
+            err = float((a - b).abs().max())
+            scale = max(float(b.abs().max()), 1e-6)
+            errs.append(err)
+            rels.append(err / scale)
+            if not np.isfinite(err) or err > P2G_TOL * scale:
+                raise AssertionError(
+                    f"p2g_splat {order} {name}: kernel vs plain on the card "
+                    f"{err} > {P2G_TOL} x {scale}")
+        log(f"[kernels] p2g_splat {order} 256x256 vs the plain version on "
+            f"the card: max_abs_err={max(errs):.3e}, of each output's scale "
+            f"{max(rels):.2e} tol={P2G_TOL:.1e}")
+        k_ms = device_ms(run, 10, "p2g_splat_kernel")
+        call_ms = cuda_time(run, 20)
+        p_ms = cuda_time(plain, 3, warmup=1)
+        # yardstick: index_add_ of the plain version's tap payloads, one
+        # call a tap (6 + 4 + 4), into each lattice's sums
+        taps = []
+        for (shape, off), chans in zip(
+                ((g.shape_u, g.OFF_U), (g.shape_v, g.OFF_V),
+                 (g.shape_c, g.OFF_C)), ((0,), (1,), (2, 3))):
+            acc = torch.zeros((shape[0] * shape[1], len(chans) + 1),
+                              device=dev)
+            x = interp.div_scalar(state.pos[:, 0], h) - off[0]
+            y = interp.div_scalar(state.pos[:, 1], h) - off[1]
+            for flat, w, ii, jj in particles._sorted_taps(shape, state.pos,
+                                                          h, off):
+                if order == "flip":
+                    vals = [cols(state)[c] for c in chans]
+                else:
+                    dx, dy = (ii.float() - x) * h, (jj.float() - y) * h
+                    vals = [particles._poly_value(cols(state)[c], dx, dy,
+                                                  order) for c in chans]
+                taps.append((acc, flat, torch.stack(
+                    [w * v for v in vals] + [w], dim=-1).contiguous()))
+
+        def lib():
+            for acc, flat, payload in taps:
+                acc.index_add_(0, flat, payload)
+
+        lib_ms = cuda_time(lib, 5)
+        col_bytes = 16 if order == "flip" else 64
+        nbytes = (8 * P + col_bytes * P + 4 * (n * W + 1)
+                  + 4 * (nodes + n * n))
+        b_ms, b_by = bound_ms(nbytes, p2g_ops(order, P, nodes,
+                                               nodes + n * n))
+        variants.append(dict(
+            variant=f"{order} 256x256", particles=P, pile=on_corner,
+            max_abs_err=max(errs), max_rel_err=max(rels), tol=P2G_TOL,
+            tol_of="each output's scale", cpu_plain_max_abs_err=cpu_err,
+            cpu_plain_s=cpu_s, ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="index_add_ of the tap payloads, 14 calls (one a tap)"))
+        log(f"[kernels] p2g_splat {order} 256x256, {P} particles "
+            f"({on_corner} on one ring corner): {k_ms:.4f} ms on the card "
+            f"({call_ms:.4f} ms a call with its bin bounds and launch; plain "
+            f"{p_ms:.3f}, bound {b_ms:.5f} by {b_by}, index_add_ yardstick "
+            f"{lib_ms:.4f})")
+    return dict(variants[0], variants=variants, replaces=(
+        "gpufluidsimulation_tpu/solvers/particles.py:106-165 "
+        "(_sorted_taps, _splat_multi_sorted, _splat_poly_multi_sorted: "
+        "XLA sorted segment sums, no pallas_call)"))
+
+
 STATE_2D = ("u", "v", "u_temp", "v_temp", "rho", "T", "u_init", "v_init",
             "u_origin", "v_origin", "du", "dv", "du_prev", "dv_prev",
             "rho_init", "rho_orig", "drho", "drho_prev", "T_init", "T_orig",
             "dT", "dT_prev", "vel_map.fwd", "vel_map.bwd", "vel_map.bwd_prev",
             "scalar_map.fwd", "scalar_map.bwd", "scalar_map.bwd_prev")
+PARTICLES_2D = tuple(f"particles.{c}" for c in ("pos", "vel", "rho", "T",
+                                                 "C_x", "C_y", "C_rho", "C_T"))
+PARTICLE_SCHEMES_2D = (4, 5, 6)     # FLIP, APIC, POLYPIC
 COUNTERS_2D = ("frame", "last_remeshing", "rho_last_remeshing",
                "total_resample_count", "total_scalar_resample", "proj_iters",
                "substeps")
@@ -2682,12 +2904,15 @@ COUNTERS_2D = ("frame", "last_remeshing", "rho_last_remeshing",
 
 def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
     """Phase 11: each grid scheme at ni x nj (spectral projection, buoyancy
-    on, dt 0.4: 2 or more CFL substeps) and BiMocq in the level-set mode,
-    3 steps on the card against the port on the CPU from one numpy state
-    of smooth seeded velocities; BiMocq at blend 0.5 with remap gaps 2
-    and 1, so the two-level pull-back and both remaps run. Every field and
-    map within 2e-3 of its scale (the 3D gate), every counter (proj_iters,
-    remap frames, substeps) equal."""
+    on, dt 0.4: 2 or more CFL substeps), BiMocq in the level-set mode and
+    the particle schemes FLIP, APIC and POLYPIC (4 x 4 particles a cell,
+    sampled from the start's grid on the CPU), 3 steps on the card
+    against the port on the CPU from one numpy state of smooth seeded
+    velocities; BiMocq at blend 0.5 with remap gaps 2 and 1, so the
+    two-level pull-back and both remaps run. Every field and map, and
+    every particle column (both sort on the same keys, so the order is
+    the same), within 2e-3 of its scale (the 3D gate), every counter
+    (proj_iters, remap frames, substeps) equal."""
     from gpufluidsimulation_tpu_torch import convert
     from gpufluidsimulation_tpu_torch.solvers import smoke2d
     from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
@@ -2705,13 +2930,19 @@ def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
             ("reflection", Scheme.MAC_REFLECTION, {}),
             ("bimocq", Scheme.BIMOCQ, dict(blend_coeff=0.5, vel_remap_gap=2,
                                            rho_remap_gap=1)),
-            ("bimocq levelset", Scheme.BIMOCQ, dict(advect_levelset=True))):
+            ("bimocq levelset", Scheme.BIMOCQ, dict(advect_levelset=True)),
+            ("flip", Scheme.FLIP, {}), ("apic", Scheme.APIC, {}),
+            ("polypic", Scheme.POLYPIC, {})):
         cfg = smoke2d.Smoke2DConfig(ni=ni, nj=nj, L=1.0, scheme=scheme,
                                     alpha=0.2, beta=0.05, proj_tol=1e-5,
                                     **extra)
         gpu = smoke2d.Smoke2D(cfg)
         cpu = smoke2d.Smoke2D(cfg, device="cpu")
         arrays = dict(convert.state_to_numpy(cpu.init_state()), **start)
+        if scheme in PARTICLE_SCHEMES_2D:
+            # the CLI's bootstrap, once, on the CPU: both start from it
+            arrays = convert.state_to_numpy(cpu.sample_particles_from_grid(
+                convert.state_from_numpy(arrays, cfg, "cpu")))
         sg = convert.state_from_numpy(arrays, cfg, gpu.device)
         sc = convert.state_from_numpy(arrays, cfg, "cpu")
         iters = []
@@ -2725,7 +2956,9 @@ def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
             iters.append(sg.proj_iters)
         a, b = convert.state_to_numpy(sg), convert.state_to_numpy(sc)
         worst = {}
-        for key in STATE_2D:
+        keys = STATE_2D + (PARTICLES_2D if scheme in PARTICLE_SCHEMES_2D
+                           else ())
+        for key in keys:
             err = float(np.abs(a[key].astype(np.float64) - b[key]).max())
             scale = max(1.0, float(np.abs(b[key]).max()))
             worst[key] = err
@@ -2791,46 +3024,99 @@ def busy_ms(fn, steps):
             sum(e.count for e in events) / steps, prof)
 
 
-def path_2d_phase(label, example, steps, profile):
+def observe_plain_splats(calls):
+    """Count, in `calls`, every call of a plain particle splat (the P2G
+    kernel's plain version and the unsorted splats) until the returned
+    function is called. Only observes: each call runs as it would."""
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+    from gpufluidsimulation_tpu_torch.solvers import particles
+
+    saved = []
+    for mod, name in ((interp_fast, "p2g_splat_plain"),
+                      (particles, "_splat_multi_sorted"),
+                      (particles, "_splat_poly_multi_sorted"),
+                      (particles, "_splat_multi"),
+                      (particles, "_splat_poly_multi")):
+        fn = getattr(mod, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kwargs)
+
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+
+    def restore():
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    return restore
+
+
+def path_2d_phase(label, example, steps, profile, scheme=None):
     """Phase 12: a 2D scene as the CLI builds it (``make_scene_2d`` with
-    BiMocq, the scene's init on the card, its fixed dt), 2 warm-up steps,
-    then `steps` steps timed with CUDA events, every launch count set to
-    0 just before and read just after; the host syncs of one step
+    BiMocq or `scheme`, the scene's init on the card, for the particle
+    schemes the CLI's bootstrap from the grid, its fixed dt), 2 warm-up
+    steps, then `steps` steps timed with CUDA events, every launch count
+    set to 0 just before and read just after; the host syncs of one step
     (torch.cuda.set_sync_debug_mode) and the device's busy time and
     launches over 2 profiled steps, whose ratio to the step time is the
-    card's idle share."""
+    card's idle share. A particle path must launch p2g_splat every step
+    (and bilerp_sample's cp mode on APIC and PolyPIC) and call no plain
+    splat."""
     import torch
 
     from gpufluidsimulation_tpu_torch.scenes import scenes2d
     from gpufluidsimulation_tpu_torch.solvers import smoke2d
     from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 
-    scene = scenes2d.make_scene_2d(example, Scheme.BIMOCQ)
+    scheme = Scheme.BIMOCQ if scheme is None else scheme
+    particles = scheme in (Scheme.FLIP, Scheme.APIC, Scheme.POLYPIC)
+    scene = scenes2d.make_scene_2d(example, scheme)
     solver = smoke2d.Smoke2D(scene.cfg)
     t0 = time.time()
     state = scene.init(solver, solver.init_state())
+    if particles:
+        state = solver.sample_particles_from_grid(state)
     torch.cuda.synchronize()
     init_s = time.time() - t0
     for _ in range(2):
         state = solver.step(state, scene.dt)
     fns = wrappers()
+    plain_calls = {}
     torch.cuda.synchronize()
     for fn in fns.values():
         fn.launches = 0
+    restore = observe_plain_splats(plain_calls)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.time()
-    start.record()
-    for _ in range(steps):
-        state = solver.step(state, scene.dt)
-    end.record()
-    torch.cuda.synchronize()
+    try:
+        start.record()
+        for _ in range(steps):
+            state = solver.step(state, scene.dt)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        restore()
     host_ms = (time.time() - t0) / steps * 1e3
     ms = start.elapsed_time(end) / steps
     launches = {k: fn.launches for k, fn in fns.items()}
     if kernel_launches(launches, "bilerp_sample") == 0:
         raise AssertionError(f"the 2D path {label} never launched "
                              "bilerp_sample")
+    if particles:
+        if launches["p2g_splat"] < steps:
+            raise AssertionError(f"the 2D path {label} launched p2g_splat "
+                                 f"{launches['p2g_splat']} times in {steps} "
+                                 "steps")
+        if plain_calls:
+            raise AssertionError(f"the 2D path {label} called plain splats "
+                                 f"on the card: {plain_calls}")
+        if (scheme != Scheme.FLIP
+                and launches["bilerp_sample_cp"] < steps):
+            raise AssertionError(f"the 2D path {label} made "
+                                 f"{launches['bilerp_sample_cp']} cp-mode "
+                                 f"launches in {steps} steps")
     state, syncs, sync_lines = count_syncs(
         lambda: solver.step(state, scene.dt))
     holder = [state]
@@ -2843,12 +3129,21 @@ def path_2d_phase(label, example, steps, profile):
     for key in ("u", "v", "rho", "T"):
         if not bool(torch.isfinite(getattr(state, key)).all()):
             raise AssertionError(f"2D path {label}: non-finite {key}")
+    for key in ("pos", "vel", "rho", "T", "C_x", "C_y", "C_rho", "C_T"):
+        if not bool(torch.isfinite(getattr(state.particles, key)).all()):
+            raise AssertionError(f"2D path {label}: non-finite particle "
+                                 f"{key}")
     g = solver.grid
     res = dict(
         scene=scene.name, grid=[g.ni, g.nj], dt=scene.dt, steps=steps,
         init_s=init_s, ms_per_step=ms, host_ms_per_step=host_ms,
+        scheme=scheme.display_name(),
+        particles=int(state.particles.pos.shape[0]),
         bilerp_sample_per_step=launches["bilerp_sample"] / steps,
         bilerp_sample_mac_per_step=launches["bilerp_sample_mac"] / steps,
+        bilerp_sample_cp_per_step=launches["bilerp_sample_cp"] / steps,
+        p2g_splat_per_step=launches["p2g_splat"] / steps,
+        plain_splat_calls=plain_calls,
         syncs_per_step=syncs, sync_lines=sync_lines,
         device_busy_ms_per_step=busy,
         device_launches_per_step=kernels,
@@ -2870,7 +3165,9 @@ def cli_2d_phase():
     """Phase 13: the CLI's sim2d, in-process, --out in a temporary
     directory: sim2d 7 0 (BiMocq, the Taylor vortex at 256^2), 3 frames;
     sim2d 3 2 (reflection, Rayleigh-Taylor at 256x1280), 2 frames; sim2d
-    7 3 (BiMocq, the Zalesak level set, CFL-driven substeps), 1 frame.
+    7 3 (BiMocq, the Zalesak level set, CFL-driven substeps), 1 frame;
+    sim2d 4 0 (FLIP, 1,048,576 particles), 2 frames; sim2d 6 2 (PolyPIC,
+    Rayleigh-Taylor with 5,242,880 particles), 1 frame.
     Each run's launches are counted alone; every BMP must be a 24-bit
     image of the grid's size and every level-set file finite, of the
     grid's shape and equal to the frame's rho to its printed digits."""
@@ -2889,10 +3186,21 @@ def cli_2d_phase():
                  (256, 1280)),
                 ("sim2d_7_3", ["sim2d", "7", "3", "--frames", "1"],
                  [os.path.join("2D_Zalesak", "BiMocq",
-                               "levelset_0000.txt")], (200, 200))):
+                               "levelset_0000.txt")], (200, 200)),
+                ("sim2d_4_0", ["sim2d", "4", "0", "--frames", "2"],
+                 [os.path.join("2D_Taylor_vortex", "FLIP",
+                               f"vort_{k:04d}.bmp") for k in range(2)],
+                 (256, 256)),
+                ("sim2d_6_2", ["sim2d", "6", "2", "--frames", "1"],
+                 [os.path.join("2D_RayleighTaylor", "PolyPIC",
+                               "density_0000.bmp")], (256, 1280))):
+            expect = ("bilerp_sample",) + (
+                ("p2g_splat",) if argv[1] in "456" else ())
             summary, records, _ = cli_run(
-                argv + ["--out", os.path.join(tmp, label)],
-                ("bilerp_sample",))
+                argv + ["--out", os.path.join(tmp, label)], expect)
+            if argv[1] == "6" and summary["launches"]["bilerp_sample_cp"] < 2:
+                raise AssertionError(f"{label}: no cp-mode launch a frame "
+                                     "and in the bootstrap")
             steps = [r for r in records if r["kind"] == "step"]
             for name in files:
                 path = os.path.join(tmp, label, name)
@@ -3033,11 +3341,18 @@ def main():
     by_path.update(cli_phase(args.cli_res, args.cli_obstacle_res))
     t2d = time.time()
     results["bilerp_sample"] = bilerp_phase(rng2d)
+    results["p2g_splat"] = p2g_phase(rng2d)
     parity_2d_phase()
     by_path["sim2d_bimocq"] = path_2d_phase("sim2d_bimocq", 0,
                                             args.steps_2d, args.profile)
     by_path["sim2d_rt"] = path_2d_phase("sim2d_rt", 2, args.steps_2d,
                                         args.profile)
+    for label, example, scheme in (
+            ("sim2d_flip", 0, Scheme.FLIP), ("sim2d_apic", 0, Scheme.APIC),
+            ("sim2d_polypic", 0, Scheme.POLYPIC),
+            ("sim2d_rt_flip", 2, Scheme.FLIP)):
+        by_path[label] = path_2d_phase(label, example, args.steps_2d,
+                                       args.profile, scheme)
     by_path.update(cli_2d_phase())
     log(f"[path2d] the 2D phases took {time.time() - t2d:.1f} s")
     # each kernel's count comes from the path that was added for it
@@ -3046,7 +3361,7 @@ def main():
                    minmax_sample="reflection", vol9_fixup="bimocq_vol9",
                    volume_prefilter="bimocq_prefilter",
                    pullback_sample="pullback_multi",
-                   bilerp_sample="sim2d_bimocq")
+                   bilerp_sample="sim2d_bimocq", p2g_splat="sim2d_flip")
 
     line = []
     for name in KERNELS:
@@ -3067,8 +3382,9 @@ def main():
             entry["lattice_launches_by_path"] = {
                 p: c[LATTICE[name]] for p, c in by_path.items()}
         elif name in MODES:
-            entry["mac_launches_by_path"] = {
-                p: c[MODES[name]] for p, c in by_path.items()}
+            for mode in MODES[name]:
+                entry[f"{mode.rsplit('_', 1)[1]}_launches_by_path"] = {
+                    p: c[mode] for p, c in by_path.items()}
         for extra in ("variants", "lattice", "one_sweep_ms",
                       "sweeps_per_launch", "levels_per_launch", "cases",
                       "calls_per_step", "launches_per_step"):

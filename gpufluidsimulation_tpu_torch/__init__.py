@@ -23,8 +23,9 @@ and states between the two packages.
 
 The 2D solver (``solvers/smoke2d.py``) runs the grid schemes SEMILAG,
 MACCORMACK, BFECC, MAC_REFLECTION and BIMOCQ, also in the level-set mode,
+and the particle schemes FLIP, APIC and POLYPIC (``solvers/particles.py``),
 with the spectral or MG-PCG projection, the five examples of
 ``scenes/scenes2d.py`` and the ``sim2d`` CLI; every 2D sample is a launch
-of the ``bilerp_sample`` kernel. The particle schemes (FLIP, APIC,
-POLYPIC) and the sharded step are not ported.
+of the ``bilerp_sample`` kernel, the particles' P2G a launch of the
+gather-form ``p2g_splat`` kernel. The sharded step is not ported.
 """

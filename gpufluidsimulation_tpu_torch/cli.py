@@ -8,10 +8,12 @@
         [--device DEV]
 
 2D (bimocq2D/main.cpp): scheme 0 Semilag, 1 MacCormack, 2 BFECC, 3
-Reflection, 7 BiMocq (4-6, the particle schemes, are not ported yet);
-example 0 Taylor vortex, 1 leapfrog, 2 Rayleigh-Taylor, 3 Zalesak, 4
-vortex box, at the reference's sizes. Fixed-dt examples take one step a
-frame; the level-set examples substep each frame at their CFL number.
+Reflection, 4 FLIP, 5 APIC, 6 PolyPIC, 7 BiMocq; example 0 Taylor
+vortex, 1 leapfrog, 2 Rayleigh-Taylor, 3 Zalesak, 4 vortex box, at the
+reference's sizes (the particle schemes 4-6 run examples 0-2, with 4 x 4
+particles a cell seeded and sampled from the scene's initial grid).
+Fixed-dt examples take one step a frame; the level-set examples substep
+each frame at their CFL number.
 Each frame prints its time on the card, CFL number and projection, and
 writes ``<out>/<scene>/<Scheme>/vort_NNNN.bmp``, ``density_NNNN.bmp`` or
 ``levelset_NNNN.txt``.
@@ -68,6 +70,8 @@ def _run_2d(args) -> int:
         return 1
     solver = smoke2d.Smoke2D(scene.cfg, device=device)
     state = scene.init(solver, solver.init_state())
+    if scheme in (Scheme.FLIP, Scheme.APIC, Scheme.POLYPIC):
+        state = solver.sample_particles_from_grid(state)
     out_dir = os.path.join(args.out, scene.name, scheme.display_name())
     os.makedirs(out_dir, exist_ok=True)
     frames = args.frames or scene.total_frames
@@ -187,7 +191,7 @@ def main(argv=None) -> int:
     p2 = sub.add_parser("sim2d", help="2D solver (bimocq2D parity)")
     p2.add_argument("scheme", type=int,
                     help="0 Semilag | 1 MacCormack | 2 BFECC | 3 Reflection "
-                         "| 7 BiMocq (4-6, the particle schemes, not ported)")
+                         "| 4 FLIP | 5 APIC | 6 PolyPIC | 7 BiMocq")
     p2.add_argument("example", type=int,
                     help="0 Taylor | 1 Leapfrog | 2 RayleighTaylor | "
                          "3 Zalesak | 4 VortexBox")

@@ -157,8 +157,10 @@ def _boundary(b, trans=None) -> Boundary3D:
 
 # EngineMode fields of the JAX package whose value changes nothing the port
 # computes: interpret mode, the Pallas-vs-XLA viscosity (one function), the
-# window sampler's geometry (the kernels gather exactly), and the 2D
-# particle transfers.
+# window sampler's geometry (the kernels gather exactly), and the dense
+# binned particle transfer (TPU window geometry that computes the flat
+# transfer's function inside its slot contract and counts what falls
+# outside it; the port computes the exact flat transfer, with no slot cap).
 _MODE_IGNORED = ("interp_interpret", "pallas_diffuse", "interp_rr",
                  "particle_dense")
 # ... and the one value of each other field that the port implements

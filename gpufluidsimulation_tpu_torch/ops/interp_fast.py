@@ -995,23 +995,66 @@ sample3_pullback = pullback_sample
 
 def bilerp_sample_plain(fields, px, py, h, offs):
     """Plain version: (C, *px.shape) clamped bilinear samples of the C
-    stacked 2D fields (C, nx, ny), channel c on the lattice
-    (i + offs[c])*h (``interp.sample2`` channel by channel)."""
+    2D fields (stacked (C, nx, ny) or a sequence of same-shape fields),
+    channel c on the lattice (i + offs[c])*h (``interp.sample2`` channel
+    by channel)."""
     x, y = interp.div_scalar(px, h), interp.div_scalar(py, h)
     return torch.stack([interp.bilerp_grid(fields[c], x - offs[c][0],
                                            y - offs[c][1])
-                        for c in range(fields.shape[0])])
+                        for c in range(len(fields))])
 
 
-def bilerp_sample_mac_plain(u, v, px, py, h):
+def bilerp_sample_mac_plain(u, v, px, py, h, du=None, dv=None):
     """Plain version of the mac mode: (2, *px.shape), the 2D MAC velocity
-    of ``interp.mac_velocity_2d`` (zero outside its bands)."""
-    return torch.stack(interp.mac_velocity_2d(u, v, px, py, h))
+    of ``interp.mac_velocity_2d`` (zero outside its bands); with a second
+    pair (du, dv) on the same lattices, (4, *px.shape)."""
+    pairs = [(u, v)] + ([] if du is None else [(du, dv)])
+    return torch.stack([c for a, b in pairs
+                        for c in interp.mac_velocity_2d(a, b, px, py, h)])
 
 
-def _bilerp_launch(name, fields, offs, bands, px, py, h):
+def calculate_cp_plain(field, px, py, h, off, band):
+    """calculateCp of one 2D field at world positions (px, py): (*px.shape,
+    4), the bilinear polynomial [c0, c1, c2, c3] of the clamped cell
+    around each position, zero where the cell's floors leave [0, band[0]]
+    x [0, band[1]]. Operand for operand as
+    ``gpufluidsimulation_tpu.solvers.particles.calculate_cp``."""
+    gx = interp.div_scalar(px, h) - off[0]
+    gy = interp.div_scalar(py, h) - off[1]
+    i0, j0 = torch.floor(gx), torch.floor(gy)
+    fx, fy = (gx - i0) * h, (gy - j0) * h
+    valid = (i0 >= 0) & (i0 <= band[0]) & (j0 >= 0) & (j0 <= band[1])
+    nx, ny = field.shape
+    ia, ib = i0.long().clamp(0, nx - 1), (i0.long() + 1).clamp(0, nx - 1)
+    ja, jb = j0.long().clamp(0, ny - 1), (j0.long() + 1).clamp(0, ny - 1)
+    flat = field.reshape(-1)
+    f00, f10 = flat[ia * ny + ja], flat[ib * ny + ja]
+    f01, f11 = flat[ia * ny + jb], flat[ib * ny + jb]
+    hh = h * h
+    a, b = h - fx, h - fy
+    c0 = a * b * f00 + fx * b * f10 + fx * fy * f11 + a * fy * f01
+    c1 = -b * f00 + b * f10 + fy * f11 - fy * f01
+    c2 = -a * f00 - fx * f10 + fx * f11 + a * f01
+    c3 = f00 - f10 + f11 - f01
+    cp = torch.stack([interp.div_scalar(c, hh) for c in (c0, c1, c2, c3)],
+                     dim=-1)
+    return torch.where(valid[..., None], cp, 0.0)
+
+
+def bilerp_sample_cp_plain(fields, px, py, h, offs, bands):
+    """Plain version of the cp mode: (C, *px.shape, 4), calculateCp of
+    each field (its own shape, offset and band) at the same positions."""
+    return torch.stack([calculate_cp_plain(f, px, py, h, off, band)
+                        for f, off, band in zip(fields, offs, bands)])
+
+
+_BILERP_MODES = {"sample": 0, "mac": 1, "cp": 2}
+
+
+def _bilerp_launch(name, fields, offs, bands, px, py, h, mode="sample"):
     """One bilerp_sample kernel launch over the 2D float32 CUDA tensors
-    `fields` (each its own shape) at positions (px, py)."""
+    `fields` (each its own shape) at positions (px, py): (C, *px.shape)
+    samples, or (C, *px.shape, 4) coefficients in the cp mode."""
     C = len(fields)
     if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
         raise ValueError(f"{name}: need 1..{MAX_CHANNELS} fields with one "
@@ -1023,39 +1066,42 @@ def _bilerp_launch(name, fields, offs, bands, px, py, h):
         if p.device != fields[0].device:
             raise ValueError(f"{name}: {pname} on {p.device}, fields on "
                              f"{fields[0].device}")
+    per = 4 if mode == "cp" else 1
     check_int32(name, fields=max(f.numel() for f in fields),
-                outputs=C * px.numel())
-    out = torch.empty((C,) + tuple(px.shape), dtype=torch.float32,
-                      device=px.device)
+                outputs=C * px.numel() * per)
+    out = torch.empty((C,) + tuple(px.shape) + ((4,) if per == 4 else ()),
+                      dtype=torch.float32, device=px.device)
     if px.numel() == 0:
         return out
     fn = _build.function(
         "bilerp_sample", "gfs_bilerp_sample",
         [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F),
-         ctypes.POINTER(_F), _I, _P, _P, _LL, _F, _P, _P])
+         ctypes.POINTER(_F), _I, _I, _P, _P, _LL, _F, _F, _P, _P])
     ptrs = (_P * C)(*[f.data_ptr() for f in fields])
     dims = (_I * (2 * C))(*[n for f in fields for n in f.shape])
     offs_host = (_F * (2 * C))(*[float(o) for off in offs for o in off])
     bands_host = (None if bands is None else
                   (_F * (2 * C))(*[float(b) for band in bands for b in band]))
     with torch.cuda.device(px.device):
-        err = fn(ptrs, dims, offs_host, bands_host, C, _build.ptr(px),
-                 _build.ptr(py), px.numel(), float(h), _build.ptr(out),
-                 _build.stream(px))
+        err = fn(ptrs, dims, offs_host, bands_host, C, _BILERP_MODES[mode],
+                 _build.ptr(px), _build.ptr(py), px.numel(), float(h),
+                 float(h * h), _build.ptr(out), _build.stream(px))
     _build.check(err, name)
     return out
 
 
 def bilerp_sample(fields, px, py, h, offs):
-    """Clamped bilinear samples of C <= 4 stacked same-shape 2D fields
-    (C, nx, ny) at world positions (px, py) of any shape, channel c on
-    the lattice (i + offs[c])*h: ``interp.sample2`` of each channel, in
-    one launch. Returns (C, *px.shape)."""
-    if not _build.on_card(fields, "bilerp_sample"):
+    """Clamped bilinear samples of C <= 4 same-shape 2D fields (stacked
+    (C, nx, ny), or a sequence, which the kernel reads in place) at world
+    positions (px, py) of any shape, channel c on the lattice (i +
+    offs[c])*h: ``interp.sample2`` of each channel, in one launch.
+    Returns (C, *px.shape)."""
+    if not _build.on_card(px, "bilerp_sample"):
         return bilerp_sample_plain(fields, px, py, h, offs)
-    _build.require(fields, "fields", ndim=3)
-    out = _bilerp_launch("bilerp_sample", list(fields), offs, None, px, py,
-                         h)
+    fields = list(fields)
+    if any(f.shape != fields[0].shape for f in fields):
+        raise ValueError("bilerp_sample: fields of different shapes")
+    out = _bilerp_launch("bilerp_sample", fields, offs, None, px, py, h)
     bilerp_sample.launches += 1
     return out
 
@@ -1063,21 +1109,175 @@ def bilerp_sample(fields, px, py, h, offs):
 bilerp_sample.launches = 0
 
 
-def bilerp_sample_mac(u, v, px, py, h):
+def _mac_bands(u, v):
+    ni, nj = v.shape[0], u.shape[1]
+    _build.require(u, "u", shape=(ni + 1, nj))
+    _build.require(v, "v", shape=(ni, nj + 1))
+    return ((ni - 1, nj - 2), (ni - 2, nj - 1))
+
+
+def bilerp_sample_mac(u, v, px, py, h, du=None, dv=None):
     """The 2D MAC velocity at world positions (px, py), u (ni+1, nj) and
     v (ni, nj+1): ``interp.mac_velocity_2d`` in one launch of the
     bilerp_sample kernel in its mac mode, the band test on the float
     floors and the zero outside it in the kernel. Returns (2,
-    *px.shape)."""
-    if not _build.on_card(u, "bilerp_sample_mac"):
-        return bilerp_sample_mac_plain(u, v, px, py, h)
-    ni, nj = v.shape[0], u.shape[1]
-    _build.require(u, "u", shape=(ni + 1, nj))
-    _build.require(v, "v", shape=(ni, nj + 1))
-    out = _bilerp_launch("bilerp_sample_mac", [u, v], interp.MAC_OFFS_2D,
-                         ((ni - 1, nj - 2), (ni - 2, nj - 1)), px, py, h)
+    *px.shape); with a second pair (du, dv) on the same lattices (FLIP's
+    grid change) both pairs in the one launch, (4, *px.shape)."""
+    if not _build.on_card(px, "bilerp_sample_mac"):
+        return bilerp_sample_mac_plain(u, v, px, py, h, du, dv)
+    pairs = [(u, v)] + ([] if du is None else [(du, dv)])
+    bands = [b for a, c in pairs for b in _mac_bands(a, c)]
+    if len(set(map(tuple, bands))) != 2:
+        raise ValueError("bilerp_sample_mac: (du, dv) on other lattices "
+                         "than (u, v)")
+    out = _bilerp_launch("bilerp_sample_mac", [f for p in pairs for f in p],
+                         interp.MAC_OFFS_2D * len(pairs), bands, px, py, h,
+                         mode="mac")
     bilerp_sample_mac.launches += 1
     return out
 
 
 bilerp_sample_mac.launches = 0
+
+
+def bilerp_sample_cp(fields, px, py, h, offs, bands):
+    """calculateCp of C <= 4 2D fields of their own shapes at the same
+    world positions in one launch of the bilerp_sample kernel in its cp
+    mode: field c on the lattice (i + offs[c])*h, its coefficients zero
+    where the cell's float floors leave [0, bands[c][0]] x [0,
+    bands[c][1]]. Returns (C, *px.shape, 4), [c0, c1, c2, c3] in
+    ``calculate_cp_plain``'s operand order (APIC/PolyPIC's G2P)."""
+    if not _build.on_card(px, "bilerp_sample_cp"):
+        return bilerp_sample_cp_plain(fields, px, py, h, offs, bands)
+    if len(bands) != len(fields):
+        raise ValueError("bilerp_sample_cp: need one band a field")
+    out = _bilerp_launch("bilerp_sample_cp", list(fields), offs, bands, px,
+                         py, h, mode="cp")
+    bilerp_sample_cp.launches += 1
+    return out
+
+
+bilerp_sample_cp.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# p2g_splat (2D particles to the grid)
+# ---------------------------------------------------------------------------
+
+P2G_ORDERS = {"flip": 0, "apic": 1, "polypic": 2}
+
+
+def p2g_bin_width(nj):
+    """The y extent of bin_sort's key, sx*(2nj+4) + ky (the JAX key's)."""
+    return 2 * nj + 4
+
+
+def p2g_bin_starts(keys, ni, nj):
+    """The first particle of every key sx*(2nj+4) + ky, sx in [0, ni), of
+    the sorted int64 `keys`: ni*(2nj+4) + 1 int32 offsets, one
+    searchsorted."""
+    n = ni * p2g_bin_width(nj) + 1
+    return torch.searchsorted(
+        keys, torch.arange(n, dtype=keys.dtype, device=keys.device),
+        out_int32=True)
+
+
+def p2g_splat_plain(pos, cols, h, ni, nj, order="flip"):
+    """Plain version: (u, v, rho, T) of the bin-sorted particles, each
+    lattice's weighted sums divided by its weight + 1e-4: the per-tap
+    sorted segment sums (index_add_) of ``particles._splat_multi_sorted``
+    (FLIP; cols = (vel_x, vel_y, rho, T)) or ``_splat_poly_multi_sorted``
+    (cols = (C_x, C_y, C_rho, C_T), (P, 4) each), term for term as the
+    JAX package's."""
+    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+    from gpufluidsimulation_tpu_torch.solvers import particles
+
+    g = Grid2D(ni, nj, h)
+    lattices = ((g.shape_u, g.OFF_U, cols[:1]),
+                (g.shape_v, g.OFF_V, cols[1:2]),
+                (g.shape_c, g.OFF_C, cols[2:]))
+    out = []
+    for shape, off, vals in lattices:
+        if order == "flip":
+            fields, weight = particles._splat_multi_sorted(shape, pos, vals,
+                                                           h, off)
+        else:
+            fields, weight = particles._splat_poly_multi_sorted(
+                shape, pos, vals, h, off, order)
+        out.extend(f / weight for f in fields)
+    return tuple(out)
+
+
+def p2g_check_sizes(P, ni, nj):
+    """Raise unless the particles, the bin starts and the output fit the
+    p2g_splat kernel's 32-bit offsets."""
+    check_int32("p2g_splat", positions=2 * P,
+                starts=ni * p2g_bin_width(nj) + 1,
+                outputs=(ni + 1) * nj + ni * (nj + 1) + 2 * ni * nj)
+
+
+def p2g_splat(pos, cols, h, ni, nj, keys, order="flip"):
+    """Particle-to-grid transfer of bin-sorted particles onto the u, v and
+    cell lattices of an ni x nj grid in one launch of the gather-form
+    p2g_splat kernel: (u, v, rho, T), each lattice's hat-weighted sums of
+    the channel values (``order`` "flip": cols = (vel_x, vel_y, rho, T),
+    columns of any element stride) or of the polynomials (``order``
+    "apic" or "polypic": cols = (C_x, C_y, C_rho, C_T), (P, 4) rows)
+    divided by its weight + 1e-4. `pos` (P, 2) must be in bin_sort's
+    order, whose sorted int64 `keys` give the bins' bounds, and within
+    [h, (n-1)h] (the step's clamp). The kernel sums every tap's run in
+    order and the taps in the JAX package's order: the same bits from
+    run to run, and those of ``p2g_splat_plain`` where that sums in
+    order (on the CPU)."""
+    if not _build.on_card(pos, "p2g_splat"):
+        return p2g_splat_plain(pos, cols, h, ni, nj, order)
+    if order not in P2G_ORDERS:
+        raise ValueError(f"p2g_splat: order {order!r}, expected one of "
+                         f"{sorted(P2G_ORDERS)}")
+    P = pos.shape[0]
+    _build.require(pos, "pos", shape=(P, 2))
+    if len(cols) != 4:
+        raise ValueError("p2g_splat: need 4 columns (u, v and the cell "
+                         "lattice's two)")
+    strides = []
+    for c, col in enumerate(cols):
+        if not col.is_cuda or col.dtype != torch.float32:
+            raise ValueError(f"p2g_splat: cols[{c}] must be a float32 CUDA "
+                             "tensor")
+        if order == "flip":
+            if col.dim() != 1 or col.shape[0] != P:
+                raise ValueError(f"p2g_splat: cols[{c}] of shape "
+                                 f"{tuple(col.shape)}, expected ({P},)")
+            strides.append(col.stride(0))
+        else:
+            _build.require(col, f"cols[{c}]", shape=(P, 4))
+            strides.append(4)
+    if keys.shape != (P,) or keys.device != pos.device:
+        raise ValueError("p2g_splat: one sorted key a particle, on the "
+                         "particles' device")
+    p2g_check_sizes(P, ni, nj)
+    nu, nv, nc = (ni + 1) * nj, ni * (nj + 1), ni * nj
+    out = torch.empty(nu + nv + 2 * nc, dtype=torch.float32,
+                      device=pos.device)
+    if P == 0:
+        out.fill_(0.0)
+    else:
+        starts = p2g_bin_starts(keys, ni, nj)
+        fn = _build.function(
+            "p2g_splat", "gfs_p2g_splat",
+            [_P, ctypes.POINTER(_P), ctypes.POINTER(_I), _I, _P, _I, _I, _F,
+             _LL, _P, _P])
+        ptrs = (_P * 4)(*[c.data_ptr() for c in cols])
+        stride_host = (_I * 4)(*strides)
+        with torch.cuda.device(pos.device):
+            err = fn(_build.ptr(pos), ptrs, stride_host, P2G_ORDERS[order],
+                     _build.ptr(starts), ni, nj, float(h), P,
+                     _build.ptr(out), _build.stream(pos))
+        _build.check(err, "p2g_splat")
+        p2g_splat.launches += 1
+    u, v, rho, T = out.split((nu, nv, nc, nc))
+    return (u.view(ni + 1, nj), v.view(ni, nj + 1), rho.view(ni, nj),
+            T.view(ni, nj))
+
+
+p2g_splat.launches = 0

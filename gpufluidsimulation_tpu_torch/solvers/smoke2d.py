@@ -1,15 +1,20 @@
-"""2D MAC-grid smoke and level-set solver: the five grid schemes.
+"""2D MAC-grid smoke and level-set solver: all eight schemes.
 
 Counterpart of ``gpufluidsimulation_tpu.solvers.smoke2d``: SEMILAG,
 MACCORMACK, BFECC, MAC_REFLECTION and BIMOCQ (the two-level blended
 pull-back with its velocity and scalar remaps and the reflection-style
 average with the pre-advection field), each with the level-set mode
-(``advect_levelset``: rho alone is advected, no projection). The
+(``advect_levelset``: rho alone is advected, no projection), and the
+particle schemes FLIP, APIC and POLYPIC (``solvers/particles.py``). The
 projection is the direct spectral solve (the accelerator default) or,
 with ``EngineMode(spectral_poisson=False)``, MG-PCG with the 2D V-cycle.
 Every 2D sample goes through the ``bilerp_sample`` kernel
-(``ops/interp_fast.py``); the particle schemes FLIP, APIC and POLYPIC
-are not ported yet and raise.
+(``ops/interp_fast.py``); the particle schemes' P2G through the
+``p2g_splat`` kernel and their calculateCp through ``bilerp_sample``'s cp
+mode. The particle schemes compute the JAX package's flat, exact
+transfer (its ``particle_dense`` accelerator path computes the same
+function inside its slot contract), so their ``interp_overflow`` stays
+as it came in, 0 from ``init_state``, as on the JAX flat path.
 
 The time step is per call (``step(state, dt)``), as in the JAX package,
 whose CFL-driven scenes vary it; it is taken in float32. Host syncs per
@@ -40,7 +45,7 @@ from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
 from gpufluidsimulation_tpu_torch.core.grids import Grid2D
 from gpufluidsimulation_tpu_torch.ops import advect, forces, poisson
 from gpufluidsimulation_tpu_torch.ops.advect import substeps
-from gpufluidsimulation_tpu_torch.solvers.particles import ParticleState
+from gpufluidsimulation_tpu_torch.solvers import particles as part
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 
 _PARTICLE_SCHEMES = (Scheme.FLIP, Scheme.APIC, Scheme.POLYPIC)
@@ -82,7 +87,8 @@ class Smoke2DConfig:
 class Smoke2DState:
     """Fields are float32 tensors on the solver's device (the JAX state's
     field order); counters are host ints and ``cfl`` a host float.
-    ``interp_overflow`` is always 0: the port's kernels gather exactly.
+    ``interp_overflow`` is always 0: the port's kernels gather exactly and
+    its particle transfer has no slot cap.
     ``substeps`` is the port's own diagnostic: CFL substeps of the last
     step's traces."""
 
@@ -110,7 +116,7 @@ class Smoke2DState:
     dT_prev: torch.Tensor
     vel_map: mp.MappingState
     scalar_map: mp.MappingState
-    particles: ParticleState
+    particles: part.ParticleState
     frame: int
     last_remeshing: int
     rho_last_remeshing: int
@@ -125,10 +131,6 @@ class Smoke2DState:
 
 def check_supported(cfg: Smoke2DConfig) -> None:
     """Raise NotImplementedError for a configuration the port lacks."""
-    if cfg.scheme in _PARTICLE_SCHEMES:
-        raise NotImplementedError(
-            f"scheme {cfg.scheme.display_name()}: the particle schemes "
-            "(FLIP, APIC, POLYPIC) come with the port's 2D particles slice")
     if cfg.engine_mode is not None and not isinstance(cfg.engine_mode,
                                                       config.EngineMode):
         raise NotImplementedError(f"engine_mode {cfg.engine_mode!r} (the "
@@ -136,6 +138,8 @@ def check_supported(cfg: Smoke2DConfig) -> None:
 
 
 def init_state(cfg: Smoke2DConfig, device=None) -> Smoke2DState:
+    """Zero fields, identity maps, and for the particle schemes the
+    seeded particles (``particles_per_cell_axis`` squared a cell)."""
     g = cfg.grid
 
     def z(kind):
@@ -150,7 +154,9 @@ def init_state(cfg: Smoke2DConfig, device=None) -> Smoke2DState:
         T_init=z("c"), T_orig=z("c"), dT=z("c"), dT_prev=z("c"),
         vel_map=mp.init_mapping(g, device=device),
         scalar_map=mp.init_mapping(g, device=device),
-        particles=ParticleState.empty(device),
+        particles=(part.seed_particles(g, cfg.particles_per_cell_axis, device)
+                   if cfg.scheme in _PARTICLE_SCHEMES
+                   else part.ParticleState.empty(device)),
         frame=0, last_remeshing=0, rho_last_remeshing=0,
         total_resample_count=0, total_scalar_resample=0,
         cfl=0.0, proj_iters=0,
@@ -388,12 +394,80 @@ def _step_bimocq(cfg, g, ctx, s, dt):
         interp_overflow=0, substeps=len(substeps(cfldt, dt)))
 
 
+def _advect_particles(g, p, u, v, cfldt, dt):
+    """Forward RK3 trace of the particles by dt, clamped to [h, (n-1)h]
+    per axis. Returns the new positions' x and y columns."""
+    px, py = part.columns(p.pos)
+    px, py = advect.trace_2d(u, v, g.h, cfldt, dt, px, py)
+    return (px.clamp(g.h, (g.ni - 1) * g.h), py.clamp(g.h, (g.nj - 1) * g.h))
+
+
+def _particles_to_grid(g, s, dt, order):
+    """The particle schemes' common start: the CFL substep from the
+    velocity max (one sync), the trace and clamp, the bin sort and the
+    P2G transfer. Returns (mv, particles sorted, (u, v, rho, T), substep
+    count)."""
+    mv = _host_max_vel(s.u, s.v)
+    cfldt = np.float32(np.float32(g.h) / mv)
+    px, py = _advect_particles(g, s.particles, s.u, s.v, cfldt, dt)
+    p = dataclasses.replace(s.particles, pos=torch.stack([px, py], dim=-1))
+    # one bin sort a frame: every splat is a sorted segment sum (on the
+    # card one gather launch over the bins), and the sorted order persists
+    # in the state
+    p, keys = part.bin_sort(g, p, return_keys=True)
+    if order == "flip":
+        grid_vals = part.p2g_flip(g, p, sorted_bins=True, keys=keys)
+    else:
+        grid_vals = part.p2g_poly(g, p, order, sorted_bins=True, keys=keys)
+    return mv, p, grid_vals, len(substeps(cfldt, dt))
+
+
+def _step_flip(cfg, g, ctx, s, dt):
+    """advanceFLIP: trace, bin sort, P2G, buoyancy and projection, then
+    each particle takes flip*(old + grid change) + (1-flip)*grid value."""
+    mv, p, (u, v, rho, T), subs = _particles_to_grid(g, s, dt, "flip")
+    u_save, v_save, rho_save, T_save = u, v, rho, T
+    u, v, iters, res = _buoyancy_project(cfg, g, ctx, u, v, rho, T, dt)
+    (pu, pv, prho, pT), (d_u, d_v, d_rho, d_T) = part.g2p_sample_with_deltas(
+        g, (u, v, rho, T),
+        (u - u_save, v - v_save, rho - rho_save, T - T_save), p.pos)
+    fl = cfg.flip_ratio
+    new_vel = (fl * (p.vel + torch.stack([d_u, d_v], dim=-1))
+               + (1 - fl) * torch.stack([pu, pv], dim=-1))
+    p = dataclasses.replace(p, vel=new_vel,
+                            rho=fl * (p.rho + d_rho) + (1 - fl) * prho,
+                            T=fl * (p.T + d_T) + (1 - fl) * pT)
+    return dataclasses.replace(
+        s, u=u, v=v, rho=rho, T=T, particles=p, frame=s.frame + 1,
+        cfl=_cfl(mv, dt, g.h), proj_iters=iters, proj_res=res,
+        substeps=subs)
+
+
+def _step_polypic(cfg, g, ctx, s, dt, order):
+    """advancePolyPIC, and advanceAPIC with order "apic": trace, bin
+    sort, polynomial P2G, buoyancy and projection, then each particle
+    takes the grid's values and refits its polynomials (calculateCp)."""
+    mv, p, (u, v, rho, T), subs = _particles_to_grid(g, s, dt, order)
+    u, v, iters, res = _buoyancy_project(cfg, g, ctx, u, v, rho, T, dt)
+    pu, pv, prho, pT = part.g2p_sample(g, u, v, rho, T, p.pos)
+    p = dataclasses.replace(p, vel=torch.stack([pu, pv], dim=-1), rho=prho,
+                            T=pT)
+    p = part.update_cp_all(g, p, u, v, rho, T)
+    return dataclasses.replace(
+        s, u=u, v=v, rho=rho, T=T, particles=p, frame=s.frame + 1,
+        cfl=_cfl(mv, dt, g.h), proj_iters=iters, proj_res=res,
+        substeps=subs)
+
+
 _STEPS = {
     Scheme.SEMILAG: _step_semilag,
     Scheme.MACCORMACK: partial(_step_highorder,
                                multi=advect.maccormack_multi_2d),
     Scheme.BFECC: partial(_step_highorder, multi=advect.bfecc_multi_2d),
     Scheme.MAC_REFLECTION: _step_reflection,
+    Scheme.FLIP: _step_flip,
+    Scheme.APIC: partial(_step_polypic, order="apic"),
+    Scheme.POLYPIC: partial(_step_polypic, order="polypic"),
     Scheme.BIMOCQ: _step_bimocq,
 }
 
@@ -428,8 +502,22 @@ class Smoke2D:
 
     def step_checked(self, state: Smoke2DState, dt: float):
         """The JAX package's contract-enforcing step, returning (state,
-        retried). There a frame whose windowed samplers overflowed is
-        recomputed on the exact-gather engine. The port's kernel gathers
-        exactly, so ``interp_overflow`` is always 0 and no frame is ever
-        recomputed: this is ``(self.step(state, dt), False)``."""
+        retried). There a frame whose windowed samplers (or dense particle
+        bins) overflowed is recomputed on the exact engine. The port's
+        kernels gather exactly and its particle transfer is the exact flat
+        one, so nothing overflows and no frame is ever recomputed: this is
+        ``(self.step(state, dt), False)``."""
         return self.step(state, dt), False
+
+    def sample_particles_from_grid(self, state: Smoke2DState) -> Smoke2DState:
+        """The particle schemes' bootstrap from the grid (the JAX CLI runs
+        it after the scene init): every particle takes the grid's
+        velocity, rho and T at its position and fits its polynomials."""
+        g = self.grid
+        p = state.particles
+        pu, pv, prho, pT = part.g2p_sample(g, state.u, state.v, state.rho,
+                                           state.T, p.pos)
+        p = dataclasses.replace(p, vel=torch.stack([pu, pv], dim=-1),
+                                rho=prho, T=pT)
+        p = part.update_cp_all(g, p, state.u, state.v, state.rho, state.T)
+        return dataclasses.replace(state, particles=p)

@@ -8,9 +8,13 @@ writers.
 * ``sim2d 7 3 --frames 1`` (BiMocq, the Zalesak disk at 200^2, a
   level set stepped at CFL 0.75 through a frame of 2.0) writes
   ``levelset_0000.txt``, the rho of the same substeps run here.
+* ``sim2d 4 0 --frames 1`` (FLIP, the Taylor vortex with 4 x 4
+  particles a cell, 1,048,576 particles) writes the ``vort_0000.bmp`` of
+  one ``Smoke2D`` step here from the particles sampled from the scene's
+  grid, as the JAX CLI bootstraps them.
 * The BMP writers and the colormap against the JAX package's, byte for
-  byte; a particle scheme, an unknown example and a run without a card
-  exit non-zero and write nothing.
+  byte; a particle scheme on a level-set example, an unknown example and
+  a run without a card exit non-zero and write nothing.
 """
 
 import math
@@ -35,8 +39,8 @@ def _one_torch_thread():
     torch.set_num_threads(threads)
 
 
-def _scene(example):
-    scene = scenes2d.make_scene_2d(example, Scheme.BIMOCQ)
+def _scene(example, scheme=Scheme.BIMOCQ):
+    scene = scenes2d.make_scene_2d(example, scheme)
     solver = smoke2d.Smoke2D(scene.cfg, device="cpu")
     return scene, solver, scene.init(solver, solver.init_state())
 
@@ -59,6 +63,25 @@ def test_sim2d_taylor_vortex_frame(tmp_path, capsys):
     assert np.isfinite(curl).all() and np.abs(curl).max() > 1.0
     jbmp.write_bmp_rgb(str(tmp_path / "want.bmp"),
                        jcolormap.render_vorticity(curl, g.ni, g.nj))
+    assert ((out / "vort_0000.bmp").read_bytes()
+            == (tmp_path / "want.bmp").read_bytes())
+
+
+def test_sim2d_flip_taylor_vortex_frame(tmp_path, capsys):
+    assert cli.main(["sim2d", "4", "0", "--frames", "1", "--device", "cpu",
+                     "--out", str(tmp_path)]) == 0
+    assert "FLIP frame 0 done" in capsys.readouterr().out
+    out = tmp_path / "2D_Taylor_vortex" / "FLIP"
+    assert sorted(p.name for p in out.iterdir()) == ["vort_0000.bmp"]
+    scene, solver, state = _scene(0, Scheme.FLIP)
+    assert state.particles.pos.shape == (256 * 256 * 16, 2)
+    state = solver.sample_particles_from_grid(state)
+    state = solver.step(state, scene.dt)
+    g = solver.grid
+    curl = forces.curl_2d(state.u, state.v, g.h)
+    assert bool(torch.isfinite(curl).all()) and float(curl.abs().max()) > 1.0
+    bmp.write_bmp_rgb(str(tmp_path / "want.bmp"),
+                      colormap.render_vorticity(curl, g.ni, g.nj))
     assert ((out / "vort_0000.bmp").read_bytes()
             == (tmp_path / "want.bmp").read_bytes())
 
@@ -139,10 +162,10 @@ def test_curl_and_buoyancy_match_jax():
 
 
 def test_sim2d_refusals(tmp_path, capsys, monkeypatch):
-    for argv, msg in ((["sim2d", "4", "0"], "particles slice"),
-                      (["sim2d", "7", "9"], "unknown 2D example 9"),
+    for argv, msg in ((["sim2d", "7", "9"], "unknown 2D example 9"),
                       (["sim2d", "9", "0"], "is not a valid Scheme"),
-                      (["sim2d", "4", "3"], "levelset is not supported")):
+                      (["sim2d", "4", "3"], "levelset is not supported"),
+                      (["sim2d", "6", "4"], "levelset is not supported")):
         assert cli.main(argv + ["--device", "cpu",
                                 "--out", str(tmp_path)]) == 2
         assert msg in capsys.readouterr().err, argv

@@ -23,7 +23,8 @@ WRAPPERS = (interp_fast.trilerp_sample, interp_fast.minmax_sample,
             stencil_kernels.rbgs_smooth, stencil_kernels.masked_rbgs_smooth,
             interp_fast.volume_prefilter, interp_fast.vol9_fixup,
             interp_fast.pullback_sample, interp_fast.bilerp_sample,
-            interp_fast.bilerp_sample_mac)
+            interp_fast.bilerp_sample_mac, interp_fast.bilerp_sample_cp,
+            interp_fast.p2g_splat)
 
 
 def _imports(path):
@@ -62,6 +63,13 @@ def test_port_import_leaves_jax_unloaded():
         "s2 = Smoke2D(scenes2d.make_scene_2d(3, Scheme.BIMOCQ).cfg, "
         "device='cpu')\n"
         "assert s2.step(s2.init_state(), 0.1).frame == 1\n"
+        "from gpufluidsimulation_tpu_torch.solvers.smoke2d import "
+        "Smoke2DConfig\n"
+        "for sch in (Scheme.FLIP, Scheme.POLYPIC):\n"
+        "    sp = Smoke2D(Smoke2DConfig(ni=8, nj=8, L=1.0, scheme=sch), "
+        "device='cpu')\n"
+        "    assert sp.step(sp.init_state(), 0.1).particles.pos.shape == "
+        "(1024, 2)\n"
         "cfg = vortex_collision_config(ni=8, nj=8, nk=8, "
         "scheme=Scheme.BIMOCQ, dt=1.0)\n"
         "s = Smoke3D(cfg, device='cpu')\n"
@@ -161,6 +169,16 @@ def test_wrappers_take_plain_path_on_cpu():
     out = interp_fast.bilerp_sample_mac(u2[:, :n - 1], v2[:n - 1],
                                         *(grid[:2, :, :, 0] * h), h)
     assert out.shape == (2, n, n)
+    out = interp_fast.bilerp_sample_cp([u2[:, :n - 1], v2[:n - 1]],
+                                       *(grid[:2, :, :, 0] * h), h,
+                                       ((0.0, 0.5), (0.5, 0.0)),
+                                       ((n - 1, n - 3), (n - 3, n - 1)))
+    assert out.shape == (2, n, n, 4)
+    pos = torch.rand(64, 2) * (n - 3) * h + h
+    out = interp_fast.p2g_splat(pos, (pos[:, 0], pos[:, 1], pos[:, 0],
+                                      pos[:, 1]), h, n - 1, n - 1, None)
+    assert [tuple(o.shape) for o in out] == [(n, n - 1), (n - 1, n),
+                                             (n - 1, n - 1), (n - 1, n - 1)]
     assert [fn.launches for fn in WRAPPERS] == before == [0] * len(WRAPPERS)
 
 
@@ -184,6 +202,9 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         interp_fast.bilerp_sample(torch.empty(1, 4, 4, device="meta"),
                                   p[0], p[0], 1.0, ((0.5, 0.5),))
+    with pytest.raises(ValueError):
+        interp_fast.p2g_splat(torch.empty(4, 2, device="meta"),
+                              [p[0, 0]] * 4, 1.0, 4, 4, None)
     with pytest.raises(ValueError):
         _build.require(torch.zeros(3), "x")
 

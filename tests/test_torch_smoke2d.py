@@ -23,7 +23,8 @@ step, with the same CG iteration count and the same counters.
 
 Stages: the scene inits (the stream-function MG-PCG of the Taylor vortex
 and leapfrog among them) at 48x40, the configuration and the state
-across ``convert`` both ways, the particle schemes' refusal.
+across ``convert`` both ways, the particle schemes' ``step_checked``
+(their whole steps are held in tests/test_torch_particles.py).
 
 The 3D main path at 16x20x24 (the non-cubic whole step, ROADMAP §3 item
 2): three BiMocq steps of the vortex-collision physics with the emitter
@@ -389,20 +390,25 @@ def test_state_round_trips_both_ways(tmp_path_factory):
 
 
 def test_particle_schemes_and_step_checked(monkeypatch):
-    for scheme in (Scheme.FLIP, Scheme.APIC, Scheme.POLYPIC):
-        with pytest.raises(NotImplementedError, match="particles slice"):
-            smoke2d.Smoke2D(smoke2d.Smoke2DConfig(ni=8, nj=8, L=1.0,
-                                                  scheme=scheme),
-                            device="cpu")
-    solver = smoke2d.Smoke2D(smoke2d.Smoke2DConfig(ni=12, nj=16, L=1.0),
-                             device="cpu")
-    st = dataclasses.replace(solver.init_state(), u=torch.from_numpy(
-        _smooth((13, 16), 5, 0.2)))
-    a = solver.step(st, 0.1)
-    b, retried = solver.step_checked(st, 0.1)
-    assert retried is False
-    for key, val in convert.state_to_numpy(a).items():
-        np.testing.assert_array_equal(convert.state_to_numpy(b)[key], val)
+    """The particle schemes build on the CPU with their seeded particles,
+    and every scheme's step_checked is (step, False), bit for bit: the
+    port's transfers are exact, so nothing is ever recomputed."""
+    u0 = torch.from_numpy(_smooth((13, 16), 5, 0.2))
+    for scheme in (Scheme.FLIP, Scheme.APIC, Scheme.POLYPIC, Scheme.BIMOCQ):
+        solver = smoke2d.Smoke2D(smoke2d.Smoke2DConfig(
+            ni=12, nj=16, L=1.0, scheme=scheme), device="cpu")
+        st = dataclasses.replace(solver.init_state(), u=u0)
+        particles = scheme != Scheme.BIMOCQ
+        assert st.particles.pos.shape == ((12 * 16 * 16 if particles else 0),
+                                          2)
+        if particles:
+            st = solver.sample_particles_from_grid(st)
+        a = solver.step(st, 0.1)
+        b, retried = solver.step_checked(st, 0.1)
+        assert retried is False and b.interp_overflow == 0
+        for key, val in convert.state_to_numpy(a).items():
+            np.testing.assert_array_equal(convert.state_to_numpy(b)[key],
+                                          val, err_msg=f"{scheme} {key}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         smoke2d.Smoke2D(smoke2d.Smoke2DConfig(ni=8, nj=8, L=1.0))
