@@ -39,6 +39,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     sample mode replaces; pullback_sample on the same grids for the kind
     sets (u, v, w), (c, c), (u, c, c) and (u, v, w, c) at clamps (1, 1)
     and (0, 0), the clip both hit and missed;
+2b. the slab modes of trilerp_sample, rk3_substep and dmc_substep (the
+    sharded path), their lattice modes too, against their plain versions
+    bit for bit with equal overflow counts, on 256^3 (slabs of 64 planes
+    at origins 0, 64 and 192, halo 8) and 37x29x45 (slabs of 15, halo 4),
+    from positions up to the halo (no count; the slab launch equals the
+    whole-grid launch bit for bit) and past it (the count must not be
+    0); each timed on a 64-plane slab;
  3. parity on the card (kernels) against the port on the CPU (plain
     versions): 3 steps at 32^3 from one numpy state of the vortex step,
     the moving-obstacle step, MAC_REFLECTION on the vortex scene,
@@ -56,6 +63,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     rk3_substep and 3 dmc_substep, 1 of each in the lattice mode, and 3
     volume_prefilter launches a step, no plain DMC displacement on the
     card), rho_max in (0, 10] and every field finite;
+4b. the sharded main path: the same solver's step through
+    parallel.sharding.sharded_step on a mesh of 4 slabs on the one card
+    (halo 8): 2 steps held bit for bit against the main phase's
+    single-device step, then 1 warm-up and 3 timed steps
+    with the launch counts and the slab-mode counts read (D times the
+    marches' launches, 3 D + 3 trilerp_sample launches a stage set), its
+    ms/step beside the single-device one, launches and peak memory;
  5. the obstacle path: the moving-obstacle scene (buoyant plume, sweeping
     sphere, masked MG-PCG) at n^3 with dt = 1.6/n, warmed up until the
     plume passes CFL 1 (so that both map marches substep), then timed
@@ -96,8 +110,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     its plain versions, bit for bit, on 256^2, 256x1280 and 37x29 (C=1,
     C=2 on the 5-point stencil's (5, ni, nj) batch, C=2 on two lattices,
     the mac mode, calculateCp of u, v, rho and T; each also from
-    positions 3 cells outside the domain), timed at 256^2 beside its
-    plain version, its bound and grid_sample; the P2G kernel p2g_splat in
+    positions 3 cells outside the domain), timed at 256^2 (also with the
+    50 MB L2 flushed before each launch) beside its plain version, its
+    bound and grid_sample; the P2G kernel p2g_splat in
     its FLIP, APIC and PolyPIC modes on 256^2 with 1,048,576 particles
     (12,000 of them piled on one clamp-ring node): bit for bit against
     its plain version on the CPU, within 1e-5 of each output's scale
@@ -123,8 +138,9 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     frames) and 6 2 (PolyPIC, 1 frame), each run's launches counted
     alone, every BMP a 24-bit image of the grid's size, the level-set
     file finite and equal to the frame's rho.
-Then it prints one JSON line with every kernel's numbers and, last, the
-device line. It never imports JAX or the JAX package.
+Then it prints one JSON line with every kernel's numbers (the three with a
+slab mode carry its numbers under "slab") and, last, the device line. It
+never imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -736,6 +752,216 @@ def dmc_phase(g, rng, dev, compare):
                 cases=hit,
                 replaces=("gpufluidsimulation_tpu/ops/interp_fast.py:3143 "
                           "(_kernel_dmc, pallas_call :3319)"))
+
+
+# the kernels with a slab mode (the sharded path), and the wrappers whose
+# slab launches the sharded main path counts
+SLAB_KERNELS = ("trilerp_sample", "rk3_substep", "dmc_substep")
+SLAB_WRAPPERS = SLAB_KERNELS + ("rk3_substep_lattice", "dmc_substep_lattice")
+
+
+def slab_phase(n, seed):
+    """Phase 2b: the slab modes of trilerp_sample, rk3_substep and
+    dmc_substep (their lattice modes too) against their plain versions on
+    the card, bit for bit and with equal overflow counts, on the n^3 grid
+    (slabs of n/4 planes at origins 0, n/4 and 3n/4, halo 8: 0, 64 and
+    192 at 256^3) and the ragged 37x29x45 (slabs of 15 at 0, 15 and 30,
+    halo 4). Positions are displaced in z by +-reach, the sign alternating
+    by column, so that both edge planes of every slab reach their
+    farthest: up to the halo (the field slab's, or the velocity slab's
+    less the substep's travel; one CFL substep for DMC, within its 2 map
+    planes), where no node may leave the slab and the slab launch must
+    equal the whole-grid launch bit for bit, and past it, where the count
+    must not be 0. Timed at n^3, origin n/4, within the halo."""
+    import functools
+
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast as F
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    errs = {k: [] for k in SLAB_KERNELS}
+    counts = {k: {} for k in SLAB_KERNELS}
+    timed = {}
+
+    def check(kernel, name, got, want, ov_got, ov_want, whole=None,
+              expect_zero=None):
+        err = float((got - want).abs().max())
+        c_got, c_want = int(ov_got), int(ov_want)
+        log(f"[slab] {kernel} {name}: max_abs_err={err:.3e} overflow "
+            f"kernel {c_got} plain {c_want}")
+        if not err == 0.0 or c_got != c_want:
+            raise AssertionError(f"{kernel} {name}: slab kernel disagrees "
+                                 f"with its plain version ({err}, counts "
+                                 f"{c_got} / {c_want})")
+        if expect_zero is not None and (c_got == 0) != expect_zero:
+            raise AssertionError(f"{kernel} {name}: overflow {c_got}, "
+                                 f"expected {'0' if expect_zero else '> 0'}")
+        if whole is not None:
+            werr = float((got - whole).abs().max())
+            if not werr == 0.0:
+                raise AssertionError(f"{kernel} {name}: slab launch differs "
+                                     f"from the whole-grid launch by {werr}")
+        errs[kernel].append(err)
+        counts[kernel][name] = c_got
+        return c_got
+
+    def zero():
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+
+    for shape, D, halo in (((n, n, n), 4, 8), ((37, 29, 45), 3, 4)):
+        gg = Grid3D(*shape, 0.2 / shape[0])
+        h = gg.h
+        tag = "x".join(map(str, shape))
+        nk = shape[2]
+        nzl = nk // D
+        L = min(nzl + 2 * halo, nk)
+        fields = torch.stack([smooth(shape, rng, 1.0, dev),
+                              smooth(shape, rng, 50.0, dev)]).contiguous()
+        u, v, w = (smooth(s_, rng, 0.06, dev)
+                   for s_ in (gg.shape_u, gg.shape_v, gg.shape_w))
+        top = max(float(t.abs().max()) for t in (u, v, w))
+        # one cell a substep for the fastest face, as the CFL substep
+        sh1 = float(np.float32(np.float32(h) / np.float32(top))
+                    / np.float32(h))
+        lat = torch.stack(gg.node_coords("c", device=dev))
+        maps = (lat + torch.stack([smooth(shape, rng, 2.0 * h, dev)
+                                   for _ in range(3)])).contiguous()
+        clamp = (1.0, shape[0] - 1.0, 1.0, shape[1] - 1.0, 1.0, nk - 1.0)
+        thresh = F.dmc_threshold(h)
+        ii = torch.arange(shape[0], device=dev)[:, None, None]
+        jj = torch.arange(shape[1], device=dev)[None, :, None]
+        sign = torch.where((ii + jj) % 2 == 0, 1.0, -1.0)
+        for z0 in (0, nzl, (D - 1) * nzl):
+            s0 = min(max(z0 - halo, 0), nk - L)
+            sl = slice(z0, z0 + nzl)
+            faces = [f[..., s0:s0 + m].contiguous()
+                     for f, m in ((u, L), (v, L), (w, L + 1))]
+            # the halo-extended field slab and the map slab with its 2
+            # exchanged planes, edge planes replicated at the global edges
+            ext = fields[..., torch.arange(z0 - halo, z0 + nzl + halo,
+                                           device=dev).clamp(0, nk - 1)]
+            mext = maps[..., torch.arange(z0 - 2, z0 + nzl + 2,
+                                          device=dev).clamp(0, nk - 1)]
+            mext = mext.contiguous()
+            xy = [lat[a][..., sl] + smooth(shape, rng, 2.0 * h, dev)[..., sl]
+                  for a in (0, 1)]
+
+            def positions(reach):
+                """World positions of the slab's cells, x and y wandering
+                2 cells, z moved by +-reach cells."""
+                pz = lat[2][..., sl] + sign * (reach * h)
+                return [q.contiguous() for q in (*xy, pz)]
+
+            vslab = F.Slab(nz=nk, src=s0)
+            dslab = F.Slab(nz=nk, src=s0, out=z0, out_nz=nzl, map=z0 - 2)
+            fslab = F.Slab(nz=nk, src=z0 - halo)
+            timing = shape[0] == n and z0 == nzl
+            for within in (True, False):
+                label = f"{tag} z0={z0} {'within' if within else 'past'}"
+                pos = positions(halo - 0.5 if within else halo + 3.0)
+                for dual, C in ((True, 2), (False, 1)):
+                    f = fields[:C].contiguous()
+                    e = ext[:C].contiguous()
+                    offs = ((0.0, 0.0, 0.0),) * C
+                    ok, op = zero(), zero()
+                    got = F.trilerp_sample(e, *pos, h, offs, dual, fslab, ok)
+                    want = F.trilerp_sample_plain(e, *pos, h, offs, dual,
+                                                  fslab, op)
+                    whole = (F.trilerp_sample(f, *pos, h, offs, dual)
+                             if within else None)
+                    check("trilerp_sample", f"{label} C={C} "
+                          f"{'dual' if dual else 'plain'}", got, want, ok, op,
+                          whole, within)
+                    if within and dual and timing:
+                        timed["trilerp_sample"] = (
+                            functools.partial(F.trilerp_sample, e, *pos, h,
+                                              offs, True, fslab),
+                            functools.partial(F.trilerp_sample_plain, e,
+                                              *pos, h, offs, True, fslab),
+                            4 * (e.numel() + (3 + C) * pos[0].numel()),
+                            dual_ops(pos, h, offs))
+                # rk3_substep: the stages travel up to a cell, so within
+                # is the velocity slab's halo less 2.5 cells; past it is
+                # beyond the velocity slab of the edge slabs, which reaches
+                # 2 halos into the grid
+                gpos = torch.stack([q / h for q in positions(
+                    halo - 2.5 if within else 2 * halo + 3.0)]).contiguous()
+                ok, op = zero(), zero()
+                got = F.rk3_substep(*faces, gpos, sh1, clamp, vslab, ok)
+                want = F.rk3_substep_plain(*faces, gpos, sh1, clamp, vslab,
+                                           op)
+                whole = (F.rk3_substep(u, v, w, gpos, sh1, clamp)
+                         if within else None)
+                check("rk3_substep", f"{label} displaced", got, want, ok, op,
+                      whole, within)
+                if within and timing:
+                    timed["rk3_substep"] = (
+                        functools.partial(F.rk3_substep, *faces, gpos, sh1,
+                                          clamp, vslab),
+                        functools.partial(F.rk3_substep_plain, *faces, gpos,
+                                          sh1, clamp, vslab),
+                        4 * (sum(t.numel() for t in faces)
+                             + 6 * gpos[0].numel()),
+                        gpos[0].numel() * RK3_OPS)
+                # dmc_substep: one CFL substep of either sign (within the
+                # 2-plane map halo), and 3.5 (past it: the count of both
+                # signs together must not be 0)
+                past = 0
+                for sh in ((sh1, -sh1) if within else (3.5 * sh1,
+                                                       -3.5 * sh1)):
+                    ok, op = zero(), zero()
+                    got = F.dmc_substep(*faces, mext, sh, thresh, dslab, ok)
+                    want = F.dmc_substep_plain(*faces, mext, sh, thresh,
+                                               dslab, op)
+                    whole = (F.dmc_substep(u, v, w, maps, sh, thresh)[..., sl]
+                             if within else None)
+                    past += check("dmc_substep", f"{label} sh={sh:+.3f}", got,
+                                  want, ok, op, whole,
+                                  True if within else None)
+                if not within and past == 0:
+                    raise AssertionError(f"dmc_substep {label}: no map "
+                                         "corner left the map slab")
+                if within and timing:
+                    N = got[0].numel()
+                    timed["dmc_substep"] = (
+                        functools.partial(F.dmc_substep, *faces, mext, sh1,
+                                          thresh, dslab),
+                        functools.partial(F.dmc_substep_plain, *faces, mext,
+                                          sh1, thresh, dslab),
+                        4 * (sum(t.numel() for t in faces) + 6 * N),
+                        N * DMC_OPS)
+            # the lattice modes: no positions read, nothing to count
+            lslab = F.Slab(nz=nk, src=s0, out=z0, out_nz=nzl)
+            for kind in ("c", "u", "v", "w"):
+                dim = gg.dim_of(kind)
+                ok, op = zero(), zero()
+                got = F.rk3_substep_lattice(*faces, dim, sh1, clamp, lslab, ok)
+                want = F.rk3_substep_plain(
+                    *faces, F.lattice_positions((shape[0], shape[1], nzl), dim,
+                                                dev, z0), sh1, clamp, lslab,
+                    op)
+                check("rk3_substep", f"{tag} z0={z0} lattice {kind}", got,
+                      want, ok, op, F.rk3_substep_lattice(
+                          u, v, w, dim, sh1, clamp)[..., sl], True)
+            got = F.dmc_substep_lattice(*faces, sh1, thresh, h, lslab)
+            want = F.dmc_substep_lattice_plain(*faces, sh1, thresh, h, lslab)
+            check("dmc_substep", f"{tag} z0={z0} lattice", got, want, 0, 0,
+                  F.dmc_substep_lattice(u, v, w, sh1, thresh, h)[..., sl])
+    results = {}
+    for kernel in SLAB_KERNELS:
+        run, plain, nbytes, nops = timed[kernel]
+        k_ms = cuda_time(run, 20)
+        p_ms = cuda_time(plain, 3, 1)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        log(f"[slab] {kernel} slab mode {n}^3 slab of {n // 4} planes: "
+            f"{k_ms:.4f} ms (plain {p_ms:.3f}, bound {b_ms:.4f} by {b_by})")
+        results[kernel] = dict(max_abs_err=max(errs[kernel]), tol=0.0,
+                               ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                               bound_by=b_by, overflow_counts=counts[kernel])
+    return results
 
 
 def jacobi_phase(g, rng, dev, compare):
@@ -1940,7 +2166,124 @@ def main_phase(n, steps, profile):
     if profile:
         profile_steps(solver, state, profile, "main path", "w",
                       res["ms_per_step"])
-    return res["launches"]
+    return res["launches"], solver, res["ms_per_step"]
+
+
+# the sharded main path: 4 slabs on the card, halo 8
+SHARDED_SLABS = 4
+SHARDED_HALO = 8
+SHARDED_COMPARE_STEPS = 2
+SHARDED_STEPS = 3
+
+
+def sharded_phase(solver, single_ms, profile=None):
+    """Phase 4b: the main path's step through ``parallel.sharding.
+    sharded_step`` on a mesh of SHARDED_SLABS slabs on the one card (halo
+    SHARDED_HALO; fast sampling on, as for cards): the map marches and
+    the u, v and cell-kind pull-back samples run slab by slab in the
+    kernels' slab modes, w's samples, the forces, the viscosity and the
+    spectral projection whole on the card. Held against the main phase's
+    single-device step (the same solver) after SHARDED_COMPARE_STEPS steps
+    from the initial state: every field and map bit for bit (tolerance 0:
+    no sample leaves its slab, so every slab launch gives the whole-grid
+    launch's bits, and the rest is the same code on the same device), and
+    interp_overflow and slab_clamped 0. Then 1 warm-up and SHARDED_STEPS
+    timed steps with the launch counts (and the slab-mode counts) reset
+    before and read after: per step D times the single-device marches'
+    launches, of which the first substep's in the lattice mode, and 3 D +
+    3 trilerp_sample launches a stage set (u, v and c sharded, w whole),
+    all but w's in the slab mode."""
+    import types
+
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
+    from gpufluidsimulation_tpu_torch.parallel.sharding import (
+        make_mesh, shard_state, sharded_step)
+
+    D = SHARDED_SLABS
+    mesh = make_mesh(D, devices=[torch.device("cuda", 0)] * D)
+    step = sharded_step(solver, mesh, halo=SHARDED_HALO)
+    t0 = time.time()
+    ref = solver.init_state()
+    got = shard_state(solver.init_state(), mesh)
+    for _ in range(SHARDED_COMPARE_STEPS):
+        ref = solver.step(ref)
+        got = step(got)
+    errs = {}
+    for key in FIELDS + ("rho", "T"):
+        errs[key] = float((getattr(got, key) - getattr(ref, key)).abs().max())
+    for key in ("fwd", "bwd"):
+        errs[f"vel_map.{key}"] = float(
+            (getattr(got.vel_map, key) - getattr(ref.vel_map, key))
+            .abs().max())
+    bad = {k: e for k, e in errs.items() if not e == 0.0}
+    if (bad or got.interp_overflow != 0 or got.slab_clamped != 0
+            or got.proj_iters != ref.proj_iters):
+        raise AssertionError(f"sharded main path vs the single-device step "
+                             f"after {SHARDED_COMPARE_STEPS} steps: {bad}, "
+                             f"overflow {got.interp_overflow}, slab_clamped "
+                             f"{got.slab_clamped}, proj_iters "
+                             f"{got.proj_iters} / {ref.proj_iters}")
+    log(f"[sharded] {D} slabs on one card, halo {SHARDED_HALO}: bit for bit "
+        f"with the single-device step after {SHARDED_COMPARE_STEPS} steps "
+        f"({json.dumps(errs)}), compared in {time.time() - t0:.1f} s")
+    del ref, got
+    slab_fns = [getattr(interp_fast, name) for name in SLAB_WRAPPERS]
+
+    def reset_slab_counts():
+        for fn in slab_fns:
+            fn.slab_launches = 0
+
+    path = types.SimpleNamespace(
+        cfg=solver.cfg, step=step,
+        init_state=lambda: shard_state(solver.init_state(), mesh))
+    steps = SHARDED_STEPS
+    state, res = timed_steps(path, steps, MAIN_KERNELS,
+                             on_reset=reset_slab_counts)
+    if state.interp_overflow != 0 or state.slab_clamped != 0:
+        raise AssertionError(f"sharded main path: interp_overflow "
+                             f"{state.interp_overflow}, slab_clamped "
+                             f"{state.slab_clamped}")
+    counts = res["launches"]
+    subs = sum(res["substeps"])
+    per_step = {k: kernel_launches(counts, k) for k in
+                ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
+                 "dmc_substep", "volume_prefilter")}
+    for lattice in LATTICE.values():
+        per_step[lattice] = counts[lattice]
+    want = {"trilerp_sample": (3 * D + 1) * 3 * steps,
+            "jacobi_diffuse": 3 * len(stencil_kernels.sweep_chunks(20))
+            * steps,
+            "rk3_substep": D * subs, "dmc_substep": D * subs,
+            "volume_prefilter": 3 * steps,
+            "rk3_substep_lattice": D * steps,
+            "dmc_substep_lattice": D * steps}
+    slab = {fn.__name__: fn.slab_launches for fn in slab_fns}
+    want_slab = {"trilerp_sample": 3 * D * 3 * steps,
+                 "rk3_substep": D * (subs - steps),
+                 "rk3_substep_lattice": D * steps,
+                 "dmc_substep": D * (subs - steps),
+                 "dmc_substep_lattice": D * steps}
+    if per_step != want or slab != want_slab:
+        raise AssertionError(f"sharded main path launches {per_step} (slab "
+                             f"mode {slab}), expected {want} ({want_slab})")
+    res.update(slabs=D, halo=SHARDED_HALO, slab_launches=slab,
+               launches_per_step={k: c / steps for k, c in per_step.items()},
+               slab_launches_per_step={k: c / steps
+                                       for k, c in slab.items()},
+               single_device_ms_per_step=single_ms,
+               compare_steps=SHARDED_COMPARE_STEPS, max_abs_err=errs)
+    log(f"[sharded] {res['ms_per_step']:.2f} ms/step against the "
+        f"single-device {single_ms:.2f} (same solver, this run); launches a "
+        f"step {json.dumps(res['launches_per_step'])}, slab mode "
+        f"{json.dumps(res['slab_launches_per_step'])}; peak memory "
+        f"{res['peak_mem_gib']:.2f} GiB")
+    log("[sharded] " + json.dumps(res))
+    if profile:
+        profile_steps(path, state, profile, "sharded main path", "a",
+                      res["ms_per_step"])
+    return counts, slab
 
 
 def obstacle_phase(n, steps, profile):
@@ -2555,7 +2898,8 @@ def bilerp_phase(rng):
     u, v, rho and T, each in its own band) at 4 positions a cell; each
     also at positions stretched to 3 cells outside the domain (outside
     every cp band too). At 256^2 each is timed: the kernel's own device
-    time (torch.profiler), the plain version, and for the sample modes
+    time (torch.profiler; also with the L2 flushed before each launch),
+    the plain version, and for the sample modes
     grid_sample (bilinear, border padding, align_corners) on the same
     samples."""
     import torch
@@ -2566,6 +2910,7 @@ def bilerp_phase(rng):
     from gpufluidsimulation_tpu_torch.solvers import particles
 
     dev = torch.device("cuda")
+    flush = torch.empty(2 ** 24, dtype=torch.float32, device=dev)
 
     def compare(name, got, want, tol):
         err = float((got - want).abs().max())
@@ -2680,6 +3025,11 @@ def bilerp_phase(rng):
                                 + C * BILERP_CHANNEL_OPS)
             b_ms, b_by = bound_ms(nbytes, nops)
             k_ms = device_ms(run, 20, "bilerp_sample_kernel")
+            # the same with the L2 flushed before each launch (a 64 MiB
+            # write, more than the 50 MB L2): the inputs come from device
+            # memory; the outputs still land in the write-back L2
+            cold_ms = device_ms(lambda: (flush.zero_(), run()), 20,
+                                "bilerp_sample_kernel")
             call_ms = cuda_time(run, 50)
             p_ms = cuda_time(plain, 10)
             lib_ms = lib_err = None
@@ -2709,11 +3059,13 @@ def bilerp_phase(rng):
                 lib_ms = device_ms(lib, 20, "grid_sampler")
             variants.append(dict(
                 variant=f"{label} {ni}x{nj}", max_abs_err=err, tol=0.0,
-                ms=k_ms, call_ms=call_ms, plain_ms=p_ms, bound_ms=b_ms,
+                ms=k_ms, ms_l2_flushed=cold_ms, call_ms=call_ms,
+                plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
                 library_max_abs_err=lib_err))
             log(f"[kernels] bilerp_sample {label} {ni}x{nj}: {k_ms:.4f} ms "
-                f"on the card ({call_ms:.4f} ms a call with its launch; "
+                f"on the card, {cold_ms:.4f} with the L2 flushed before "
+                f"each launch ({call_ms:.4f} ms a call with its launch; "
                 f"plain {p_ms:.3f}, bound {b_ms:.5f} by {b_by}, grid_sample "
                 f"{lib_ms} ms, max_abs_err {lib_err} against the kernel)")
     return dict(variants[0], variants=variants + edges, replaces=(
@@ -3292,6 +3644,7 @@ def main():
         raise AssertionError(f"redesigned kernels spill: {spills}")
 
     results = kernel_phase(args.kernel_n, args.seed)
+    slab_results = slab_phase(args.kernel_n, args.seed)
     rng2d = np.random.default_rng(args.seed + 2)
     parity_phase(bench_config(32), "vortex")
     parity_phase(obstacle_config(32), "obstacle")
@@ -3325,7 +3678,12 @@ def main():
                  "voxel emitter with trans and emit_velocity")
     parity_phase(bench_config(32, engine_mode=EngineMode(
         spectral_poisson=False, rbgs=False)), "mgpcg jacobi (rbgs=False)")
-    by_path = {"main": main_phase(args.n, args.steps, args.profile)}
+    by_path = {}
+    by_path["main"], main_solver, main_ms = main_phase(args.n, args.steps,
+                                                       args.profile)
+    by_path["sharded_main"], sharded_slab = sharded_phase(
+        main_solver, main_ms, args.profile)
+    del main_solver
     by_path["obstacle"], obstacle_calls = obstacle_phase(
         args.obstacle_n, args.obstacle_steps, args.profile)
     mgpcg_res = mgpcg_phase(args.obstacle_n, args.obstacle_steps,
@@ -3385,6 +3743,11 @@ def main():
             for mode in MODES[name]:
                 entry[f"{mode.rsplit('_', 1)[1]}_launches_by_path"] = {
                     p: c[mode] for p, c in by_path.items()}
+        if name in SLAB_KERNELS:
+            entry["slab"] = dict(slab_results[name], launches_by_path={
+                "sharded_main": sum(
+                    n_ for w_, n_ in sharded_slab.items()
+                    if w_ == name or w_ == LATTICE.get(name))})
         for extra in ("variants", "lattice", "one_sweep_ms",
                       "sweeps_per_launch", "levels_per_launch", "cases",
                       "calls_per_step", "launches_per_step"):

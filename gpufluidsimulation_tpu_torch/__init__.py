@@ -27,5 +27,15 @@ and the particle schemes FLIP, APIC and POLYPIC (``solvers/particles.py``),
 with the spectral or MG-PCG projection, the five examples of
 ``scenes/scenes2d.py`` and the ``sim2d`` CLI; every 2D sample is a launch
 of the ``bilerp_sample`` kernel, the particles' P2G a launch of the
-gather-form ``p2g_splat`` kernel. The sharded step is not ported.
+gather-form ``p2g_splat`` kernel.
+
+The sharded step (``parallel/``) runs in one process over a mesh of
+devices in which one device may repeat: the BiMocq map marches and
+lattice samples go slab by slab through the slab modes of
+``trilerp_sample``, ``dmc_substep`` and ``rk3_substep``, the MG smoother
+through a halo exchange; between those stages the state lives whole on
+the mesh's home device. ``ops/pcg.py`` (MIC(0)-PCG on the host),
+``forces.diffuse_2d`` and ``core/interp.sample3_cubic`` complete the JAX
+package's modules; only ``interp_bf16`` and ``particles_dense``, TPU
+window geometry, have no counterpart.
 """

@@ -49,6 +49,7 @@ import torch
 from gpufluidsimulation_tpu_torch.core import interp
 from gpufluidsimulation_tpu_torch.core.grids import band_mask
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
+from gpufluidsimulation_tpu_torch.parallel import sharded_interp
 
 _ZERO3 = interp_fast._ZERO3
 VOLUME_MODES = ("dual", "vol9", "prefilter", "exact")
@@ -94,9 +95,16 @@ def reinitialize(mapping: MappingState, grid) -> MappingState:
 
 
 def update_mapping_3d(mapping: MappingState, grid, u, v, w, cfldt, dt,
-                      from_identity=False) -> MappingState:
+                      from_identity=False, sharded=None) -> MappingState:
     """Backward (DMC substepped) then forward (RK3) march of both maps.
-    `cfldt` is the float32 host substep."""
+    `cfldt` is the float32 host substep. With a ``sharded_interp.Sampling``
+    whose mesh divides nk (with the halo inside a slab) the marches run
+    z-sharded (``update_mapping_3d_sharded``), as the JAX package routes
+    them."""
+    if sharded is not None and sharded.divides(grid.nk):
+        return sharded_interp.update_mapping_3d_sharded(
+            mapping, grid, u, v, w, cfldt, dt, sharded.mesh, sharded.halo,
+            from_identity=from_identity, counts=sharded.clamped)
     bx, by, bz = advect.update_backward_map_3d(
         grid, u, v, w, (mapping.bwd[0], mapping.bwd[1], mapping.bwd[2]),
         cfldt, dt, from_identity=from_identity)
@@ -168,12 +176,25 @@ def volume_prefilter_3d(f):
     return interp_fast.volume_prefilter(f[None].contiguous())[0]
 
 
-def _sample_fields_at(grid, kind, fields, positions, dual=False):
+def _sample_fields_at(grid, kind, fields, positions, dual=False,
+                      sharded=None):
     """Sample N same-shape fields of `kind` (a list, or stacked (N, ...))
     at shared world positions: one ``trilerp_sample`` launch for all N
-    (dual = the 9-point volume blend evaluated in the kernel)."""
+    (dual = the 9-point volume blend evaluated in the kernel). With a
+    ``sharded_interp.Sampling``, 3-D positions of the fields' own shape
+    whose z extent the mesh divides take one slab-mode launch a slab
+    (``sample3_multi_sharded``), as the JAX package routes them; the
+    z-staggered kind (nk + 1 planes) is sampled whole."""
     mx, my, mz = positions
     src = fields if torch.is_tensor(fields) else torch.stack(fields)
+    if (sharded is not None and mx.dim() == 3
+            and tuple(src.shape[1:]) == tuple(mx.shape)
+            and sharded.divides(mx.shape[2])):
+        out = sharded_interp.sample3_multi_sharded(
+            src, mx, my, mz, grid.h, (grid.off_of(kind),) * src.shape[0],
+            sharded.mesh, halo=sharded.halo, dual=dual,
+            counts=sharded.counts)
+        return [out[i] for i in range(src.shape[0])]
     out = interp_fast.trilerp_sample(
         src, mx.contiguous(), my.contiguous(), mz.contiguous(), grid.h,
         (grid.off_of(kind),) * src.shape[0], dual=dual)
@@ -277,7 +298,7 @@ def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd):
 
 def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
                      bwd, bwd_prev, fwd, blend_coeff, mode="dual",
-                     map_stats=None):
+                     map_stats=None, sharded=None):
     """Advect + BFECC compensation + two-level blend over N fields of one
     lattice kind in the volume form `mode` (one of VOLUME_MODES).
     ``blend_coeff=None`` marks the blend as 1: the level-2 pull-back
@@ -291,7 +312,9 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
     ``interp_fast.vol9_map_stats`` of bwd and of fwd, computed once per
     map and step by the caller), the blend stage staying dual;
     "prefilter" one ``volume_prefilter`` call of the stage's sources and
-    a plain trilinear launch. "exact" delegates to the single-field ops."""
+    a plain trilinear launch. "exact" delegates to the single-field ops.
+    `sharded` (a ``sharded_interp.Sampling``) routes the lattice samples
+    of "dual" and "prefilter" through the slab kernels."""
     if mode not in VOLUME_MODES:
         raise ValueError(f"bimocq_advect_3d: unknown volume mode {mode!r}")
     if blend_coeff is not None and (bwd_prev is None
@@ -318,7 +341,8 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
     def sample(fields, positions):
         src = fields if dual else interp_fast.volume_prefilter(
             torch.stack(fields))
-        return _sample_fields_at(grid, kind, src, positions, dual=dual)
+        return _sample_fields_at(grid, kind, src, positions, dual=dual,
+                                 sharded=sharded)
 
     def stage(fields, maps, clamp, band_lo):
         """Sample `fields` through `maps` at the kind's lattice; band_lo is
@@ -442,7 +466,7 @@ def bimocq_advect_multi_3d(grid, kinds, fields_cur, fields_init, fields_prev,
 
 
 def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
-                        mode="dual", fwd_stats=None):
+                        mode="dual", fwd_stats=None, sharded=None):
     """Push coeff-weighted changes through the forward map into their
     bases: `groups` is a list of (base, [(change, coeff), ...]).
 
@@ -453,8 +477,9 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
     the forward map's lattice values (`fwd_stats`:
     ``interp_fast.vol9_map_stats`` of fwd), and "dual" and "prefilter"
     sample the prefiltered sums with plain trilinear there (one launch
-    for all groups). "exact" applies ``accumulate_3d`` change by change and
-    ignores `identity`, as the JAX package's exact path does."""
+    for all groups), through the slab kernels with `sharded`. "exact"
+    applies ``accumulate_3d`` change by change and ignores `identity`, as
+    the JAX package's exact path does."""
     if mode == "exact":
         outs = []
         for base, pairs in groups:
@@ -485,7 +510,7 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
         p3 = map_at_lattice_3d(grid, fwd, kind, 0.0, 0.0)
         deltas = _sample_fields_at(
             grid, kind, interp_fast.volume_prefilter(torch.stack(combined)),
-            p3)
+            p3, sharded=sharded)
     return [torch.where(band, base + delta, base)
             for (base, _), delta in zip(groups, deltas)]
 

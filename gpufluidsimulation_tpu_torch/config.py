@@ -36,13 +36,30 @@ class EngineMode:
     (plain and masked) with the red-black Gauss-Seidel kernels (the
     accelerator default); False smooths every level with damped Jacobi
     in plain torch, as the JAX package computes it with ``use_rbgs`` off
-    (its CPU default)."""
+    (its CPU default).
+
+    ``sharded_sampling``: ``(mesh, halo)`` (a ``parallel.sharding.Mesh``
+    and the halo in planes) routes the BiMocq map marches and the
+    full-lattice samples whose z extent the mesh divides through the
+    z-slab kernels of ``parallel/sharded_interp.py``; ``(n, halo)`` with
+    an int n does so on a mesh of n slabs on the solver's own device;
+    ``()`` or None turns that off (``parallel.sharding.sharded_step``
+    sets it). A mesh must live on the solver's device: its home is that
+    device and every slab has its device type (the solver raises
+    otherwise). Under a mesh the volume forms keep their precedence, but
+    vol9 raises: its fixup launch is not sharded."""
 
     spectral_poisson: bool | None = None
     volume_exact: bool | None = None
     volume_dual: bool | None = None
     volume_vol9: bool | None = None
     rbgs: bool | None = None
+    sharded_sampling: tuple | None = None
+
+    @property
+    def sharded(self):
+        """(mesh, halo) when sharded sampling is on, else None."""
+        return self.sharded_sampling or None
 
     @property
     def volume_mode(self) -> str:
@@ -51,6 +68,12 @@ class EngineMode:
             return "exact"
         if self.volume_dual is False:
             return "prefilter"
+        if self.volume_vol9 and self.sharded is not None:
+            raise ValueError(
+                "volume_vol9=True requested under a sharded mesh: the vol9 "
+                "fixup launch is not sharded. Use volume_exact=True (the "
+                "exact composition, sampled whole on the home device) or "
+                "leave vol9 off for the dual form.")
         return "vol9" if self.volume_vol9 else "dual"
 
 
@@ -68,4 +91,7 @@ def resolve_device(device=None) -> torch.device:
         raise ValueError(f"unsupported device {dev}")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
+    if dev.type == "cuda" and dev.index is None:
+        # 'cuda' is the current card, and compares equal to its 'cuda:i'
+        return torch.device("cuda", torch.cuda.current_device())
     return dev

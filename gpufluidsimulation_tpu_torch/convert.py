@@ -164,27 +164,50 @@ def _boundary(b, trans=None) -> Boundary3D:
 _MODE_IGNORED = ("interp_interpret", "pallas_diffuse", "interp_rr",
                  "particle_dense")
 # ... and the one value of each other field that the port implements
-_MODE_REQUIRED = {"interp_bf16": False, "sharded_sampling": ()}
+_MODE_REQUIRED = {"interp_bf16": False}
 
 
-def _engine_mode(m):
+def _sharded_sampling(ss):
+    """The JAX mode's ``sharded_sampling`` in the port: None and ``()``
+    as they are; ``(mesh, halo)`` becomes ``(mesh.size, halo)``, a mesh of
+    as many slabs on the device of the solver that runs the config
+    (``EngineMode.sharded_sampling``), with the same halo. A mesh whose
+    size the port cannot build raises."""
+    if not ss:
+        return ss
+    mesh, halo = ss
+    size = getattr(mesh, "size", None)
+    if not isinstance(size, (int, np.integer)) or size < 1:
+        raise NotImplementedError(
+            f"engine_mode.sharded_sampling: a mesh of size {size!r} cannot "
+            "be built")
+    return int(size), int(halo)
+
+
+def _engine_mode(m, sharded=True):
     """The port's EngineMode from the JAX mode's plain fields: carries
     ``spectral_poisson``, ``volume_dual``, ``volume_vol9`` and ``rbgs``
     across, maps the JAX package's exact volume form (``fast_interp=False``
-    or ``volume_exact=True``) to ``volume_exact=True``, its red-black
+    or ``volume_exact=True``; under a mesh only the latter) to
+    ``volume_exact=True``, its red-black
     smoother off (``rbgs=False``, which ``fast_interp=False`` implies
     unless ``rbgs`` is given) to the Jacobi-smoothed V-cycle
     (``rbgs=False``) and its window sampler without adaptive taps
     (``interp_adaptive=False``, which leaves the JAX package the prefilter
-    form) to ``volume_dual=False``, accepts fields that do not change the
-    result, and raises for a value the port cannot honour: bf16 windows
-    and sharded sampling."""
+    form) to ``volume_dual=False``, carries ``sharded_sampling`` across
+    as its mesh's size (``_sharded_sampling``; with ``sharded=False``,
+    for the 2D solver, which has no sharded stage, it is dropped), accepts
+    fields that do not change the result, and raises for a value the port
+    cannot honour: bf16 windows."""
     if m is None or isinstance(m, config.EngineMode):
         return m
     d = dict(m) if isinstance(m, dict) else dict(vars(m))
     spectral = d.pop("spectral_poisson", None)
     fast = d.pop("fast_interp", None)
-    exact = bool(d.pop("volume_exact", None)) or fast is False
+    ss = d.pop("sharded_sampling", None)
+    # under a mesh the JAX package samples with its window kernels even
+    # with fast_interp off (mapping._use_prefilter): not the exact form
+    exact = bool(d.pop("volume_exact", None)) or (fast is False and not ss)
     rbgs = d.pop("rbgs", None)
     if rbgs is None and fast is False:
         rbgs = False
@@ -196,6 +219,7 @@ def _engine_mode(m):
         dual = False
     if exact:      # the volume form is exact whatever these say
         dual = vol9 = None
+    ss = _sharded_sampling(ss) if sharded else None
     for key, allowed in _MODE_REQUIRED.items():
         val = d.pop(key, None)
         if val is not None and val != allowed:
@@ -206,7 +230,8 @@ def _engine_mode(m):
     return config.EngineMode(spectral_poisson=spectral,
                              volume_exact=True if exact else None,
                              volume_dual=dual, volume_vol9=vol9,
-                             rbgs=False if rbgs is False else None)
+                             rbgs=False if rbgs is False else None,
+                             sharded_sampling=ss)
 
 
 def _per_item(callables, n):
@@ -223,7 +248,9 @@ def config_from_dict(d: dict, boundary_trans=(), emitter_trans=(),
     gives the port's own ``trans(frame)`` for each boundary,
     `emitter_trans` and `emitter_emit_velocity` the port's own
     ``trans(frame)`` and ``emit_velocity(X, Y, Z)`` for each emitter
-    (None where the JAX field is None)."""
+    (None where the JAX field is None). A sharded engine mode's mesh
+    becomes as many slabs on the device of the solver built from the
+    config (``_sharded_sampling``)."""
     d = dict(d)
     d["engine_mode"] = _engine_mode(d.get("engine_mode"))
     known = {f.name for f in dataclasses.fields(Smoke3DConfig)}
@@ -252,7 +279,7 @@ def config_2d_from_dict(d: dict) -> smoke2d.Smoke2DConfig:
     (``spectral_poisson``); its other fields change nothing a 2D step
     computes here."""
     d = dict(d)
-    d["engine_mode"] = _engine_mode(d.get("engine_mode"))
+    d["engine_mode"] = _engine_mode(d.get("engine_mode"), sharded=False)
     known = {f.name for f in dataclasses.fields(smoke2d.Smoke2DConfig)}
     unknown = set(d) - known
     if unknown:

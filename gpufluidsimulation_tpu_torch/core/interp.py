@@ -6,6 +6,9 @@ clamped to the field (the reference's ``boundedAt``), and the blend order
 is x, then y, then z. ``trilerp_grid`` is the same sampler in grid units
 (index coordinates on the field's own lattice); the CUDA kernels under
 ``csrc/`` evaluate exactly these operations in the same order.
+``trilerp_grid_slab`` is the sampler of the kernels' slab modes (a z-slab
+of the grid, addressed by an integer origin), ``sample3_cubic`` the
+reference's tricubic sampler, which no solver calls.
 """
 
 from __future__ import annotations
@@ -50,8 +53,31 @@ def corners_grid(field, gx, gy, gz):
 def trilerp_grid(field, gx, gy, gz):
     """Trilinear sample of `field` at grid coordinates (index units on the
     field's lattice) with per-corner index clamping."""
+    return _blend(*corners_grid(field, gx, gy, gz))
+
+
+def trilerp_grid_slab(field, gx, gy, gz, z0, nz):
+    """``trilerp_grid`` on a z slab: `field` holds planes z0 .. z0 +
+    field.shape[2] - 1 of a grid of `nz` planes, and g is a global grid
+    coordinate. Each z corner is clamped to [0, nz - 1], then taken to the
+    slab by the integer origin z0 and clamped to it. Returns the sample
+    and where a corner fell outside the slab."""
+    nx, ny, nl = field.shape
+    ia, ib, fx = _axis_corners(gx, nx)
+    ja, jb, fy = _axis_corners(gy, ny)
+    ka, kb, fz = _axis_corners(gz, nz)
+    la, lb = (ka - z0).clamp(0, nl - 1), (kb - z0).clamp(0, nl - 1)
+    outside = (la != ka - z0) | (lb != kb - z0)
+    flat = field.reshape(-1)
+    vals = [flat[(i * ny + j) * nl + k]
+            for k in (la, lb) for j in (ja, jb) for i in (ia, ib)]
+    return _blend(vals, (fx, fy, fz)), outside
+
+
+def _blend(vals, fracs):
+    """The x, then y, then z blend of the 8 corner values."""
     (v000, v100, v010, v110, v001, v101, v011, v111), (fx, fy, fz) = (
-        corners_grid(field, gx, gy, gz))
+        vals, fracs)
     c00 = (1 - fx) * v000 + fx * v100
     c10 = (1 - fx) * v010 + fx * v110
     c01 = (1 - fx) * v001 + fx * v101
@@ -87,6 +113,52 @@ def mac_velocity_grid(u, v, w, gx, gy, gz):
     return (trilerp_grid(u, gx + 0.5, gy, gz),
             trilerp_grid(v, gx, gy + 0.5, gz),
             trilerp_grid(w, gx, gy, gz + 0.5))
+
+
+def _cubic_weights(f):
+    """Cubic interpolation weights (cubic_interp_weights,
+    utils/util.h:354-361) at fraction f, for the taps -1, 0, 1, 2."""
+    f2 = f * f
+    f3 = f2 * f
+    wm = -(1.0 / 3.0) * f + 0.5 * f2 - (1.0 / 6.0) * f3
+    w0 = 1.0 - f2 + 0.5 * (f3 - f)
+    w1 = f + 0.5 * (f2 - f3)
+    w2 = (1.0 / 6.0) * (f3 - f)
+    return wm, w0, w1, w2
+
+
+def _gather3(field, i, j, k):
+    """field[i, j, k] with each index clamped to the field (boundedAt)."""
+    nx, ny, nz = field.shape
+    i, j, k = i.clamp(0, nx - 1), j.clamp(0, ny - 1), k.clamp(0, nz - 1)
+    return field.reshape(-1)[(i * ny + j) * nz + k]
+
+
+def sample3_cubic(field, px, py, pz, h, off):
+    """Tricubic sample (buffer3Df::sample_cubic, fluid_buffer3D.h:237-309):
+    the separable 4-tap cubic per axis over the 64-point neighbourhood,
+    corner indices clamped, summed x innermost, then y, then z as the JAX
+    package sums them. No solver calls it, in either package; it is kept
+    for the API and for high-order resampling."""
+    gx = div_scalar(px, h) - off[0]
+    gy = div_scalar(py, h) - off[1]
+    gz = div_scalar(pz, h) - off[2]
+    i0, j0, k0 = torch.floor(gx), torch.floor(gy), torch.floor(gz)
+    wx = _cubic_weights(gx - i0)
+    wy = _cubic_weights(gy - j0)
+    wz = _cubic_weights(gz - k0)
+    i0, j0, k0 = i0.long(), j0.long(), k0.long()
+    out = torch.zeros_like(gx)
+    for dk, wk in zip((-1, 0, 1, 2), wz):
+        acc_y = torch.zeros_like(gx)
+        for dj, wj in zip((-1, 0, 1, 2), wy):
+            acc_x = torch.zeros_like(gx)
+            for di, wi in zip((-1, 0, 1, 2), wx):
+                acc_x = acc_x + wi * _gather3(field, i0 + di, j0 + dj,
+                                              k0 + dk)
+            acc_y = acc_y + wj * acc_x
+        out = out + wk * acc_y
+    return out
 
 
 def mac_pack_3d(u, v, w):

@@ -116,6 +116,42 @@ __device__ __forceinline__ ZPair zpair(float g, int n) {
   return c;
 }
 
+// ---------------------------------------------------------------------------
+// Slab mode (the sharded path): an array holds planes z0 .. z0 + n - 1 of a
+// grid whose z extent is N planes. Coordinates stay global: the float
+// index, its floor and its weights are formed exactly as on the whole
+// grid, and the node is clamped to the global bounds [0, N - 1]. Only then
+// is the integer origin z0 subtracted, to address the slab; a node that
+// falls outside the slab is clamped to its edge and sets `out`. With z0 = 0
+// and n = N nothing changes, so a slab launch whose nodes stay inside its
+// slab reads the values, and gives the bits, of the whole-grid launch.
+// ---------------------------------------------------------------------------
+
+// The slab node of a global node g clamped to [0, N - 1].
+__device__ __forceinline__ unsigned slab_node(unsigned g, int z0, int n,
+                                              bool& out) {
+  const int l = (int)g - z0;
+  const int c = clampi(l, 0, n - 1);
+  out |= c != l;
+  return (unsigned)c;
+}
+
+// zpair on a slab: the plain version's two clamped corners, each taken to
+// the slab (la <= lb), loaded as the pair (lo, lo + 1) of the slab.
+__device__ __forceinline__ ZPair zpair_slab(float g, int N, int z0, int n,
+                                            bool& out) {
+  ZPair c;
+  const float fl = floorf(g);
+  c.f = g - fl;
+  c.w = 1.0f - c.f;
+  const unsigned la = slab_node(clamp_node(fl, N), z0, n, out);
+  const unsigned lb = slab_node(clamp_node(fl + 1.0f, N), z0, n, out);
+  c.top = la >= (unsigned)(n - 1);
+  c.bottom = la == lb && !c.top;
+  c.lo = c.top ? (unsigned)(n - 2) : la;
+  return c;
+}
+
 // The 8 values a clamped trilerp reads, loaded as 4 z pairs: v[q][p] at
 // the (x, y) corner q = (x.lo, y.lo), (x.hi, y.lo), (x.lo, y.hi),
 // (x.hi, y.hi) and z node z.lo + p; (sx, sy) the field's x and y strides.
@@ -193,6 +229,26 @@ __device__ __forceinline__ Axis axis3(const float (&c)[3], int n,
     a.up[q] = q > 0 && fl != base;
     a.node[q] = clamp_node(base + (float)q, n) * stride;
   }
+  return a;
+}
+
+// axis3 along z on a slab: the nodes B, B + 1, B + 2 clamped to the global
+// bounds, then to the slab (stride 1). `out` is set where a node that a
+// sample uses left the slab: B and B + 1 always, B + 2 where a coordinate
+// takes its corners at (B + 1, B + 2).
+__device__ __forceinline__ Axis axis3_slab(const float (&c)[3], int N, int z0,
+                                           int n, bool& out) {
+  Axis a;
+  const float base = floorf(c[0]);
+  bool past[3] = {false, false, false};
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const float fl = floorf(c[q]);
+    a.f[q] = c[q] - fl;
+    a.up[q] = q > 0 && fl != base;
+    a.node[q] = slab_node(clamp_node(base + (float)q, N), z0, n, past[q]);
+  }
+  out |= past[0] || past[1] || (past[2] && (a.up[1] || a.up[2]));
   return a;
 }
 

@@ -47,6 +47,19 @@
 // division keep the plain version's operands and order, and the library
 // is built with -fmad=false: the result is bit-identical.
 //
+// The slab mode (the sharded backward march, parallel/sharded_interp.py):
+// the output holds the cell planes oz0 .. oz0 + nko - 1 of a grid of nkg
+// cells, the faces the planes vz0 .. vz0 + nk - 1 (w one more), and the
+// map the planes mz0 .. mz0 + nkm - 1 (the output slab and its exchanged
+// halo). Cell k of the output is global plane kg = k + oz0: the band test,
+// the lattice position and the map coordinate kg - disp use kg; each map
+// z node is clamped to [0, nkg - 1], then mz0 is subtracted to address the
+// slab (gfs::zpair_slab), and a node outside the map slab is clamped to
+// its edge and the cell adds 1 to *overflow. The wrapper checks that the
+// faces hold every plane a cell in the band reads (kg - 1 .. kg + 1) and
+// the map every output plane. Nothing is rebased in float. The
+// whole-grid kernel is compiled apart (kSlab = false) and stays as it was.
+//
 // Measured (chip_smoke.py and scripts/kernel_variants.py, H100, 256^3):
 // 0.443 -> 0.286 ms from a displaced map, 0.179 ms in the lattice mode
 // (the plain-torch peel it replaces: 7.1 ms); block shapes 32x2x2 to
@@ -88,47 +101,67 @@ struct Params {
   float hix, hiy, hiz;     // the lattice mode's clamp: (n - 1) * h
 };
 
+// The slab mode's planes: the grid's cell extent nkg; the output's first
+// plane oz0 and its planes nko; the faces' first plane vz0; the map's
+// first plane mz0 and its planes nkm.
+struct ZSlab {
+  int nkg, oz0, nko, vz0, mz0, nkm;
+};
+
 // kLattice: the substep of the identity map (no map read); else of `maps`.
-template <bool kLattice>
+// kSlab: the output, the faces and the map are slabs of the grid (zs); nk
+// is the faces' cell extent.
+template <bool kLattice, bool kSlab>
 __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
     dmc_substep_kernel(const float* __restrict__ u,
                        const float* __restrict__ v,
                        const float* __restrict__ w, int ni, int nj, int nk,
-                       const float* __restrict__ maps, Params P,
-                       float* __restrict__ out) {
+                       const float* __restrict__ maps, Params P, ZSlab zs,
+                       int* __restrict__ overflow, float* __restrict__ out) {
+  const int nko = kSlab ? zs.nko : nk;
   const int k = blockIdx.x * kBlockK + threadIdx.x;
   const int j = blockIdx.y * kBlockJ + threadIdx.y;
   const int i = blockIdx.z * kBlockI + threadIdx.z;
-  if (k >= nk || j >= nj || i >= ni) return;
-  const unsigned n = (unsigned)ni * nj * nk;
-  const unsigned idx = ((unsigned)i * nj + j) * nk + k;
+  if (k >= nko || j >= nj || i >= ni) return;
+  const int kg = kSlab ? k + zs.oz0 : k;         // the global plane
+  const int nkg = kSlab ? zs.nkg : nk;
+  const int nkm = kSlab ? zs.nkm : nk;
+  // the cell's offsets in the output (and, on the whole grid, everywhere),
+  // in the map and in the faces' cell lattice
+  const unsigned no = (unsigned)ni * nj * nko;
+  const unsigned idx = ((unsigned)i * nj + j) * nko + k;
+  const unsigned nm = kSlab ? (unsigned)ni * nj * nkm : no;
+  const unsigned im =
+      kSlab ? ((unsigned)i * nj + j) * nkm + (unsigned)(kg - zs.mz0) : idx;
   const bool band = i >= 2 && i <= ni - 3 && j >= 2 && j <= nj - 3 &&
-                    k >= 2 && k <= nk - 3;
+                    kg >= 2 && kg <= nkg - 3;
   if (!band) {
     if (kLattice) {
       out[idx] = (float)i * P.h;
-      out[n + idx] = (float)j * P.h;
-      out[2 * n + idx] = (float)k * P.h;
+      out[no + idx] = (float)j * P.h;
+      out[2 * no + idx] = (float)kg * P.h;
     } else {
-      out[idx] = __ldg(maps + idx);
-      out[n + idx] = __ldg(maps + n + idx);
-      out[2 * n + idx] = __ldg(maps + 2 * n + idx);
+      out[idx] = __ldg(maps + im);
+      out[no + idx] = __ldg(maps + nm + im);
+      out[2 * no + idx] = __ldg(maps + 2 * nm + im);
     }
     return;
   }
-  // the faces of cell (i, j, k): u (ni+1, nj, nk) at idx and idx + su,
+  const unsigned iv =
+      kSlab ? ((unsigned)i * nj + j) * nk + (unsigned)(kg - zs.vz0) : idx;
+  // the faces of cell (i, j, k): u (ni+1, nj, nk) at iv and iv + su,
   // v (ni, nj+1, nk) at ov and ov + nk, w (ni, nj, nk+1) at ow and ow + 1
   const unsigned su = (unsigned)nj * nk;
   const unsigned sv = (unsigned)(nj + 1) * nk;
   const unsigned sw = (unsigned)nj * (nk + 1);
-  const unsigned ov = idx + (unsigned)i * nk;
-  const unsigned ow = idx + (unsigned)i * nj + j;
-  const float vu = 0.5f * (__ldg(u + idx) + __ldg(u + (idx + su)));
+  const unsigned ov = iv + (unsigned)i * nk;
+  const unsigned ow = iv + (unsigned)i * nj + j;
+  const float vu = 0.5f * (__ldg(u + iv) + __ldg(u + (iv + su)));
   const float vv = 0.5f * (__ldg(v + ov) + __ldg(v + (ov + nk)));
   const float vw = 0.5f * (__ldg(w + ow) + __ldg(w + (ow + 1)));
   const bool sx = vu > 0.0f, sy = vv > 0.0f, sz = vw > 0.0f;
   // the upwind cell (i -+ 1, j -+ 1, k -+ 1), inside the lattice
-  const unsigned tu = sx ? idx - su : idx + su;
+  const unsigned tu = sx ? iv - su : iv + su;
   const unsigned tv0 = sx ? ov - sv : ov + sv;
   const unsigned tw0 = sx ? ow - sw : ow + sw;
   const unsigned step_y = sy ? 0u - nk : (unsigned)nk;
@@ -144,46 +177,83 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
   const float disp_z = dmc_disp(vw, tw_, sz, P.sh, P.thresh);
   if (kLattice) {
     out[idx] = clamp_pos((float)i * P.h - disp_x * P.h, P.hix);
-    out[n + idx] = clamp_pos((float)j * P.h - disp_y * P.h, P.hiy);
-    out[2 * n + idx] = clamp_pos((float)k * P.h - disp_z * P.h, P.hiz);
+    out[no + idx] = clamp_pos((float)j * P.h - disp_y * P.h, P.hiy);
+    out[2 * no + idx] = clamp_pos((float)kg * P.h - disp_z * P.h, P.hiz);
   } else {
     // one weight set and one set of corner offsets for the 3 channels
     const Coord x = coord((float)i - disp_x, ni);
     const Coord y = coord((float)j - disp_y, nj);
-    const ZPair z = zpair((float)k - disp_z, nk);
-    out[idx] = trilerp_zpair(maps, x, y, z, su, nk);
-    out[n + idx] = trilerp_zpair(maps + n, x, y, z, su, nk);
-    out[2 * n + idx] = trilerp_zpair(maps + 2 * n, x, y, z, su, nk);
+    bool outside = false;
+    const ZPair z = kSlab ? gfs::zpair_slab((float)kg - disp_z, nkg, zs.mz0,
+                                            nkm, outside)
+                          : zpair((float)k - disp_z, nk);
+    const unsigned sm = (unsigned)nj * nkm;
+    out[idx] = trilerp_zpair(maps, x, y, z, sm, nkm);
+    out[no + idx] = trilerp_zpair(maps + nm, x, y, z, sm, nkm);
+    out[2 * no + idx] = trilerp_zpair(maps + 2 * nm, x, y, z, sm, nkm);
+    if (kSlab && outside && overflow != nullptr)
+    atomicAdd(overflow, 1);
   }
+}
+
+template <bool kLattice, bool kSlab>
+void launch(dim3 grid, dim3 block, cudaStream_t stream, const float* u,
+            const float* v, const float* w, int ni, int nj, int nk,
+            const float* maps, const Params& P, ZSlab zs, int* overflow,
+            float* out) {
+  dmc_substep_kernel<kLattice, kSlab><<<grid, block, 0, stream>>>(
+      u, v, w, ni, nj, nk, maps, P, zs, overflow, out);
 }
 
 }  // namespace
 
 // maps == NULL selects the lattice mode: the substep of the identity map
 // on the cell lattice of spacing h, clamped to [0, hi_host[a]] per axis.
+// slab_host == NULL selects the whole-grid kernel; else it holds nkg, oz0,
+// nko, vz0, mz0 and nkm (ZSlab): the faces are the cell planes vz0 .. vz0 +
+// nk - 1, the map (3, ni, nj, nkm) and the output (3, ni, nj, nko), and a
+// cell whose map sample used a plane outside the map adds 1 to *overflow
+// where that is not NULL (the lattice mode reads no map and counts
+// nothing).
 extern "C" int gfs_dmc_substep(const void* u, const void* v, const void* w,
                                int ni, int nj, int nk, const void* maps,
                                float sh, float thresh, float h,
-                               const float* hi_host, void* out,
-                               void* stream) {
+                               const float* hi_host, const int* slab_host,
+                               void* overflow, void* out, void* stream) {
   const long long limit = 1LL << 31;
-  if (ni < 1 || nj < 1 || nk < 2 ||
+  const bool slab = slab_host != nullptr;
+  ZSlab zs{nk, 0, nk, 0, 0, nk};
+  if (slab)
+    zs = ZSlab{slab_host[0], slab_host[1], slab_host[2],
+               slab_host[3], slab_host[4], slab_host[5]};
+  if (ni < 1 || nj < 1 || nk < 2 || zs.nko < 1 ||
+      (maps != nullptr && zs.nkm < 2) ||
       3LL * ni * nj * nk >= limit || (long long)(ni + 1) * nj * nk >= limit ||
       (long long)ni * (nj + 1) * nk >= limit ||
-      (long long)ni * nj * (nk + 1) >= limit)
+      (long long)ni * nj * (nk + 1) >= limit ||
+      3LL * ni * nj * zs.nko >= limit || 3LL * ni * nj * zs.nkm >= limit)
     return (int)cudaErrorInvalidValue;
   const dim3 block(kBlockK, kBlockJ, kBlockI);
-  const dim3 grid((nk + kBlockK - 1) / kBlockK, (nj + kBlockJ - 1) / kBlockJ,
-                  (ni + kBlockI - 1) / kBlockI);
+  const dim3 grid((zs.nko + kBlockK - 1) / kBlockK,
+                  (nj + kBlockJ - 1) / kBlockJ, (ni + kBlockI - 1) / kBlockI);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   const Params P{sh, thresh, h, hi_host[0], hi_host[1], hi_host[2]};
-  if (maps == nullptr)
-    dmc_substep_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)u, (const float*)v, (const float*)w, ni, nj, nk,
-        nullptr, P, (float*)out);
+  const auto st = (cudaStream_t)stream;
+  const auto *fu = (const float*)u, *fv = (const float*)v,
+             *fw = (const float*)w, *m = (const float*)maps;
+  auto* o = (float*)out;
+  auto* ov = (int*)overflow;
+  if (maps == nullptr && slab)
+    launch<true, true>(grid, block, st, fu, fv, fw, ni, nj, nk, m, P, zs, ov,
+                       o);
+  else if (maps == nullptr)
+    launch<true, false>(grid, block, st, fu, fv, fw, ni, nj, nk, m, P, zs,
+                        ov, o);
+  else if (slab)
+    launch<false, true>(grid, block, st, fu, fv, fw, ni, nj, nk, m, P, zs,
+                        ov, o);
   else
-    dmc_substep_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)u, (const float*)v, (const float*)w, ni, nj, nk,
-        (const float*)maps, P, (float*)out);
+    launch<false, false>(grid, block, st, fu, fv, fw, ni, nj, nk, m, P, zs,
+                         ov, o);
   return (int)cudaGetLastError();
 }

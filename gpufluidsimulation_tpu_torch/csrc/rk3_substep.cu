@@ -45,6 +45,17 @@
 // operands and its x, then y, then z order, and the library is built with
 // -fmad=false: the result is bit-identical.
 //
+// The slab mode (the sharded map march, parallel/sharded_interp.py): the
+// faces hold the cell planes vz0 .. vz0 + nk - 1 of a grid of nkg cells
+// (u and v nk planes, w nk + 1), and positions stay global grid
+// coordinates. Each z node is clamped to the global bounds (nkg - 1 for u
+// and v, nkg for w), then vz0 is subtracted to address the slab
+// (gfs::zpair_slab); a node outside the slab is clamped to its edge and
+// each node that used one adds 1 to *overflow. In the lattice mode node
+// (i, j, k) of the output slab is global plane k + oz0. Nothing is rebased
+// in float. With vz0 = oz0 = 0 and nkg = nk it is the whole-grid kernel,
+// which is compiled apart (kSlab = false) and stays as it was.
+//
 // Measured (scripts/kernel_variants.py, H100, 256^3): the shared sets
 // took 0.70 to 0.52 ms, the z pairs to 0.46, the 64-register cap (no
 // spill) to 0.46 from displaced positions and 0.43 from the lattice;
@@ -60,6 +71,9 @@ namespace {
 // registers a thread (8 blocks an SM)
 constexpr int kBlockK = 32, kBlockJ = 4, kBlockI = 1;
 constexpr int kMinBlocks = 8;
+// the slab mode's extra clamps get a little more room (80 registers), so
+// that neither mode spills
+constexpr int kMinBlocksSlab = 6;
 
 using gfs::Coord;
 using gfs::coord;
@@ -76,14 +90,29 @@ struct Faces {
   int ni, nj, nk;
 };
 
+// Where the faces sit along z (the slab mode): the grid's cell extent, the
+// faces' first cell plane and the output slab's first plane.
+struct ZSlab {
+  int nkg, vz0, oz0;
+};
+
 // The MAC velocity at cell-lattice grid coordinates g = p/h: each
 // staggered component's own lattice sits half a cell lower on its axis.
-__device__ __forceinline__ void mac_velocity(const Faces& F, float gx,
-                                             float gy, float gz, float* ou,
-                                             float* ov, float* ow) {
+template <bool kSlab>
+__device__ __forceinline__ void mac_velocity(const Faces& F, const ZSlab& zs,
+                                             float gx, float gy, float gz,
+                                             float* ou, float* ov, float* ow,
+                                             bool& out) {
   const Coord x0 = coord(gx, F.ni), x1 = coord(gx + 0.5f, F.ni + 1);
   const Coord y0 = coord(gy, F.nj), y1 = coord(gy + 0.5f, F.nj + 1);
-  const ZPair z0 = zpair(gz, F.nk), z1 = zpair(gz + 0.5f, F.nk + 1);
+  ZPair z0, z1;
+  if (kSlab) {
+    z0 = gfs::zpair_slab(gz, zs.nkg, zs.vz0, F.nk, out);
+    z1 = gfs::zpair_slab(gz + 0.5f, zs.nkg + 1, zs.vz0, F.nk + 1, out);
+  } else {
+    z0 = zpair(gz, F.nk);
+    z1 = zpair(gz + 0.5f, F.nk + 1);
+  }
   const unsigned nj = F.nj, nk = F.nk;
   *ou = trilerp_zpair(F.u, x1, y0, z0, nj * nk, nk);
   *ov = trilerp_zpair(F.v, x0, y1, z0, (nj + 1) * nk, nk);
@@ -97,13 +126,16 @@ struct Params {
 };
 
 // kLattice: start at the node's own lattice coordinate; else read it.
-template <bool kLattice>
-__global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI, kMinBlocks)
+// kSlab: the faces are a slab of the grid (zs).
+template <bool kLattice, bool kSlab>
+__global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI,
+                                  kSlab ? kMinBlocksSlab : kMinBlocks)
     rk3_substep_kernel(Faces F, const float* __restrict__ px,
                        const float* __restrict__ py,
                        const float* __restrict__ pz, int d0, int d1, int d2,
-                       Params P, float* __restrict__ ox,
-                       float* __restrict__ oy, float* __restrict__ oz) {
+                       Params P, ZSlab zs, int* __restrict__ overflow,
+                       float* __restrict__ ox, float* __restrict__ oy,
+                       float* __restrict__ oz) {
   const int k = blockIdx.x * kBlockK + threadIdx.x;
   const int j = blockIdx.y * kBlockJ + threadIdx.y;
   const int i = blockIdx.z * kBlockI + threadIdx.z;
@@ -113,42 +145,63 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI, kMinBlocks)
   if (kLattice) {
     gx = (float)i - 0.5f * P.dimx;
     gy = (float)j - 0.5f * P.dimy;
-    gz = (float)k - 0.5f * P.dimz;
+    gz = (float)(kSlab ? k + zs.oz0 : k) - 0.5f * P.dimz;
   } else {
     gx = __ldg(px + idx);
     gy = __ldg(py + idx);
     gz = __ldg(pz + idx);
   }
   float u1, v1, w1, u2, v2, w2, u3, v3, w3;
-  mac_velocity(F, gx, gy, gz, &u1, &v1, &w1);
-  mac_velocity(F, gx + P.a * u1, gy + P.a * v1, gz + P.a * w1, &u2, &v2,
-               &w2);
-  mac_velocity(F, gx + P.b * u2, gy + P.b * v2, gz + P.b * w2, &u3, &v3,
-               &w3);
+  bool outside = false;
+  mac_velocity<kSlab>(F, zs, gx, gy, gz, &u1, &v1, &w1, outside);
+  mac_velocity<kSlab>(F, zs, gx + P.a * u1, gy + P.a * v1, gz + P.a * w1,
+                      &u2, &v2, &w2, outside);
+  mac_velocity<kSlab>(F, zs, gx + P.b * u2, gy + P.b * v2, gz + P.b * w2,
+                      &u3, &v3, &w3, outside);
   const float rx = gx + P.c1 * u1 + P.c2 * u2 + P.c3 * u3;
   const float ry = gy + P.c1 * v1 + P.c2 * v2 + P.c3 * v3;
   const float rz = gz + P.c1 * w1 + P.c2 * w2 + P.c3 * w3;
   ox[idx] = fminf(fmaxf(rx, P.lox), P.hix);
   oy[idx] = fminf(fmaxf(ry, P.loy), P.hiy);
   oz[idx] = fminf(fmaxf(rz, P.loz), P.hiz);
+  if (kSlab && outside && overflow != nullptr)
+    atomicAdd(overflow, 1);
+}
+
+template <bool kLattice, bool kSlab>
+void launch(dim3 grid, dim3 block, cudaStream_t stream, const Faces& F,
+            const float* p, int d0, int d1, int d2, const Params& P,
+            ZSlab zs, int* overflow, float* o, long long n) {
+  const float* px = kLattice ? nullptr : p;
+  const float* py = kLattice ? nullptr : p + n;
+  const float* pz = kLattice ? nullptr : p + 2 * n;
+  rk3_substep_kernel<kLattice, kSlab><<<grid, block, 0, stream>>>(
+      F, px, py, pz, d0, d1, d2, P, zs, overflow, o, o + n, o + 2 * n);
 }
 
 }  // namespace
 
-// pos == NULL selects the lattice mode: the (d0, d1, d2) = (ni, nj, nk)
-// cell block of the kind whose face vector is dim_host.
+// pos == NULL selects the lattice mode: the (d0, d1, d2) block of the
+// kind whose face vector is dim_host, (ni, nj, nk) on the whole grid.
+// nkg == 0 selects the whole-grid kernel; else the faces hold the cell
+// planes vz0 .. vz0 + nk - 1 of a grid of nkg cells, the lattice mode's
+// block starts at global plane oz0, and each node that used a z node
+// outside the faces' planes adds 1 to *overflow where that is not NULL.
 extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
                                int ni, int nj, int nk, const void* pos,
                                int d0, int d1, int d2, const float* dim_host,
                                float a, float b, float c1, float c2,
-                               float c3, const float* clamp_host, void* out,
+                               float c3, const float* clamp_host, int nkg,
+                               int vz0, int oz0, void* overflow, void* out,
                                void* stream) {
   const long long limit = 1LL << 31;
   const long long n = (long long)d0 * d1 * d2;
+  const bool slab = nkg != 0;
   if (ni < 1 || nj < 1 || nk < 2 || d0 < 1 || d1 < 1 || d2 < 1 ||
       n >= limit || (long long)(ni + 1) * nj * nk >= limit ||
       (long long)ni * (nj + 1) * nk >= limit ||
-      (long long)ni * nj * (nk + 1) >= limit)
+      (long long)ni * nj * (nk + 1) >= limit ||
+      (slab && nkg < 2))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kBlockK, kBlockJ, kBlockI);
   const dim3 grid((d2 + kBlockK - 1) / kBlockK, (d1 + kBlockJ - 1) / kBlockJ,
@@ -160,14 +213,18 @@ extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
                  clamp_host[0], clamp_host[1], clamp_host[2], clamp_host[3],
                  clamp_host[4], clamp_host[5],
                  dim_host[0], dim_host[1], dim_host[2]};
+  const ZSlab zs{nkg, vz0, oz0};
+  const auto st = (cudaStream_t)stream;
+  const float* p = (const float*)pos;
   float* o = (float*)out;
-  if (pos == nullptr) {
-    rk3_substep_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        F, nullptr, nullptr, nullptr, d0, d1, d2, P, o, o + n, o + 2 * n);
-  } else {
-    const float* p = (const float*)pos;
-    rk3_substep_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        F, p, p + n, p + 2 * n, d0, d1, d2, P, o, o + n, o + 2 * n);
-  }
+  int* ov = (int*)overflow;
+  if (pos == nullptr && slab)
+    launch<true, true>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
+  else if (pos == nullptr)
+    launch<true, false>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
+  else if (slab)
+    launch<false, true>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
+  else
+    launch<false, false>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
   return (int)cudaGetLastError();
 }

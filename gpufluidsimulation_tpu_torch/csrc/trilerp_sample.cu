@@ -45,6 +45,17 @@
 // below 2^31 (every field up to 512^3 at C <= 4). The plain (dual=False)
 // path loads the 2 x 2 x 2 corners of the centre only.
 //
+// The slab mode (the sharded path, parallel/sharded_interp.py): the field
+// holds planes z0 .. z0 + nz - 1 of a grid of nzg planes (its own halo
+// planes included), and the positions stay global. The float index, its
+// floor and its weights are formed as above; each z node is clamped to
+// [0, nzg - 1], and only then is z0 subtracted to address the slab
+// (gfs::slab_node). A node outside the slab is clamped to the slab's edge,
+// and each output node that used one adds 1 to *overflow. Nothing is
+// rebased in float: (z - s) / h would round otherwise than z / h - s. With
+// z0 = 0 and nzg = nz it is the whole-grid kernel, which is compiled
+// apart (kSlab = false) and stays as it was.
+//
 // Measured (chip_smoke.py, H100, 256^3): the dual form is now held by
 // instruction throughput, ~700 instructions an output channel, not by
 // device memory: 0.40 ms at C=1 against its 0.10 ms bound (PERF.md,
@@ -96,10 +107,18 @@ __device__ __forceinline__ float dual_sample(const float* __restrict__ f,
   return 0.5f * (acc / 8.0f) + 0.5f * s[8];
 }
 
-// The clamped trilerp of gfs::trilerp_clamped with int32 offsets.
+// Where a slab sits along z: the global extent and the slab's origin.
+struct ZSlab {
+  int nzg, z0;
+};
+
+// The clamped trilerp of gfs::trilerp_clamped with int32 offsets; on a slab
+// (kSlab) the z corners are taken to it and `out` set where one left it.
+template <bool kSlab>
 __device__ __forceinline__ float trilerp32(const float* __restrict__ f,
                                            int nx, int ny, int nz, float gx,
-                                           float gy, float gz) {
+                                           float gy, float gz, ZSlab zs,
+                                           bool& out) {
   const float i0f = floorf(gx), j0f = floorf(gy), k0f = floorf(gz);
   const float fx = gx - i0f, fy = gy - j0f, fz = gz - k0f;
   const unsigned sx = ny * nz, sy = nz;
@@ -107,7 +126,14 @@ __device__ __forceinline__ float trilerp32(const float* __restrict__ f,
   const unsigned ib = clamp_node(i0f + 1.0f, nx) * sx;
   const unsigned ja = clamp_node(j0f, ny) * sy;
   const unsigned jb = clamp_node(j0f + 1.0f, ny) * sy;
-  const unsigned ka = clamp_node(k0f, nz), kb = clamp_node(k0f + 1.0f, nz);
+  unsigned ka, kb;
+  if (kSlab) {
+    ka = gfs::slab_node(clamp_node(k0f, zs.nzg), zs.z0, nz, out);
+    kb = gfs::slab_node(clamp_node(k0f + 1.0f, zs.nzg), zs.z0, nz, out);
+  } else {
+    ka = clamp_node(k0f, nz);
+    kb = clamp_node(k0f + 1.0f, nz);
+  }
   const float v000 = __ldg(f + (ia + ja + ka));
   const float v100 = __ldg(f + (ib + ja + ka));
   const float v010 = __ldg(f + (ia + jb + ka));
@@ -125,12 +151,13 @@ __device__ __forceinline__ float trilerp32(const float* __restrict__ f,
   return (1.0f - fz) * c0 + fz * c1;
 }
 
-template <bool kDual>
+template <bool kDual, bool kSlab>
 __global__ void trilerp_sample_kernel(
     const float* __restrict__ fields, int C, int nx, int ny, int nz,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, int n_out, int d0, int d1, int d2,
-    float h, Offsets offs, float* __restrict__ out) {
+    float h, Offsets offs, ZSlab zs, int* __restrict__ overflow,
+    float* __restrict__ out) {
   // the output lattice is (d0, d1, d2), k = last index fastest; the bounds
   // are checked before the offset is formed, so it stays below n_out
   const int k = blockIdx.x * kBlockK + threadIdx.x;
@@ -142,6 +169,7 @@ __global__ void trilerp_sample_kernel(
   const float x = __ldg(px + idx) / h, y = __ldg(py + idx) / h,
               z = __ldg(pz + idx) / h;
   Axis ax, ay, az;
+  bool outside = false;
   for (int c = 0; c < C; ++c) {
     const float* f = fields + c * field_size;
     const float gx = x - offset(offs, c, 0);
@@ -154,27 +182,50 @@ __global__ void trilerp_sample_kernel(
           offset(offs, c, 2) != offset(offs, c - 1, 2)) {
         ax = make_axis(gx, nx, ny * nz);
         ay = make_axis(gy, ny, nz);
-        az = make_axis(gz, nz, 1);
+        if (kSlab) {
+          const float cz[3] = {gz + (-0.25f), gz, gz + 0.25f};
+          az = gfs::axis3_slab(cz, zs.nzg, zs.z0, nz, outside);
+        } else {
+          az = make_axis(gz, nz, 1);
+        }
       }
       res = dual_sample(f, ax, ay, az);
     } else {
-      res = trilerp32(f, nx, ny, nz, gx, gy, gz);
+      res = trilerp32<kSlab>(f, nx, ny, nz, gx, gy, gz, zs, outside);
     }
     out[c * n_out + idx] = res;
   }
+  if (kSlab && outside && overflow != nullptr)
+    atomicAdd(overflow, 1);
+}
+
+template <bool kDual, bool kSlab>
+void launch(dim3 grid, dim3 block, cudaStream_t stream, const float* fields,
+            int C, int nx, int ny, int nz, const float* px, const float* py,
+            const float* pz, int n_out, int d0, int d1, int d2, float h,
+            const Offsets& offs, ZSlab zs, int* overflow, float* out) {
+  trilerp_sample_kernel<kDual, kSlab><<<grid, block, 0, stream>>>(
+      fields, C, nx, ny, nz, px, py, pz, n_out, d0, d1, d2, h, offs, zs,
+      overflow, out);
 }
 
 }  // namespace
 
+// nzg == 0 selects the whole-grid kernel; else the field holds planes
+// z0 .. z0 + nz - 1 of a grid of nzg planes, and each output node that
+// used a z node outside them adds 1 to *overflow where that is not NULL.
 extern "C" int gfs_trilerp_sample(const void* fields, int C, int nx, int ny,
                                   int nz, const void* px, const void* py,
                                   const void* pz, long long n_out, int d1,
                                   int d2, float h, const float* offs_host,
-                                  int dual, void* out, void* stream) {
+                                  int dual, int nzg, int z0, void* overflow,
+                                  void* out, void* stream) {
   const long long limit = 1LL << 31;
+  const bool slab = nzg != 0;
   if (C < 1 || C > kMaxC || n_out < 1 || d1 < 1 || d2 < 1 ||
       n_out % ((long long)d1 * d2) != 0 ||
-      (long long)C * nx * ny * nz >= limit || (long long)C * n_out >= limit)
+      (long long)C * nx * ny * nz >= limit || (long long)C * n_out >= limit ||
+      (slab && nzg < 1))
     return (int)cudaErrorInvalidValue;
   const long long d0 = n_out / ((long long)d1 * d2);
   const dim3 block(kBlockK, kBlockJ, kBlockI);
@@ -184,15 +235,24 @@ extern "C" int gfs_trilerp_sample(const void* fields, int C, int nx, int ny,
   Offsets offs;
   for (int c = 0; c < C; ++c)
     for (int a = 0; a < 3; ++a) offs.o[c][a] = offs_host[3 * c + a];
-  if (dual)
-    trilerp_sample_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)fields, C, nx, ny, nz, (const float*)px,
-        (const float*)py, (const float*)pz, (int)n_out, (int)d0, d1, d2, h,
-        offs, (float*)out);
+  const ZSlab zs{nzg, z0};
+  const auto st = (cudaStream_t)stream;
+  const auto* f = (const float*)fields;
+  const auto *x = (const float*)px, *y = (const float*)py,
+             *z = (const float*)pz;
+  auto* o = (float*)out;
+  auto* ov = (int*)overflow;
+  if (dual && slab)
+    launch<true, true>(grid, block, st, f, C, nx, ny, nz, x, y, z,
+                       (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
+  else if (dual)
+    launch<true, false>(grid, block, st, f, C, nx, ny, nz, x, y, z,
+                        (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
+  else if (slab)
+    launch<false, true>(grid, block, st, f, C, nx, ny, nz, x, y, z,
+                        (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
   else
-    trilerp_sample_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        (const float*)fields, C, nx, ny, nz, (const float*)px,
-        (const float*)py, (const float*)pz, (int)n_out, (int)d0, d1, d2, h,
-        offs, (float*)out);
+    launch<false, false>(grid, block, st, f, C, nx, ny, nz, x, y, z,
+                         (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,10 @@ so does the port's (``convert.state_leaves``): under the dieted
 always/blend-1 state neither writes the prev tier, ``vel_map.bwd_prev``
 or the scalar maps. Fields are float32 arrays, counters int32 0-d arrays
 and ``cfl`` a float32 0-d array, as the JAX state holds them. The port's
-own diagnostic ``substeps`` has no JAX leaf: it is not written, and a
-loaded state starts with 0. A checkpoint written under another
-configuration is refused with an error that names the missing and
-unexpected fields, or the field whose shape differs.
+own diagnostics ``substeps`` and ``slab_clamped`` have no JAX leaf: they
+are not written, and a loaded state starts with 0. A checkpoint written
+under another configuration is refused with an error that names the
+missing and unexpected fields, or the field whose shape differs.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 from gpufluidsimulation_tpu_torch import convert
 
 _VERSION = 2
-_PORT_ONLY = ("substeps",)
+_PORT_ONLY = ("substeps", "slab_clamped")
 
 
 def _keyed_leaves(state):
@@ -83,4 +83,5 @@ def load_state(path: str, template):
                     f"{_shape(ref)} — resolution/config mismatch"
                 )
             arrays[k[3:]] = arr
-    return convert.fill_state(template, dict(arrays, substeps=0))
+    arrays.update(dict.fromkeys(_PORT_ONLY, 0))
+    return convert.fill_state(template, arrays)

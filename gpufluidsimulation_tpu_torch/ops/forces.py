@@ -1,9 +1,10 @@
 """Body forces, viscosity and the 2D vorticity.
 
 Counterpart of ``gpufluidsimulation_tpu.ops.forces``: ``buoyancy_3d``,
-``buoyancy_2d`` and ``curl_2d`` in plain torch, ``diffuse_3d`` through the
-``jacobi_diffuse`` kernel (``ops/stencil_kernels.py``). The JAX
-package's ``diffuse_2d`` has no caller there and is not ported.
+``buoyancy_2d``, ``curl_2d`` and ``diffuse_2d`` in plain torch (the JAX
+package computes them in XLA, with no Pallas kernel; ``diffuse_2d`` has no
+caller there or here), ``diffuse_3d`` through the ``jacobi_diffuse``
+kernel (``ops/stencil_kernels.py``).
 """
 
 from __future__ import annotations
@@ -51,3 +52,30 @@ def curl_2d(u, v, h):
     curl[1:ni, 1:nj] = (u[1:ni, 1:nj] - u[1:ni, 0:nj - 1]
                         + v[0:ni - 1, 1:nj] - v[1:ni, 1:nj]) / h
     return curl
+
+
+def diffuse_2d(field, nu, dt, h, iters=20):
+    """2D red-black Gauss-Seidel viscosity (diffuseField,
+    BimocqSolver2D.cpp:1717-1757): each sweep updates the red cells ((i +
+    j) even), then the black ones, to (b + coef * neighbour sum) / (1 +
+    4 coef), coef = nu dt / h^2; out-of-domain neighbours contribute 0.
+    The neighbours are summed in the JAX package's order (i-1, i+1, j-1,
+    j+1)."""
+    coef = nu * dt / (h * h)
+    denom = 1.0 + 4.0 * coef
+    ni, nj = field.shape
+    ii = torch.arange(ni, device=field.device)[:, None]
+    jj = torch.arange(nj, device=field.device)[None, :]
+    red = (ii + jj) % 2 == 0
+    b = field
+
+    def nbr(x):
+        px = torch.nn.functional.pad(x, (0, 0, 1, 1))
+        py = torch.nn.functional.pad(x, (1, 1, 0, 0))
+        return px[:-2, :] + px[2:, :] + py[:, :-2] + py[:, 2:]
+
+    x = field
+    for _ in range(int(iters)):
+        x = torch.where(red, (b + coef * nbr(x)) / denom, x)
+        x = torch.where(~red, (b + coef * nbr(x)) / denom, x)
+    return x

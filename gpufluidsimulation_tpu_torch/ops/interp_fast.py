@@ -9,7 +9,17 @@ through a 2D kernel of their own, ``bilerp_sample`` (and its mac mode
 Counterpart of ``gpufluidsimulation_tpu.ops.interp_fast``. Each wrapper
 takes the plain PyTorch version for a CPU tensor and launches its CUDA
 kernel (``csrc/``) for a CUDA tensor; anything else raises. A wrapper adds
-one to its ``launches`` count for every kernel launch and nowhere else.
+one to its ``launches`` count for every kernel launch and nowhere else;
+the wrappers with a slab mode also add one to their ``slab_launches`` for
+each launch in that mode.
+
+The slab modes of ``trilerp_sample``, ``rk3_substep`` and ``dmc_substep``
+(and their lattice modes) serve the sharded path
+(``parallel/sharded_interp.py``): given a ``Slab``, the kernel runs on a
+z-slab of the grid with its global coordinates, clamps each z node to the
+global bounds and only then subtracts the slab's integer origin to
+address it; a node outside the slab is clamped to its edge and counted
+into an ``overflow`` tensor.
 
 The kernels gather exactly with clamped indices, as
 ``gpufluidsimulation_tpu.core.interp.sample3`` does. The TPU kernels'
@@ -28,6 +38,7 @@ granularity, not the kernel's thread blocks.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -61,6 +72,40 @@ def check_int32(name, **counts):
                          f"values, got {', '.join(big)}")
 
 
+@dataclasses.dataclass(frozen=True)
+class Slab:
+    """Where a launch's arrays sit along z in a grid of `nz` cells, as
+    integer global plane indices: `src` is plane 0 of the sampled array
+    (the field, or the velocity faces' cell planes), `out` plane 0 of the
+    output lattice and `out_nz` its planes (the lattice modes and
+    ``dmc_substep``), `map` plane 0 of ``dmc_substep``'s map slab."""
+
+    nz: int
+    src: int = 0
+    out: int = 0
+    out_nz: int = 0
+    map: int = 0
+
+
+def _overflow_arg(slab, overflow, device):
+    """The pointer a slab launch counts into (None on the whole grid, or
+    where no count is asked for)."""
+    if slab is None or overflow is None:
+        return None
+    if (overflow.dtype != torch.int32 or overflow.numel() != 1
+            or overflow.device != device):
+        raise ValueError("a slab launch counts into a one-element int32 "
+                         f"tensor on {device}")
+    return _build.ptr(overflow)
+
+
+def _count(overflow, outside):
+    """The plain versions' count: one per output node that used a node
+    outside its slab."""
+    if overflow is not None:
+        overflow += outside.sum(dtype=torch.int32)
+
+
 def _check_sample_args(name, fields, offs, px, py, pz):
     C = fields.shape[0]
     if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
@@ -80,33 +125,54 @@ def _check_sample_args(name, fields, offs, px, py, pz):
 # ---------------------------------------------------------------------------
 
 
-def trilerp_sample_plain(fields, px, py, pz, h, offs, dual=False):
-    """Plain version: (C, *px.shape) samples of the C stacked fields."""
+def trilerp_sample_plain(fields, px, py, pz, h, offs, dual=False,
+                         slab=None, overflow=None):
+    """Plain version: (C, *px.shape) samples of the C stacked fields; on a
+    slab (``Slab``: the fields hold planes slab.src .. of a grid of slab.nz)
+    each output node that used a plane outside it adds 1 to `overflow`."""
     x, y, z = (interp.div_scalar(p, h) for p in (px, py, pz))
+    outside = []
+
+    def lerp(f, gx, gy, gz):
+        if slab is None:
+            return interp.trilerp_grid(f, gx, gy, gz)
+        val, out = interp.trilerp_grid_slab(f, gx, gy, gz, slab.src, slab.nz)
+        outside.append(out)
+        return val
+
     outs = []
     for c in range(fields.shape[0]):
         f = fields[c]
         gx, gy, gz = x - offs[c][0], y - offs[c][1], z - offs[c][2]
-        center = interp.trilerp_grid(f, gx, gy, gz)
+        center = lerp(f, gx, gy, gz)
         if dual:
             acc = None
             for dx, dy, dz in _VOL3:
-                t = interp.trilerp_grid(f, gx + dx, gy + dy, gz + dz)
+                t = lerp(f, gx + dx, gy + dy, gz + dz)
                 acc = t if acc is None else acc + t
             center = 0.5 * (acc / 8.0) + 0.5 * center
         outs.append(center)
+    if outside:
+        _count(overflow, torch.stack(outside).any(0))
     return torch.stack(outs)
 
 
-def trilerp_sample(fields, px, py, pz, h, offs, dual=False):
+def trilerp_sample(fields, px, py, pz, h, offs, dual=False, slab=None,
+                   overflow=None):
     """Sample C stacked same-shape fields (C, nx, ny, nz) at world
     positions (px, py, pz), channel c on the lattice (i + offs[c])*h.
     ``dual=True`` gives the 9-point volume blend 0.5*mean of the 8
     (+-h/4)^3 corner samples + 0.5*centre sample. Returns (C, *px.shape).
+    With a ``Slab`` the fields hold planes slab.src .. slab.src + nz - 1
+    of a grid of slab.nz planes (the slab mode); positions stay global,
+    and each output node that used a plane outside the slab adds 1 to the
+    one-element int32 tensor `overflow`, when one is given.
     """
     if not _build.on_card(fields, "trilerp_sample"):
-        return trilerp_sample_plain(fields, px, py, pz, h, offs, dual)
+        return trilerp_sample_plain(fields, px, py, pz, h, offs, dual, slab,
+                                    overflow)
     C = _check_sample_args("trilerp_sample", fields, offs, px, py, pz)
+    ov = _overflow_arg(slab, overflow, fields.device)
     check_int32("trilerp_sample", fields=fields.numel(),
                 outputs=C * px.numel())
     out = torch.empty((C,) + tuple(px.shape), dtype=torch.float32,
@@ -115,20 +181,24 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False):
     fn = _build.function(
         "trilerp_sample", "gfs_trilerp_sample",
         [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _F,
-         ctypes.POINTER(_F), _I, _P, _P])
+         ctypes.POINTER(_F), _I, _I, _I, _P, _P, _P])
     # the kernel tiles the output lattice by its last two extents
     d1, d2 = ((1,) * 2 + tuple(px.shape))[-2:]
     with torch.cuda.device(fields.device):
         err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
                  _build.ptr(py), _build.ptr(pz), px.numel(), d1, d2,
-                 float(h), offs_host, int(bool(dual)), _build.ptr(out),
+                 float(h), offs_host, int(bool(dual)),
+                 0 if slab is None else slab.nz,
+                 0 if slab is None else slab.src, ov, _build.ptr(out),
                  _build.stream(fields))
     _build.check(err, "trilerp_sample")
     trilerp_sample.launches += 1
+    trilerp_sample.slab_launches += slab is not None
     return out
 
 
 trilerp_sample.launches = 0
+trilerp_sample.slab_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -218,32 +288,55 @@ def rk3_coefficients(sh):
                  (0.5, 0.75, 2.0 / 9.0, 3.0 / 9.0, 4.0 / 9.0))
 
 
-def rk3_substep_plain(u, v, w, pos, sh, clamp):
+def _mac_velocity_slab(u, v, w, gx, gy, gz, slab, outside):
+    """``interp.mac_velocity_grid``; on a slab (the faces hold the cell
+    planes slab.src .. of a grid of slab.nz cells) each component's z
+    corners are taken to the slab, and where one left it is appended to
+    `outside`."""
+    if slab is None:
+        return interp.mac_velocity_grid(u, v, w, gx, gy, gz)
+    vals = []
+    for f, g, nz in ((u, (gx + 0.5, gy, gz), slab.nz),
+                     (v, (gx, gy + 0.5, gz), slab.nz),
+                     (w, (gx, gy, gz + 0.5), slab.nz + 1)):
+        val, out = interp.trilerp_grid_slab(f, *g, slab.src, nz)
+        vals.append(val)
+        outside.append(out)
+    return vals
+
+
+def rk3_substep_plain(u, v, w, pos, sh, clamp, slab=None, overflow=None):
     """Plain version: one RK3 substep of stacked grid-coordinate positions
     (3, ...) through the MAC velocity, clamped to clamp = (lo_x, hi_x,
-    lo_y, hi_y, lo_z, hi_z) in grid units."""
+    lo_y, hi_y, lo_z, hi_z) in grid units. On a slab (``Slab``: the faces
+    hold the cell planes slab.src .. of a grid of slab.nz cells) each
+    position that used a plane outside it adds 1 to `overflow`."""
     a, b, c1, c2, c3 = rk3_coefficients(sh)
     gx, gy, gz = pos[0], pos[1], pos[2]
-    u1, v1, w1 = interp.mac_velocity_grid(u, v, w, gx, gy, gz)
-    u2, v2, w2 = interp.mac_velocity_grid(u, v, w, gx + a * u1, gy + a * v1,
-                                          gz + a * w1)
-    u3, v3, w3 = interp.mac_velocity_grid(u, v, w, gx + b * u2, gy + b * v2,
-                                          gz + b * w2)
+    outside = []
+    u1, v1, w1 = _mac_velocity_slab(u, v, w, gx, gy, gz, slab, outside)
+    u2, v2, w2 = _mac_velocity_slab(u, v, w, gx + a * u1, gy + a * v1,
+                                    gz + a * w1, slab, outside)
+    u3, v3, w3 = _mac_velocity_slab(u, v, w, gx + b * u2, gy + b * v2,
+                                    gz + b * w2, slab, outside)
     ox = gx + c1 * u1 + c2 * u2 + c3 * u3
     oy = gy + c1 * v1 + c2 * v2 + c3 * v3
     oz = gz + c1 * w1 + c2 * w2 + c3 * w3
+    if outside:
+        _count(overflow, torch.stack(outside).any(0))
     return torch.stack([ox.clamp(clamp[0], clamp[1]),
                         oy.clamp(clamp[2], clamp[3]),
                         oz.clamp(clamp[4], clamp[5])])
 
 
-def lattice_positions(shape, dim, device=None):
+def lattice_positions(shape, dim, device=None, z0=0):
     """Grid coordinates (i - 0.5*dim per axis) of the nodes of an (n0, n1,
     n2) block, stacked (3, n0, n1, n2): exact in float32. With the cell
     block's shape and a kind's face vector, that kind's nodes cropped to
-    the cell block (``advect._cropped_positions``)."""
-    ar = [torch.arange(n, dtype=torch.float32, device=device) - 0.5 * d
-          for n, d in zip(shape, dim)]
+    the cell block (``advect._cropped_positions``). `z0` is the block's
+    first global plane (a slab of the lattice)."""
+    ar = [torch.arange(o, o + n, dtype=torch.float32, device=device)
+          - 0.5 * d for n, d, o in zip(shape, dim, (0, 0, z0))]
     return torch.stack([ar[0][:, None, None].expand(shape),
                         ar[1][None, :, None].expand(shape),
                         ar[2][None, None, :].expand(shape)])
@@ -271,35 +364,53 @@ def rk3_check_sizes(cell_shape, n):
                 w=ni * nj * (nk + 1), positions=n)
 
 
-def _rk3_launch(u, v, w, pos, shape, dim, sh, clamp, out):
+def _rk3_launch(u, v, w, pos, shape, dim, sh, clamp, out, slab=None,
+                overflow=None):
     """One rk3_substep kernel launch: from `pos` (3, *shape), or from the
-    lattice of face vector `dim` where `pos` is None."""
+    lattice of face vector `dim` where `pos` is None; on a ``Slab`` the
+    faces hold the cell planes slab.src .. and the lattice starts at
+    global plane slab.out."""
     ni, nj, nk = v.shape[0], u.shape[1], u.shape[2]
     n = out[0].numel()
     rk3_check_sizes((ni, nj, nk), n)
+    ov = _overflow_arg(slab, overflow, out.device)
     # the kernel tiles the node lattice by its last two extents
     d1, d2 = ((1,) * 2 + tuple(shape))[-2:]
     fn = _build.function(
         "rk3_substep", "gfs_rk3_substep",
         [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, ctypes.POINTER(_F),
-         _F, _F, _F, _F, _F, ctypes.POINTER(_F), _P, _P])
+         _F, _F, _F, _F, _F, ctypes.POINTER(_F), _I, _I, _I, _P, _P, _P])
     dim_host = (_F * 3)(*[float(d) for d in dim])
     clamp_host = (_F * 6)(*[float(c) for c in clamp])
+    zs = (0, 0, 0) if slab is None else (slab.nz, slab.src, slab.out)
     with torch.cuda.device(out.device):
         err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), ni, nj, nk,
                  None if pos is None else _build.ptr(pos), n // (d1 * d2),
-                 d1, d2, dim_host, *rk3_coefficients(sh), clamp_host,
-                 _build.ptr(out), _build.stream(out))
+                 d1, d2, dim_host, *rk3_coefficients(sh), clamp_host, *zs,
+                 ov, _build.ptr(out), _build.stream(out))
     _build.check(err, "rk3_substep")
 
 
-def rk3_substep(u, v, w, pos, sh, clamp):
+def _check_velocity_slab(name, slab, nk):
+    """Raise unless a ``Slab``'s faces (nk cell planes from slab.src) lie
+    inside the grid of slab.nz cells and hold at least 2 planes."""
+    if not (nk >= 2 and 0 <= slab.src and slab.src + nk <= slab.nz):
+        raise ValueError(f"{name}: faces of {nk} cell planes from plane "
+                         f"{slab.src} do not fit a grid of {slab.nz}")
+
+
+def rk3_substep(u, v, w, pos, sh, clamp, slab=None, overflow=None):
     """One Ralston RK3 substep of the characteristic trace: `pos` is
     stacked (3, ...) cell-lattice grid coordinates (p/h), `sh` the signed
     substep over h, `clamp` the per-axis bounds in grid units. u, v, w are
-    the MAC faces of an (ni, nj, nk) grid."""
+    the MAC faces of an (ni, nj, nk) grid; with a ``Slab`` (the slab
+    mode), the cell planes slab.src .. slab.src + nk - 1 of a grid of
+    slab.nz cells, the positions staying global, and each position that
+    used a plane outside the faces adds 1 to `overflow`, when given."""
+    if slab is not None:
+        _check_velocity_slab("rk3_substep", slab, u.shape[2])
     if not _build.on_card(pos, "rk3_substep"):
-        return rk3_substep_plain(u, v, w, pos, sh, clamp)
+        return rk3_substep_plain(u, v, w, pos, sh, clamp, slab, overflow)
     _faces("rk3_substep", u, v, w)
     _build.require(pos, "pos")
     if pos.dim() < 2 or pos.shape[0] != 3:
@@ -308,32 +419,51 @@ def rk3_substep(u, v, w, pos, sh, clamp):
     if pos.device != u.device:
         raise ValueError("rk3_substep: tensors on different devices")
     out = torch.empty_like(pos)
-    _rk3_launch(u, v, w, pos, pos.shape[1:], (0, 0, 0), sh, clamp, out)
+    _rk3_launch(u, v, w, pos, pos.shape[1:], (0, 0, 0), sh, clamp, out,
+                slab, overflow)
     rk3_substep.launches += 1
+    rk3_substep.slab_launches += slab is not None
     return out
 
 
 rk3_substep.launches = 0
+rk3_substep.slab_launches = 0
 
 
-def rk3_substep_lattice(u, v, w, kind_dim, sh, clamp):
+def rk3_substep_lattice(u, v, w, kind_dim, sh, clamp, slab=None,
+                        overflow=None):
     """``rk3_substep`` from the lattice of the kind with face vector
     `kind_dim`, cropped to the (ni, nj, nk) cell block: node (i, j, k)
     starts at (i - 0.5*dim_x, j - 0.5*dim_y, k - 0.5*dim_z). On the card
     the kernel forms those coordinates itself and reads no positions.
-    Returns (3, ni, nj, nk)."""
+    Returns (3, ni, nj, nk). With a ``Slab`` the faces are a slab as in
+    ``rk3_substep`` and the block is the slab.out_nz planes from global
+    plane slab.out: (3, ni, nj, slab.out_nz)."""
+    ni, nj = v.shape[0], u.shape[1]
+    if slab is None:
+        shape, z0 = (ni, nj, u.shape[2]), 0
+    else:
+        _check_velocity_slab("rk3_substep_lattice", slab, u.shape[2])
+        if not (slab.out_nz >= 1 and 0 <= slab.out
+                and slab.out + slab.out_nz <= slab.nz):
+            raise ValueError(f"rk3_substep_lattice: {slab.out_nz} planes "
+                             f"from {slab.out} outside {slab.nz}")
+        shape, z0 = (ni, nj, slab.out_nz), slab.out
     if not _build.on_card(u, "rk3_substep_lattice"):
-        shape = (v.shape[0], u.shape[1], u.shape[2])
         return rk3_substep_plain(
-            u, v, w, lattice_positions(shape, kind_dim, u.device), sh, clamp)
-    shape = _faces("rk3_substep_lattice", u, v, w)
+            u, v, w, lattice_positions(shape, kind_dim, u.device, z0), sh,
+            clamp, slab, overflow)
+    _faces("rk3_substep_lattice", u, v, w)
     out = torch.empty((3,) + shape, dtype=torch.float32, device=u.device)
-    _rk3_launch(u, v, w, None, shape, kind_dim, sh, clamp, out)
+    _rk3_launch(u, v, w, None, shape, kind_dim, sh, clamp, out, slab,
+                overflow)
     rk3_substep_lattice.launches += 1
+    rk3_substep_lattice.slab_launches += slab is not None
     return out
 
 
 rk3_substep_lattice.launches = 0
+rk3_substep_lattice.slab_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -378,9 +508,56 @@ def dmc_displacements(u, v, w, sh, thresh):
     return tuple(outs)
 
 
-def dmc_substep_plain(u, v, w, maps, sh, thresh):
+def _dmc_slab_planes(name, slab, nkv, nkm=None):
+    """Check a ``dmc_substep`` slab (the faces hold nkv cell planes, the
+    map nkm) and return the output's global plane indices' range: the
+    faces must hold every output plane and the planes beside them (those
+    the band's upwind cells read), the map every output plane."""
+    lo, hi = slab.out, slab.out + slab.out_nz
+    ok = (slab.out_nz >= 1 and 0 <= lo and hi <= slab.nz
+          and slab.src <= max(lo - 1, 0)
+          and slab.src + nkv >= min(hi + 1, slab.nz)
+          and slab.src + nkv <= slab.nz)
+    if nkm is not None:
+        ok = ok and nkm >= 2 and slab.map <= lo and slab.map + nkm >= hi
+    if not ok:
+        raise ValueError(f"{name}: slab {slab} does not fit faces of {nkv} "
+                         f"planes and a map of {nkm}")
+    return lo, hi
+
+
+def _dmc_slab_displacements(u, v, w, sh, thresh, slab):
+    """dmc_displacements of the faces' cell planes, cut to the output
+    planes of `slab`."""
+    lo = slab.out - slab.src
+    return [d[..., lo:lo + slab.out_nz]
+            for d in dmc_displacements(u, v, w, sh, thresh)]
+
+
+def dmc_substep_plain(u, v, w, maps, sh, thresh, slab=None, overflow=None):
     """Plain version: the backward map (3, ni, nj, nk) after one DMC
-    substep; cells outside the interior band keep the old map."""
+    substep; cells outside the interior band keep the old map. On a
+    ``Slab`` see ``dmc_substep``."""
+    if slab is not None:
+        lo, hi = _dmc_slab_planes("dmc_substep", slab, u.shape[2],
+                                  maps.shape[3])
+        dx, dy, dz = _dmc_slab_displacements(u, v, w, sh, thresh, slab)
+        dev = maps.device
+        ni, nj = maps.shape[1], maps.shape[2]
+        band = band_mask((ni, nj, slab.nz), (2, 2, 2), (3, 3, 3),
+                         dev)[..., lo:hi]
+        gx = torch.arange(ni, dtype=maps.dtype, device=dev)[:, None, None] - dx
+        gy = torch.arange(nj, dtype=maps.dtype, device=dev)[None, :, None] - dy
+        gz = torch.arange(lo, hi, dtype=maps.dtype, device=dev) - dz
+        own = maps[..., lo - slab.map:hi - slab.map]
+        outs, outside = [], []
+        for c in range(3):
+            val, out = interp.trilerp_grid_slab(maps[c], gx, gy, gz,
+                                                slab.map, slab.nz)
+            outs.append(torch.where(band, val, own[c]))
+            outside.append(out)
+        _count(overflow, band & torch.stack(outside).any(0))
+        return torch.stack(outs)
     dx, dy, dz = dmc_displacements(u, v, w, sh, thresh)
     shape = maps.shape[1:]
     dev = maps.device
@@ -393,19 +570,29 @@ def dmc_substep_plain(u, v, w, maps, sh, thresh):
         for c in range(3)])
 
 
-def dmc_substep_lattice_plain(u, v, w, sh, thresh, h):
+def dmc_substep_lattice_plain(u, v, w, sh, thresh, h, slab=None):
     """Plain version of the lattice mode: the identity backward map
     (3, ni, nj, nk) after one DMC substep (the identity peel of
     ``advect.dmc_backward_identity_3d``). Sampling the identity at the new
     position is the position itself clamped to the lattice-value range:
     inside the band clamp(p - disp*h, 0, (n-1)h), outside it p, with p the
-    cell lattice formed as ``Grid3D.axis_coords('c')`` forms it."""
-    disp = dmc_displacements(u, v, w, sh, thresh)
-    shape = (v.shape[0], u.shape[1], u.shape[2])
-    band = band_mask(shape, (2, 2, 2), (3, 3, 3), u.device)
+    cell lattice formed as ``Grid3D.axis_coords('c')`` forms it. On a
+    ``Slab`` see ``dmc_substep_lattice``."""
+    ni, nj = v.shape[0], u.shape[1]
+    if slab is None:
+        disp = dmc_displacements(u, v, w, sh, thresh)
+        lo, hi, nz = 0, u.shape[2], u.shape[2]
+    else:
+        lo, hi = _dmc_slab_planes("dmc_substep_lattice", slab, u.shape[2])
+        disp = _dmc_slab_displacements(u, v, w, sh, thresh, slab)
+        nz = slab.nz
+    dev = u.device
+    band = band_mask((ni, nj, nz), (2, 2, 2), (3, 3, 3), dev)[..., lo:hi]
     outs = []
-    for ax, (d, n) in enumerate(zip(disp, shape)):
-        p = torch.arange(n, dtype=torch.float32, device=u.device) * h
+    for ax, (d, n) in enumerate(zip(disp, (ni, nj, nz))):
+        p = torch.arange(n, dtype=torch.float32, device=dev) * h
+        if ax == 2:
+            p = p[lo:hi]
         p = p.reshape([-1 if a == ax else 1 for a in range(3)])
         outs.append(torch.where(band, (p - d * h).clamp(0.0, (n - 1) * h),
                                 p))
@@ -423,61 +610,98 @@ def dmc_check_sizes(cell_shape):
                 w=ni * nj * (nk + 1), maps=3 * ni * nj * nk)
 
 
-def _dmc_launch(u, v, w, maps, sh, thresh, h, out):
+def _dmc_launch(u, v, w, maps, sh, thresh, h, out, slab=None,
+                overflow=None):
     """One dmc_substep kernel launch: the substep of `maps`, or of the
     identity map of cell size `h` (the lattice mode) where `maps` is
-    None."""
+    None; on a ``Slab`` of the grid as ``dmc_substep`` says."""
     shape = (v.shape[0], u.shape[1], u.shape[2])
     dmc_check_sizes(shape)
+    ov = _overflow_arg(slab, overflow, out.device)
     fn = _build.function(
         "dmc_substep", "gfs_dmc_substep",
-        [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, ctypes.POINTER(_F), _P,
-         _P])
+        [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, ctypes.POINTER(_F),
+         ctypes.POINTER(_I), _P, _P, _P])
     # the lattice mode's clamp, (n - 1)*h rounded to float32 as
     # torch.clamp rounds its bound
-    hi = (_F * 3)(*[float((n - 1) * h) for n in shape])
+    extent = shape if slab is None else shape[:2] + (slab.nz,)
+    hi = (_F * 3)(*[float((n - 1) * h) for n in extent])
+    zs = None
+    if slab is not None:
+        nkm = slab.out_nz if maps is None else maps.shape[3]
+        zs = (_I * 6)(slab.nz, slab.out, slab.out_nz, slab.src, slab.map,
+                      nkm)
     with torch.cuda.device(out.device):
         err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), *shape,
                  None if maps is None else _build.ptr(maps), float(sh),
-                 float(thresh), float(h), hi, _build.ptr(out),
+                 float(thresh), float(h), hi, zs, ov, _build.ptr(out),
                  _build.stream(out))
     _build.check(err, "dmc_substep")
 
 
-def dmc_substep(u, v, w, maps, sh, thresh):
+def dmc_substep(u, v, w, maps, sh, thresh, slab=None, overflow=None):
     """One fused DMC backward-map substep: `maps` is the stacked (3, ni,
     nj, nk) backward map in world coordinates, `sh` the substep over h,
-    `thresh` the float32 1e-4*h guard (dmc_threshold)."""
+    `thresh` the float32 1e-4*h guard (dmc_threshold).
+
+    The slab mode (a ``Slab``): the faces hold the cell planes slab.src ..
+    slab.src + nk - 1 of a grid of slab.nz cells, `maps` the planes
+    slab.map .. (the output planes and their halo), and the result is
+    (3, ni, nj, slab.out_nz), the planes from global plane slab.out. The
+    band, the lattice and the map coordinate are global; a map corner
+    outside the map's planes is clamped to its edge, and each cell that
+    used one adds 1 to `overflow`, when given. The faces must hold every
+    output plane and the planes beside them, the map every output plane."""
+    if slab is not None:
+        _dmc_slab_planes("dmc_substep", slab, u.shape[2], maps.shape[3])
     if not _build.on_card(maps, "dmc_substep"):
-        return dmc_substep_plain(u, v, w, maps, sh, thresh)
+        return dmc_substep_plain(u, v, w, maps, sh, thresh, slab, overflow)
     shape = _faces("dmc_substep", u, v, w)
-    _build.require(maps, "maps", shape=(3,) + shape)
+    if slab is None:
+        _build.require(maps, "maps", shape=(3,) + shape)
+        out = torch.empty_like(maps)
+    else:
+        _build.require(maps, "maps", ndim=4)
+        if maps.shape[:3] != (3,) + shape[:2]:
+            raise ValueError(f"dmc_substep: maps {tuple(maps.shape)} on "
+                             f"faces of {shape}")
+        out = torch.empty((3,) + shape[:2] + (slab.out_nz,),
+                          dtype=torch.float32, device=maps.device)
     if maps.device != u.device:
         raise ValueError("dmc_substep: tensors on different devices")
-    out = torch.empty_like(maps)
-    _dmc_launch(u, v, w, maps, sh, thresh, 0.0, out)
+    _dmc_launch(u, v, w, maps, sh, thresh, 0.0, out, slab, overflow)
     dmc_substep.launches += 1
+    dmc_substep.slab_launches += slab is not None
     return out
 
 
 dmc_substep.launches = 0
+dmc_substep.slab_launches = 0
 
 
-def dmc_substep_lattice(u, v, w, sh, thresh, h):
+def dmc_substep_lattice(u, v, w, sh, thresh, h, slab=None):
     """``dmc_substep`` of the identity backward map of cell size `h` (the
     first substep of a march from the identity): on the card the kernel
     forms each cell's position itself and reads no map. Returns (3, ni,
-    nj, nk)."""
+    nj, nk); with a ``Slab`` (the faces as in ``dmc_substep``) the
+    slab.out_nz planes from global plane slab.out. It reads no map, so it
+    has nothing to count."""
+    if slab is not None:
+        _dmc_slab_planes("dmc_substep_lattice", slab, u.shape[2])
     if not _build.on_card(u, "dmc_substep_lattice"):
-        return dmc_substep_lattice_plain(u, v, w, sh, thresh, h)
+        return dmc_substep_lattice_plain(u, v, w, sh, thresh, h, slab)
     shape = _faces("dmc_substep_lattice", u, v, w)
-    out = torch.empty((3,) + shape, dtype=torch.float32, device=u.device)
-    _dmc_launch(u, v, w, None, sh, thresh, h, out)
+    nko = shape[2] if slab is None else slab.out_nz
+    out = torch.empty((3,) + shape[:2] + (nko,), dtype=torch.float32,
+                      device=u.device)
+    _dmc_launch(u, v, w, None, sh, thresh, h, out, slab)
     dmc_substep_lattice.launches += 1
+    dmc_substep_lattice.slab_launches += slab is not None
     return out
 
 
 dmc_substep_lattice.launches = 0
+dmc_substep_lattice.slab_launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@ from gpufluidsimulation_tpu_torch.core.interp import sample3_separable
 from gpufluidsimulation_tpu_torch.ops import (advect, forces, interp_fast,
                                           poisson)
 from gpufluidsimulation_tpu_torch.ops.advect import substeps
+from gpufluidsimulation_tpu_torch.parallel import sharded_interp
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
 
 
@@ -195,9 +196,14 @@ class Smoke3DConfig:
 @dataclasses.dataclass
 class Smoke3DState:
     """Fields are float32 tensors on the solver's device; counters are host
-    ints. ``interp_overflow`` is always 0: the port's kernels gather
-    exactly and have no displacement window to overflow. ``substeps`` is
-    the port's own diagnostic: CFL substeps of the last step's marches."""
+    ints. ``interp_overflow`` is 0 on one device: the port's kernels
+    gather exactly and have no displacement window to overflow. Under a
+    mesh (``EngineMode.sharded_sampling``) it counts the step's samples
+    past the halo contract, as the JAX package's sink does
+    (``parallel/sharded_interp.py``). ``substeps`` and ``slab_clamped``
+    are the port's own diagnostics: CFL substeps of the last step's
+    marches, and under a mesh the march nodes that its slab kernels
+    clamped to a slab's edge."""
 
     u: torch.Tensor
     v: torch.Tensor
@@ -225,6 +231,7 @@ class Smoke3DState:
     proj_res_hist: torch.Tensor
     interp_overflow: int = 0
     substeps: int = 0
+    slab_clamped: int = 0
 
 
 REINIT_MODES = ("always", "counter", "adaptive")
@@ -569,6 +576,8 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     dt = cfg.dt
     always = cfg.reinit_mode == "always"
     mode = _volume_mode(cfg)
+    # the z-slab routing of the marches and lattice samples under a mesh
+    sharded = sharded_interp.Sampling.of(cfg.engine_mode, s.u.device)
     maxvel = _max_velocity(s.u, s.v, s.w)
     cfldt = np.float32(np.float32(g.h) / maxvel)
 
@@ -579,10 +588,10 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     # at the end of every step): the backward march's first substep is
     # the identity peel, and the scalar maps are the velocity maps
     vel_map = mp.update_mapping_3d(s.vel_map, g, s.u, s.v, s.w, cfldt, dt,
-                                   from_identity=always)
+                                   from_identity=always, sharded=sharded)
     if not always:
         scalar_map = mp.update_mapping_3d(s.scalar_map, g, s.u, s.v, s.w,
-                                          cfldt, dt)
+                                          cfldt, dt, sharded=sharded)
     elif s.scalar_map.fwd is None:
         scalar_map = s.scalar_map          # counter-only alias
     else:
@@ -615,7 +624,7 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
         return mp.bimocq_advect_3d(
             g, kind, cur, init, prev, maps.bwd, maps.bwd_prev, maps.fwd, b,
             mode=mode, map_stats=(stats.get(id(maps.bwd)),
-                                  stats.get(id(maps.fwd))))
+                                  stats.get(id(maps.fwd))), sharded=sharded)
 
     blend_v = blend(vel_map)
     (u,) = pull_back("u", [s.u], [s.u_init], [s.u_prev], vel_map, blend_v)
@@ -671,14 +680,15 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
             mp.accumulate_multi_3d(g, kind, [(base, [(ext, 1.0),
                                                      (dp, proj_coeff)])],
                                    vel_map.fwd, mode=mode,
-                                   fwd_stats=stats.get(id(vel_map.fwd)))[0]
+                                   fwd_stats=stats.get(id(vel_map.fwd)),
+                                   sharded=sharded)[0]
             for kind, base, ext, dp in (("u", u_init, du_ext, du_p),
                                         ("v", v_init, dv_ext, dv_p),
                                         ("w", w_init, dw_ext, dw_p)))
         rho_init, T_init = mp.accumulate_multi_3d(
             g, "c", [(rho_init, [(drho_ext, 1.0)]), (T_init, [(dT_ext, 1.0)])],
             scalar_map.fwd, mode=mode,
-            fwd_stats=stats.get(id(scalar_map.fwd)))
+            fwd_stats=stats.get(id(scalar_map.fwd)), sharded=sharded)
 
     u_prev, v_prev, w_prev = s.u_prev, s.v_prev, s.w_prev
     if always or vel_reinit:
@@ -709,8 +719,10 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
         vel_last_reinit=s.frame if vel_reinit else s.vel_last_reinit,
         scalar_last_reinit=s.frame if scalar_reinit else s.scalar_last_reinit,
         cfl=_cfl(maxvel, dt, g.h), proj_iters=iters, proj_res=res,
-        proj_res_hist=hist, interp_overflow=0,
+        proj_res_hist=hist,
+        interp_overflow=0 if sharded is None else sharded.overflow(),
         substeps=len(substeps(cfldt, dt)),
+        slab_clamped=0 if sharded is None else sharded.clamped_nodes(),
     )
 
 
@@ -736,6 +748,8 @@ class Smoke3D:
         self.cfg = cfg
         self.grid = cfg.grid
         self.device = config.resolve_device(device)
+        # a sharded mode's mesh must live on this device
+        sharded_interp.Sampling.of(cfg.engine_mode, self.device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         rbgs = cfg.engine_mode is None or cfg.engine_mode.rbgs is not False
@@ -757,8 +771,17 @@ class Smoke3D:
         """The JAX package's contract-enforcing step, returning (state,
         retried). There a frame whose windowed samplers overflowed
         (``interp_overflow > 0``) is recomputed from a saved copy of the
-        state on the exact-gather engine. The port's kernels gather
-        exactly, so ``interp_overflow`` is always 0 and no frame is ever
-        recomputed: this is ``(self.step(state), False)``, with no copy
-        of the state kept."""
-        return self.step(state), False
+        state on the exact-gather engine. On one device the port's
+        kernels gather exactly, so ``interp_overflow`` is 0 and no frame
+        is recomputed. Under a mesh (``EngineMode.sharded_sampling``) a
+        frame that left the halo contract, or whose marches clamped a
+        node to a slab's edge (``slab_clamped``), is recomputed from the
+        same input state (the step writes none of its tensors) with
+        sharded sampling off."""
+        out = self.step(state)
+        if out.interp_overflow == 0 and out.slab_clamped == 0:
+            return out, False
+        cfg = dataclasses.replace(self.cfg, engine_mode=dataclasses.replace(
+            self.cfg.engine_mode, sharded_sampling=()))
+        return self._step(cfg, self.grid, self.ctx, self._base_flags,
+                          state), True

@@ -300,7 +300,7 @@ def test_full_state_round_trip_and_dieted_choice():
     cfg = convert.config_from_dict(dataclasses.asdict(jsolver.cfg))
     st = convert.state_from_numpy(flat, cfg, "cpu")
     back = convert.state_to_numpy(st)
-    assert set(back) == set(flat) | {"substeps"}
+    assert set(back) == set(flat) | {"substeps", "slab_clamped"}
     for key, val in flat.items():
         np.testing.assert_array_equal(back[key], val, err_msg=key)
     for change, dead in ((dict(reinit_mode="always", blend_coeff=1.0), True),

@@ -75,12 +75,14 @@ def test_jax_checkpoint_resumes_in_the_port(tmp_path, name):
     jstate = _seeded_jax_state(jcfg, seed=1)
     path = jcheckpoint.save_state(str(tmp_path / "jax.npz"), jstate)
     solver = _port(jcfg)
-    template = dataclasses.replace(solver.init_state(), substeps=3)
+    template = dataclasses.replace(solver.init_state(), substeps=3,
+                                   slab_clamped=3)
     st = checkpoint.load_state(path, template)
-    assert st.substeps == 0
+    assert st.substeps == 0 and st.slab_clamped == 0
     assert isinstance(st.frame, int) and isinstance(st.cfl, float)
     got = convert.state_to_numpy(st)
     got.pop("substeps")
+    got.pop("slab_clamped")
     want = _jax_arrays(path)
     assert set(got) == set(want)
     for key, val in want.items():
@@ -159,7 +161,7 @@ def test_state_leaves_follow_the_jax_key_order():
         jcfg = _jax_cfg(name)
         jkeys, _, _ = jcheckpoint._path_keys(jsmoke.init_state(jcfg))
         keys = ["f:." + k for k, _ in convert.state_leaves(
-            _port(jcfg).init_state()) if k != "substeps"]
+            _port(jcfg).init_state()) if k not in checkpoint._PORT_ONLY]
         assert keys == jkeys
         assert all(isinstance(v, (torch.Tensor, int, float))
                    for _, v in convert.state_leaves(

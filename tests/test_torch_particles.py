@@ -10,8 +10,11 @@ on both axes and a pile-up of 500 particles at one position, as the
 step's clamp makes them.
 
 Whole steps: FLIP, APIC and POLYPIC with the spectral projection and
-FLIP with MG-PCG, 3 steps each at 24x40 (dt 0.5: CFL near 2.4, 3
-substeps), buoyancy on, from seeded smooth fields whose particles are
+FLIP with MG-PCG, with Dirichlet and with pure Neumann walls (each CG
+exit test of that case at least 5% from ``proj_tol``, where the two
+packages' residuals agree to ~1e-5 of themselves), 3 steps each at
+24x40 (dt 0.5: CFL near 2.4, 3 substeps), buoyancy on, from seeded
+smooth fields whose particles are
 sampled from the grid as the JAX CLI bootstraps them. The JAX steps run
 with ``EngineMode(fast_interp=False, particle_dense=False)`` op by op
 (``jax.disable_jit``): jitted, XLA divides positions by h as a product
@@ -41,6 +44,7 @@ import torch
 
 from gpufluidsimulation_tpu_torch import convert
 from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+from gpufluidsimulation_tpu_torch.ops import poisson
 from gpufluidsimulation_tpu_torch.solvers import particles as part
 from gpufluidsimulation_tpu_torch.solvers import smoke2d
 from tests import jax_oracle
@@ -51,8 +55,9 @@ H = 1.0 / NI
 DT = 0.5
 STEPS = 3
 COLUMNS = ("pos", "vel", "rho", "T", "C_x", "C_y", "C_rho", "C_T")
+# (scheme, projection): "mgpcg-neumann" is MG-PCG with pure Neumann walls
 CASES = (("flip", "spectral"), ("apic", "spectral"), ("polypic", "spectral"),
-         ("flip", "mgpcg"))
+         ("flip", "mgpcg"), ("flip", "mgpcg-neumann"))
 SCHEME_OF = {"flip": 4, "apic": 5, "polypic": 6}
 GRID_KEYS = ("u", "v", "rho", "T")
 
@@ -97,13 +102,15 @@ def _start():
                 T=_smooth((NI, NJ), 4, 1.0))
 
 
-def _cfg_fields(name):
+def _cfg_fields(name, proj="spectral"):
     return dict(ni=NI, nj=NJ, L=1.0, scheme=SCHEME_OF[name], alpha=0.2,
-                beta=0.05, proj_tol=1e-5, proj_max_iters=60)
+                beta=0.05, proj_tol=1e-5, proj_max_iters=60,
+                pure_neumann=proj == "mgpcg-neumann")
 
 
 def _mode(proj, dense=False):
-    return dict(fast_interp=False, spectral_poisson=proj != "mgpcg",
+    return dict(fast_interp=False,
+                spectral_poisson=not proj.startswith("mgpcg"),
                 particle_dense=dense)
 
 
@@ -146,7 +153,7 @@ def _jax_solver(name, proj, dense=False):
     from gpufluidsimulation_tpu.solvers import smoke2d as js
     from gpufluidsimulation_tpu.solvers.schemes import Scheme as JScheme
 
-    d = _cfg_fields(name)
+    d = _cfg_fields(name, proj)
     d["scheme"] = JScheme(d["scheme"])
     return js.Smoke2D(js.Smoke2DConfig(
         **d, engine_mode=jconfig.EngineMode(**_mode(proj, dense))))
@@ -290,15 +297,27 @@ def test_g2p_and_update_cp_match_jax(ref):
 
 
 def _port_solver(name, proj, dense=False):
-    cfg = convert.config_2d_from_dict(dict(_cfg_fields(name),
+    cfg = convert.config_2d_from_dict(dict(_cfg_fields(name, proj),
                                            engine_mode=_mode(proj, dense)))
     return cfg, smoke2d.Smoke2D(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("name,proj", CASES)
-def test_whole_steps_match_jax(ref, name, proj):
+def test_whole_steps_match_jax(ref, name, proj, monkeypatch):
     cfg, solver = _port_solver(name, proj)
     states = [_state(ref, f"{name}-{proj}#{k}#") for k in range(STEPS + 1)]
+    # every CG exit test of the pure-Neumann case sits clear of proj_tol
+    # (ROADMAP §3 item 2): each residual of the history at least 5% from
+    # it, where the two packages' residuals agree to ~1e-5 of themselves
+    histories = []
+    loop = poisson._pcg_loop
+
+    def recorded(*args, **kwargs):
+        out = loop(*args, **kwargs)
+        histories.append(out[3][:out[1]].clone())
+        return out
+
+    monkeypatch.setattr(poisson, "_pcg_loop", recorded)
     assert states[0]["particles.pos"].shape == (NI * NJ * N * N, 2)
     for k in range(1, STEPS + 1):
         state = solver.step(convert.state_from_numpy(states[k - 1], cfg,
@@ -312,6 +331,11 @@ def test_whole_steps_match_jax(ref, name, proj):
             assert int(got[key]) == int(want[key]), (k, key)
         np.testing.assert_allclose(got["cfl"], want["cfl"], rtol=1e-5)
         assert state.interp_overflow == 0 and state.substeps >= 2
+    if proj == "mgpcg-neumann":
+        assert len(histories) == STEPS
+        for hist in histories:
+            margin = (hist / cfg.proj_tol - 1.0).abs()
+            assert bool((margin >= 0.05).all()), hist
 
 
 def test_flip_step_against_the_dense_accelerator_path(ref):
