@@ -114,11 +114,13 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     50 MB L2 flushed before each launch) beside its plain version, its
     bound and grid_sample; the P2G kernel p2g_splat in
     its FLIP, APIC and PolyPIC modes on 256^2 with 1,048,576 particles
-    (12,000 of them piled on one clamp-ring node): bit for bit against
-    its plain version on the CPU, within 1e-5 of each output's scale
-    against its plain version on the card (atomics), two launches bit for
-    bit, timed beside the plain version, its bound and index_add_ of the
-    same tap payloads;
+    (12,000 of them piled on one clamp-ring node; none piled; 5,000 piled
+    at an interior node, runs of ten chunks) and on RT's 256x1280 with
+    5,242,880: bit for bit against its plain version on the CPU, within
+    1e-5 of each output's scale against its plain version on the card
+    (atomics), two launches bit for bit, timed beside the plain version,
+    its bound and index_add_ of the same tap payloads, one call traced
+    by torch.profiler;
 11. 2D parity: SEMILAG, MACCORMACK, BFECC, MAC_REFLECTION and BIMOCQ
     (blend 0.5, remap gaps 2 and 1) at 32x48, BIMOCQ in the level-set
     mode and FLIP, APIC and POLYPIC, 3 steps on the card against the port
@@ -147,6 +149,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -207,9 +210,42 @@ def device_ms(fn, reps, key):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.device_time_total for e in prof.events()
-               if e.device_type == DeviceType.CUDA and key in e.name
-               ) / 1e3 / reps
+    kernels = [e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA and key in e.name]
+    if not kernels or len(kernels) % reps:
+        log(f"[profiler] {key}: {len(kernels)} kernel events for {reps} "
+            "calls: the trace lost some, so this time undercounts")
+    return sum(kernels) / 1e3 / reps
+
+
+def launch_graph(fn, calls):
+    """A CUDA graph of `calls` back-to-back calls of fn, warmed up (fn's
+    work must be capturable: launches on the current stream, no host
+    sync)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return graph
+
+
+def graph_ms(fn, calls=20, replays=10):
+    """Mean device milliseconds a call of fn, from a CUDA graph of `calls`
+    calls replayed `replays` times between CUDA events: the card's time
+    with the host's launch work out of the way, and without the
+    profiler."""
+    return cuda_time(launch_graph(fn, calls).replay, replays,
+                     warmup=1) / calls
 
 
 def bound_ms(nbytes, nops):
@@ -1947,7 +1983,8 @@ MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 # redesigned for Hopper after their first port (PERF.md, kernel table)
 REDESIGNED = ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
               "volume_prefilter", "dmc_substep", "vol9_fixup", "rbgs_smooth",
-              "masked_rbgs_smooth", "minmax_sample", "pullback_sample")
+              "masked_rbgs_smooth", "minmax_sample", "pullback_sample",
+              "p2g_splat")
 # the lattice modes of rk3_substep and dmc_substep, each launched under its
 # own count
 LATTICE = {"rk3_substep": "rk3_substep_lattice",
@@ -3095,42 +3132,26 @@ def p2g_ops(order, P, nodes, outputs):
     return P * per_particle + nodes + outputs
 
 
-def p2g_phase(rng, pile=12000):
-    """Phase 10, P2G: the p2g_splat kernel in its FLIP, APIC and PolyPIC
-    modes on 256^2 (the Taylor vortex's grid, 1,048,576 particles seeded
-    4 x 4 a cell and jittered half a cell, clamped to [h, (n-1)h]) with
-    `pile` of them piled on the clamp ring at x = h, y = (nj-1)h, held
-    against its plain version three ways: on the CPU bit for bit (the
-    kernel sums every tap's run in order and the taps in the plain
-    version's order, and the CPU's index_add_ sums in order); on the card
-    within P2G_TOL of each output's scale (the card's index_add_ adds
-    with atomics in a run-dependent order: shuffling the particles of a
-    CPU run moved each output by at most 9.9e-7 of its scale at this size
-    and pile-up); and against its own second launch, bit for bit. Timed:
-    the kernel's device time, a call with its bin bounds (one
-    searchsorted) and launch, the plain version on the card, its bound
-    and, as a yardstick, index_add_ of the same tap payloads (one call a
-    tap, 14 calls) alone."""
+def p2g_particles(g, rng, dev, pile=0, at=None):
+    """The particle state of a 2D P2G case, bin-sorted, with its sorted
+    keys: 4 x 4 particles a cell (seed_particles), jittered by up to half
+    a cell and clamped to [h, (n-1)h], `pile` of them moved onto the
+    world position `at`, and random columns; and how many lie on `at`."""
     import torch
 
-    from gpufluidsimulation_tpu_torch.core import interp
-    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
-    from gpufluidsimulation_tpu_torch.ops import interp_fast
     from gpufluidsimulation_tpu_torch.solvers import particles
 
-    dev = torch.device("cuda")
-    n = 256
-    g = Grid2D(n, n, 2 * np.pi / n)
     h = g.h
     seeded = particles.seed_particles(g, 4, dev)
     P = seeded.pos.shape[0]
     jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, (P, 2)).astype(
         np.float32)).to(dev) * h
     pos = seeded.pos + jitter
-    pos = torch.stack([pos[:, 0].clamp(h, (n - 1) * h),
-                       pos[:, 1].clamp(h, (n - 1) * h)], dim=-1)
-    corner = torch.tensor([h, (n - 1) * h], dtype=torch.float32, device=dev)
-    pos[5000:5000 + pile] = corner
+    pos = torch.stack([pos[:, 0].clamp(h, (g.ni - 1) * h),
+                       pos[:, 1].clamp(h, (g.nj - 1) * h)], dim=-1)
+    if pile:
+        at = torch.tensor(at, dtype=torch.float32, device=dev)
+        pos[5000:5000 + pile] = at
 
     def col(*shape, positive=False):
         x = (rng.uniform(0, 2, shape) if positive
@@ -3141,104 +3162,225 @@ def p2g_phase(rng, pile=12000):
         pos=pos, vel=col(P, 2), rho=col(P, positive=True), T=col(P),
         C_x=col(P, 4), C_y=col(P, 4), C_rho=col(P, 4), C_T=col(P, 4))
     state, keys = particles.bin_sort(g, state, return_keys=True)
-    on_corner = int((state.pos == corner).all(1).sum())
-    if on_corner < pile:
-        raise AssertionError(f"p2g_splat: {on_corner} particles on the ring "
-                             f"corner, expected {pile} or more")
-    cpu = particles.ParticleState(**{k: getattr(state, k).cpu()
-                                     for k in particles._COLUMNS})
-    nodes = (n + 1) * n + n * (n + 1) + n * n
-    W = interp_fast.p2g_bin_width(n)
-    variants = []
-    for order in ("flip", "apic", "polypic"):
-        def cols(p):
-            if order == "flip":
-                return (p.vel[:, 0], p.vel[:, 1], p.rho, p.T)
-            return (p.C_x, p.C_y, p.C_rho, p.C_T)
+    on_pile = int((state.pos == at).all(1).sum()) if pile else 0
+    if on_pile < pile:
+        raise AssertionError(f"p2g_splat: {on_pile} particles on the pile, "
+                             f"expected {pile} or more")
+    return state, keys, on_pile
 
-        run = lambda: interp_fast.p2g_splat(state.pos, cols(state), h, n, n,
-                                            keys, order)
-        plain = lambda: interp_fast.p2g_splat_plain(state.pos, cols(state),
-                                                    h, n, n, order)
-        got, again = run(), run()
-        if not all(torch.equal(a, b) for a, b in zip(got, again)):
-            raise AssertionError(f"p2g_splat {order}: two launches differ")
-        t0 = time.time()
-        want_cpu = interp_fast.p2g_splat_plain(cpu.pos, cols(cpu), h, n, n,
-                                               order)
-        cpu_s = time.time() - t0
-        cpu_err = max(float((a.cpu() - b).abs().max())
-                      for a, b in zip(got, want_cpu))
-        log(f"[kernels] p2g_splat {order} 256x256 vs the plain version on "
-            f"the CPU: max_abs_err={cpu_err:.3e} tol=0.0e+00 ({cpu_s:.1f} s "
-            "on the CPU)")
-        if cpu_err != 0.0:
-            raise AssertionError(f"p2g_splat {order}: kernel differs from "
-                                 f"its plain version on the CPU: {cpu_err}")
-        want = plain()
-        errs, rels = [], []
-        for name, a, b in zip(("u", "v", "rho", "T"), got, want):
-            err = float((a - b).abs().max())
-            scale = max(float(b.abs().max()), 1e-6)
-            errs.append(err)
-            rels.append(err / scale)
-            if not np.isfinite(err) or err > P2G_TOL * scale:
-                raise AssertionError(
-                    f"p2g_splat {order} {name}: kernel vs plain on the card "
-                    f"{err} > {P2G_TOL} x {scale}")
-        log(f"[kernels] p2g_splat {order} 256x256 vs the plain version on "
-            f"the card: max_abs_err={max(errs):.3e}, of each output's scale "
-            f"{max(rels):.2e} tol={P2G_TOL:.1e}")
-        k_ms = device_ms(run, 10, "p2g_splat_kernel")
-        call_ms = cuda_time(run, 20)
-        p_ms = cuda_time(plain, 3, warmup=1)
-        # yardstick: index_add_ of the plain version's tap payloads, one
-        # call a tap (6 + 4 + 4), into each lattice's sums
-        taps = []
-        for (shape, off), chans in zip(
-                ((g.shape_u, g.OFF_U), (g.shape_v, g.OFF_V),
-                 (g.shape_c, g.OFF_C)), ((0,), (1,), (2, 3))):
-            acc = torch.zeros((shape[0] * shape[1], len(chans) + 1),
-                              device=dev)
-            x = interp.div_scalar(state.pos[:, 0], h) - off[0]
-            y = interp.div_scalar(state.pos[:, 1], h) - off[1]
-            for flat, w, ii, jj in particles._sorted_taps(shape, state.pos,
-                                                          h, off):
-                if order == "flip":
-                    vals = [cols(state)[c] for c in chans]
-                else:
-                    dx, dy = (ii.float() - x) * h, (jj.float() - y) * h
-                    vals = [particles._poly_value(cols(state)[c], dx, dy,
-                                                  order) for c in chans]
-                taps.append((acc, flat, torch.stack(
-                    [w * v for v in vals] + [w], dim=-1).contiguous()))
 
-        def lib():
-            for acc, flat, payload in taps:
-                acc.index_add_(0, flat, payload)
+def p2g_cols(p, order):
+    if order == "flip":
+        return (p.vel[:, 0], p.vel[:, 1], p.rho, p.T)
+    return (p.C_x, p.C_y, p.C_rho, p.C_T)
 
-        lib_ms = cuda_time(lib, 5)
-        col_bytes = 16 if order == "flip" else 64
-        nbytes = (8 * P + col_bytes * P + 4 * (n * W + 1)
-                  + 4 * (nodes + n * n))
-        b_ms, b_by = bound_ms(nbytes, p2g_ops(order, P, nodes,
-                                               nodes + n * n))
-        variants.append(dict(
-            variant=f"{order} 256x256", particles=P, pile=on_corner,
-            max_abs_err=max(errs), max_rel_err=max(rels), tol=P2G_TOL,
-            tol_of="each output's scale", cpu_plain_max_abs_err=cpu_err,
-            cpu_plain_s=cpu_s, ms=k_ms, call_ms=call_ms, plain_ms=p_ms,
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            library="index_add_ of the tap payloads, 14 calls (one a tap)"))
-        log(f"[kernels] p2g_splat {order} 256x256, {P} particles "
-            f"({on_corner} on one ring corner): {k_ms:.4f} ms on the card "
-            f"({call_ms:.4f} ms a call with its bin bounds and launch; plain "
-            f"{p_ms:.3f}, bound {b_ms:.5f} by {b_by}, index_add_ yardstick "
-            f"{lib_ms:.4f})")
-    return dict(variants[0], variants=variants, replaces=(
-        "gpufluidsimulation_tpu/solvers/particles.py:106-165 "
-        "(_sorted_taps, _splat_multi_sorted, _splat_poly_multi_sorted: "
-        "XLA sorted segment sums, no pallas_call)"))
+
+def p2g_cases():
+    """Phase 10's P2G cases: (label, grid, state, keys, particles on the
+    pile). The Taylor grid (256^2, h = 2 pi / 256) with 12,000 particles
+    piled on the clamp ring's corner node (x = h, y = (nj-1)h), without a
+    pile, and with 5,000 piled at an interior position (100.3h, 77.6h),
+    whose run spans ten of the kernel's 512-particle chunks; and RT's grid
+    (256x1280, h = 0.2/256) with its 5,242,880 particles."""
+    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+
+    taylor = Grid2D(256, 256, 2 * np.pi / 256)
+    rt = Grid2D(256, 1280, 0.2 / 256)
+    h = taylor.h
+    return [
+        ("256x256 ring pile", taylor, 12000, (h, 255 * h)),
+        ("256x256", taylor, 0, None),
+        ("256x1280 (RT)", rt, 0, None),
+        ("256x256 interior pile", taylor, 5000,
+         (float(np.float32(100.3 * h)), float(np.float32(77.6 * h)))),
+    ]
+
+
+def p2g_call_trace(run, reps=5):
+    """torch.profiler over `reps` wrapper calls: each device kernel's ms a
+    call (the bin starts' arange and searchsorted, p2g_splat_kernel) and
+    the CPU time of the call's ops; what a call by CUDA events adds to the
+    kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    device, host = {}, {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            device[e.key[:60]] = e.device_time_total / 1e3 / reps
+        elif e.key.startswith("aten::") and e.count >= reps:
+            host[e.key] = e.cpu_time_total / 1e3 / reps
+    return dict(device_ms=device, host_ms=host)
+
+
+def p2g_phase(rng):
+    """Phase 10, P2G: the p2g_splat kernel in its FLIP, APIC and PolyPIC
+    modes on the cases of p2g_cases (a 12,000-particle pile on the clamp
+    ring's corner node, the Taylor grid without a pile, RT's 256x1280
+    with 5,242,880 particles and a 5,000-particle pile at an interior
+    node whose runs span ten chunks), held against its plain version
+    three ways: on the CPU bit for bit (the kernel sums every tap's run
+    in order and the taps in the plain version's order, and the CPU's
+    index_add_ sums in order; every order and case, RT's included, ~4 s
+    of CPU an order there); on the card within P2G_TOL of each output's
+    scale (the card's index_add_ adds with atomics in a run-dependent
+    order: shuffling the particles of a CPU run moved each output by at
+    most 9.9e-7 of its scale at 256^2 with the ring pile); and against
+    its own second launch, bit for bit. Timed: the kernel's device time
+    (a CUDA graph of 20 launches on bin starts made once, replayed between
+    CUDA events; torch.profiler's reading beside it, which a long run's
+    trace can undercount), a call with its bin bounds (one searchsorted)
+    and launch, the plain
+    version on the card, its bound and, as a yardstick, index_add_ of
+    the same tap payloads (one call a tap, 14 calls) alone. The first
+    case's FLIP call is also traced (p2g_call_trace)."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core import interp
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+    from gpufluidsimulation_tpu_torch.solvers import particles
+
+    dev = torch.device("cuda")
+    VP = ctypes.c_void_p
+    variants, trace = [], None
+    for label, g, pile, at in p2g_cases():
+        ni, nj, h = g.ni, g.nj, g.h
+        state, keys, on_pile = p2g_particles(g, rng, dev, pile, at)
+        P = state.pos.shape[0]
+        cpu = particles.ParticleState(**{k: getattr(state, k).cpu()
+                                         for k in particles._COLUMNS})
+        nodes = (ni + 1) * nj + ni * (nj + 1) + ni * nj
+        W = interp_fast.p2g_bin_width(nj)
+        for order in ("flip", "apic", "polypic"):
+            cols = p2g_cols(state, order)
+            run = lambda: interp_fast.p2g_splat(state.pos, cols, h, ni, nj,
+                                                keys, order)
+            plain = lambda: interp_fast.p2g_splat_plain(state.pos, cols, h,
+                                                        ni, nj, order)
+            # the launch alone, on bin starts and an output made once
+            starts = interp_fast.p2g_bin_starts(keys, ni, nj)
+            out = torch.empty(nodes + ni * nj, device=dev)
+            fn = _build.function("p2g_splat", "gfs_p2g_splat", [
+                VP, ctypes.POINTER(VP), ctypes.POINTER(ctypes.c_int),
+                ctypes.c_int, VP, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                ctypes.c_longlong, VP, VP])
+            ptrs = (VP * 4)(*[c.data_ptr() for c in cols])
+            strides = (ctypes.c_int * 4)(
+                *[c.stride(0) if order == "flip" else 4 for c in cols])
+
+            def launch():
+                _build.check(fn(_build.ptr(state.pos), ptrs, strides,
+                                interp_fast.P2G_ORDERS[order],
+                                _build.ptr(starts), ni, nj, float(h), P,
+                                _build.ptr(out), _build.stream(out)),
+                             "p2g_splat")
+
+            got, again = run(), run()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"p2g_splat {order} {label}: two "
+                                     "launches differ")
+            t0 = time.time()
+            want_cpu = interp_fast.p2g_splat_plain(
+                cpu.pos, p2g_cols(cpu, order), h, ni, nj, order)
+            cpu_s = time.time() - t0
+            cpu_err = max(float((a.cpu() - b).abs().max())
+                          for a, b in zip(got, want_cpu))
+            del want_cpu
+            log(f"[kernels] p2g_splat {order} {label} vs the plain version "
+                f"on the CPU: max_abs_err={cpu_err:.3e} tol=0.0e+00 "
+                f"({cpu_s:.1f} s on the CPU)")
+            if cpu_err != 0.0:
+                raise AssertionError(f"p2g_splat {order} {label}: kernel "
+                                     "differs from its plain version on "
+                                     f"the CPU: {cpu_err}")
+            want = plain()
+            errs, rels = [], []
+            for name, a, b in zip(("u", "v", "rho", "T"), got, want):
+                err = float((a - b).abs().max())
+                scale = max(float(b.abs().max()), 1e-6)
+                errs.append(err)
+                rels.append(err / scale)
+                if not np.isfinite(err) or err > P2G_TOL * scale:
+                    raise AssertionError(
+                        f"p2g_splat {order} {label} {name}: kernel vs plain "
+                        f"on the card {err} > {P2G_TOL} x {scale}")
+            del want
+            log(f"[kernels] p2g_splat {order} {label} vs the plain version "
+                f"on the card: max_abs_err={max(errs):.3e}, of each "
+                f"output's scale {max(rels):.2e} tol={P2G_TOL:.1e}")
+            k_ms = graph_ms(launch)
+            profiler_ms = device_ms(run, 10, "p2g_splat_kernel")
+            call_ms = cuda_time(run, 20)
+            p_ms = cuda_time(plain, 3, warmup=1)
+            if trace is None:
+                trace = dict(case=f"{order} {label}",
+                             **p2g_call_trace(run), call_ms=call_ms,
+                             kernel_ms=k_ms)
+                log(f"[kernels] p2g_splat call trace: {json.dumps(trace)}")
+            # yardstick: index_add_ of the plain version's tap payloads,
+            # one call a tap (6 + 4 + 4), into each lattice's sums
+            taps = []
+            for (shape, off), chans in zip(
+                    ((g.shape_u, g.OFF_U), (g.shape_v, g.OFF_V),
+                     (g.shape_c, g.OFF_C)), ((0,), (1,), (2, 3))):
+                acc = torch.zeros((shape[0] * shape[1], len(chans) + 1),
+                                  device=dev)
+                x = interp.div_scalar(state.pos[:, 0], h) - off[0]
+                y = interp.div_scalar(state.pos[:, 1], h) - off[1]
+                for flat, w, ii, jj in particles._sorted_taps(
+                        shape, state.pos, h, off):
+                    if order == "flip":
+                        vals = [cols[c] for c in chans]
+                    else:
+                        dx, dy = (ii.float() - x) * h, (jj.float() - y) * h
+                        vals = [particles._poly_value(cols[c], dx, dy, order)
+                                for c in chans]
+                    taps.append((acc, flat, torch.stack(
+                        [w * v for v in vals] + [w], dim=-1).contiguous()))
+
+            def lib():
+                for acc, flat, payload in taps:
+                    acc.index_add_(0, flat, payload)
+
+            lib_ms = cuda_time(lib, 5)
+            del taps
+            col_bytes = 16 if order == "flip" else 64
+            nbytes = (8 * P + col_bytes * P + 4 * (ni * W + 1)
+                      + 4 * (nodes + ni * nj))
+            b_ms, b_by = bound_ms(nbytes, p2g_ops(order, P, nodes,
+                                                   nodes + ni * nj))
+            variants.append(dict(
+                variant=f"{order} {label}", particles=P, pile=on_pile,
+                max_abs_err=max(errs), max_rel_err=max(rels), tol=P2G_TOL,
+                tol_of="each output's scale", cpu_plain_max_abs_err=cpu_err,
+                cpu_plain_s=cpu_s, ms=k_ms, profiler_ms=profiler_ms,
+                call_ms=call_ms, plain_ms=p_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                library="index_add_ of the tap payloads, 14 calls (one a "
+                "tap)"))
+            log(f"[kernels] p2g_splat {order} {label}, {P} particles "
+                f"({on_pile} on the pile): {k_ms:.4f} ms on the card (a "
+                f"CUDA graph of launches; torch.profiler {profiler_ms:.4f}; "
+                f"{call_ms:.4f} ms a call with its bin bounds and launch; "
+                f"plain {p_ms:.3f}, bound {b_ms:.5f} by {b_by}, index_add_ "
+                f"yardstick {lib_ms:.4f})")
+        del state, keys, cpu
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(variants[0], variants=variants, call_trace=trace,
+                replaces=(
+                    "gpufluidsimulation_tpu/solvers/particles.py:106-165 "
+                    "(_sorted_taps, _splat_multi_sorted, "
+                    "_splat_poly_multi_sorted: XLA sorted segment sums, no "
+                    "pallas_call)"))
 
 
 STATE_2D = ("u", "v", "u_temp", "v_temp", "rho", "T", "u_init", "v_init",
@@ -3748,7 +3890,7 @@ def main():
                 "sharded_main": sum(
                     n_ for w_, n_ in sharded_slab.items()
                     if w_ == name or w_ == LATTICE.get(name))})
-        for extra in ("variants", "lattice", "one_sweep_ms",
+        for extra in ("variants", "call_trace", "lattice", "one_sweep_ms",
                       "sweeps_per_launch", "levels_per_launch", "cases",
                       "calls_per_step", "launches_per_step"):
             if extra in r:

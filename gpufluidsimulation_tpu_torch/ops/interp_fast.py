@@ -1396,14 +1396,22 @@ def p2g_bin_width(nj):
     return 2 * nj + 4
 
 
+# the keys 0 .. n-1 that p2g_bin_starts looks up, by device: made once a
+# grid, not once a step (a fresh arange costs the step a launch and an
+# allocation)
+_BIN_QUERIES = {}
+
+
 def p2g_bin_starts(keys, ni, nj):
     """The first particle of every key sx*(2nj+4) + ky, sx in [0, ni), of
     the sorted int64 `keys`: ni*(2nj+4) + 1 int32 offsets, one
     searchsorted."""
     n = ni * p2g_bin_width(nj) + 1
-    return torch.searchsorted(
-        keys, torch.arange(n, dtype=keys.dtype, device=keys.device),
-        out_int32=True)
+    queries = _BIN_QUERIES.get(keys.device)
+    if queries is None or queries.shape[0] != n or queries.dtype != keys.dtype:
+        queries = _BIN_QUERIES[keys.device] = torch.arange(
+            n, dtype=keys.dtype, device=keys.device)
+    return torch.searchsorted(keys, queries, out_int32=True)
 
 
 def p2g_splat_plain(pos, cols, h, ni, nj, order="flip"):

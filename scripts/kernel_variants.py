@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Time design variants of the port's redesigned kernels on one GPU.
 
-    python3 scripts/kernel_variants.py            # 256^3 shapes, all ten
+    python3 scripts/kernel_variants.py            # 256^3 shapes, all eleven
     python3 scripts/kernel_variants.py --n 64     # a quick check
     python3 scripts/kernel_variants.py --kernels dmc_substep,vol9_fixup
     python3 scripts/kernel_variants.py --kernels vol9_fixup --only shipped,tile
     python3 scripts/kernel_variants.py --kernels minmax_sample,pullback_sample \
         --parent _archive/parent     # also that tree's designs, same rounds
+    python3 scripts/kernel_variants.py --kernels p2g_splat \
+        --parent _archive/parent     # the P2G cases, the first form beside
 
 Each variant is the kernel's source in ``gpufluidsimulation_tpu_torch/csrc``
 with textual edits (block or tile shape, rows per thread, the division,
@@ -37,10 +39,15 @@ variants (per-channel floors, eight corner loads, a block shape) at C=2
 with and without the sample mode and at C=1, beside the two launches the
 sample mode replaces; ``pullback_sample`` variants (the k below-node by a
 warp shuffle, a thread a (channel, node), block shapes) for u, v, w and
-rho+T. The smoother, minmax and pull-back builds are all made before any
-is timed, each in its own namespace, then timed in interleaved rounds
-(medians); ``--parent DIR`` adds that tree's minmax_sample and
-pullback_sample, through its own C interface. Each build prints
+rho+T; ``p2g_splat`` variants (the bounds in registers; the next chunk by
+cp.async; chunk length, threads and tile; the owner's unrolling or
+batches; register caps) on ``chip_smoke.py``'s P2G cases in FLIP, APIC and PolyPIC,
+against the plain version on the CPU, then where a call's time goes
+beside the kernel's (CUDA events and torch.profiler). The smoother,
+minmax, pull-back and P2G builds are all made before any is timed, each
+in its own namespace, then timed in interleaved rounds (medians);
+``--parent DIR`` adds that tree's minmax_sample, pullback_sample and
+p2g_splat, through its own C interface. Each build prints
 its registers, spills and, where the toolkit has cuobjdump, each kernel's
 static SASS instruction count. Builds go to the port's build directory
 (``gpufluidsimulation_tpu_torch/_build/variants/``).
@@ -51,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import os
 import re
 import subprocess
@@ -791,6 +799,149 @@ PULLBACK = {
 }
 
 
+_P2G_CHUNK = "constexpr int kChunk = 512;"
+_P2G_THREADS = "constexpr int kThreads = 128;"
+_P2G_UNROLL = "#pragma unroll 4\n  for (int k = from; k < to; ++k) add(s, sl[k]);"
+_P2G_BLOCKS = "constexpr int kBlocksPerSM = 5;"
+_P2G_JJ = ("  const int jj = J0 + (((t & 31) << 1) | ((t >> 5) & 1)) + "
+           "(t & ~63);\n")
+_P2G_ADDS_END = ("        add_run(sl, max(bm, hfirst) - hfirst, min(b1, hend) - "
+                 "hfirst, s0);\n      }\n")
+_P2G_LOADS = """          p[r] = __ldg(pos + g);
+          ca[r] = load_coef<kOrder>(colA, strA, g);
+          if (kNch == 2) cb[r] = load_coef<kOrder>(colB, strB, g);
+"""
+# the next chunk copied by cp.async into shared memory past the slots
+# while the owners add (no registers), each thread waiting for its own
+# copies before its terms
+_P2G_CP_ASYNC = [
+    ("// the slots sl[from, to) added in order onto s", """\
+// cp.async of N bytes from device memory into shared memory
+template <int N>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\\n" ::"r"(
+      (unsigned)__cvta_generic_to_shared(dst)), "l"(src), "n"(N)
+      : "memory");
+}
+
+// the slots sl[from, to) added in order onto s"""),
+    ("constexpr int kSmem = 2 * 2 * kChunk * (int)sizeof(float4);",
+     "constexpr int kSmem = 2 * 2 * kChunk * (int)sizeof(float4) + "
+     "kChunk * (8 + 2 * 16);"),
+    ("  float2 p[kPer];\n  Coef<kOrder> ca[kPer], cb[kPer];\n", """\
+  float2* const rp = reinterpret_cast<float2*>(smem + 4 * kChunk);
+  Coef<kOrder>* const ra = reinterpret_cast<Coef<kOrder>*>(rp + kChunk);
+  Coef<kOrder>* const rb = ra + kChunk;
+"""),
+    ("    if (staged) {\n      // the staged particles' terms",
+     '    if (staged) {\n      asm volatile("cp.async.wait_all;\\n" ::: '
+     '"memory");\n      // the staged particles\' terms'),
+    ("const float gx = p[r].x / h - ox;", "const float gx = rp[k].x / h - ox;"),
+    ("const float gy = p[r].y / h - oy;", "const float gy = rp[k].y / h - oy;"),
+    ("value<kOrder>(ca[r], dx, dy)", "value<kOrder>(ra[k], dx, dy)"),
+    ("value<kOrder>(cb[r], dx, dy)", "value<kOrder>(rb[k], dx, dy)"),
+    (_P2G_LOADS, """\
+          const int k = r * kThreads + t;
+          copy_async<8>(rp + k, pos + g);
+          if constexpr (kOrder == kFlip) {
+            copy_async<4>(ra + k, colA + (unsigned)g * (unsigned)strA);
+            if (kNch == 2)
+              copy_async<4>(rb + k, colB + (unsigned)g * (unsigned)strB);
+          } else {
+            copy_async<16>(ra + k, colA + 4 * (size_t)g);
+            if (kNch == 2) copy_async<16>(rb + k, colB + 4 * (size_t)g);
+          }
+""")]
+# the slice and run bounds in registers, picked by selects
+_P2G_BOUNDS_IN_REGISTERS = [
+    ("""    if (t < 2) slice[d][t] = ok ? __ldg(st + (t == 0 ? tlo : thi)) : 0;
+    runs[d][0][t] = ok && owner ? __ldg(st + klo) : 0;
+    runs[d][1][t] = ok && owner ? __ldg(st + kmid) : 0;
+    runs[d][2][t] = ok && owner ? __ldg(st + khi) : 0;
+  }
+  __syncthreads();
+""", """    LO[d] = ok ? __ldg(st + tlo) : 0;
+    HI[d] = ok ? __ldg(st + thi) : 0;
+    B0[d] = ok && owner ? __ldg(st + klo) : 0;
+    BM[d] = ok && owner ? __ldg(st + kmid) : 0;
+    B1[d] = ok && owner ? __ldg(st + khi) : 0;
+  }
+"""),
+    ("#pragma unroll\n  for (int d = 0; d < kMaxTaps; ++d) {\n    const int sx",
+     "  int LO[kMaxTaps], HI[kMaxTaps], B0[kMaxTaps], BM[kMaxTaps], "
+     "B1[kMaxTaps];\n  auto pick = [](const int (&a)[kMaxTaps], int d) {\n"
+     "    return d == 0 ? a[0] : (d == 1 ? a[1] : a[2]);\n  };\n"
+     "#pragma unroll\n  for (int d = 0; d < kMaxTaps; ++d) {\n    const int sx"),
+    ("  int di = 0, begin = slice[0][0];", "  int di = 0, begin = LO[0];"),
+    ("begin >= slice[di][1]", "begin >= pick(HI, di)"),
+    ("begin = di < ndi ? slice[di][0] : 0;",
+     "begin = di < ndi ? pick(LO, di) : 0;"),
+    ("end = min(begin + kChunk, slice[di][1]);",
+     "end = min(begin + kChunk, pick(HI, di));"),
+    ("""        const int b0 = runs[hd][0][t], bm = runs[hd][1][t];
+        const int b1 = runs[hd][2][t];
+""", """        const int b0 = pick(B0, hd), bm = pick(BM, hd);
+        const int b1 = pick(B1, hd);
+""")]
+
+
+def _p2g_unroll(n):
+    return [(_P2G_UNROLL, _P2G_UNROLL.replace("unroll 4", f"unroll {n}"))]
+
+
+def _p2g_blocks(blocks):
+    return [(_P2G_BLOCKS, _P2G_BLOCKS.replace("5", str(blocks)))]
+
+
+# the owner's adds in explicit batches: batch b + 1's slots are loaded
+# while batch b is added
+_P2G_BATCHED = [(_P2G_UNROLL, """int k = from;
+  if (k + 8 <= to) {
+    S cur[8];
+#pragma unroll
+    for (int b = 0; b < 8; ++b) cur[b] = sl[k + b];
+    for (k += 8; k + 8 <= to; k += 8) {
+      S next[8];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) next[b] = sl[k + b];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+        add(s, cur[b]);
+        cur[b] = next[b];
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < 8; ++b) add(s, cur[b]);
+  }
+  for (; k < to; ++k) add(s, sl[k]);""")]
+P2G = {
+    "shipped (128 threads, a tile of 128 nodes, chunks of 512, adds "
+    "unrolled by 4, at least 5 blocks an SM)": [],
+    "the slice and run bounds in registers": _P2G_BOUNDS_IN_REGISTERS,
+    "the next chunk copied by cp.async during the adds (52 KB)":
+        _P2G_CP_ASYNC,
+    "adds unrolled by 8": _p2g_unroll(8),
+    "adds unrolled by 16": _p2g_unroll(16),
+    "adds in explicit batches of 8, the next in flight": _P2G_BATCHED,
+    "at least 4 blocks an SM (128 registers)": _p2g_blocks(4),
+    "at least 6 blocks an SM (85 registers)": _p2g_blocks(6),
+    "no register budget (ptxas's own choice)": [
+        ("__launch_bounds__(kThreads, kBlocksPerSM)",
+         "__launch_bounds__(kThreads)")],
+    "chunks of 256": [(_P2G_CHUNK, "constexpr int kChunk = 256;")],
+    "chunks of 1024 (64 KB of dynamic shared memory)": [
+        (_P2G_CHUNK, "constexpr int kChunk = 1024;")],
+    "64 threads, tiles of 64": [
+        (_P2G_THREADS, "constexpr int kThreads = 64;")],
+    "256 threads, tiles of 256": [
+        (_P2G_THREADS, "constexpr int kThreads = 256;")],
+    "neighbouring nodes on one warp (jj = J0 + t)": [
+        (_P2G_JJ, "  const int jj = J0 + t;\n")],
+    "owners' warps reconverge before the barrier (__syncwarp)": [
+        (_P2G_ADDS_END, _P2G_ADDS_END + "      __syncwarp();\n")],
+}
+
+
 def build(out_dir, tag, source, edits, csrc=CSRC):
     """nvcc the edited source; returns the library and the ptxas lines
     (None and nvcc's errors if it does not build). An edit applies to the
@@ -1439,6 +1590,152 @@ def pullback_variants(n, out_dir, parent=None, rounds=4):
                f"{errs[key]:.3e})")
 
 
+def sm_clock():
+    """The card's SM clock in MHz, as nvidia-smi reads it now."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else None
+
+
+P2G_CALLS = 20   # launches a timed CUDA graph holds
+
+
+def p2g_variants(n, out_dir, parent=None, rounds=4):
+    """Each build's launch on chip_smoke.py's P2G cases (p2g_cases: the
+    ring pile, no pile and the interior pile on 256^2, RT's 256x1280) in
+    FLIP, APIC and PolyPIC, held against the plain version on the CPU
+    (max abs error; the shipped design must show 0). With `parent`, that
+    tree's p2g_splat is built too (the same C interface). All built
+    first, each in its own namespace, then timed in interleaved rounds,
+    the launch alone on the bin starts made beforehand, as CUDA graphs
+    of 20 launches (the host's ctypes launch would time itself on the
+    shorter cases). Then, for the
+    shipped design and the parent's on the ring pile in FLIP, where a
+    call's time goes: the wrapper's whole call (the bin starts'
+    searchsorted, the output's torch.empty, the ctypes launch) and its
+    parts by CUDA events, the kernel by torch.profiler, and the call's
+    ops traced (chip_smoke.p2g_call_trace). `n` is not used: the cases
+    are the main path's shapes."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    F, I, P, LL = ctypes.c_float, ctypes.c_int, ctypes.c_void_p, \
+        ctypes.c_longlong
+    cases = []
+    for label, g, pile, at in cs.p2g_cases():
+        state, keys, _ = cs.p2g_particles(g, rng, dev, pile, at)
+        cpu = state.__class__(**{k: getattr(state, k).cpu()
+                                 for k in ("pos", "vel", "rho", "T", "C_x",
+                                           "C_y", "C_rho", "C_T")})
+        starts = interp_fast.p2g_bin_starts(keys, g.ni, g.nj)
+        for order in ("flip", "apic", "polypic"):
+            cols = cs.p2g_cols(state, order)
+            want = torch.cat([w.reshape(-1) for w in
+                              interp_fast.p2g_splat_plain(
+                                  cpu.pos, cs.p2g_cols(cpu, order), g.h,
+                                  g.ni, g.nj, order)])
+            cases.append((f"{order} {label}", g, state, keys, starts, cols,
+                          order, want))
+    table = list(P2G.items())
+    if parent:
+        table.append(("parent (first form)", None))
+    entries, errs, launches = [], {}, {}
+    for i, (label, edits) in enumerate(table):
+        lib, ptxas = build(out_dir, f"p2g_{i}", "p2g_splat",
+                           (edits or []) + _own_namespace(i),
+                           CSRC if edits is not None else _parent_csrc(parent))
+        cs.log(f"[p2g_splat] {label}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fn = lib.gfs_p2g_splat
+        fn.restype = I
+        fn.argtypes = [P, ctypes.POINTER(P), ctypes.POINTER(I), I, P, I, I,
+                       F, LL, P, P]
+        for case, g, state, keys, starts, cols, order, want in cases:
+            out = torch.empty_like(want, device=dev)
+            ptrs = (P * 4)(*[c.data_ptr() for c in cols])
+            strides = (I * 4)(*[c.stride(0) if order == "flip" else 4
+                                for c in cols])
+
+            def run(fn=fn, g=g, state=state, starts=starts, ptrs=ptrs,
+                    strides=strides, order=order, out=out, label=label):
+                err = fn(_build.ptr(state.pos), ptrs, strides,
+                         interp_fast.P2G_ORDERS[order], _build.ptr(starts),
+                         g.ni, g.nj, float(g.h), state.pos.shape[0],
+                         _build.ptr(out), _build.stream(out))
+                _build.check(err, label)
+
+            run()
+            errs[(label, case)] = float((out.cpu() - want).abs().max())
+            # timed as a CUDA graph of launches: a launch through ctypes
+            # costs the host more than the shorter cases cost the card
+            entries.append(((label, case),
+                            cs.launch_graph(run, P2G_CALLS).replay))
+            launches[(label, case)] = (run, g, state, keys, cols, order,
+                                       out)
+    times = _interleaved(entries, rounds)
+    for key, (med, lo, hi) in times.items():
+        med, lo, hi = (x / P2G_CALLS for x in (med, lo, hi))
+        cs.log(f"[p2g_splat] {key[0]}: {key[1]} {med:.4f} ms (median of "
+               f"{rounds}, {lo:.4f}-{hi:.4f}; max_abs_err {errs[key]:.3e})")
+    gap_case = cases[0][0]
+    for label in (table[0][0], "parent (first form)"):
+        if (label, gap_case) not in launches:
+            continue
+        run, g, state, keys, cols, order, out = launches[(label, gap_case)]
+        ni, nj = g.ni, g.nj
+        bin_starts = lambda: interp_fast.p2g_bin_starts(keys, ni, nj)
+
+        def call(run=run):
+            # the wrapper's work around the launch: the bin starts, the
+            # output and the launch (which reuses its starts and output)
+            bin_starts()
+            torch.empty(out.numel(), dtype=torch.float32, device=dev)
+            run()
+
+        # each measure with the SM clock nvidia-smi reads right after it
+        parts = {}
+        for key, measure in (
+                ("kernel_profiler_ms",
+                 lambda: cs.device_ms(run, 10, "p2g_splat_kernel")),
+                ("kernel_graph_ms", lambda: cs.graph_ms(run)),
+                ("launch_ms", lambda: cs.cuda_time(run, 20)),
+                ("call_ms", lambda: cs.cuda_time(call, 20)),
+                ("bin_starts_ms", lambda: cs.cuda_time(bin_starts, 20)),
+                ("kernel_profiler_again_ms",
+                 lambda: cs.device_ms(run, 10, "p2g_splat_kernel"))):
+            parts[key] = measure()
+            parts[key.replace("_ms", "_sm_mhz")] = sm_clock()
+        cs.log(f"[p2g_splat] {label}: {gap_case}, a call's parts "
+               f"{json.dumps(parts)}; traced "
+               f"{json.dumps(cs.p2g_call_trace(call))}")
+    # the wrapper's own cost where a call is host-bound (the Taylor path's
+    # shape, no pile): the port's wrapper as it is (the bin queries kept)
+    # and with a fresh arange of them each call, as before, in turns
+    _, g, state, keys, _, cols, order, _ = next(
+        c for c in cases if c[0] == "flip 256x256")
+
+    def wrapper():
+        interp_fast.p2g_splat(state.pos, cols, g.h, g.ni, g.nj, keys, order)
+
+    def wrapper_fresh():
+        interp_fast._BIN_QUERIES.clear()
+        wrapper()
+
+    calls = {"kernel_profiler_ms": cs.device_ms(wrapper, 10,
+                                                "p2g_splat_kernel"),
+             "call_graph_ms": cs.graph_ms(wrapper)}
+    for key, fn in (("call_fresh_queries_ms", wrapper_fresh),
+                    ("call_ms", wrapper), ("call_ms", wrapper),
+                    ("call_fresh_queries_ms", wrapper_fresh)):
+        calls.setdefault(key, []).append(cs.cuda_time(fn, 50))
+    cs.log(f"[p2g_splat] the wrapper, flip 256x256: {json.dumps(calls)}")
+
+
 RUNNERS = {"trilerp_sample": trilerp_variants,
            "jacobi_diffuse": jacobi_variants,
            "rk3_substep": rk3_variants,
@@ -1450,9 +1747,10 @@ RUNNERS = {"trilerp_sample": trilerp_variants,
            "masked_rbgs_smooth": lambda n, out: smoother_variants(
                "masked_rbgs_smooth", MASKED_RBGS, n, out),
            "minmax_sample": minmax_variants,
-           "pullback_sample": pullback_variants}
+           "pullback_sample": pullback_variants,
+           "p2g_splat": p2g_variants}
 # the runners that also build a parent tree's design (--parent)
-WITH_PARENT = ("minmax_sample", "pullback_sample")
+WITH_PARENT = ("minmax_sample", "pullback_sample", "p2g_splat")
 
 
 def main():
@@ -1465,8 +1763,8 @@ def main():
                     "the variants whose name holds one of them")
     ap.add_argument("--parent", metavar="DIR",
                     help="a checkout of another tree (git archive): "
-                    "minmax_sample and pullback_sample also build its "
-                    "design and time it in the same rounds")
+                    "minmax_sample, pullback_sample and p2g_splat also "
+                    "build its design and time it in the same rounds")
     ap.add_argument("--out", default=str(ROOT / "gpufluidsimulation_tpu_torch"
                                         / "_build" / "variants"))
     args = ap.parse_args()
@@ -1482,7 +1780,7 @@ def main():
     if args.only:
         parts = args.only.split(",")
         for table in (TRILERP, JACOBI, RK3, PREFILTER, DMC, VOL9, RBGS,
-                      MASKED_RBGS, MINMAX, PULLBACK):
+                      MASKED_RBGS, MINMAX, PULLBACK, P2G):
             for name in [k for k in table if not any(s in k for s in parts)]:
                 del table[name]
     for name in args.kernels.split(","):
