@@ -239,6 +239,22 @@ def launch_graph(fn, calls):
     return graph
 
 
+def host_us(fn, calls=1000):
+    """Microseconds of host time a call of fn: the wall time of `calls`
+    calls made without a sync (the card keeps up with launches that
+    short), over `calls`."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
 def graph_ms(fn, calls=20, replays=10):
     """Mean device milliseconds a call of fn, from a CUDA graph of `calls`
     calls replayed `replays` times between CUDA events: the card's time
@@ -1984,15 +2000,16 @@ MAIN_KERNELS = KERNELS[:4] + ("volume_prefilter",)
 REDESIGNED = ("trilerp_sample", "jacobi_diffuse", "rk3_substep",
               "volume_prefilter", "dmc_substep", "vol9_fixup", "rbgs_smooth",
               "masked_rbgs_smooth", "minmax_sample", "pullback_sample",
-              "p2g_splat")
+              "p2g_splat", "bilerp_sample")
 # the lattice modes of rk3_substep and dmc_substep, each launched under its
 # own count
 LATTICE = {"rk3_substep": "rk3_substep_lattice",
            "dmc_substep": "dmc_substep_lattice"}
 # every kernel's other modes with a wrapper and a count of their own: the
-# lattice modes and bilerp_sample's mac and cp modes
+# lattice modes and bilerp_sample's mac, cp, trace and DMC modes
 MODES = {name: (mode,) for name, mode in LATTICE.items()}
-MODES["bilerp_sample"] = ("bilerp_sample_mac", "bilerp_sample_cp")
+MODES["bilerp_sample"] = ("bilerp_sample_mac", "bilerp_sample_cp",
+                          "bilerp_trace", "bilerp_dmc")
 
 
 def wrappers():
@@ -2923,22 +2940,261 @@ BILERP_POS_OPS, BILERP_OFFSET_OPS, BILERP_CHANNEL_OPS = 2, 8, 9
 # (8 products, 3 sums, a division), c1 and c2 (a negation, 4 products, 3
 # sums, a division each), c3 (3 sums, a division) and the band's select
 CP_OFFSET_OPS, CP_CHANNEL_OPS = 6, 4 + 12 + 9 + 9 + 4 + 1
+# ... and in the trace and DMC modes: one MAC velocity sample (2
+# divisions by h, per component the offset's 2 subtractions, 2 floors, 2
+# fractions, 2 complements and the blend's 9); a substep's 3 samples, the
+# two stage updates (a product and a sum a coordinate), the combination
+# (3 products and 3 sums a coordinate) and the clamp (2 compares a
+# coordinate); a lattice start's 2 sums and 2 products; at the foot 2
+# divisions and the offset's 8, then 9 a field and its min/max 6 more; a
+# DMC substep's 2 velocity samples, the upwind position (a compare and a
+# sum a coordinate), the slopes (2 differences and a division a
+# coordinate), the step (|a|, its compare, a negation, a product, exp,
+# a difference, a product, a division, a difference: 9 a coordinate), the
+# clamp and the C=2 map sample
+MAC2_OPS = 2 + 2 * 17
+TRACE_SUBSTEP_OPS = 3 * MAC2_OPS + 2 * 2 * 2 + 2 * 6 + 2 * 2
+TRACE_LATTICE_OPS, TRACE_FOOT_OPS, TRACE_FIELD_OPS = 4, 10, 9
+TRACE_MINMAX_OPS = 6
+DMC2_OPS = 2 * MAC2_OPS + 2 * 2 + 2 * 3 + 2 * 9 + 2 * 2 + 10 + 2 * 9
+
+
+def same_bits(got, want, values=False):
+    """Where got and want differ: NaN in one and not the other, or
+    different bits (with `values`, different values: the min/max may
+    take either zero where corners hold +0 and -0). Returns the number of
+    such elements and the largest abs difference over the rest."""
+    import torch
+
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    if values:
+        diff = (got != want) & ~(nan_g & nan_w)
+    else:
+        diff = (got.view(torch.int32) != want.view(torch.int32)) & ~(
+            nan_g & nan_w)
+    both = ~(nan_g | nan_w)
+    err = float((got[both] - want[both]).abs().max()) if bool(
+        both.any()) else 0.0
+    return int(diff.sum()) + int((nan_g != nan_w).sum()), err
+
+
+def march_fields(g, rng, dev, nan=False):
+    """A 2D state for the trace and DMC modes: u, v of amplitude 1 (a
+    substep of 1.5 h moves ~1.5 cells), rho, T, a second pair (du, dv),
+    and with `nan` a NaN in u on the 4 nodes around the grid's centre."""
+    u = smooth(g.shape_u, rng, 2.0, dev)
+    v = smooth(g.shape_v, rng, 2.0, dev)
+    if nan:
+        u[g.ni // 2:g.ni // 2 + 2, g.nj // 2:g.nj // 2 + 2] = float("nan")
+    extra = [smooth(g.shape_c, rng, a, dev) for a in (1.0, 50.0, 3.0, 0.5)]
+    return u, v, extra
+
+
+def march_cases():
+    """The trace-mode cases of each grid: (label, start, kind or None,
+    substeps in units of 1.5h, C, minmax, write_pos, final clamp name,
+    interleave, nan)."""
+    return (
+        ("lattice c, 2 substeps, C=2 minmax", "c", 2, 2, True, False, None,
+         False, False),
+        ("lattice u, 3 substeps (last partial), C=1 minmax", "u", 3, 1, True,
+         False, None, False, False),
+        ("lattice v, 1 substep back, C=1", "v", -1, 1, False, False, None,
+         False, False),
+        ("lattice c, 2 substeps back, C=4 minmax, foot", "c", -2, 4, True,
+         True, None, False, False),
+        ("lattice c, 3 substeps, C=3, foot", "c", 3, 3, False, True, None,
+         False, False),
+        ("positions 3 cells outside, 2 substeps, C=2 minmax, foot", "out", 2,
+         2, True, True, None, False, False),
+        ("map positions, 3 substeps, [h, L-h]", "map", 3, 0, False, True,
+         "map", False, False),
+        ("map positions, 1 substep back, [h, L-h]", "map", -1, 0, False,
+         True, "map", False, False),
+        ("particle columns, 2 substeps, [h, (n-1)h], (P, 2)", "particles", 2,
+         0, False, True, "particles", True, False),
+        ("particle columns, 3 substeps back, [h, (n-1)h], (P, 2)",
+         "particles", -3, 0, False, True, "particles", True, False),
+        ("NaN velocity: lattice c, 2 substeps, C=2 minmax, foot", "c", 2, 2,
+         True, True, None, False, True),
+        ("NaN velocity: particle columns, 2 substeps", "particles", 2, 0,
+         False, True, "particles", True, True),
+    )
+
+
+def march_subs(count, h):
+    """`count` signed substeps of 1.5h (the last of 3 at 0.37 of it)."""
+    s = np.float32(1.5 * h) * np.float32(1 if count > 0 else -1)
+    n = abs(count)
+    return [s] * (n - 1) + [s * np.float32(0.37) if n == 3 else s]
+
+
+def bilerp_march_phase(rng, timed):
+    """Phase 10, the trace and DMC modes of bilerp_sample against their
+    plain versions on the card, bit for bit (NaN where the plain version
+    has NaN; the corner min/max by value), on 256^2, 256x1280 and 37x29:
+    the trace from each kind's lattice and from read positions (the cell
+    lattice wandering 2 cells, stretched to 3 cells outside, a map, and
+    the (P, 2) particle columns, 16 a cell as the solver seeds them:
+    1,048,576 on 256^2 and 5,242,880 on 256x1280), 1, 2 and 3 substeps (the last
+    of 3 partial), forward and back, C = 0-4 fields at the foot with and
+    without the min/max, the foot written or not, no final clamp, the
+    map's [h, L - h] and the particles' [h, (n-1)h], and a NaN in the
+    velocity; the DMC mode from a displaced map at 1 and 3 substeps (the
+    last partial), a negative substep and with a NaN velocity. On the
+    grids in `timed` each case is timed by a CUDA graph of launches beside
+    its bound and its plain version. Returns the cases' records."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core import interp
+    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+
+    dev = torch.device("cuda")
+    records = []
+    for ni, nj in ((256, 256), (256, 1280), (37, 29)):
+        g = Grid2D(ni, nj, 1.0 / ni)
+        h = g.h
+        state = march_fields(g, rng, dev)
+        nan_state = march_fields(g, rng, dev, nan=True)
+        pstart = particle_positions(g, rng, dev)
+        wobble = [(q + smooth(q.shape, rng, 2.0 * h, dev)).contiguous()
+                  for q in g.node_coords("c", dev)]
+        stretched = [(p * ((m + 6.0) / m) - 3.0 * h).contiguous()
+                     for p, m in zip(wobble, (ni, nj))]
+        clamps = {"map": interp.clamp_bounds_2d(h, ni, nj),
+                  "particles": ((h, (ni - 1) * h), (h, (nj - 1) * h))}
+        for (label, start, count, C, minmax, foot, clamp, inter,
+             nan) in march_cases():
+            u, v, extra = nan_state if nan else state
+            if start in ("c", "u", "v"):
+                origin = interp_fast.Lattice2D(g.shape_of(start),
+                                               g.off_of(start))
+                off = g.off_of(start)
+                if start == "c":
+                    fields = extra[:C]
+                else:
+                    # the velocity component itself, as a scheme traces it
+                    f = u if start == "u" else v
+                    fields = [f, f * 2.0, f + 1.0, -f][:C]
+            elif start == "particles":
+                origin = (pstart[:, 0], pstart[:, 1])
+                off, fields = g.OFF_C, extra[:C]
+            else:
+                origin = tuple(stretched if start == "out" else wobble)
+                off, fields = g.OFF_C, extra[:C]
+            subs = march_subs(count, h)
+            kw = dict(fields=fields, off=off, minmax=minmax, write_pos=foot,
+                      final_clamp=clamps.get(clamp), interleave=inter)
+            run = lambda: interp_fast.bilerp_trace(u, v, h, subs, origin,
+                                                   **kw)
+            plain = lambda: interp_fast.bilerp_trace_plain(u, v, h, subs,
+                                                           origin, **kw)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            worst, bad, nans = 0.0, 0, 0
+            for part, (a, b) in enumerate(zip(got, want)):
+                if (a is None) != (b is None):
+                    raise AssertionError(f"trace {label}: output {part} "
+                                         "missing")
+                if a is None:
+                    continue
+                n_bad, err = same_bits(a, b, values=part >= 2)
+                bad += n_bad
+                worst = max(worst, err)
+                nans += int(torch.isnan(a).sum())
+            name = f"bilerp_sample trace {label} {ni}x{nj}"
+            log(f"[kernels] {name}: {bad} elements differ, max_abs_err "
+                f"{worst:.3e} tol 0, {nans} NaN")
+            if bad or worst:
+                raise AssertionError(f"{name}: the trace mode disagrees with "
+                                     f"its plain version")
+            if nan and not nans:
+                raise AssertionError(f"{name}: the NaN reached no output")
+            rec = dict(variant=f"trace {label} {ni}x{nj}", max_abs_err=worst,
+                       tol=0.0, nan_outputs=nans)
+            if (ni, nj) in timed:
+                n = (g.shape_of(start)[0] * g.shape_of(start)[1]
+                     if isinstance(origin, interp_fast.Lattice2D)
+                     else origin[0].numel())
+                outs = (2 if foot else 0) + C * (3 if minmax else 1)
+                nbytes = 4 * (u.numel() + v.numel()
+                              + sum(f.numel() for f in fields)
+                              + (0 if isinstance(origin,
+                                                 interp_fast.Lattice2D)
+                                 else 2 * n) + outs * n)
+                nops = n * (abs(count) * TRACE_SUBSTEP_OPS
+                            + TRACE_LATTICE_OPS
+                            + (TRACE_FOOT_OPS + C * (
+                                TRACE_FIELD_OPS
+                                + (TRACE_MINMAX_OPS if minmax else 0))
+                               if C else 0))
+                b_ms, b_by = bound_ms(nbytes, nops)
+                rec.update(ms=graph_ms(run), plain_ms=graph_ms(plain),
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           host_us_a_call=host_us(run, 300))
+                log(f"[kernels] {name}: {rec['ms']:.5f} ms (CUDA graph), "
+                    f"plain {rec['plain_ms']:.4f} (its launches, CUDA "
+                    f"graph), bound {b_ms:.5f} by {b_by}, "
+                    f"{rec['host_us_a_call']:.1f} us of host a call")
+            records.append(rec)
+        maps = [w.contiguous() for w in wobble]
+        for label, count, sign, nan in (
+                ("DMC 1 substep", 1, 1, False),
+                ("DMC 3 substeps (last partial)", 3, 1, False),
+                ("DMC 1 substep, negative", 1, -1, False),
+                ("NaN velocity: DMC 3 substeps", 3, 1, True)):
+            u, v, _ = nan_state if nan else state
+            subs = [s * np.float32(sign) for s in march_subs(count, h)]
+            run = lambda: interp_fast.bilerp_dmc(u, v, *maps, h, subs)
+            plain = lambda: interp_fast.bilerp_dmc_plain(u, v, *maps, h,
+                                                         subs)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            bad, worst = same_bits(got, want)
+            nans = int(torch.isnan(got).sum())
+            name = f"bilerp_sample {label} {ni}x{nj}"
+            log(f"[kernels] {name}: {bad} elements differ, max_abs_err "
+                f"{worst:.3e} tol 0, {nans} NaN")
+            if bad or worst:
+                raise AssertionError(f"{name}: the DMC mode disagrees with "
+                                     "its plain version")
+            if nan and not nans:
+                raise AssertionError(f"{name}: the NaN reached no output")
+            rec = dict(variant=f"{label} {ni}x{nj}", max_abs_err=worst,
+                       tol=0.0, nan_outputs=nans)
+            if (ni, nj) in timed:
+                n = ni * nj
+                nbytes = 4 * (u.numel() + v.numel() + 2 * n + 2 * n)
+                b_ms, b_by = bound_ms(count * nbytes, count * n * DMC2_OPS)
+                rec.update(ms=graph_ms(run), plain_ms=graph_ms(plain),
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                           launches_a_call=count,
+                           host_us_a_call=host_us(run, 300))
+                log(f"[kernels] {name}: {rec['ms']:.5f} ms a call of "
+                    f"{count} launches (CUDA graph), plain "
+                    f"{rec['plain_ms']:.4f}, bound {b_ms:.5f} by {b_by}")
+            records.append(rec)
+    return records
 
 
 def bilerp_phase(rng):
-    """Phase 10: bilerp_sample in both modes against its plain versions,
+    """Phase 10: bilerp_sample in its modes against its plain versions,
     bit for bit, on 256^2, 256x1280 (the Rayleigh-Taylor grid) and 37x29:
     the sample mode at C=1 (a cell field at positions wandering 2 cells),
     C=2 (rho and T on the 5-point volume stencil's (5, ni, nj) batch, 0.3
     cells) and C=2 with differing offsets (u's and v's lattices), the
-    mac mode at positions wandering 1.5 cells, the cp mode (calculateCp of
-    u, v, rho and T, each in its own band) at 4 positions a cell; each
+    mac mode at positions wandering 1.5 cells, and G2P at the particles as
+    the solver seeds them (16 a cell: 1,048,576 on 256^2, 5,242,880 on
+    256x1280): the mac mode with two pairs, the sample mode at C=4 and the
+    cp mode (calculateCp of u, v, rho and T, each in its own band); each
     also at positions stretched to 3 cells outside the domain (outside
-    every cp band too). At 256^2 each is timed: the kernel's own device
-    time (torch.profiler; also with the L2 flushed before each launch),
-    the plain version, and for the sample modes
-    grid_sample (bilinear, border padding, align_corners) on the same
-    samples."""
+    every cp band too). At 256^2 each is timed: the kernel by a CUDA graph
+    of launches (also with the L2 flushed before each launch), a call
+    with its launch, the host's microseconds a call, the plain version,
+    and for the sample modes grid_sample (bilinear, border padding,
+    align_corners) on the same samples, by a CUDA graph. Then the trace
+    and DMC modes (``bilerp_march_phase``)."""
     import torch
     import torch.nn.functional as F
 
@@ -2985,6 +3241,12 @@ def bilerp_phase(rng):
         u = smooth(g.shape_u, rng, 1.0, dev)
         v = smooth(g.shape_v, rng, 1.0, dev)
         uv = torch.stack([u[:ni], v[:, :nj]]).contiguous()
+        # FLIP's grid changes, G2P's second MAC pair and cell fields
+        du = smooth(g.shape_u, rng, 0.1, dev)
+        dv = smooth(g.shape_v, rng, 0.1, dev)
+        cells = torch.stack([rho, T, smooth(g.shape_c, rng, 0.1, dev),
+                             smooth(g.shape_c, rng, 5.0, dev)])
+        parts = list(particles.columns(particle_positions(g, rng, dev)))
         cp_fields = [u, v, rho, T]
         cp_offs = (g.OFF_U, g.OFF_V, g.OFF_C, g.OFF_C)
         cp_bands = particles.cp_bands(g)
@@ -2996,12 +3258,13 @@ def bilerp_phase(rng):
             ("sample C=2 u,v offsets", uv, wander("c", 2.0),
              (g.OFF_U, g.OFF_V)),
             ("mac", None, wander("c", 1.5), None),
-            # calculateCp of u, v, rho and T (APIC/PolyPIC's G2P) at
-            # particle-like positions: 4 a cell, wandering 0.5 cell
-            ("cp C=4 u,v,rho,T", cp_fields, [
-                q.reshape(-1).repeat(4) + smooth((4 * q.numel(),), rng,
-                                                 0.5 * h, dev)
-                for q in g.node_coords("c", dev)], cp_offs))
+            # G2P at the particles as the solver seeds them: FLIP's two
+            # MAC pairs and four cell fields, and calculateCp of u, v, rho
+            # and T (APIC/PolyPIC)
+            ("G2P mac two pairs", None, parts, None),
+            ("G2P sample C=4 rho,T,drho,dT", cells, parts, (g.OFF_C,) * 4),
+            ("cp C=4 u,v,rho,T", cp_fields, parts, cp_offs))
+        pairs = {"mac": (), "G2P mac two pairs": (du, dv)}
         for label, fields, pos, offs in cases:
             name = f"bilerp_sample {label} {ni}x{nj}"
             for where, p in ((" outside", outside(pos)), ("", pos)):
@@ -3017,8 +3280,10 @@ def bilerp_phase(rng):
                             raise AssertionError(f"{name}{where}: the "
                                                  "positions miss a band edge")
                 elif fields is None:
-                    got = interp_fast.bilerp_sample_mac(u, v, *p, h)
-                    want = interp_fast.bilerp_sample_mac_plain(u, v, *p, h)
+                    got = interp_fast.bilerp_sample_mac(u, v, *p, h,
+                                                        *pairs[label])
+                    want = interp_fast.bilerp_sample_mac_plain(
+                        u, v, *p, h, *pairs[label])
                 else:
                     got = interp_fast.bilerp_sample(fields, *p, h, offs)
                     want = interp_fast.bilerp_sample_plain(fields, *p, h,
@@ -3040,10 +3305,13 @@ def bilerp_phase(rng):
                 C, runs = 4, 3
                 field_values = sum(f.numel() for f in fields)
             elif fields is None:
-                run = lambda: interp_fast.bilerp_sample_mac(u, v, *pos, h)
+                extra = pairs[label]
+                run = lambda: interp_fast.bilerp_sample_mac(u, v, *pos, h,
+                                                            *extra)
                 plain = lambda: interp_fast.bilerp_sample_mac_plain(
-                    u, v, *pos, h)
-                C, runs, field_values = 2, 2, u.numel() + v.numel()
+                    u, v, *pos, h, *extra)
+                C, runs = 2 + len(extra), 2
+                field_values = sum(f.numel() for f in (u, v) + extra)
             else:
                 run = lambda: interp_fast.bilerp_sample(fields, *pos, h,
                                                         offs)
@@ -3061,13 +3329,15 @@ def bilerp_phase(rng):
                 nops = n_out * (BILERP_POS_OPS + runs * BILERP_OFFSET_OPS
                                 + C * BILERP_CHANNEL_OPS)
             b_ms, b_by = bound_ms(nbytes, nops)
-            k_ms = device_ms(run, 20, "bilerp_sample_kernel")
+            k_ms = graph_ms(run)
             # the same with the L2 flushed before each launch (a 64 MiB
-            # write, more than the 50 MB L2): the inputs come from device
-            # memory; the outputs still land in the write-back L2
-            cold_ms = device_ms(lambda: (flush.zero_(), run()), 20,
-                                "bilerp_sample_kernel")
+            # write, more than the 50 MB L2, timed alone and taken off):
+            # the inputs come from device memory; the outputs still land
+            # in the write-back L2
+            cold_ms = (graph_ms(lambda: (flush.zero_(), run()))
+                       - graph_ms(flush.zero_))
             call_ms = cuda_time(run, 50)
+            host = host_us(run)
             p_ms = cuda_time(plain, 10)
             lib_ms = lib_err = None
             if fields is not None and not label.startswith("cp"):
@@ -3093,19 +3363,21 @@ def bilerp_phase(rng):
                     ref = torch.stack([r[0, 0].reshape(shape)
                                        for r in lib()])
                 lib_err = float((ref - got).abs().max())
-                lib_ms = device_ms(lib, 20, "grid_sampler")
+                lib_ms = graph_ms(lib)
             variants.append(dict(
                 variant=f"{label} {ni}x{nj}", max_abs_err=err, tol=0.0,
                 ms=k_ms, ms_l2_flushed=cold_ms, call_ms=call_ms,
-                plain_ms=p_ms, bound_ms=b_ms,
+                host_us_a_call=host, plain_ms=p_ms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib_ms,
                 library_max_abs_err=lib_err))
-            log(f"[kernels] bilerp_sample {label} {ni}x{nj}: {k_ms:.4f} ms "
-                f"on the card, {cold_ms:.4f} with the L2 flushed before "
-                f"each launch ({call_ms:.4f} ms a call with its launch; "
-                f"plain {p_ms:.3f}, bound {b_ms:.5f} by {b_by}, grid_sample "
-                f"{lib_ms} ms, max_abs_err {lib_err} against the kernel)")
-    return dict(variants[0], variants=variants + edges, replaces=(
+            log(f"[kernels] bilerp_sample {label} {ni}x{nj}: {k_ms:.5f} ms "
+                f"(CUDA graph), {cold_ms:.5f} with the L2 flushed before "
+                f"each launch ({call_ms:.4f} ms a call with its launch, "
+                f"{host:.1f} us of host a call; plain {p_ms:.3f}, bound "
+                f"{b_ms:.5f} by {b_by}, grid_sample {lib_ms} ms, "
+                f"max_abs_err {lib_err} against the kernel)")
+    marches = bilerp_march_phase(rng, timed=((256, 256), (256, 1280)))
+    return dict(variants[0], variants=variants + edges + marches, replaces=(
         "gpufluidsimulation_tpu/ops/interp_fast.py:915 (_kernel, "
         "pallas_call :995) as the 2D solver reaches it: sample2_fast :3450 "
         "(core/interp.py:187 sample2_lattice) and mac2_fast :3483 "
@@ -3132,6 +3404,22 @@ def p2g_ops(order, P, nodes, outputs):
     return P * per_particle + nodes + outputs
 
 
+def particle_positions(g, rng, dev):
+    """(P, 2) particle positions as the solver seeds them (4 x 4 a cell,
+    seed_particles: 1,048,576 on 256^2, 5,242,880 on 256x1280), jittered
+    by up to half a cell and clamped to [h, (n-1)h]."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.solvers import particles
+
+    h = g.h
+    pos = particles.seed_particles(g, 4, dev).pos
+    pos = pos + torch.from_numpy(rng.uniform(-0.5, 0.5, tuple(
+        pos.shape)).astype(np.float32)).to(dev) * h
+    return torch.stack([pos[:, 0].clamp(h, (g.ni - 1) * h),
+                        pos[:, 1].clamp(h, (g.nj - 1) * h)], dim=-1)
+
+
 def p2g_particles(g, rng, dev, pile=0, at=None):
     """The particle state of a 2D P2G case, bin-sorted, with its sorted
     keys: 4 x 4 particles a cell (seed_particles), jittered by up to half
@@ -3141,14 +3429,8 @@ def p2g_particles(g, rng, dev, pile=0, at=None):
 
     from gpufluidsimulation_tpu_torch.solvers import particles
 
-    h = g.h
-    seeded = particles.seed_particles(g, 4, dev)
-    P = seeded.pos.shape[0]
-    jitter = torch.from_numpy(rng.uniform(-0.5, 0.5, (P, 2)).astype(
-        np.float32)).to(dev) * h
-    pos = seeded.pos + jitter
-    pos = torch.stack([pos[:, 0].clamp(h, (g.ni - 1) * h),
-                       pos[:, 1].clamp(h, (g.nj - 1) * h)], dim=-1)
+    pos = particle_positions(g, rng, dev)
+    P = pos.shape[0]
     if pile:
         at = torch.tensor(at, dtype=torch.float32, device=dev)
         pos[5000:5000 + pile] = at
@@ -3518,10 +3800,12 @@ def busy_ms(fn, steps):
             sum(e.count for e in events) / steps, prof)
 
 
-def observe_plain_splats(calls):
+def observe_plain_calls(calls):
     """Count, in `calls`, every call of a plain particle splat (the P2G
-    kernel's plain version and the unsorted splats) until the returned
-    function is called. Only observes: each call runs as it would."""
+    kernel's plain version and the unsorted splats) and of a plain 2D
+    march (the trace and DMC modes' plain versions and their parts)
+    until the returned function is called. Only observes: each call runs
+    as it would."""
     from gpufluidsimulation_tpu_torch.ops import interp_fast
     from gpufluidsimulation_tpu_torch.solvers import particles
 
@@ -3530,7 +3814,11 @@ def observe_plain_splats(calls):
                       (particles, "_splat_multi_sorted"),
                       (particles, "_splat_poly_multi_sorted"),
                       (particles, "_splat_multi"),
-                      (particles, "_splat_poly_multi")):
+                      (particles, "_splat_poly_multi"),
+                      (interp_fast, "bilerp_trace_plain"),
+                      (interp_fast, "rk3_step_2d_plain"),
+                      (interp_fast, "bilerp_dmc_plain"),
+                      (interp_fast, "dmc_slopes_2d_plain")):
         fn = getattr(mod, name)
 
         def counted(*args, _fn=fn, _name=name, **kwargs):
@@ -3554,9 +3842,11 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
     set to 0 just before and read just after; the host syncs of one step
     (torch.cuda.set_sync_debug_mode) and the device's busy time and
     launches over 2 profiled steps, whose ratio to the step time is the
-    card's idle share. A particle path must launch p2g_splat every step
-    (and bilerp_sample's cp mode on APIC and PolyPIC) and call no plain
-    splat."""
+    card's idle share. Every path must trace in bilerp_sample's trace
+    mode (and a BiMocq path march its backward map in the DMC mode) and
+    call no plain trace or DMC; a particle path must launch p2g_splat
+    every step (and bilerp_sample's cp mode on APIC and PolyPIC) and call
+    no plain splat."""
     import torch
 
     from gpufluidsimulation_tpu_torch.scenes import scenes2d
@@ -3580,7 +3870,7 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
     torch.cuda.synchronize()
     for fn in fns.values():
         fn.launches = 0
-    restore = observe_plain_splats(plain_calls)
+    restore = observe_plain_calls(plain_calls)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.time()
@@ -3598,14 +3888,25 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
     if kernel_launches(launches, "bilerp_sample") == 0:
         raise AssertionError(f"the 2D path {label} never launched "
                              "bilerp_sample")
+    # every trace is one trace-mode launch, every backward-map substep one
+    # DMC-mode launch: a step traces at least once, and a BiMocq step
+    # marches its backward map at least one substep
+    if plain_calls:
+        raise AssertionError(f"the 2D path {label} called plain versions "
+                             f"on the card: {plain_calls}")
+    if launches["bilerp_trace"] < steps:
+        raise AssertionError(f"the 2D path {label} made "
+                             f"{launches['bilerp_trace']} trace-mode launches "
+                             f"in {steps} steps")
+    if scheme == Scheme.BIMOCQ and launches["bilerp_dmc"] < steps:
+        raise AssertionError(f"the 2D path {label} made "
+                             f"{launches['bilerp_dmc']} DMC-mode launches in "
+                             f"{steps} steps")
     if particles:
         if launches["p2g_splat"] < steps:
             raise AssertionError(f"the 2D path {label} launched p2g_splat "
                                  f"{launches['p2g_splat']} times in {steps} "
                                  "steps")
-        if plain_calls:
-            raise AssertionError(f"the 2D path {label} called plain splats "
-                                 f"on the card: {plain_calls}")
         if (scheme != Scheme.FLIP
                 and launches["bilerp_sample_cp"] < steps):
             raise AssertionError(f"the 2D path {label} made "
@@ -3636,8 +3937,12 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
         bilerp_sample_per_step=launches["bilerp_sample"] / steps,
         bilerp_sample_mac_per_step=launches["bilerp_sample_mac"] / steps,
         bilerp_sample_cp_per_step=launches["bilerp_sample_cp"] / steps,
+        bilerp_trace_per_step=launches["bilerp_trace"] / steps,
+        bilerp_dmc_per_step=launches["bilerp_dmc"] / steps,
+        wrapper_launches_per_step={k: n / steps for k, n in launches.items()
+                                   if n},
         p2g_splat_per_step=launches["p2g_splat"] / steps,
-        plain_splat_calls=plain_calls,
+        plain_calls=plain_calls,
         syncs_per_step=syncs, sync_lines=sync_lines,
         device_busy_ms_per_step=busy,
         device_launches_per_step=kernels,

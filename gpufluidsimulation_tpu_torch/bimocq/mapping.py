@@ -568,12 +568,11 @@ def update_mapping_2d(mapping: MappingState, grid, u, v, cfldt,
                       dt) -> MappingState:
     """Backward (DMC substepped) then forward (RK3) march of both 2D
     maps; `cfldt` is the float32 host substep."""
-    bx, by = advect.update_backward_map_2d(
-        grid, u, v, (mapping.bwd[0], mapping.bwd[1]), cfldt, dt)
-    fx, fy = advect.update_forward_map_2d(
-        grid, u, v, (mapping.fwd[0], mapping.fwd[1]), cfldt, dt)
-    return dataclasses.replace(mapping, bwd=torch.stack([bx, by]),
-                               fwd=torch.stack([fx, fy]))
+    bwd = advect.backward_map_2d(grid, u, v,
+                                 (mapping.bwd[0], mapping.bwd[1]), cfldt, dt)
+    fwd = advect.forward_map_2d(grid, u, v, (mapping.fwd[0], mapping.fwd[1]),
+                                cfldt, dt)
+    return dataclasses.replace(mapping, bwd=bwd, fwd=fwd)
 
 
 def _band2(shape, a, b, device=None):

@@ -114,6 +114,17 @@ class Grid3D:
 Offset2 = Tuple[float, float]
 
 
+def lattice_coords(shape, off, h, device=None):
+    """World coordinates (X, Y) of an (nx, ny) node lattice at offset
+    `off` (units of h), x = (i + off)*h in float32, as broadcast views.
+    The one place that rounds a 2D lattice: the trace kernel of
+    ``bilerp_sample`` forms ((float)i + off) * h the same way."""
+    nx, ny = shape
+    x = (torch.arange(nx, dtype=DTYPE, device=device) + off[0]) * h
+    y = (torch.arange(ny, dtype=DTYPE, device=device) + off[1]) * h
+    return x[:, None].expand(nx, ny), y[None, :].expand(nx, ny)
+
+
 @dataclasses.dataclass(frozen=True)
 class Grid2D:
     """2D MAC grid: ni x nj cells of size h; 2D reference conventions."""
@@ -151,12 +162,9 @@ class Grid2D:
     def node_coords(self, kind: str, device=None):
         """World coordinates (X, Y) of every node of `kind`, x = (i +
         off)*h in float32, full-size contiguous tensors."""
-        off = self.off_of(kind)
-        nx, ny = self.shape_of(kind)
-        x = (torch.arange(nx, dtype=DTYPE, device=device) + off[0]) * self.h
-        y = (torch.arange(ny, dtype=DTYPE, device=device) + off[1]) * self.h
-        return (x[:, None].expand(nx, ny).contiguous(),
-                y[None, :].expand(nx, ny).contiguous())
+        x, y = lattice_coords(self.shape_of(kind), self.off_of(kind),
+                              self.h, device)
+        return x.contiguous(), y.contiguous()
 
     def zeros(self, kind: str, device=None):
         return torch.zeros(self.shape_of(kind), dtype=DTYPE, device=device)

@@ -265,10 +265,16 @@ def mac_velocity_2d(u, v, px, py, h):
     return out[0], out[1]
 
 
+def clamp_bounds_2d(h, ni, nj, eps=1.0):
+    """The bounds ((lo, hi) in x, (lo, hi) in y) of ``clamp_pos_2d`` as
+    host doubles, which torch.clamp rounds once to float32."""
+    return ((eps * h, ni * h - eps * h), (eps * h, nj * h - eps * h))
+
+
 def clamp_pos_2d(px, py, h, ni, nj, eps=1.0):
     """Clamp world positions to [eps*h, L - eps*h] per axis."""
-    return (px.clamp(eps * h, ni * h - eps * h),
-            py.clamp(eps * h, nj * h - eps * h))
+    (lx, hx), (ly, hy) = clamp_bounds_2d(h, ni, nj, eps)
+    return px.clamp(lx, hx), py.clamp(ly, hy)
 
 
 def sample2_lattice(field, px, py, h, off):
@@ -281,11 +287,12 @@ def sample2_lattice(field, px, py, h, off):
 
 def sample2_lattice_multi(fields, px, py, h, offs):
     """``sample2`` of C <= 4 same-shape fields at the same positions, one
-    ``bilerp_sample`` launch: (C, *px.shape)."""
+    ``bilerp_sample`` launch that reads each field in place: (C,
+    *px.shape)."""
     from gpufluidsimulation_tpu_torch.ops import interp_fast
 
-    return interp_fast.bilerp_sample(torch.stack(list(fields)), px, py, h,
-                                     tuple(offs))
+    return interp_fast.bilerp_sample([f.contiguous() for f in fields], px,
+                                     py, h, tuple(offs))
 
 
 def mac_velocity_2d_lattice(u, v, px, py, h):

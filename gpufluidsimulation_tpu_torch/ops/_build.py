@@ -19,6 +19,7 @@ Kernels take pointers and the stream as ``c_void_p`` and return
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -38,6 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
+# the C functions by (library, symbol), their argument types declared once
+_FUNCS: dict = {}
 
 
 def nvcc_path() -> str:
@@ -98,7 +101,12 @@ def build(names=SOURCES, verbose: bool = False) -> dict[str, str]:
 
 def function(name: str, symbol: str, argtypes):
     """The C function `symbol` of library `name` (built if missing) with
-    its argument types declared; it returns a cudaError_t as int."""
+    its argument types declared; it returns a cudaError_t as int. The
+    library is loaded and the function bound and declared on the first
+    call only; later calls return it from a cache."""
+    fn = _FUNCS.get((name, symbol))
+    if fn is not None:
+        return fn
     lib = _LIBS.get(name)
     if lib is None:
         path = lib_path(name)
@@ -108,6 +116,7 @@ def function(name: str, symbol: str, argtypes):
     fn = getattr(lib, symbol)
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
+    _FUNCS[(name, symbol)] = fn
     return fn
 
 
@@ -120,10 +129,27 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream(t) -> ctypes.c_void_p:
+def stream(t) -> int:
+    """The current stream of t's card, as the int a c_void_p argument
+    takes (PyTorch's raw-stream query: building a torch.cuda.Stream costs
+    the host microseconds a launch)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+_SAME_CARD = contextlib.nullcontext()
+
+
+def current(t):
+    """A context that makes t's card the current one, and does nothing
+    where it already is (entering torch.cuda.device costs the host
+    microseconds a launch)."""
+    import torch
+
+    if t.get_device() == torch.cuda.current_device():
+        return _SAME_CARD
+    return torch.cuda.device(t.device)
 
 
 def on_card(t, name: str) -> bool:

@@ -30,15 +30,17 @@ trilinear sample there as fallback, as the JAX package's exact path
 computes it.
 
 The 2D half (``trace_rk3_2d`` .. ``update_forward_map_2d``) follows the
-JAX package's 2D functions operation for operation on world positions;
-every velocity sample is one launch of the ``bilerp_sample`` kernel in
-its mac mode (both components) and every field sample one in its sample
-mode, several fields at the same positions stacked into one launch. What
-the JAX package computes twice with the same inputs is computed once
+JAX package's 2D functions operation for operation on world positions.
+A whole CFL-substepped trace is one launch of the ``bilerp_sample``
+kernel's trace mode (``interp_fast.bilerp_trace``: the RK3 steps, the
+clamps, and at the foot the semi-Lagrangian samples, MacCormack's corner
+min/max and the foot itself), a substep of the backward-map march one of
+its DMC mode (``interp_fast.bilerp_dmc``), and any other field sample one
+of its sample mode, several fields at the same positions in one launch.
+What the JAX package computes twice with the same inputs is computed once
 here: the backtrace of MacCormack's and BFECC's clamp is the forward
 stage's own (so is the clamp's fallback sample, the forward stage's
-result), and the DMC march's velocity, upwind samples and slopes, which
-no substep changes, are taken once a march.
+result).
 """
 
 from __future__ import annotations
@@ -357,44 +359,45 @@ def clamp_extrema_neighborhood(before, after):
 
 def trace_rk3_2d(u, v, h, dt, px, py):
     """One Ralston RK3 step of world positions by the signed float32 `dt`
-    through the 2D MAC velocity (three mac-mode ``bilerp_sample``
-    launches), clamped to [0.001h, L - 0.001h]."""
-    ni, nj = v.shape[0], u.shape[1]
-    a, b, c1, c2, c3 = interp_fast.rk3_coefficients(dt)
-    u1, v1 = interp.mac_velocity_2d_lattice(u, v, px, py, h)
-    u2, v2 = interp.mac_velocity_2d_lattice(u, v, px + a * u1, py + a * v1,
-                                            h)
-    u3, v3 = interp.mac_velocity_2d_lattice(u, v, px + b * u2, py + b * v2,
-                                            h)
-    ox = px + c1 * u1 + c2 * u2 + c3 * u3
-    oy = py + c1 * v1 + c2 * v2 + c3 * v3
-    return interp.clamp_pos_2d(ox, oy, h, ni, nj, eps=0.001)
+    through the 2D MAC velocity, clamped to [0.001h, L - 0.001h]: one
+    launch of the ``bilerp_sample`` kernel's trace mode."""
+    pos = interp_fast.bilerp_trace(u, v, h, [dt], (px, py)).pos
+    return pos[0], pos[1]
+
+
+def trace_substeps(cfldt, dt):
+    """The signed float32 substeps of a CFL-substepped trace by `dt`
+    (signed), on the float32 schedule of the JAX loop."""
+    sign = np.float32(1.0 if dt >= 0 else -1.0)
+    return [sign * sub for sub in substeps(cfldt, abs(np.float32(dt)))]
 
 
 def trace_2d(u, v, h, cfldt, dt, px, py):
     """CFL-substepped RK3 trace of world positions by `dt` (signed), on
-    the float32 substep schedule of the JAX loop."""
-    sign = np.float32(1.0 if dt >= 0 else -1.0)
-    for sub in substeps(cfldt, abs(np.float32(dt))):
-        px, py = trace_rk3_2d(u, v, h, sign * sub, px, py)
-    return px, py
+    the float32 substep schedule of the JAX loop: one trace-mode launch."""
+    pos = interp_fast.bilerp_trace(u, v, h, trace_substeps(cfldt, dt),
+                                   (px, py)).pos
+    return pos[0], pos[1]
 
 
-def _semilag_2d_at(grid, kind, fields, u, v, cfldt, dt):
-    """Backtrace `kind`'s nodes by -dt once and sample every field of
-    `fields` there (one launch). Returns (samples, bx, by)."""
-    px, py = grid.node_coords(kind, u.device)
-    bx, by = trace_2d(u, v, grid.h, cfldt, -np.float32(dt), px, py)
+def _semilag_2d_at(grid, kind, fields, u, v, cfldt, dt, minmax=False,
+                   foot=False):
+    """Backtrace `kind`'s nodes by -dt and sample every field of `fields`
+    there, in one trace-mode launch that forms the lattice itself; with
+    `minmax` also each field's corner min/max there, with `foot` the
+    foot positions. Returns the ``interp_fast.TraceOut``."""
     off = grid.off_of(kind)
-    out = interp.sample2_lattice_multi(fields, bx, by, grid.h,
-                                       (off,) * len(fields))
-    return list(out), bx, by
+    return interp_fast.bilerp_trace(
+        u, v, grid.h, trace_substeps(cfldt, -np.float32(dt)),
+        interp_fast.Lattice2D(grid.shape_of(kind), off), fields, off,
+        minmax=minmax, write_pos=foot)
 
 
 def semilag_multi_2d(grid, kind, fields, u, v, cfldt, dt):
     """2D semiLagAdvect of several same-kind fields sharing one trace:
     each node of `kind` is traced by -dt and the fields sampled there."""
-    return _semilag_2d_at(grid, kind, fields, u, v, cfldt, dt)[0]
+    return list(_semilag_2d_at(grid, kind, fields, u, v, cfldt,
+                               dt).samples)
 
 
 def semilag_2d(grid, kind, field_src, u, v, w_unused, cfldt, dt):
@@ -403,44 +406,30 @@ def semilag_2d(grid, kind, field_src, u, v, w_unused, cfldt, dt):
     return semilag_multi_2d(grid, kind, [field_src], u, v, cfldt, dt)[0]
 
 
-def _clamp_2d_at(grid, kind, srcs, dsts, bx, by, fallbacks):
+def _clamp_2d(dsts, mins, maxs, fallbacks):
     """The corner clamp of solveMaccormack: where a field's dst leaves the
-    min/max of src's 4 clamped bilinear corners at (bx, by), take the
-    fallback sample there (plain torch gathers, as the JAX package's XLA
-    gathers)."""
-    h = grid.h
-    off = grid.off_of(kind)
-    gx = interp.div_scalar(bx, h) - off[0]
-    gy = interp.div_scalar(by, h) - off[1]
-    outs = []
-    for src, dst, fb in zip(srcs, dsts, fallbacks):
-        nx, ny = src.shape
-        ia, ib, _ = interp._axis_corners(gx, nx)
-        ja, jb, _ = interp._axis_corners(gy, ny)
-        flat = src.reshape(-1)
-        v00, v10 = flat[ia * ny + ja], flat[ib * ny + ja]
-        v01, v11 = flat[ia * ny + jb], flat[ib * ny + jb]
-        mn = torch.minimum(torch.minimum(v00, v10), torch.minimum(v01, v11))
-        mx = torch.maximum(torch.maximum(v00, v10), torch.maximum(v01, v11))
-        outs.append(torch.where((dst < mn) | (dst > mx), fb, dst))
-    return outs
+    min/max of its src's 4 clamped bilinear corners at the backtrace
+    (from the trace kernel), take the fallback sample there."""
+    return [torch.where((dst < mn) | (dst > mx), fb, dst)
+            for dst, mn, mx, fb in zip(dsts, mins, maxs, fallbacks)]
 
 
 def _maccormack_clamp_2d(grid, kind, src, dst, u, v, cfldt, dt):
     """Corner min/max fallback clamp of solveMaccormack, standalone: its
-    own backtrace by -dt and fallback sample of src there."""
-    fallback, bx, by = _semilag_2d_at(grid, kind, [src], u, v, cfldt, dt)
-    return _clamp_2d_at(grid, kind, [src], [dst], bx, by, fallback)[0]
+    own backtrace by -dt, fallback sample of src and min/max there."""
+    fwd = _semilag_2d_at(grid, kind, [src], u, v, cfldt, dt, minmax=True)
+    return _clamp_2d([dst], fwd.min, fwd.max, fwd.samples)[0]
 
 
 def maccormack_multi_2d(grid, kind, srcs, u, v, cfldt, dt):
     """solveMaccormack of several same-kind fields sharing every trace:
     fwd = SL(src, dt), back = SL(fwd, -dt), dst = fwd + 0.5*(src - back),
     clamped at fwd's backtrace with fwd as the fallback."""
-    fwds, bx, by = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt)
+    fwd = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt, minmax=True)
+    fwds = list(fwd.samples)
     backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt))
     dsts = [f + 0.5 * (s - b) for s, f, b in zip(srcs, fwds, backs)]
-    return _clamp_2d_at(grid, kind, srcs, dsts, bx, by, fwds)
+    return _clamp_2d(dsts, fwd.min, fwd.max, fwds)
 
 
 def maccormack_2d(grid, kind, src, u, v, cfldt, dt):
@@ -451,49 +440,19 @@ def bfecc_multi_2d(grid, kind, srcs, u, v, cfldt, dt):
     """solveBFECC of several same-kind fields sharing every trace: fwd =
     SL(src, dt), back = SL(fwd, -dt), dst = SL(0.5*(3 src - back), dt)
     (sampled at fwd's backtrace), clamped there with fwd as fallback."""
-    fwds, bx, by = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt)
+    fwd = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt, minmax=True,
+                         foot=True)
+    fwds = list(fwd.samples)
     backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt))
     mids = [0.5 * (3.0 * s - b) for s, b in zip(srcs, backs)]
     off = grid.off_of(kind)
-    dsts = interp.sample2_lattice_multi(mids, bx, by, grid.h,
+    dsts = interp.sample2_lattice_multi(mids, fwd.pos[0], fwd.pos[1], grid.h,
                                         (off,) * len(mids))
-    return _clamp_2d_at(grid, kind, srcs, list(dsts), bx, by, fwds)
+    return _clamp_2d(list(dsts), fwd.min, fwd.max, fwds)
 
 
 def bfecc_2d(grid, kind, src, u, v, cfldt, dt):
     return bfecc_multi_2d(grid, kind, [src], u, v, cfldt, dt)[0]
-
-
-def _dmc_newpos(pos, vel, a, substep):
-    """The DMC position update: the exponential step where |a| > 1e-4,
-    explicit Euler elsewhere."""
-    big = a.abs() > 1e-4
-    safe_a = torch.where(big, a, 1.0)
-    exp_step = pos - (1.0 - torch.exp(-safe_a * substep)) * vel / safe_a
-    return torch.where(big, exp_step, pos - vel * substep)
-
-
-def _dmc_slopes_2d(grid, u, v):
-    """What a 2D DMC substep takes from the velocity alone: the cell
-    lattice (px, py), the MAC velocity there, and the upwind slopes
-    a = (vel - vel(upwind)) / (p - p_upwind) per axis (two mac-mode
-    launches)."""
-    h = grid.h
-    px, py = grid.node_coords("c", u.device)
-    vel_u, vel_v = interp.mac_velocity_2d_lattice(u, v, px, py, h)
-    tx = torch.where(vel_u > 0, px - h, px + h)
-    ty = torch.where(vel_v > 0, py - h, py + h)
-    tu, tv = interp.mac_velocity_2d_lattice(u, v, tx, ty, h)
-    return (px, py, vel_u, vel_v, (vel_u - tu) / (px - tx),
-            (vel_v - tv) / (py - ty))
-
-
-def _dmc_positions_2d(grid, slopes, substep):
-    """The DMC-traced positions of one substep, clamped to [h, L - h]."""
-    px, py, vel_u, vel_v, ax, ay = slopes
-    nx_ = _dmc_newpos(px, vel_u, ax, substep)
-    ny_ = _dmc_newpos(py, vel_v, ay, substep)
-    return interp.clamp_pos_2d(nx_, ny_, grid.h, grid.ni, grid.nj)
 
 
 def _sample_map_2d(grid, maps, px, py):
@@ -505,31 +464,34 @@ def _sample_map_2d(grid, maps, px, py):
 
 def dmc_backward_step_2d(grid, u, v, map_x, map_y, substep):
     """One 2D DMC substep (semiLagAdvectDMC): the cell-centre map sampled
-    at the DMC-traced position, clamped to [h, L - h]."""
-    nx_, ny_ = _dmc_positions_2d(grid, _dmc_slopes_2d(grid, u, v), substep)
-    out = _sample_map_2d(grid, torch.stack([map_x, map_y]), nx_, ny_)
+    at the DMC-traced position, clamped to [h, L - h]: one launch of the
+    ``bilerp_sample`` kernel's DMC mode."""
+    out = interp_fast.bilerp_dmc(u, v, map_x, map_y, grid.h, [substep])
     return out[0], out[1]
 
 
+def backward_map_2d(grid, u, v, map_xy, cfldt, dt):
+    """CFL-substepped 2D backward-map update, one DMC-mode launch a
+    substep: the stacked (2, ni, nj) map."""
+    return interp_fast.bilerp_dmc(u, v, map_xy[0], map_xy[1], grid.h,
+                                  substeps(cfldt, dt))
+
+
 def update_backward_map_2d(grid, u, v, map_xy, cfldt, dt):
-    """CFL-substepped 2D backward-map update: one C=2 map sample a
-    substep, at positions that depend on the substep alone (computed once
-    for each distinct substep)."""
-    maps = torch.stack(list(map_xy))
-    subs = substeps(cfldt, dt)
-    if not subs:
-        return maps[0], maps[1]
-    slopes = _dmc_slopes_2d(grid, u, v)
-    positions = {}
-    for sub in subs:
-        if sub not in positions:
-            positions[sub] = _dmc_positions_2d(grid, slopes, sub)
-        maps = _sample_map_2d(grid, maps, *positions[sub])
+    """``backward_map_2d``'s x and y."""
+    maps = backward_map_2d(grid, u, v, map_xy, cfldt, dt)
     return maps[0], maps[1]
 
 
+def forward_map_2d(grid, u, v, map_xy, cfldt, dt):
+    """2D forward-map march X <- trace(X, +dt), clamped to [h, L - h], in
+    one trace-mode launch: the stacked (2, ni, nj) map."""
+    return interp_fast.bilerp_trace(
+        u, v, grid.h, trace_substeps(cfldt, dt), tuple(map_xy),
+        final_clamp=interp.clamp_bounds_2d(grid.h, grid.ni, grid.nj)).pos
+
+
 def update_forward_map_2d(grid, u, v, map_xy, cfldt, dt):
-    """2D forward-map march X <- trace(X, +dt), clamped to [h, L - h]."""
-    mx, my = map_xy
-    ox, oy = trace_2d(u, v, grid.h, cfldt, dt, mx, my)
-    return interp.clamp_pos_2d(ox, oy, grid.h, grid.ni, grid.nj)
+    """``forward_map_2d``'s x and y."""
+    pos = forward_map_2d(grid, u, v, map_xy, cfldt, dt)
+    return pos[0], pos[1]

@@ -3,8 +3,11 @@ vol9-fixup and fused multi-kind pull-back kernels with their plain
 versions: every TPU kernel of the JAX module has its counterpart here.
 The 2D solver's samples (the JAX package's ``sample2_fast`` and
 ``mac2_fast``, its 3D window sampler lifted onto a singleton axis) go
-through a 2D kernel of their own, ``bilerp_sample`` (and its mac mode
-``bilerp_sample_mac``).
+through a 2D kernel of their own, ``bilerp_sample``: its mac mode
+``bilerp_sample_mac``, its cp mode ``bilerp_sample_cp``, its trace mode
+``bilerp_trace`` (a whole CFL-substepped 2D RK3 trace with its foot
+samples and MacCormack corner min/max in one launch) and its DMC mode
+``bilerp_dmc`` (one launch a substep of the 2D backward-map march).
 
 Counterpart of ``gpufluidsimulation_tpu.ops.interp_fast``. Each wrapper
 takes the plain PyTorch version for a CPU tensor and launches its CUDA
@@ -37,20 +40,25 @@ granularity, not the kernel's thread blocks.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
+import functools
+import struct
 
 import numpy as np
 import torch
 
 from gpufluidsimulation_tpu_torch.core import interp
-from gpufluidsimulation_tpu_torch.core.grids import band_mask
+from gpufluidsimulation_tpu_torch.core.grids import band_mask, lattice_coords
 from gpufluidsimulation_tpu_torch.ops import _build
 
 _F = ctypes.c_float
 _I = ctypes.c_int
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
+# a bytes object passed as the address of its buffer: packed arrays
+_B = ctypes.c_char_p
 
 # _VOL3 corner order of gpufluidsimulation_tpu.bimocq.mapping
 _VOL3 = (
@@ -184,7 +192,7 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False, slab=None,
          ctypes.POINTER(_F), _I, _I, _I, _P, _P, _P])
     # the kernel tiles the output lattice by its last two extents
     d1, d2 = ((1,) * 2 + tuple(px.shape))[-2:]
-    with torch.cuda.device(fields.device):
+    with _build.current(fields):
         err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
                  _build.ptr(py), _build.ptr(pz), px.numel(), d1, d2,
                  float(h), offs_host, int(bool(dual)),
@@ -259,7 +267,7 @@ def minmax_sample(fields, px, py, pz, h, offs, sample=False):
          ctypes.POINTER(_F), _P, _P, _P, _P])
     # the kernel tiles the output lattice by its last two extents
     d1, d2 = ((1,) * 2 + tuple(px.shape))[-2:]
-    with torch.cuda.device(fields.device):
+    with _build.current(fields):
         err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
                  _build.ptr(py), _build.ptr(pz), px.numel(), d1, d2,
                  float(h), offs_host, _build.ptr(out[0]), _build.ptr(out[1]),
@@ -283,6 +291,12 @@ def rk3_coefficients(sh):
     signed substep-over-h `sh` (a float32 value), rounded as the JAX
     kernel rounds them; of a 2D RK3 step with the signed substep itself
     (``advect.trace_rk3_2d``)."""
+    return _rk3_coefficients(float(np.float32(sh)))
+
+
+@functools.lru_cache(maxsize=1024)
+def _rk3_coefficients(sh):
+    # a march repeats its substeps: each set is made once
     sh = np.float32(sh)
     return tuple(float(np.float32(k) * sh) for k in
                  (0.5, 0.75, 2.0 / 9.0, 3.0 / 9.0, 4.0 / 9.0))
@@ -383,7 +397,7 @@ def _rk3_launch(u, v, w, pos, shape, dim, sh, clamp, out, slab=None,
     dim_host = (_F * 3)(*[float(d) for d in dim])
     clamp_host = (_F * 6)(*[float(c) for c in clamp])
     zs = (0, 0, 0) if slab is None else (slab.nz, slab.src, slab.out)
-    with torch.cuda.device(out.device):
+    with _build.current(out):
         err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), ni, nj, nk,
                  None if pos is None else _build.ptr(pos), n // (d1 * d2),
                  d1, d2, dim_host, *rk3_coefficients(sh), clamp_host, *zs,
@@ -631,7 +645,7 @@ def _dmc_launch(u, v, w, maps, sh, thresh, h, out, slab=None,
         nkm = slab.out_nz if maps is None else maps.shape[3]
         zs = (_I * 6)(slab.nz, slab.out, slab.out_nz, slab.src, slab.map,
                       nkm)
-    with torch.cuda.device(out.device):
+    with _build.current(out):
         err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), *shape,
                  None if maps is None else _build.ptr(maps), float(sh),
                  float(thresh), float(h), hi, zs, ov, _build.ptr(out),
@@ -749,7 +763,7 @@ def volume_prefilter(fields):
     out = torch.empty_like(fields)
     fn = _build.function("volume_prefilter", "gfs_volume_prefilter",
                          [_P, _I, _I, _I, _I, _P, _P])
-    with torch.cuda.device(fields.device):
+    with _build.current(fields):
         err = fn(_build.ptr(fields), *fields.shape, _build.ptr(out),
                  _build.stream(fields))
     _build.check(err, "volume_prefilter")
@@ -1056,7 +1070,7 @@ def vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
         "vol9_fixup", "gfs_vol9_fixup",
         [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _F,
          ctypes.POINTER(_F), _P, _P])
-    with torch.cuda.device(fields.device):
+    with _build.current(fields):
         err = fn(_build.ptr(maps), *grid.shape_c, _build.ptr(fields), C,
                  *fields.shape[1:], _build.ptr(flags), *nb, *block,
                  float(grid.h), params, _build.ptr(dual_outs),
@@ -1198,7 +1212,7 @@ def pullback_sample(maps, fields, dims, h, grid_n, clamp_lo, clamp_hi):
         [_P, _I, _I, _I, ctypes.POINTER(_P), ctypes.POINTER(_I),
          ctypes.POINTER(_I), ctypes.POINTER(_I), _I, _I, _I, _I, _F, _F,
          ctypes.POINTER(_F), _P, _P])
-    with torch.cuda.device(maps.device):
+    with _build.current(maps):
         err = fn(_build.ptr(maps), *grid_n, ptrs, shapes, stag, slot, C,
                  *extent, float(h), float(clamp_lo), hi, _build.ptr(out),
                  _build.stream(maps))
@@ -1299,17 +1313,18 @@ def _bilerp_launch(name, fields, offs, bands, px, py, h, mode="sample"):
         return out
     fn = _build.function(
         "bilerp_sample", "gfs_bilerp_sample",
-        [ctypes.POINTER(_P), ctypes.POINTER(_I), ctypes.POINTER(_F),
-         ctypes.POINTER(_F), _I, _I, _P, _P, _LL, _F, _F, _P, _P])
-    ptrs = (_P * C)(*[f.data_ptr() for f in fields])
-    dims = (_I * (2 * C))(*[n for f in fields for n in f.shape])
-    offs_host = (_F * (2 * C))(*[float(o) for off in offs for o in off])
-    bands_host = (None if bands is None else
-                  (_F * (2 * C))(*[float(b) for band in bands for b in band]))
-    with torch.cuda.device(px.device):
+        [_B, _B, _B, _B, _I, _I, _P, _P, _LL, _F, _F, _P, _P])
+    # the arrays the C function reads, packed into bytes (ctypes arrays
+    # cost the host several times as much)
+    ptrs = struct.pack(f"{C}Q", *[f.data_ptr() for f in fields])
+    dims = struct.pack(f"{2 * C}i", *[n for f in fields for n in f.shape])
+    offs_host = struct.pack(f"{2 * C}f", *[o for off in offs for o in off])
+    bands_host = (None if bands is None else struct.pack(
+        f"{2 * C}f", *[b for band in bands for b in band]))
+    with _build.current(px):
         err = fn(ptrs, dims, offs_host, bands_host, C, _BILERP_MODES[mode],
-                 _build.ptr(px), _build.ptr(py), px.numel(), float(h),
-                 float(h * h), _build.ptr(out), _build.stream(px))
+                 px.data_ptr(), py.data_ptr(), px.numel(), float(h),
+                 float(h * h), out.data_ptr(), _build.stream(px))
     _build.check(err, name)
     return out
 
@@ -1382,6 +1397,358 @@ def bilerp_sample_cp(fields, px, py, h, offs, bands):
 
 
 bilerp_sample_cp.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# bilerp_sample's trace and DMC modes (the 2D marches)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Lattice2D:
+    """A trace's start on a 2D node lattice: (nx, ny) nodes at ((i +
+    off[0])*h, (j + off[1])*h), as ``Grid2D.node_coords`` of the kind of
+    that shape and offset."""
+
+    shape: tuple
+    off: tuple
+
+
+def rk3_step_2d_plain(u, v, h, dt, px, py):
+    """One Ralston RK3 step of world positions by the signed float32 `dt`
+    through the 2D MAC velocity u (ni+1, nj), v (ni, nj+1), clamped to
+    [0.001h, L - 0.001h] (the JAX package's ``trace_rk3_2d``)."""
+    ni, nj = v.shape[0], u.shape[1]
+    a, b, c1, c2, c3 = rk3_coefficients(dt)
+    u1, v1 = interp.mac_velocity_2d(u, v, px, py, h)
+    u2, v2 = interp.mac_velocity_2d(u, v, px + a * u1, py + a * v1, h)
+    u3, v3 = interp.mac_velocity_2d(u, v, px + b * u2, py + b * v2, h)
+    ox = px + c1 * u1 + c2 * u2 + c3 * u3
+    oy = py + c1 * v1 + c2 * v2 + c3 * v3
+    return interp.clamp_pos_2d(ox, oy, h, ni, nj, eps=0.001)
+
+
+def bilerp_minmax_plain(fields, px, py, h, off):
+    """The min and max of each same-shape field's 4 clamped bilinear
+    corners at world positions (px, py) on the lattice (i + off)*h, each
+    (C, *px.shape): the corner clamp of the JAX package's solveMaccormack
+    (torch.minimum and torch.maximum, a NaN corner giving NaN), NaN where
+    the position is NaN."""
+    gx = interp.div_scalar(px, h) - off[0]
+    gy = interp.div_scalar(py, h) - off[1]
+    nx, ny = fields[0].shape
+    ia, ib, _ = interp._axis_corners(gx, nx)
+    ja, jb, _ = interp._axis_corners(gy, ny)
+    idx = (ia * ny + ja, ib * ny + ja, ia * ny + jb, ib * ny + jb)
+    nan_foot = gx.isnan() | gy.isnan()
+    mns, mxs = [], []
+    for f in fields:
+        flat = f.reshape(-1)
+        v00, v10, v01, v11 = (flat[k] for k in idx)
+        mn = torch.minimum(torch.minimum(v00, v10), torch.minimum(v01, v11))
+        mx = torch.maximum(torch.maximum(v00, v10), torch.maximum(v01, v11))
+        mns.append(torch.where(nan_foot, float("nan"), mn))
+        mxs.append(torch.where(nan_foot, float("nan"), mx))
+    return torch.stack(mns), torch.stack(mxs)
+
+
+# What a trace returns: the foot `pos` ((2, *shape), or (*shape, 2)
+# interleaved), the foot `samples` (C, *shape) and the corner `min` and
+# `max` (C, *shape); None where not asked for.
+TraceOut = collections.namedtuple("TraceOut", "pos samples min max")
+
+
+def bilerp_trace_plain(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
+                       minmax=False, write_pos=True, final_clamp=None,
+                       interleave=False):
+    """Plain version of the trace mode: the RK3 steps of ``start`` (a
+    pair (px, py) of world positions, or a ``Lattice2D``) by each signed
+    float32 substep of `subs` in turn (``rk3_step_2d_plain``), then
+    ``final_clamp`` ((lo, hi) per axis, host doubles, as torch.clamp
+    takes them), then at the foot the samples of `fields` (same shape, on
+    the lattice (i + off)*h; ``bilerp_sample_plain``) and with `minmax`
+    their corner min/max (``bilerp_minmax_plain``)."""
+    if isinstance(start, Lattice2D):
+        px, py = lattice_coords(start.shape, start.off, h, u.device)
+    else:
+        px, py = start
+    for dt in subs:
+        px, py = rk3_step_2d_plain(u, v, h, dt, px, py)
+    if final_clamp is not None:
+        (lx, hx), (ly, hy) = final_clamp
+        px, py = px.clamp(lx, hx), py.clamp(ly, hy)
+    pos = torch.stack([px, py], dim=-1 if interleave else 0) if write_pos \
+        else None
+    samples = mn = mx = None
+    if fields:
+        samples = bilerp_sample_plain(fields, px, py, h,
+                                      (off,) * len(fields))
+        if minmax:
+            mn, mx = bilerp_minmax_plain(fields, px, py, h, off)
+    return TraceOut(pos, samples, mn, mx)
+
+
+def trace_schedule(subs):
+    """A trace's signed float32 substeps as the kernel takes them: their
+    count and the Ralston coefficients (``rk3_coefficients``) of the
+    first and of the last; every substep before the last must be the
+    first's (the CFL schedule of ``advect.substeps``)."""
+    subs = [float(np.float32(s)) for s in subs]
+    if any(s != subs[0] for s in subs[:-1]):
+        raise ValueError("bilerp_trace: every substep but the last must be "
+                         "the same")
+    if not subs:
+        return 0, (0.0,) * 5, (0.0,) * 5
+    return (len(subs), _rk3_coefficients(subs[0]),
+            _rk3_coefficients(subs[-1]))
+
+
+_TRACE_ARGS = [_P, _P, _I, _I, _B, _B, _P, _P, _P, _P, _B, _P, _P, _P, _P]
+_TRACE_FP, _TRACE_IP = struct.Struct("23f"), struct.Struct("10i")
+
+
+def _trace_start(start):
+    """The start's shape, count, lattice nodes along y (0 for read
+    positions) and element stride."""
+    if isinstance(start, Lattice2D):
+        nx, ny = start.shape
+        return (nx, ny), nx * ny, ny, 1
+    px, py = start
+    if px.shape != py.shape or px.stride() != py.stride():
+        raise ValueError("bilerp_trace: px and py of different shapes or "
+                         "strides")
+    if px.is_contiguous():
+        stride = 1
+    elif px.dim() == 1 and px.stride(0) > 0:
+        stride = px.stride(0)
+    else:
+        raise ValueError("bilerp_trace: positions must be contiguous, or "
+                         "1-D with any element stride")
+    return tuple(px.shape), px.numel(), 0, stride
+
+
+def trace_plan(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
+               minmax=False, write_pos=True, final_clamp=None,
+               interleave=False):
+    """What one launch of the trace mode takes, from shapes alone: the 23
+    floats `fp` of gfs_bilerp_trace (h, the two coefficient sets, the
+    substep clamp, the final clamp, the lattice offset, the fields'
+    offset; the kernel rounds each to float32 as torch.clamp and ctypes
+    do), its 10 ints `ip` (substeps, final clamp on, positions, lattice
+    nodes along y or 0, input and output element strides, C, the fields'
+    extents, min/max on) and the output's shape. Raises where the
+    kernel's 32-bit offsets or channel count would not hold."""
+    ni, nj = v.shape[0], u.shape[1]
+    if tuple(u.shape) != (ni + 1, nj) or ni < 2 or nj < 2:
+        raise ValueError(f"bilerp_trace: u {tuple(u.shape)}, v "
+                         f"{tuple(v.shape)}: not a MAC pair of 2x2 or more")
+    C = len(fields)
+    if C > MAX_CHANNELS or (minmax and not C):
+        raise ValueError(f"bilerp_trace: {C} fields (at most "
+                         f"{MAX_CHANNELS}; the min/max needs one)")
+    if any(f.shape != fields[0].shape or f.dim() != 2 for f in fields):
+        raise ValueError("bilerp_trace: the fields must be 2D, of one shape")
+    shape, n, lny, stride = _trace_start(start)
+    count, first, last = trace_schedule(subs)
+    check_int32("bilerp_trace", fields=max([(ni + 1) * (nj + 1)]
+                                           + [f.numel() for f in fields]),
+                positions=n * stride, outputs=max(2, C) * n)
+    fin = final_clamp is not None
+    (flx, fhx), (fly, fhy) = final_clamp if fin else ((0.0, 0.0),) * 2
+    (elx, ehx), (ely, ehy) = interp.clamp_bounds_2d(h, ni, nj, eps=0.001)
+    fp = [h, *first, *last, elx, ehx, ely, ehy, flx, fhx, fly, fhy,
+          *(start.off if lny else (0.0, 0.0)), *off]
+    fnx, fny = fields[0].shape if C else (0, 0)
+    ip = [count, int(fin), n, lny, stride, 2 if interleave else 1, C,
+          fnx, fny, int(minmax)]
+    return fp, ip, shape
+
+
+def bilerp_trace(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
+                 minmax=False, write_pos=True, final_clamp=None,
+                 interleave=False):
+    """A whole CFL-substepped 2D RK3 trace in one launch of the
+    bilerp_sample kernel's trace mode: the positions `start` (a pair
+    (px, py) of world positions, contiguous or 1-D with a common element
+    stride, such as a (P, 2) tensor's columns; or a ``Lattice2D``, which
+    the kernel forms itself) traced through the MAC velocity u (ni+1, nj),
+    v (ni, nj+1) by each signed float32 substep of `subs` (every one but
+    the last equal: ``advect.substeps``), each step clamped to [0.001h,
+    L - 0.001h]; then ``final_clamp`` ((lo, hi) per axis, host doubles);
+    at the foot the samples of C <= 4 same-shape `fields` on the lattice
+    (i + off)*h and, with `minmax`, the min and max of their 4 clamped
+    corners. Returns a ``TraceOut``: the foot ((2, *shape), or (*shape, 2)
+    with `interleave`; None without `write_pos`), the samples and the
+    min/max ((C, *shape) each, or None). ``bilerp_trace_plain`` is the
+    same, operation for operation."""
+    if not _build.on_card(u, "bilerp_trace"):
+        return bilerp_trace_plain(u, v, h, subs, start, fields, off, minmax,
+                                  write_pos, final_clamp, interleave)
+    fields = list(fields)
+    fp, ip, shape = trace_plan(u, v, h, subs, start, fields, off, minmax,
+                               write_pos, final_clamp, interleave)
+    lattice = isinstance(start, Lattice2D)
+    px, py = (None, None) if lattice else start
+    for name, t in [("u", u), ("v", v)] + [
+            (f"fields[{c}]", f) for c, f in enumerate(fields)]:
+        _build.require(t, name)
+    # the positions may be strided: device and type only
+    for t in [v] + fields + ([] if lattice else [px, py]):
+        if t.device != u.device or t.dtype != torch.float32:
+            raise ValueError(f"bilerp_trace: every tensor must be float32 on "
+                             f"{u.device}, got {t.dtype} on {t.device}")
+    n, C = ip[2], len(fields)
+    out = trace_outputs(shape, C, minmax, write_pos, interleave, u.device)
+    if n == 0:
+        return out
+    ptr = trace_pointers(out, n, interleave)
+    fn = _build.function("bilerp_sample", "gfs_bilerp_trace", _TRACE_ARGS)
+    with _build.current(u):
+        err = fn(u.data_ptr(), v.data_ptr(), v.shape[0], u.shape[1],
+                 _TRACE_FP.pack(*fp), _TRACE_IP.pack(*ip),
+                 None if lattice else px.data_ptr(),
+                 None if lattice else py.data_ptr(), ptr[0], ptr[1],
+                 struct.pack(f"{C}Q", *[f.data_ptr() for f in fields])
+                 if C else None, *ptr[2:], _build.stream(u))
+    _build.check(err, "bilerp_trace")
+    bilerp_trace.launches += 1
+    return out
+
+
+bilerp_trace.launches = 0
+
+
+def trace_outputs(shape, C, minmax, write_pos, interleave, device):
+    """The trace mode's outputs, each a tensor of its own: the foot
+    (planar (2, *shape), or (*shape, 2) interleaved), the samples and the
+    min and max, (C, *shape) each; None where not asked for."""
+    def new(*dims):
+        return torch.empty(dims, dtype=torch.float32, device=device)
+
+    pos = None
+    if write_pos:
+        pos = new(*shape, 2) if interleave else new(2, *shape)
+    fields = [new(C, *shape) for _ in range(3 if minmax else 1)] if C else []
+    return TraceOut(pos, *(fields + [None] * (3 - len(fields))))
+
+
+def trace_pointers(out, n, interleave):
+    """What the kernel writes, as addresses: the foot's x and its y (the
+    next element interleaved, the next plane planar), the samples, the
+    min and the max (None where not written)."""
+    at = [None] * 5
+    if out.pos is not None:
+        at[0] = out.pos.data_ptr()
+        at[1] = at[0] + 4 * (1 if interleave else n)
+    for k, t in enumerate(out[1:]):
+        if t is not None:
+            at[2 + k] = t.data_ptr()
+    return at
+
+
+def dmc_slopes_2d_plain(u, v, h):
+    """What a 2D DMC substep takes from the velocity alone: the cell
+    lattice (px, py), the MAC velocity there, and the upwind slopes a =
+    (vel - vel(upwind)) / (p - p_upwind) per axis."""
+    ni, nj = v.shape[0], u.shape[1]
+    px, py = lattice_coords((ni, nj), (0.5, 0.5), h, u.device)
+    vel_u, vel_v = interp.mac_velocity_2d(u, v, px, py, h)
+    tx = torch.where(vel_u > 0, px - h, px + h)
+    ty = torch.where(vel_v > 0, py - h, py + h)
+    tu, tv = interp.mac_velocity_2d(u, v, tx, ty, h)
+    return (px, py, vel_u, vel_v, (vel_u - tu) / (px - tx),
+            (vel_v - tv) / (py - ty))
+
+
+def dmc_newpos_plain(pos, vel, a, substep):
+    """The DMC position update: the exponential step where |a| > 1e-4,
+    explicit Euler elsewhere."""
+    big = a.abs() > 1e-4
+    safe_a = torch.where(big, a, 1.0)
+    exp_step = pos - (1.0 - torch.exp(-safe_a * substep)) * vel / safe_a
+    return torch.where(big, exp_step, pos - vel * substep)
+
+
+def dmc_positions_2d_plain(slopes, substep, h, ni, nj):
+    """The DMC-traced positions of one substep, clamped to [h, L - h]."""
+    px, py, vel_u, vel_v, ax, ay = slopes
+    return interp.clamp_pos_2d(dmc_newpos_plain(px, vel_u, ax, substep),
+                               dmc_newpos_plain(py, vel_v, ay, substep), h,
+                               ni, nj)
+
+
+def bilerp_dmc_plain(u, v, map_x, map_y, h, subs):
+    """Plain version of the DMC mode: the 2D backward map (map_x, map_y)
+    after one DMC substep (semiLagAdvectDMC) of each `subs` in turn, the
+    map's cell-centre lattice sampled at the DMC-traced node, (2, ni,
+    nj). The slopes are taken once, the positions once for each distinct
+    substep: they depend on nothing else."""
+    maps = torch.stack([map_x, map_y])
+    if not subs:
+        return maps
+    ni, nj = v.shape[0], u.shape[1]
+    slopes = dmc_slopes_2d_plain(u, v, h)
+    positions = {}
+    for sub in subs:
+        if sub not in positions:
+            positions[sub] = dmc_positions_2d_plain(slopes, sub, h, ni, nj)
+        maps = bilerp_sample_plain(maps, *positions[sub], h,
+                                   ((0.5, 0.5),) * 2)
+    return maps
+
+
+def dmc_plan(h, sub, ni, nj):
+    """The 5 floats of one gfs_bilerp_dmc launch: h, the signed substep
+    and the clamp [h, L - h] (lo, hi x, hi y), which the kernel rounds to
+    float32 as torch.clamp does."""
+    (lo, hx), (_, hy) = interp.clamp_bounds_2d(h, ni, nj)
+    return [h, sub, lo, hx, hy]
+
+
+def bilerp_dmc(u, v, map_x, map_y, h, subs):
+    """The 2D backward-map DMC march, one launch of the bilerp_sample
+    kernel's DMC mode a substep: each cell node forms its MAC velocity and
+    the upwind one, the slopes, the exponential step by the signed
+    substep (IEEE expf), the clamp to [h, L - h] and the C=2 sample of the
+    map (map_x, map_y), (ni, nj) each, there. Returns the map, (2, ni,
+    nj); ``bilerp_dmc_plain`` is the same, bit for bit."""
+    if not _build.on_card(map_x, "bilerp_dmc"):
+        return bilerp_dmc_plain(u, v, map_x, map_y, h, subs)
+    ni, nj = v.shape[0], u.shape[1]
+    _build.require(u, "u", shape=(ni + 1, nj))
+    _build.require(v, "v", shape=(ni, nj + 1))
+    _build.require(map_x, "map_x", shape=(ni, nj))
+    _build.require(map_y, "map_y", shape=(ni, nj))
+    if ni < 2 or nj < 2:
+        raise ValueError(f"bilerp_dmc: a {ni}x{nj} grid")
+    if len({t.device for t in (u, v, map_x, map_y)}) != 1:
+        raise ValueError("bilerp_dmc: u, v and the map on different devices")
+    check_int32("bilerp_dmc", fields=(ni + 1) * (nj + 1), outputs=2 * ni * nj)
+    if not subs:
+        return torch.stack([map_x, map_y])
+    fn = _build.function(
+        "bilerp_sample", "gfs_bilerp_dmc",
+        [_P, _P, _I, _I, _P, _P, _B, _P, _P])
+    # two buffers, in turns: a substep reads the last one's output
+    bufs = [torch.empty((2, ni, nj), dtype=torch.float32,
+                        device=map_x.device)
+            for _ in range(min(len(subs), 2))]
+    maps = (map_x, map_y)
+    with _build.current(u):
+        stream = _build.stream(u)
+        for k, sub in enumerate(subs):
+            out = bufs[k % 2]
+            err = fn(u.data_ptr(), v.data_ptr(), ni, nj, maps[0].data_ptr(),
+                     maps[1].data_ptr(),
+                     struct.pack("5f", *dmc_plan(h, sub, ni, nj)),
+                     out.data_ptr(), stream)
+            _build.check(err, "bilerp_dmc")
+            bilerp_dmc.launches += 1
+            maps = out
+    return maps
+
+
+bilerp_dmc.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -1501,7 +1868,7 @@ def p2g_splat(pos, cols, h, ni, nj, keys, order="flip"):
              _LL, _P, _P])
         ptrs = (_P * 4)(*[c.data_ptr() for c in cols])
         stride_host = (_I * 4)(*strides)
-        with torch.cuda.device(pos.device):
+        with _build.current(pos):
             err = fn(_build.ptr(pos), ptrs, stride_host, P2G_ORDERS[order],
                      _build.ptr(starts), ni, nj, float(h), P,
                      _build.ptr(out), _build.stream(pos))

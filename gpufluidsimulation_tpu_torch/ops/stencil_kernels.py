@@ -91,7 +91,7 @@ def jacobi_diffuse(x, b, iters, coef):
          ctypes.c_void_p, ctypes.c_void_p])
     bufs = [torch.empty_like(x), torch.empty_like(x)]
     src = x
-    with torch.cuda.device(x.device):
+    with _build.current(x):
         for n, sweeps in enumerate(sweep_chunks(iters)):
             dst = bufs[n % 2]
             err = fn(_build.ptr(src), _build.ptr(b), *x.shape, coef_f,
@@ -195,7 +195,7 @@ def _launch_levels(wrapper, name, fn, x, b, extra, iters, reverse):
     chunks = level_chunks(iters)
     bufs = [torch.empty_like(b) for _ in range(min(2, len(chunks)))]
     src = None if x is None else _build.ptr(x)
-    with torch.cuda.device(b.device):
+    with _build.current(b):
         stream = _build.stream(b)
         for n, levels in enumerate(chunks):
             dst = bufs[n % 2]

@@ -43,7 +43,7 @@ import torch
 from gpufluidsimulation_tpu_torch import config
 from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
 from gpufluidsimulation_tpu_torch.core.grids import Grid2D
-from gpufluidsimulation_tpu_torch.ops import advect, forces, poisson
+from gpufluidsimulation_tpu_torch.ops import advect, forces, interp_fast, poisson
 from gpufluidsimulation_tpu_torch.ops.advect import substeps
 from gpufluidsimulation_tpu_torch.solvers import particles as part
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
@@ -396,10 +396,12 @@ def _step_bimocq(cfg, g, ctx, s, dt):
 
 def _advect_particles(g, p, u, v, cfldt, dt):
     """Forward RK3 trace of the particles by dt, clamped to [h, (n-1)h]
-    per axis. Returns the new positions' x and y columns."""
-    px, py = part.columns(p.pos)
-    px, py = advect.trace_2d(u, v, g.h, cfldt, dt, px, py)
-    return (px.clamp(g.h, (g.ni - 1) * g.h), py.clamp(g.h, (g.nj - 1) * g.h))
+    per axis, in one trace-mode launch that reads and writes the (P, 2)
+    positions. Returns the new positions."""
+    bounds = ((g.h, (g.ni - 1) * g.h), (g.h, (g.nj - 1) * g.h))
+    return interp_fast.bilerp_trace(
+        u, v, g.h, advect.trace_substeps(cfldt, dt),
+        (p.pos[:, 0], p.pos[:, 1]), final_clamp=bounds, interleave=True).pos
 
 
 def _particles_to_grid(g, s, dt, order):
@@ -409,8 +411,8 @@ def _particles_to_grid(g, s, dt, order):
     count)."""
     mv = _host_max_vel(s.u, s.v)
     cfldt = np.float32(np.float32(g.h) / mv)
-    px, py = _advect_particles(g, s.particles, s.u, s.v, cfldt, dt)
-    p = dataclasses.replace(s.particles, pos=torch.stack([px, py], dim=-1))
+    p = dataclasses.replace(s.particles, pos=_advect_particles(
+        g, s.particles, s.u, s.v, cfldt, dt))
     # one bin sort a frame: every splat is a sorted segment sum (on the
     # card one gather launch over the bins), and the sorted order persists
     # in the state

@@ -4,6 +4,8 @@
     python3 scripts/ab_paths.py _archive/parent . . _archive/parent
     python3 scripts/ab_paths.py A B --paths main,maccormack --n 128 --steps 8
     python3 scripts/ab_paths.py _archive/parent . --paths main --march
+    python3 scripts/ab_paths.py _archive/parent . . _archive/parent \
+        --paths sim2d_bimocq,sim2d_rt,sim2d_flip,sim2d_rt_flip --steps 10
 
 Each tree runs in its own process, from its own root, in the order given,
 so each builds its own kernels and imports its own package (a tree is any
@@ -13,7 +15,10 @@ change, parent gives each one an early and a late turn on the same card.
 In each process the tree's kernels are built first, then every path is
 built as that tree's ``chip_smoke.bench_config`` builds it (256^3 by
 default; ``obstacle`` as its ``obstacle_config``, ``mgpcg`` with the
-spectral solve off), stepped twice to warm up (the first step of a path
+spectral solve off; the 2D paths ``sim2d_*`` as that tree's
+``chip_smoke.path_2d_phase`` builds them: the scene of ``make_scene_2d``,
+its init and fixed dt, the particle bootstrap), stepped twice to warm up
+(the first step of a path
 allocates its working set; the obstacle path until both map marches
 substep, as chip_smoke.py warms it), then timed over ``--steps`` steps
 with CUDA events. Prints one JSON line per tree and path (with each timed
@@ -39,6 +44,37 @@ import sys
 
 PATHS = ("main", "reflection", "maccormack", "bimocq_adaptive",
          "bimocq_vol9", "bimocq_prefilter", "obstacle", "mgpcg")
+# the 2D paths: (example, scheme name)
+PATHS_2D = {"sim2d_bimocq": (0, "BIMOCQ"), "sim2d_rt": (2, "BIMOCQ"),
+            "sim2d_flip": (0, "FLIP"), "sim2d_apic": (0, "APIC"),
+            "sim2d_polypic": (0, "POLYPIC"), "sim2d_rt_flip": (2, "FLIP")}
+
+
+class Stepper:
+    """A 2D solver stepped at its scene's fixed dt, as a 3D solver steps."""
+
+    def __init__(self, solver, dt):
+        self.solver, self.dt = solver, dt
+
+    def step(self, state):
+        return self.solver.step(state, self.dt)
+
+
+def path_2d(path):
+    """The 2D path's solver (a Stepper) and its state after the scene's
+    init and, for the particle schemes, the CLI's bootstrap."""
+    from gpufluidsimulation_tpu_torch.scenes import scenes2d
+    from gpufluidsimulation_tpu_torch.solvers import smoke2d
+    from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+
+    example, name = PATHS_2D[path]
+    scheme = getattr(Scheme, name)
+    scene = scenes2d.make_scene_2d(example, scheme)
+    solver = smoke2d.Smoke2D(scene.cfg)
+    state = scene.init(solver, solver.init_state())
+    if name in ("FLIP", "APIC", "POLYPIC"):
+        state = solver.sample_particles_from_grid(state)
+    return Stepper(solver, scene.dt), state
 
 
 def march(solver, state, reps=20):
@@ -131,7 +167,9 @@ def child(tree, paths, n, steps, with_march, with_profile):
 
     if not os.path.abspath(port.__file__).startswith(tree):
         raise SystemExit(f"{tree}: imported the package from {port.__file__}")
-    _build.build()
+    # the 2D paths need only the two 2D kernels
+    _build.build(["bilerp_sample", "p2g_splat"]
+                 if all(p in PATHS_2D for p in paths) else _build.SOURCES)
     configs = {
         "main": dict(),
         "reflection": dict(scheme=Scheme.MAC_REFLECTION),
@@ -143,10 +181,14 @@ def child(tree, paths, n, steps, with_march, with_profile):
         "mgpcg": dict(engine_mode=EngineMode(spectral_poisson=False)),
     }
     for path in paths:
-        cfg = (cs.obstacle_config(n) if path == "obstacle"
-               else cs.bench_config(n, **configs[path]))
-        solver = Smoke3D(cfg)
-        state = solver.step(solver.step(solver.init_state()))
+        if path in PATHS_2D:
+            solver, state = path_2d(path)
+        else:
+            cfg = (cs.obstacle_config(n) if path == "obstacle"
+                   else cs.bench_config(n, **configs[path]))
+            solver = Smoke3D(cfg)
+            state = solver.init_state()
+        state = solver.step(solver.step(state))
         while path == "obstacle" and state.substeps < 2 and state.frame < 150:
             state = solver.step(state)
         torch.cuda.synchronize()

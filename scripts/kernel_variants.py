@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Time design variants of the port's redesigned kernels on one GPU.
 
-    python3 scripts/kernel_variants.py            # 256^3 shapes, all eleven
+    python3 scripts/kernel_variants.py            # 256^3 shapes, all twelve
     python3 scripts/kernel_variants.py --n 64     # a quick check
     python3 scripts/kernel_variants.py --kernels dmc_substep,vol9_fixup
     python3 scripts/kernel_variants.py --kernels vol9_fixup --only shipped,tile
@@ -9,6 +9,8 @@
         --parent _archive/parent     # also that tree's designs, same rounds
     python3 scripts/kernel_variants.py --kernels p2g_splat \
         --parent _archive/parent     # the P2G cases, the first form beside
+    python3 scripts/kernel_variants.py --kernels bilerp_sample \
+        --parent _archive/parent     # the 2D modes and marches, both trees
 
 Each variant is the kernel's source in ``gpufluidsimulation_tpu_torch/csrc``
 with textual edits (block or tile shape, rows per thread, the division,
@@ -43,11 +45,15 @@ rho+T; ``p2g_splat`` variants (the bounds in registers; the next chunk by
 cp.async; chunk length, threads and tile; the owner's unrolling or
 batches; register caps) on ``chip_smoke.py``'s P2G cases in FLIP, APIC and PolyPIC,
 against the plain version on the CPU, then where a call's time goes
-beside the kernel's (CUDA events and torch.profiler). The smoother,
-minmax, pull-back and P2G builds are all made before any is timed, each
-in its own namespace, then timed in interleaved rounds (medians);
-``--parent DIR`` adds that tree's minmax_sample, pullback_sample and
-p2g_splat, through its own C interface. Each build prints
+beside the kernel's (CUDA events and torch.profiler); ``bilerp_sample``
+variants (threads a CTA) of its trace and DMC modes
+on the 2D paths' shapes, its sample, mac and cp modes, grid_sample, an
+empty launch, and each tree's own 2D marches in a process of its own.
+The smoother, minmax, pull-back, P2G and bilerp builds are all made
+before any is timed, each in its own namespace, then timed in
+interleaved rounds (medians); ``--parent DIR`` adds that tree's
+minmax_sample, pullback_sample, p2g_splat and bilerp_sample, through its
+own C interface. Each build prints
 its registers, spills and, where the toolkit has cuobjdump, each kernel's
 static SASS instruction count. Builds go to the port's build directory
 (``gpufluidsimulation_tpu_torch/_build/variants/``).
@@ -61,6 +67,7 @@ import ctypes
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 from pathlib import Path
@@ -1736,6 +1743,430 @@ def p2g_variants(n, out_dir, parent=None, rounds=4):
     cs.log(f"[p2g_splat] the wrapper, flip 256x256: {json.dumps(calls)}")
 
 
+_BT_THREADS = "constexpr int kTraceThreads = 128;"
+_BT_LOOP = "#pragma unroll 2"
+BILERP = {
+    "shipped (128 threads, a position a thread, substeps unrolled by 2)": [],
+    "64 threads": [(_BT_THREADS, "constexpr int kTraceThreads = 64;")],
+    "256 threads": [(_BT_THREADS, "constexpr int kTraceThreads = 256;")],
+    "substep loop unrolled by 4": [(_BT_LOOP, "#pragma unroll 4")],
+    "substep loop not unrolled": [(_BT_LOOP, "#pragma unroll 1")],
+    "substep loop as the compiler leaves it": [(_BT_LOOP, "")],
+}
+BILERP_CALLS = 20   # launches a timed CUDA graph holds
+
+_EMPTY_SRC = """__global__ void empty_kernel() {}
+
+extern "C" int gfs_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+"""
+
+# a tree's 2D marches and samples through its own wrappers, in a process
+# of its own (two trees' packages share a name): each call's CUDA-graph
+# time, host microseconds and kernel launches (torch.profiler), as JSON
+_TREE_CALLS = r"""
+import json, sys, time, types
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
+from gpufluidsimulation_tpu_torch.solvers import smoke2d
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+def graph_ms(fn, calls=20, replays=10):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / replays / calls
+
+def host_us(fn, calls=300):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+def kernels(fn):
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+def smooth(shape, rng, amp):
+    idx = np.meshgrid(*[np.arange(n, dtype=np.float64) for n in shape],
+                      indexing="ij")
+    f = np.zeros(shape)
+    for _ in range(2):
+        k = rng.uniform(0.5, 3.0, 2) * 2 * np.pi / np.array(shape)
+        f += np.sin(k[0] * idx[0] + k[1] * idx[1] + rng.uniform(0, 6.3))
+    return torch.from_numpy((amp * f / 2).astype(np.float32)).cuda()
+
+rng = np.random.default_rng(0)
+out = {}
+for (ni, nj), subs, P in (((256, 256), 2, 1048576),
+                          ((256, 1280), 1, 5242880)):
+    g = Grid2D(ni, nj, 1.0 / ni)
+    h = g.h
+    u, v = smooth(g.shape_u, rng, 2.0), smooth(g.shape_v, rng, 2.0)
+    rho, T = smooth(g.shape_c, rng, 1.0), smooth(g.shape_c, rng, 50.0)
+    cfldt = np.float32(1.5 * h)
+    dt = np.float32(cfldt * np.float32(subs - 0.3))
+    px, py = g.node_coords("c", "cuda")
+    pos = torch.stack([torch.rand(P, device="cuda") * (ni - 2) * h + h,
+                       torch.rand(P, device="cuda") * (nj - 2) * h + h], -1)
+    p = types.SimpleNamespace(pos=pos)
+    calls = {
+        "mac-mode call at the cell lattice": lambda: interp_fast.
+            bilerp_sample_mac(u, v, px, py, h),
+        "sample-mode call C=1 at the cell lattice": lambda: interp_fast.
+            bilerp_sample(rho[None], px, py, h, (g.OFF_C,)),
+        "semilag_multi_2d c, rho and T": lambda: advect.semilag_multi_2d(
+            g, "c", [rho, T], u, v, cfldt, dt),
+        "semilag_2d u": lambda: advect.semilag_2d(g, "u", u, u, v, None,
+                                                  cfldt, dt),
+        "maccormack_multi_2d c, rho and T": lambda: advect.
+            maccormack_multi_2d(g, "c", [rho, T], u, v, cfldt, dt),
+        "bfecc_multi_2d c, rho and T": lambda: advect.bfecc_multi_2d(
+            g, "c", [rho, T], u, v, cfldt, dt),
+        "update_forward_map_2d": lambda: advect.update_forward_map_2d(
+            g, u, v, (px, py), cfldt, dt),
+        "update_backward_map_2d (DMC)": lambda: advect.
+            update_backward_map_2d(g, u, v, (px, py), cfldt, dt),
+        f"particle trace, {P} particles": lambda: smoke2d._advect_particles(
+            g, p, u, v, cfldt, dt),
+    }
+    for name, fn in calls.items():
+        out[f"{name} {ni}x{nj}, {len(advect.substeps(cfldt, dt))} "
+            "substeps"] = dict(graph_ms=graph_ms(fn), host_us=host_us(fn),
+                               kernels=kernels(fn))
+print("TREE_CALLS " + json.dumps(out))
+"""
+
+
+def _tree_calls(root):
+    """Run _TREE_CALLS in its own process on the tree at `root`."""
+    res = subprocess.run([sys.executable, "-c", _TREE_CALLS, str(root)],
+                         capture_output=True, text=True, cwd=str(root))
+    line = [x for x in res.stdout.splitlines() if x.startswith("TREE_CALLS")]
+    if res.returncode or not line:
+        raise SystemExit(f"tree calls in {root} failed:\n{res.stdout}"
+                         f"{res.stderr}")
+    return json.loads(line[0].split(" ", 1)[1])
+
+
+def _trace_call(fn, u, v, h, subs, start, fields=(), off=(0.0, 0.0),
+                minmax=False, write_pos=True, final_clamp=None,
+                interleave=False):
+    """bilerp_trace's launch through a build's own gfs_bilerp_trace."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    fields = list(fields)
+    fp, ip, shape = interp_fast.trace_plan(
+        u, v, h, subs, start, fields, off, minmax, write_pos, final_clamp,
+        interleave)
+    n, C = ip[2], len(fields)
+    out = interp_fast.trace_outputs(shape, C, minmax, write_pos, interleave,
+                                    u.device)
+    ptr = interp_fast.trace_pointers(out, n, interleave)
+    lattice = isinstance(start, interp_fast.Lattice2D)
+    err = fn(u.data_ptr(), v.data_ptr(), v.shape[0], u.shape[1],
+             interp_fast._TRACE_FP.pack(*fp), interp_fast._TRACE_IP.pack(*ip),
+             None if lattice else start[0].data_ptr(),
+             None if lattice else start[1].data_ptr(), ptr[0], ptr[1],
+             struct.pack(f"{C}Q", *[f.data_ptr() for f in fields])
+             if C else None, *ptr[2:], _build.stream(u))
+    _build.check(err, "gfs_bilerp_trace")
+    return out
+
+
+def _dmc_call(fn, u, v, mx, my, h, subs):
+    """bilerp_dmc's launches through a build's own gfs_bilerp_dmc."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+
+    ni, nj = mx.shape
+    maps = (mx, my)
+    for sub in subs:
+        out = torch.empty((2, ni, nj), device=mx.device)
+        err = fn(u.data_ptr(), v.data_ptr(), ni, nj, maps[0].data_ptr(),
+                 maps[1].data_ptr(),
+                 struct.pack("5f", *interp_fast.dmc_plan(h, sub, ni, nj)),
+                 out.data_ptr(), _build.stream(u))
+        _build.check(err, "gfs_bilerp_dmc")
+        maps = out
+    return maps
+
+
+def _sample_call(fn, fields, offs, bands, px, py, h, mode):
+    """bilerp_sample's launch (modes sample 0, mac 1, cp 2) through a
+    build's own gfs_bilerp_sample: the same C interface in this tree and
+    its parent."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.ops import _build
+
+    F, I, P = ctypes.c_float, ctypes.c_int, ctypes.c_void_p
+    C = len(fields)
+    out = torch.empty((C,) + tuple(px.shape) + ((4,) if mode == 2 else ()),
+                      device=px.device)
+    err = fn((P * C)(*[f.data_ptr() for f in fields]),
+             (I * (2 * C))(*[n for f in fields for n in f.shape]),
+             (F * (2 * C))(*[o for off in offs for o in off]),
+             None if bands is None else
+             (F * (2 * C))(*[b for band in bands for b in band]), C, mode,
+             px.data_ptr(), py.data_ptr(), px.numel(), float(h),
+             float(h * h), out.data_ptr(), _build.stream(px))
+    _build.check(err, "gfs_bilerp_sample")
+    return out
+
+
+def bilerp_variants(n, out_dir, parent=None, rounds=4):
+    """bilerp_sample's modes on the 2D paths' shapes. The sample, mac and
+    cp modes (C=1, C=2 on the 5-point stencil, C=2 on two offsets; the
+    mac mode with one pair and two; the cp mode of u, v, rho and T with
+    the L2 flushed before each launch) at 256^2 and 256x1280 and at the
+    G2P shapes (1,048,576 and 5,242,880 particles); the trace mode (a
+    semi-Lagrangian trace of rho and T from the cell lattice, a
+    MacCormack trace of u with its min/max, the forward map, the
+    particles) and the DMC mode on the same grids; beside them
+    grid_sample on the same samples and an empty kernel launched through
+    ctypes (the launch floor). Each build is held against the plain
+    version (same bits) and timed as CUDA graphs of 20 launches in
+    interleaved rounds. With `parent`, that tree's bilerp_sample is built
+    too (the sample, mac and cp modes: the same C interface), and each
+    tree's own wrappers and 2D marches (this tree's trace and DMC modes,
+    the parent's composition of mac-mode launches and torch glue) are
+    timed in a process of its own, in the order parent, this, this,
+    parent: CUDA-graph ms, host us a call (wall time of calls made
+    without a sync) and kernels a call. `n` is not used."""
+    import torch
+    import torch.nn.functional as F_
+
+    from gpufluidsimulation_tpu_torch.core import interp
+    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+    from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
+    from gpufluidsimulation_tpu_torch.solvers import particles
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    F, I, P, LL = ctypes.c_float, ctypes.c_int, ctypes.c_void_p, \
+        ctypes.c_longlong
+    flush = torch.empty(2 ** 24, device=dev)
+    sample_cases, trace_cases = [], []
+    for (ni, nj), count, npart in (((256, 256), 2, 1048576),
+                                   ((256, 1280), 1, 5242880)):
+        g = Grid2D(ni, nj, 1.0 / ni)
+        h = g.h
+        u, v = cs.smooth(g.shape_u, rng, 2.0, dev), cs.smooth(g.shape_v, rng,
+                                                              2.0, dev)
+        du, dv = cs.smooth(g.shape_u, rng, 0.1, dev), cs.smooth(
+            g.shape_v, rng, 0.1, dev)
+        rho, T = cs.smooth(g.shape_c, rng, 1.0, dev), cs.smooth(
+            g.shape_c, rng, 50.0, dev)
+        cells = [(q + cs.smooth(q.shape, rng, 2.0 * h, dev)).contiguous()
+                 for q in g.node_coords("c", dev)]
+        stencil = [torch.stack([q + cs.smooth(q.shape, rng, 0.3 * h, dev)
+                                for _ in range(5)]).contiguous()
+                   for q in g.node_coords("c", dev)]
+        parts = [torch.rand(npart, device=dev) * (m - 2) * h + h
+                 for m in (ni, nj)]
+        pos = torch.stack(parts, -1)
+        rt = torch.stack([rho, T])
+        uv = torch.stack([u[:ni], v[:, :nj]]).contiguous()
+        tag = f"{ni}x{nj}"
+        bands = particles.cp_bands(g)
+        mac_bands = [(ni - 1, nj - 2), (ni - 2, nj - 1)]
+        sample_cases += [
+            (f"sample C=1 {tag}", [rho], (g.OFF_C,), None, cells, 0),
+            (f"sample C=2 5-point stencil {tag}", [rho, T], (g.OFF_C,) * 2,
+             None, stencil, 0),
+            (f"sample C=2 u, v offsets {tag}", [uv[0], uv[1]],
+             (g.OFF_U, g.OFF_V), None, cells, 0),
+            (f"mac one pair {tag}", [u, v], interp.MAC_OFFS_2D, mac_bands,
+             cells, 1),
+            (f"mac two pairs {tag}", [u, v, du, dv], interp.MAC_OFFS_2D * 2,
+             mac_bands * 2, cells, 1),
+            (f"G2P mac two pairs, {npart} particles", [u, v, du, dv],
+             interp.MAC_OFFS_2D * 2, mac_bands * 2, parts, 1),
+            (f"G2P sample C=2, {npart} particles", [rho, T],
+             (g.OFF_C,) * 2, None, parts, 0),
+            (f"G2P cp C=4, {npart} particles, L2 flushed", [u, v, rho, T],
+             (g.OFF_U, g.OFF_V, g.OFF_C, g.OFF_C), bands, parts, 2)]
+        subs = [np.float32(1.5 * h)] * (count - 1) + [np.float32(1.1 * h)]
+        back = [-s for s in subs]
+        maps = [c.clone() for c in cells]
+        trace_cases += [
+            (f"trace semilag c, rho and T, {count} substeps {tag}",
+             (u, v, h, back, interp_fast.Lattice2D(g.shape_c, g.OFF_C)),
+             dict(fields=[rho, T], off=g.OFF_C, write_pos=False)),
+            (f"trace maccormack u with min/max, {count} substeps {tag}",
+             (u, v, h, back, interp_fast.Lattice2D(g.shape_u, g.OFF_U)),
+             dict(fields=[u], off=g.OFF_U, minmax=True, write_pos=False)),
+            (f"trace forward map, {count} substeps {tag}",
+             (u, v, h, subs, tuple(maps)),
+             dict(final_clamp=interp.clamp_bounds_2d(h, ni, nj))),
+            (f"trace {npart} particles, {count} substeps {tag}",
+             (u, v, h, subs, (pos[:, 0], pos[:, 1])),
+             dict(final_clamp=((h, (ni - 1) * h), (h, (nj - 1) * h)),
+                  interleave=True)),
+            (f"DMC {count} substeps {tag}", (u, v, maps[0], maps[1], h, subs),
+             None)]
+    table = list(BILERP.items())
+    if parent:
+        table.append(("parent (first form)", None))
+    entries, errs = [], {}
+    for i, (label, edits) in enumerate(table):
+        lib, ptxas = build(out_dir, f"bilerp_{i}", "bilerp_sample",
+                           (edits or []) + _own_namespace(i),
+                           CSRC if edits is not None else _parent_csrc(parent))
+        cs.log(f"[bilerp_sample] {label}: " + "; ".join(ptxas))
+        if lib is None:
+            continue
+        fs = lib.gfs_bilerp_sample
+        fs.restype = I
+        fs.argtypes = [ctypes.POINTER(P), ctypes.POINTER(I),
+                       ctypes.POINTER(F), ctypes.POINTER(F), I, I, P, P, LL,
+                       F, F, P, P]
+        if edits is None or not edits:
+            # the sample, mac and cp modes: the shipped build and the
+            # parent's (the variants change only the trace and DMC modes)
+            for case, fields, offs, bands, pxy, mode in sample_cases:
+                want = {0: interp_fast.bilerp_sample_plain,
+                        1: lambda f, x, y, hh, o: interp_fast.
+                        bilerp_sample_mac_plain(f[0], f[1], x, y, hh,
+                                                *f[2:]),
+                        2: lambda f, x, y, hh, o: interp_fast.
+                        bilerp_sample_cp_plain(f, x, y, hh, o, bands)}[mode]
+                # every case's grid has ni = 256 cells along x
+                hh = 1.0 / 256
+                run = (lambda fs=fs, fields=fields, offs=offs, bands=bands,
+                       pxy=pxy, mode=mode, hh=hh: _sample_call(
+                           fs, fields, offs, bands, *pxy, hh, mode))
+                got = run()
+                ref = want(fields, *pxy, hh, offs)
+                errs[(label, case)] = cs.same_bits(got, ref)
+                if mode == 2:
+                    entries.append(((label, case), cs.launch_graph(
+                        lambda run=run: (flush.zero_(), run()),
+                        BILERP_CALLS).replay))
+                else:
+                    entries.append(((label, case), cs.launch_graph(
+                        run, BILERP_CALLS).replay))
+        if edits is None:
+            continue
+        ft = lib.gfs_bilerp_trace
+        ft.restype = I
+        ft.argtypes = interp_fast._TRACE_ARGS
+        fd = lib.gfs_bilerp_dmc
+        fd.restype = I
+        fd.argtypes = [P, P, I, I, P, P, ctypes.c_char_p, P, P]
+        for case, args, kw in trace_cases:
+            if kw is None:
+                run = (lambda fd=fd, args=args: _dmc_call(fd, *args))
+                ref = interp_fast.bilerp_dmc_plain(*args)
+                got = run()
+                errs[(label, case)] = cs.same_bits(got, ref)
+            else:
+                run = (lambda ft=ft, args=args, kw=kw: _trace_call(
+                    ft, *args, **kw))
+                ref = interp_fast.bilerp_trace_plain(*args, **kw)
+                got = run()
+                errs[(label, case)] = [
+                    cs.same_bits(a, b, values=k >= 2)
+                    for k, (a, b) in enumerate(zip(got, ref))
+                    if a is not None]
+            entries.append(((label, case), cs.launch_graph(
+                run, BILERP_CALLS).replay))
+    # each graph replayed once more, alone, before the rounds: a fault
+    # names its case
+    for key, fn in entries:
+        try:
+            fn()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            raise SystemExit(f"[bilerp_sample] {key}: {e}") from e
+    times = _interleaved(entries, rounds, reps=5)
+    for key, (med, lo, hi) in times.items():
+        med, lo, hi = (x / BILERP_CALLS for x in (med, lo, hi))
+        cs.log(f"[bilerp_sample] {key[0]}: {key[1]} {med:.5f} ms (median "
+               f"of {rounds}, {lo:.5f}-{hi:.5f}; differing elements, "
+               f"max_abs_err {errs.get(key, 'not compared')})")
+    # the references, each timed as soon as its graph is made (as
+    # chip_smoke.graph_ms times them): the L2 flush alone, grid_sample on
+    # the sample cases' samples, an empty kernel through ctypes
+    cs.log(f"[bilerp_sample] reference: L2 flush (64 MiB zero_) "
+           f"{cs.graph_ms(flush.zero_):.5f} ms (CUDA graph)")
+    for case, fields, offs, bands, pxy, mode in sample_cases:
+        if mode != 0:
+            continue
+        nx, ny = fields[0].shape
+        hh = 1.0 / 256
+        flat = [q.reshape(1, -1, q.shape[-1]) for q in pxy]
+        grids = [torch.stack([
+            (flat[1] / hh - off[1]) * (2.0 / (ny - 1)) - 1.0,
+            (flat[0] / hh - off[0]) * (2.0 / (nx - 1)) - 1.0], dim=-1)
+            for off in offs]
+        stack = [f[None, None] for f in fields]
+
+        def lib_call(stack=stack, grids=grids):
+            return [F_.grid_sample(f, gr, mode="bilinear",
+                                   padding_mode="border", align_corners=True)
+                    for f, gr in zip(stack, grids)]
+
+        cs.log(f"[bilerp_sample] grid_sample: {case} "
+               f"{cs.graph_ms(lib_call):.5f} ms (CUDA graph)")
+    src = out_dir / "empty_launch.cu"
+    src.write_text(_EMPTY_SRC)
+    elib = out_dir / "empty_launch.so"
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(elib),
+                    str(src)], check=True)
+    fe = ctypes.CDLL(str(elib)).gfs_empty
+    fe.restype = I
+    fe.argtypes = [P]
+
+    def empty():
+        _build.check(fe(_build.stream(flush)), "gfs_empty")
+
+    cs.log(f"[bilerp_sample] reference: an empty kernel through ctypes (the "
+           f"launch floor) {cs.graph_ms(empty):.5f} ms (CUDA graph), "
+           f"{cs.host_us(empty):.2f} us of host a call")
+    trees = ([("parent", parent), ("this", ROOT), ("this", ROOT),
+              ("parent", parent)] if parent else [("this", ROOT)])
+    for name, root in trees:
+        for case, r in _tree_calls(root).items():
+            cs.log(f"[bilerp_sample] {name} tree: {case}: "
+                   f"{r['graph_ms']:.5f} ms (CUDA graph), "
+                   f"{r['host_us']:.1f} us of host a call, "
+                   f"{r['kernels']} kernels a call")
+
+
 RUNNERS = {"trilerp_sample": trilerp_variants,
            "jacobi_diffuse": jacobi_variants,
            "rk3_substep": rk3_variants,
@@ -1748,9 +2179,11 @@ RUNNERS = {"trilerp_sample": trilerp_variants,
                "masked_rbgs_smooth", MASKED_RBGS, n, out),
            "minmax_sample": minmax_variants,
            "pullback_sample": pullback_variants,
-           "p2g_splat": p2g_variants}
+           "p2g_splat": p2g_variants,
+           "bilerp_sample": bilerp_variants}
 # the runners that also build a parent tree's design (--parent)
-WITH_PARENT = ("minmax_sample", "pullback_sample", "p2g_splat")
+WITH_PARENT = ("minmax_sample", "pullback_sample", "p2g_splat",
+               "bilerp_sample")
 
 
 def main():
@@ -1780,7 +2213,7 @@ def main():
     if args.only:
         parts = args.only.split(",")
         for table in (TRILERP, JACOBI, RK3, PREFILTER, DMC, VOL9, RBGS,
-                      MASKED_RBGS, MINMAX, PULLBACK, P2G):
+                      MASKED_RBGS, MINMAX, PULLBACK, P2G, BILERP):
             for name in [k for k in table if not any(s in k for s in parts)]:
                 del table[name]
     for name in args.kernels.split(","):
