@@ -139,10 +139,22 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     (the Zalesak level set, CFL-driven substeps, 1 frame), 4 0 (FLIP, 2
     frames) and 6 2 (PolyPIC, 1 frame), each run's launches counted
     alone, every BMP a 24-bit image of the grid's size, the level-set
-    file finite and equal to the frame's rho.
+    file finite and equal to the frame's rho;
+14. the bf16 mode (EngineMode.interp_bf16), run after phase 9: each of
+    the four kernels with a bf16 mode (trilerp_sample C=1 and C=2 dual,
+    plain, C=3 on the MAC pack, also with NaNs sown; minmax_sample in both
+    modes; rk3_substep displaced and in its lattice mode for every kind;
+    dmc_substep from a displaced map) bit for bit against its plain
+    version at the n^3 shapes, each timed by CUDA graph beside its
+    float32 form; parity card vs CPU of the bf16 main path and MacCormack
+    at 32^3 (3 steps, 2e-3 of scale); the bf16 main path at n^3 with its
+    bf16-mode launches and conversions to bfloat16 a step counted, and
+    the drift of rho and u from the float32 main path after 8 steps; the
+    bf16 MacCormack path at n^3 (one bf16 minmax_sample launch a step).
 Then it prints one JSON line with every kernel's numbers (the three with a
-slab mode carry its numbers under "slab") and, last, the device line. It
-never imports JAX or the JAX package.
+slab mode carry its numbers under "slab", the four with a bf16 mode under
+"bf16") and, last, the device line. It never imports JAX or the JAX
+package.
 """
 
 from __future__ import annotations
@@ -2927,6 +2939,292 @@ def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
 
 
 # ---------------------------------------------------------------------------
+# The bf16 mode (phase 14)
+# ---------------------------------------------------------------------------
+
+# the kernels with a bf16 mode (EngineMode.interp_bf16): their field values
+# are read as bfloat16 and widened at the load
+BF16_KERNELS = ("trilerp_sample", "minmax_sample", "rk3_substep",
+                "dmc_substep")
+BF16_WRAPPERS = BF16_KERNELS + ("rk3_substep_lattice",)
+BF16_DRIFT_STEPS = 8
+
+
+def bf16_same_bits(label, got, want, values=False):
+    """Raise unless `got` equals `want` bit for bit, NaN for NaN (with
+    `values`, value for value: ``same_bits``); returns the max abs
+    error."""
+    differ, err = same_bits(got, want, values)
+    log(f"[bf16] {label}: {differ} elements differ, max_abs_err={err:.3e}")
+    if differ:
+        raise AssertionError(f"bf16 {label}: the kernel differs from its "
+                             f"plain version in {differ} elements")
+    return err
+
+
+def bf16_kernel_phase(n, seed):
+    """Phase 14a: each of the four kernels' bf16 modes at n^3 shapes
+    against its plain version (the float32 one on the widened values) on
+    the same inputs, bit for bit, NaN for NaN, and timed by CUDA graph
+    beside its float32 form on the unrounded inputs. trilerp_sample: C=1
+    dual (u), C=2 dual (rho+T), C=1 plain, C=3 plain on the MAC pack (the
+    trace clamp's second midpoint stage), also with NaNs sown into the
+    fields; minmax_sample: C=2 in both modes; rk3_substep from displaced
+    positions and in its lattice mode for every kind (stage 1 from the
+    float32 faces); dmc_substep from a displaced map. Bounds: the bytes
+    with the bf16 fields at 2 bytes a value (the lattice mode also reads
+    the float32 faces), or the float32 operations of the float32 form."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core import interp
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast as ifa
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 14)
+    g = Grid3D(n, n, n, 0.2 / n)
+    h = g.h
+    bf = torch.bfloat16
+    out = {name: [] for name in BF16_KERNELS}
+
+    def positions(kind, amp_cells=2.0):
+        px, py, pz = g.node_coords(kind, device=dev)
+        return [(p + smooth(p.shape, rng, amp_cells * h, dev)).contiguous()
+                for p in (px, py, pz)]
+
+    def record(name, label, run16, run32, plain, err, nbytes, nops):
+        k_ms = graph_ms(run16)
+        f_ms = graph_ms(run32)
+        p_ms = cuda_time(plain, 2, warmup=1)
+        b_ms, b_by = bound_ms(nbytes, nops)
+        out[name].append(dict(variant=label, max_abs_err=err, tol=0.0,
+                              ms=k_ms, float32_ms=f_ms, plain_ms=p_ms,
+                              bound_ms=b_ms, bound_by=b_by))
+        log(f"[bf16] {name} {label}: {k_ms:.4f} ms (float32 {f_ms:.4f}, "
+            f"plain {p_ms:.3f}, bf16 bound {b_ms:.4f} by {b_by})")
+
+    fu = smooth(g.shape_u, rng, 0.06, dev)[None].contiguous()
+    fc = torch.stack([smooth(g.shape_c, rng, 1.0, dev),
+                      smooth(g.shape_c, rng, 50.0, dev)]).contiguous()
+    u, v, w = (smooth(s, rng, 0.06, dev)
+               for s in (g.shape_u, g.shape_v, g.shape_w))
+    pack = interp.mac_pack_3d(u, v, w).contiguous()
+    pu, pc = positions("u"), positions("c")
+    for label, f32, pos, offs, dual in (
+            ("C=1 dual u", fu, pu, (g.OFF_U,), True),
+            ("C=2 dual c", fc, pc, (g.OFF_C,) * 2, True),
+            ("C=1 plain u", fu, pu, (g.OFF_U,), False),
+            ("C=3 plain MAC pack", pack, pc, interp.MAC_OFFS, False)):
+        f16 = f32.to(bf)
+        got = ifa.trilerp_sample(f16, *pos, h, offs, dual=dual)
+        err = bf16_same_bits(f"trilerp_sample {label}", got,
+                        ifa.trilerp_sample_plain(f16, *pos, h, offs, dual))
+        sown = f16.clone()
+        sown.view(-1)[::997] = float("nan")
+        bf16_same_bits(f"trilerp_sample {label}, NaNs sown",
+                  ifa.trilerp_sample(sown, *pos, h, offs, dual=dual),
+                  ifa.trilerp_sample_plain(sown, *pos, h, offs, dual))
+        n_out, C = pos[0].numel(), f32.shape[0]
+        nops = (dual_ops(pos, h, offs) if dual
+                else n_out * (6 + C * TRILERP_OPS))
+        record("trilerp_sample", label,
+               lambda: ifa.trilerp_sample(f16, *pos, h, offs, dual=dual),
+               lambda: ifa.trilerp_sample(f32, *pos, h, offs, dual=dual),
+               lambda: ifa.trilerp_sample_plain(f16, *pos, h, offs, dual),
+               err, 2 * f16.numel() + 4 * (3 + C) * n_out, nops)
+
+    fc16 = fc.to(bf)
+    offs = (g.OFF_C,) * 2
+    for sample in (True, False):
+        got = ifa.minmax_sample(fc16, *pc, h, offs, sample=sample)
+        want = ifa.minmax_sample_plain(fc16, *pc, h, offs, sample)
+        err = max(bf16_same_bits(f"minmax_sample sample={sample} {i}", a, b,
+                                 values=i < 2)
+                  for i, (a, b) in enumerate(zip(got, want)))
+        n_out = pc[0].numel()
+        record("minmax_sample", f"C=2 sample={sample}",
+               lambda: ifa.minmax_sample(fc16, *pc, h, offs, sample=sample),
+               lambda: ifa.minmax_sample(fc, *pc, h, offs, sample=sample),
+               lambda: ifa.minmax_sample_plain(fc16, *pc, h, offs, sample),
+               err, 2 * fc16.numel() + 4 * (3 + (3 if sample else 2) * 2)
+               * n_out, n_out * (3 + 2 * (20 + (7 if sample else 0)
+                                          * LERP_OPS)))
+
+    faces16 = [f.to(bf) for f in (u, v, w)]
+    face_vals = u.numel() + v.numel() + w.numel()
+    sh = float(np.float32(1.0 / 0.06))         # a substep of about a cell
+    clamp = (1.0, n - 1.0) * 3
+    N = n ** 3
+    lat = ifa.lattice_positions(g.shape_c, (0, 0, 0), dev)
+    start = (lat + torch.stack([smooth(g.shape_c, rng, 2.0, dev)
+                                for _ in range(3)])).contiguous()
+    err = bf16_same_bits("rk3_substep displaced",
+                    ifa.rk3_substep(*faces16, start, sh, clamp),
+                    ifa.rk3_substep_plain(*faces16, start, sh, clamp))
+    record("rk3_substep", "displaced positions",
+           lambda: ifa.rk3_substep(*faces16, start, sh, clamp),
+           lambda: ifa.rk3_substep(u, v, w, start, sh, clamp),
+           lambda: ifa.rk3_substep_plain(*faces16, start, sh, clamp),
+           err, 2 * face_vals + 4 * 6 * N, N * RK3_OPS)
+    for kind in ("c", "u", "v", "w"):
+        dim = g.dim_of(kind)
+        got = ifa.rk3_substep_lattice(*faces16, dim, sh, clamp,
+                                      stage1=(u, v, w))
+        err = bf16_same_bits(f"rk3_substep lattice mode {kind}", got,
+                        ifa.rk3_substep_plain(
+                            *faces16, ifa.lattice_positions(g.shape_c, dim,
+                                                            dev),
+                            sh, clamp, stage1=(u, v, w)))
+        if kind == "c":
+            record("rk3_substep", "lattice mode (identity peel), cell kind",
+                   lambda: ifa.rk3_substep_lattice(*faces16, dim, sh, clamp,
+                                                   stage1=(u, v, w)),
+                   lambda: ifa.rk3_substep_lattice(u, v, w, dim, sh, clamp),
+                   lambda: ifa.rk3_substep_plain(*faces16, lat, sh, clamp,
+                                                 stage1=(u, v, w)),
+                   err, 6 * face_vals + 4 * 3 * N, N * RK3_OPS)
+
+    thresh = ifa.dmc_threshold(h)
+    maps = (lat * h + torch.stack([smooth(g.shape_c, rng, 2.0 * h, dev)
+                                   for _ in range(3)])).contiguous()
+    sub = float(np.float32(np.float32(h / 0.06) / np.float32(h)))
+    err = bf16_same_bits("dmc_substep displaced map",
+                    ifa.dmc_substep(*faces16, maps, sub, thresh),
+                    ifa.dmc_substep_plain(*faces16, maps, sub, thresh))
+    record("dmc_substep", "displaced map",
+           lambda: ifa.dmc_substep(*faces16, maps, sub, thresh),
+           lambda: ifa.dmc_substep(u, v, w, maps, sub, thresh),
+           lambda: ifa.dmc_substep_plain(*faces16, maps, sub, thresh),
+           err, 2 * face_vals + 4 * 6 * N, N * DMC_OPS)
+    return {name: dict(rows[0], variants=rows) for name, rows in out.items()}
+
+
+def bf16_conversions(calls):
+    """Count the bf16 mode's conversions to bfloat16 (one elementwise
+    launch each) in `calls` until the returned function restores: the
+    faces (three a call) and every rounded field sample."""
+    from gpufluidsimulation_tpu_torch.bimocq import mapping
+    from gpufluidsimulation_tpu_torch.ops import advect
+
+    window, values, sample = (advect.window_faces, advect._values,
+                              mapping._sample_fields_at)
+
+    def window_faces(u, v, w, bf16):
+        calls.append(3 if bf16 else 0)
+        return window(u, v, w, bf16)
+
+    def _values(fields, win):
+        calls.append(0 if win is None else 1)
+        return values(fields, win)
+
+    def _sample_fields_at(*args, bf16=False, **kw):
+        calls.append(int(bf16))
+        return sample(*args, bf16=bf16, **kw)
+
+    advect.window_faces, advect._values = window_faces, _values
+    mapping._sample_fields_at = _sample_fields_at
+
+    def restore():
+        advect.window_faces, advect._values = window, values
+        mapping._sample_fields_at = sample
+
+    return restore
+
+
+def bf16_path_phase(n, steps, scheme_steps):
+    """Phase 14b-d: parity of the bf16 main path and MacCormack on the
+    card against the port on the CPU at 32^3 (3 steps, 2e-3 of scale); the
+    bf16 main path at n^3 (1 warm-up and `steps` timed steps, launch
+    counts and bf16-mode counts reset before and read after: 12
+    trilerp_sample, 2 rk3_substep and 1 in its lattice mode and 2
+    dmc_substep launches a step in the bf16 mode, the backward march's
+    identity peel in float32) with its conversions to bfloat16 counted;
+    the drift of rho and u from the float32 main path after
+    BF16_DRIFT_STEPS steps from the same state; and the bf16 MacCormack
+    path at n^3 (1 bf16 minmax_sample launch a step, in its sample
+    mode)."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.config import EngineMode
+    from gpufluidsimulation_tpu_torch.ops import interp_fast
+    from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+    from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
+
+    bf16 = EngineMode(interp_bf16=True)
+    parity = {
+        "main": parity_phase(bench_config(32, engine_mode=bf16),
+                             "bf16 vortex"),
+        "maccormack": parity_phase(bench_config(
+            32, scheme=Scheme.MACCORMACK, engine_mode=bf16),
+            "bf16 maccormack vortex")}
+    fns = [getattr(interp_fast, name) for name in BF16_WRAPPERS]
+
+    def reset():
+        for fn in fns:
+            fn.bf16_launches = 0
+        conversions.clear()
+
+    conversions = []
+    restore = bf16_conversions(conversions)
+    results, by_path = {}, {}
+    try:
+        for label, cfg, n_steps, expect in (
+                ("bf16_main", bench_config(n, engine_mode=bf16), steps,
+                 MAIN_KERNELS),
+                ("bf16_maccormack", bench_config(
+                    n, scheme=Scheme.MACCORMACK, engine_mode=bf16),
+                 scheme_steps, ("minmax_sample", "rk3_substep",
+                                "trilerp_sample"))):
+            solver = Smoke3D(cfg)
+            state, res = timed_steps(solver, n_steps, expect, on_reset=reset)
+            del state
+            bf = {fn.__name__: fn.bf16_launches / n_steps for fn in fns}
+            res.update(bf16_launches_per_step=bf,
+                       conversions_per_step=sum(conversions) / n_steps)
+            by_path[label] = {fn.__name__: fn.bf16_launches for fn in fns}
+            results[label] = res
+            log(f"[bf16] {label} {n}^3: {res['ms_per_step']:.2f} ms/step, "
+                f"bf16-mode launches a step {json.dumps(bf)}, "
+                f"{res['conversions_per_step']} conversions to bfloat16 a "
+                "step")
+            log(f"[bf16] {label} " + json.dumps(res))
+    finally:
+        restore()
+    want = {"trilerp_sample": 12, "minmax_sample": 0, "rk3_substep": 2,
+            "rk3_substep_lattice": 1, "dmc_substep": 2}
+    if results["bf16_main"]["bf16_launches_per_step"] != want:
+        raise AssertionError(
+            f"bf16 main path: bf16-mode launches a step "
+            f"{results['bf16_main']['bf16_launches_per_step']}, expected "
+            f"{want}")
+    if results["bf16_maccormack"]["bf16_launches_per_step"][
+            "minmax_sample"] != 1:
+        raise AssertionError("bf16 maccormack path: not one bf16 "
+                             "minmax_sample launch a step")
+    # the drift from the float32 main path
+    states = {}
+    for label, mode in (("float32", None), ("bf16", bf16)):
+        solver = Smoke3D(bench_config(n, engine_mode=mode))
+        st = solver.init_state()
+        for _ in range(BF16_DRIFT_STEPS):
+            st = solver.step(st)
+        states[label] = {k: getattr(st, k) for k in ("rho", "u")}
+        del solver, st
+    drift = {}
+    for k in ("rho", "u"):
+        a, b = states["bf16"][k], states["float32"][k]
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"bf16 main path: non-finite {k}")
+        drift[k] = float((a - b).abs().max() / b.abs().max())
+    results["drift_of_scale"] = drift
+    results["parity"] = parity
+    log(f"[bf16] drift from the float32 main path after "
+        f"{BF16_DRIFT_STEPS} steps at {n}^3 (max abs difference over the "
+        f"float32 field's max): {json.dumps(drift)}")
+    return results, by_path
+
+
+# ---------------------------------------------------------------------------
 # The 2D solver (phases 10-13)
 # ---------------------------------------------------------------------------
 
@@ -4144,6 +4442,11 @@ def main():
                                 args.profile))
     by_path["pullback_multi"] = pullback_multi_phase(args.scheme_n, 5)
     by_path.update(cli_phase(args.cli_res, args.cli_obstacle_res))
+    t16 = time.time()
+    bf16_results = bf16_kernel_phase(args.kernel_n, args.seed)
+    bf16_paths, bf16_by_path = bf16_path_phase(args.n, args.steps,
+                                               args.scheme_steps)
+    log(f"[bf16] the bf16 phases took {time.time() - t16:.1f} s")
     t2d = time.time()
     results["bilerp_sample"] = bilerp_phase(rng2d)
     results["p2g_splat"] = p2g_phase(rng2d)
@@ -4190,6 +4493,15 @@ def main():
             for mode in MODES[name]:
                 entry[f"{mode.rsplit('_', 1)[1]}_launches_by_path"] = {
                     p: c[mode] for p, c in by_path.items()}
+        if name in BF16_KERNELS:
+            entry["bf16"] = dict(bf16_results[name], launches_by_path={
+                p: c[name] + c.get(LATTICE.get(name), 0)
+                for p, c in bf16_by_path.items()}, paths={
+                p: {k: r[k] for k in ("ms_per_step", "launches",
+                                      "bf16_launches_per_step",
+                                      "conversions_per_step")}
+                for p, r in bf16_paths.items() if p.startswith("bf16_")},
+                drift_of_scale=bf16_paths["drift_of_scale"])
         if name in SLAB_KERNELS:
             entry["slab"] = dict(slab_results[name], launches_by_path={
                 "sharded_main": sum(

@@ -36,6 +36,9 @@ lattice samples go slab by slab through the slab modes of
 through a halo exchange; between those stages the state lives whole on
 the mesh's home device. ``ops/pcg.py`` (MIC(0)-PCG on the host),
 ``forces.diffuse_2d`` and ``core/interp.sample3_cubic`` complete the JAX
-package's modules; only ``interp_bf16`` and ``particles_dense``, TPU
-window geometry, have no counterpart.
+package's modules. ``EngineMode(interp_bf16=True)``, the JAX package's
+bf16 field windows, runs on the 3D single-device paths through bf16
+modes of four kernels (and raises with vol9, a sharded mesh and the 2D
+solver); only ``particles_dense``, TPU window geometry, has no
+counterpart.
 """

@@ -32,7 +32,14 @@ changes) share one launch. ``init_mapping`` and ``reinitialize`` take a
 ``Grid2D`` as they take a ``Grid3D``.
 
 The identity accumulate after a reinitialization is the prefilter itself
-in every form but the exact one. The multi-kind pull-back
+in every form but the exact one.
+
+The bf16 mode (``EngineMode.interp_bf16``): the marches read the bf16
+faces of ``update_mapping_3d``'s `window`, and with ``bf16=True`` every
+field that the pull-backs and accumulates sample (after its prefilter,
+where it has one) is rounded to bfloat16 first, as the JAX package pads
+its value windows; maps, the identity accumulate and the vol9 form (which
+raises) stay float32. The multi-kind pull-back
 (``bimocq_advect_multi_3d``, each sampling stage one ``pullback_sample``
 launch across all kinds) is parked, as in the JAX package: no solver path
 calls it.
@@ -95,22 +102,23 @@ def reinitialize(mapping: MappingState, grid) -> MappingState:
 
 
 def update_mapping_3d(mapping: MappingState, grid, u, v, w, cfldt, dt,
-                      from_identity=False, sharded=None) -> MappingState:
+                      from_identity=False, sharded=None,
+                      window=None) -> MappingState:
     """Backward (DMC substepped) then forward (RK3) march of both maps.
     `cfldt` is the float32 host substep. With a ``sharded_interp.Sampling``
     whose mesh divides nk (with the halo inside a slab) the marches run
     z-sharded (``update_mapping_3d_sharded``), as the JAX package routes
-    them."""
+    them. `window`: the bf16 mode's faces (``advect.window_faces``)."""
     if sharded is not None and sharded.divides(grid.nk):
         return sharded_interp.update_mapping_3d_sharded(
             mapping, grid, u, v, w, cfldt, dt, sharded.mesh, sharded.halo,
             from_identity=from_identity, counts=sharded.clamped)
     bx, by, bz = advect.update_backward_map_3d(
         grid, u, v, w, (mapping.bwd[0], mapping.bwd[1], mapping.bwd[2]),
-        cfldt, dt, from_identity=from_identity)
+        cfldt, dt, from_identity=from_identity, window=window)
     fx, fy, fz = advect.update_forward_map_3d(
         grid, u, v, w, (mapping.fwd[0], mapping.fwd[1], mapping.fwd[2]),
-        cfldt, dt, from_identity=from_identity)
+        cfldt, dt, from_identity=from_identity, window=window)
     return dataclasses.replace(mapping, bwd=torch.stack([bx, by, bz]),
                                fwd=torch.stack([fx, fy, fz]))
 
@@ -177,16 +185,19 @@ def volume_prefilter_3d(f):
 
 
 def _sample_fields_at(grid, kind, fields, positions, dual=False,
-                      sharded=None):
+                      sharded=None, bf16=False):
     """Sample N same-shape fields of `kind` (a list, or stacked (N, ...))
     at shared world positions: one ``trilerp_sample`` launch for all N
     (dual = the 9-point volume blend evaluated in the kernel). With a
     ``sharded_interp.Sampling``, 3-D positions of the fields' own shape
     whose z extent the mesh divides take one slab-mode launch a slab
     (``sample3_multi_sharded``), as the JAX package routes them; the
-    z-staggered kind (nk + 1 planes) is sampled whole."""
+    z-staggered kind (nk + 1 planes) is sampled whole. `bf16` samples the
+    fields rounded to bfloat16 (the bf16 mode)."""
     mx, my, mz = positions
     src = fields if torch.is_tensor(fields) else torch.stack(fields)
+    if bf16:
+        src = src.to(interp_fast.BF16)
     if (sharded is not None and mx.dim() == 3
             and tuple(src.shape[1:]) == tuple(mx.shape)
             and sharded.divides(mx.shape[2])):
@@ -199,6 +210,13 @@ def _sample_fields_at(grid, kind, fields, positions, dual=False,
         src, mx.contiguous(), my.contiguous(), mz.contiguous(), grid.h,
         (grid.off_of(kind),) * src.shape[0], dual=dual)
     return [out[i] for i in range(src.shape[0])]
+
+
+def _check_bf16(name, mode, bf16):
+    if bf16 and mode == "vol9":
+        raise NotImplementedError(
+            f"{name}: interp_bf16 with the vol9 volume form is not ported "
+            "(vol9_fixup has no bf16 mode)")
 
 
 def _vol9_sample(grid, kind, fields, map_stats, maps, clamp_lo, clamp_hi,
@@ -225,13 +243,15 @@ def _vol9_sample(grid, kind, fields, map_stats, maps, clamp_lo, clamp_hi,
 # ---------------------------------------------------------------------------
 
 
-def advect_with_map_3d(grid, kind, field_cur, field_init, bwd):
+def advect_with_map_3d(grid, kind, field_cur, field_init, bwd, bf16=False):
     """Pull field_init back through the backward map (advect_kernel);
-    outside the band 2+dim < idx < n-3 the current field is kept."""
+    outside the band 2+dim < idx < n-3 the current field is kept. `bf16`
+    (here and in the other exact-form ops): the field is sampled rounded
+    to bfloat16."""
 
     def ev(px, py, pz):
         m = _map_sample_3d(grid, bwd, px, py, pz, 1.0, 1.0)
-        return _sample_fields_at(grid, kind, [field_init], m)[0]
+        return _sample_fields_at(grid, kind, [field_init], m, bf16=bf16)[0]
 
     out = interp_fast.volume_eval_3d(grid, kind, ev, field_cur.device)
     band, _ = _bands(grid.dim_of(kind), field_cur.shape, field_cur.device)
@@ -239,14 +259,14 @@ def advect_with_map_3d(grid, kind, field_cur, field_init, bwd):
 
 
 def double_advect_3d(grid, kind, field, field_prev, bwd, bwd_prev,
-                     blend_coeff):
+                     blend_coeff, bf16=False):
     """Two-level pull-back through bwd_prev o bwd, blended with `field`
     (doubleAdvect_kernel): field <- blend*field + (1-blend)*prev_value."""
 
     def ev(px, py, pz):
         m = _map_sample_3d(grid, bwd, px, py, pz, 1.0, 1.0)
         o = _map_sample_3d(grid, bwd_prev, *m, 1.0, 1.0)
-        return _sample_fields_at(grid, kind, [field_prev], o)[0]
+        return _sample_fields_at(grid, kind, [field_prev], o, bf16=bf16)[0]
 
     prev_value = interp_fast.volume_eval_3d(grid, kind, ev, field.device)
     b, one_minus_b = _blend_weights(blend_coeff)
@@ -254,21 +274,23 @@ def double_advect_3d(grid, kind, field, field_prev, bwd, bwd_prev,
     return torch.where(band, field * b + one_minus_b * prev_value, field)
 
 
-def accumulate_3d(grid, kind, dfield_init, field_change, fwd, coeff=1.0):
+def accumulate_3d(grid, kind, dfield_init, field_change, fwd, coeff=1.0,
+                  bf16=False):
     """Push a change through the forward map into the init buffer
     (cumulate_kernel): dfield_init += volume<coeff * change(fwd(x))> on
     the band 1+dim < idx < n-2."""
 
     def ev(px, py, pz):
         m = _map_sample_3d(grid, fwd, px, py, pz, 0.0, 0.0)
-        return coeff * _sample_fields_at(grid, kind, [field_change], m)[0]
+        return coeff * _sample_fields_at(grid, kind, [field_change], m,
+                                         bf16=bf16)[0]
 
     delta = interp_fast.volume_eval_3d(grid, kind, ev, dfield_init.device)
     _, band = _bands(grid.dim_of(kind), dfield_init.shape, dfield_init.device)
     return torch.where(band, dfield_init + delta, dfield_init)
 
 
-def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd):
+def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd, bf16=False):
     """BFECC error compensation (gpu_compensate_velocity/field):
     err = volume<field_adv(fwd(x))> - field_init, out = field_adv -
     0.5*volume<err(bwd(x))>, then the 27-point clamp around field_adv."""
@@ -277,14 +299,14 @@ def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd):
 
     def ev_fwd(px, py, pz):
         m = _map_sample_3d(grid, fwd, px, py, pz, 0.0, 0.0)
-        return _sample_fields_at(grid, kind, [field_adv], m)[0]
+        return _sample_fields_at(grid, kind, [field_adv], m, bf16=bf16)[0]
 
     err = interp_fast.volume_eval_3d(grid, kind, ev_fwd, dev) - field_init
     err = torch.where(band, err, 0.0)
 
     def ev_bwd(px, py, pz):
         m = _map_sample_3d(grid, bwd, px, py, pz, 0.0, 0.0)
-        return _sample_fields_at(grid, kind, [err], m)[0]
+        return _sample_fields_at(grid, kind, [err], m, bf16=bf16)[0]
 
     correction = interp_fast.volume_eval_3d(grid, kind, ev_bwd, dev)
     out = torch.where(band, field_adv - 0.5 * correction, field_adv)
@@ -298,7 +320,7 @@ def compensate_3d(grid, kind, field_adv, field_init, fwd, bwd):
 
 def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
                      bwd, bwd_prev, fwd, blend_coeff, mode="dual",
-                     map_stats=None, sharded=None):
+                     map_stats=None, sharded=None, bf16=False):
     """Advect + BFECC compensation + two-level blend over N fields of one
     lattice kind in the volume form `mode` (one of VOLUME_MODES).
     ``blend_coeff=None`` marks the blend as 1: the level-2 pull-back
@@ -314,9 +336,12 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
     "prefilter" one ``volume_prefilter`` call of the stage's sources and
     a plain trilinear launch. "exact" delegates to the single-field ops.
     `sharded` (a ``sharded_interp.Sampling``) routes the lattice samples
-    of "dual" and "prefilter" through the slab kernels."""
+    of "dual" and "prefilter" through the slab kernels. `bf16`: every
+    sampled field is rounded to bfloat16 first (the bf16 mode; not with
+    "vol9")."""
     if mode not in VOLUME_MODES:
         raise ValueError(f"bimocq_advect_3d: unknown volume mode {mode!r}")
+    _check_bf16("bimocq_advect_3d", mode, bf16)
     if blend_coeff is not None and (bwd_prev is None
                                     or any(f is None for f in fields_prev)):
         raise ValueError("bimocq_advect_3d: a blend needs bwd_prev and the "
@@ -324,11 +349,11 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
     if mode == "exact":
         outs = []
         for cur, init, prev in zip(fields_cur, fields_init, fields_prev):
-            x = advect_with_map_3d(grid, kind, cur, init, bwd)
-            x = compensate_3d(grid, kind, x, init, fwd, bwd)
+            x = advect_with_map_3d(grid, kind, cur, init, bwd, bf16)
+            x = compensate_3d(grid, kind, x, init, fwd, bwd, bf16)
             if blend_coeff is not None:
                 x = double_advect_3d(grid, kind, x, prev, bwd, bwd_prev,
-                                     blend_coeff)
+                                     blend_coeff, bf16)
             outs.append(x)
         return outs
 
@@ -342,7 +367,7 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
         src = fields if dual else interp_fast.volume_prefilter(
             torch.stack(fields))
         return _sample_fields_at(grid, kind, src, positions, dual=dual,
-                                 sharded=sharded)
+                                 sharded=sharded, bf16=bf16)
 
     def stage(fields, maps, clamp, band_lo):
         """Sample `fields` through `maps` at the kind's lattice; band_lo is
@@ -466,7 +491,8 @@ def bimocq_advect_multi_3d(grid, kinds, fields_cur, fields_init, fields_prev,
 
 
 def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
-                        mode="dual", fwd_stats=None, sharded=None):
+                        mode="dual", fwd_stats=None, sharded=None,
+                        bf16=False):
     """Push coeff-weighted changes through the forward map into their
     bases: `groups` is a list of (base, [(change, coeff), ...]).
 
@@ -479,12 +505,16 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
     sample the prefiltered sums with plain trilinear there (one launch
     for all groups), through the slab kernels with `sharded`. "exact"
     applies ``accumulate_3d`` change by change and ignores `identity`, as
-    the JAX package's exact path does."""
+    the JAX package's exact path does. `bf16`: the sampled sums (the
+    changes in "exact") are rounded to bfloat16 first; the identity
+    accumulate samples nothing."""
+    _check_bf16("accumulate_multi_3d", mode, bf16)
     if mode == "exact":
         outs = []
         for base, pairs in groups:
             for change, coeff in pairs:
-                base = accumulate_3d(grid, kind, base, change, fwd, coeff)
+                base = accumulate_3d(grid, kind, base, change, fwd, coeff,
+                                     bf16)
             outs.append(base)
         return outs
     _, band = _bands(grid.dim_of(kind), groups[0][0].shape,
@@ -510,7 +540,7 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
         p3 = map_at_lattice_3d(grid, fwd, kind, 0.0, 0.0)
         deltas = _sample_fields_at(
             grid, kind, interp_fast.volume_prefilter(torch.stack(combined)),
-            p3, sharded=sharded)
+            p3, sharded=sharded, bf16=bf16)
     return [torch.where(band, base + delta, base)
             for (base, _), delta in zip(groups, deltas)]
 

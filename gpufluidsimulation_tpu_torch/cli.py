@@ -134,8 +134,14 @@ def _run_3d(args) -> int:
     res = args.res
     make_scene = scenes3d.SCENES_3D.get(args.example,
                                         scenes3d.make_vortex_collision)
+    extra = {}
+    if args.interp_bf16:
+        from gpufluidsimulation_tpu_torch.config import EngineMode
+
+        extra["engine_mode"] = EngineMode(interp_bf16=True)
     solver, state = make_scene(scheme=scheme, ni=res, nj=2 * res,
-                               nk=2 * res, dt=args.dt, device=device)
+                               nk=2 * res, dt=args.dt, device=device,
+                               **extra)
     out_dir = os.path.join(args.out,
                            f"{args.scheme}-{scheme.display_name()}-Gpu")
     os.makedirs(out_dir, exist_ok=True)
@@ -228,6 +234,10 @@ def main(argv=None) -> int:
     p3.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch versions)")
+    p3.add_argument("--interp-bf16", action="store_true",
+                    help="round the field values the samplers read to "
+                         "bfloat16 (EngineMode.interp_bf16; the JAX CLI's "
+                         "GFS_INTERP_BF16=1)")
     p3.set_defaults(fn=_run_3d)
 
     args = p.parse_args(argv)

@@ -47,7 +47,18 @@ class EngineMode:
     sets it). A mesh must live on the solver's device: its home is that
     device and every slab has its device type (the solver raises
     otherwise). Under a mesh the volume forms keep their precedence, but
-    vol9 raises: its fixup launch is not sharded."""
+    vol9 raises: its fixup launch is not sharded.
+
+    ``interp_bf16``: True rounds every field value that the JAX package's
+    window samplers read to bfloat16 (its bf16 field windows), and the
+    samplers widen it back to float32 at the load: the MAC faces that the
+    traces, the map marches' substeps after an identity peel and
+    MacCormack's midpoint read (rounded once a step), and the fields that
+    the pull-backs, accumulates and semi-Lagrangian and MacCormack samples
+    read. Maps, positions and everything else stay float32, the identity
+    peels' first stage included, as in JAX. None or False: float32. The
+    vol9 form, a sharded mesh and the 2D solver raise with it
+    (``bf16``)."""
 
     spectral_poisson: bool | None = None
     volume_exact: bool | None = None
@@ -55,6 +66,7 @@ class EngineMode:
     volume_vol9: bool | None = None
     rbgs: bool | None = None
     sharded_sampling: tuple | None = None
+    interp_bf16: bool | None = None
 
     @property
     def sharded(self):
@@ -75,6 +87,24 @@ class EngineMode:
                 "exact composition, sampled whole on the home device) or "
                 "leave vol9 off for the dual form.")
         return "vol9" if self.volume_vol9 else "dual"
+
+    @property
+    def bf16(self) -> bool:
+        """True in the bf16 mode (``interp_bf16``); raises where the port
+        lacks it: the vol9 form and a sharded mesh."""
+        if not self.interp_bf16:
+            return False
+        if self.sharded is not None:
+            raise NotImplementedError(
+                "interp_bf16=True under a sharded mesh: the bf16 mode of "
+                "the slab kernels, which the sharded step runs, is not "
+                "ported")
+        if self.volume_mode == "vol9":
+            raise NotImplementedError(
+                "interp_bf16=True with the vol9 volume form: vol9_fixup, "
+                "which reads bf16 fields in the JAX package, has no bf16 "
+                "mode in the port")
+        return True
 
 
 def resolve_device(device=None) -> torch.device:

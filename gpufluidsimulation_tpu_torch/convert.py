@@ -163,8 +163,6 @@ def _boundary(b, trans=None) -> Boundary3D:
 # outside it; the port computes the exact flat transfer, with no slot cap).
 _MODE_IGNORED = ("interp_interpret", "pallas_diffuse", "interp_rr",
                  "particle_dense")
-# ... and the one value of each other field that the port implements
-_MODE_REQUIRED = {"interp_bf16": False}
 
 
 def _sharded_sampling(ss):
@@ -196,9 +194,11 @@ def _engine_mode(m, sharded=True):
     (``interp_adaptive=False``, which leaves the JAX package the prefilter
     form) to ``volume_dual=False``, carries ``sharded_sampling`` across
     as its mesh's size (``_sharded_sampling``; with ``sharded=False``,
-    for the 2D solver, which has no sharded stage, it is dropped), accepts
-    fields that do not change the result, and raises for a value the port
-    cannot honour: bf16 windows."""
+    for the 2D solver, which has no sharded stage, it is dropped), carries
+    ``interp_bf16`` across where the JAX package honours it (its window
+    samplers run: ``fast_interp`` not False, or under a mesh; with
+    ``fast_interp=False`` the exact engine rounds nothing and the port's
+    mode gets None), and accepts fields that do not change the result."""
     if m is None or isinstance(m, config.EngineMode):
         return m
     d = dict(m) if isinstance(m, dict) else dict(vars(m))
@@ -219,19 +219,18 @@ def _engine_mode(m, sharded=True):
         dual = False
     if exact:      # the volume form is exact whatever these say
         dual = vol9 = None
+    bf16 = d.pop("interp_bf16", None)
+    if fast is False and not ss:
+        bf16 = None
     ss = _sharded_sampling(ss) if sharded else None
-    for key, allowed in _MODE_REQUIRED.items():
-        val = d.pop(key, None)
-        if val is not None and val != allowed:
-            raise NotImplementedError(
-                f"engine_mode.{key}={val!r} is not ported")
     if d:
         raise ValueError(f"unknown engine_mode fields {sorted(d)}")
     return config.EngineMode(spectral_poisson=spectral,
                              volume_exact=True if exact else None,
                              volume_dual=dual, volume_vol9=vol9,
                              rbgs=False if rbgs is False else None,
-                             sharded_sampling=ss)
+                             sharded_sampling=ss,
+                             interp_bf16=None if bf16 is None else bool(bf16))
 
 
 def _per_item(callables, n):

@@ -8,12 +8,26 @@
 // product and sum below rounds as its PyTorch counterpart does.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace gfs {
 
 constexpr int kThreads = 256;
+
+// A field value as float32. The samplers that read field values (not maps
+// or positions) are templated on their storage: float32, loaded as it is,
+// or bfloat16 (the bf16 field windows of EngineMode.interp_bf16), whose 16
+// bits are the high half of a float32 and are widened exactly at the load.
+// All arithmetic after the load is float32, so a bfloat16 launch computes
+// the float32 kernel's function of the rounded values, bit for bit.
+__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float load(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -159,20 +173,21 @@ struct Corners {
   float v[4][2];
 };
 
-__device__ __forceinline__ Corners corners_zpair(const float* __restrict__ f,
+template <typename T>
+__device__ __forceinline__ Corners corners_zpair(const T* __restrict__ f,
                                                  const Coord& x,
                                                  const Coord& y,
                                                  const ZPair& z, unsigned sx,
                                                  unsigned sy) {
   const unsigned xa = x.lo * sx, xb = x.hi * sx;
   const unsigned ya = y.lo * sy, yb = y.hi * sy;
-  const float* row[4] = {f + (xa + ya + z.lo), f + (xb + ya + z.lo),
-                         f + (xa + yb + z.lo), f + (xb + yb + z.lo)};
+  const T* row[4] = {f + (xa + ya + z.lo), f + (xb + ya + z.lo),
+                     f + (xa + yb + z.lo), f + (xb + yb + z.lo)};
   Corners c;
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
-    c.v[q][0] = __ldg(row[q]);
-    c.v[q][1] = __ldg(row[q] + 1);
+    c.v[q][0] = load(row[q]);
+    c.v[q][1] = load(row[q] + 1);
   }
   return c;
 }
@@ -196,7 +211,8 @@ __device__ __forceinline__ float blend_zpair(const Corners& c, const Coord& x,
 // The clamped trilerp of trilerp_clamped from per-axis coordinates, (sx,
 // sy) the field's x and y strides. Samples of several fields of one shape
 // at one position share x, y, z and the offsets.
-__device__ __forceinline__ float trilerp_zpair(const float* __restrict__ f,
+template <typename T>
+__device__ __forceinline__ float trilerp_zpair(const T* __restrict__ f,
                                                const Coord& x, const Coord& y,
                                                const ZPair& z, unsigned sx,
                                                unsigned sy) {
@@ -268,7 +284,8 @@ __device__ __forceinline__ float lerp(float f, float lo, float hi) {
 // nodes) are computed once: the x lerps for all 9 (y, z) node pairs of each
 // x coordinate, the y lerps per (x, y) coordinate pair, then one z lerp per
 // sample.
-__device__ __forceinline__ void stencil9(const float* __restrict__ f,
+template <typename T>
+__device__ __forceinline__ void stencil9(const T* __restrict__ f,
                                          const Axis& ax, const Axis& ay,
                                          const Axis& az, float (&s)[9]) {
   // one z node at a time: its 9 (x, y) nodes, the x lerps of each y node
@@ -283,7 +300,7 @@ __device__ __forceinline__ void stencil9(const float* __restrict__ f,
     for (int a = 0; a < 3; ++a)
 #pragma unroll
       for (int b = 0; b < 3; ++b)
-        v[a][b] = __ldg(f + (ax.node[a] + ay.node[b] + az.node[c]));
+        v[a][b] = load(f + (ax.node[a] + ay.node[b] + az.node[c]));
     float X[3][3];
 #pragma unroll
     for (int q = 0; q < 3; ++q)

@@ -66,6 +66,13 @@
 // 64x2x1 within 2% (32x1x1 +18%), the z corners clamped one by one +6%,
 // a velocity tile staged in shared memory 4x slower. 1.6x and 1.5x the
 // bytes bound (PERF.md, rows 9 and 9').
+//
+// The bf16 mode (EngineMode.interp_bf16, the JAX package's bf16 MAC pack),
+// in the map mode only: u, v, w are bfloat16, each value widened to float32
+// at its load (gfs::load), all arithmetic after it float32. The lattice
+// mode stands for the JAX identity peel, which reads the unrounded faces,
+// so it has no bf16 mode. Compiled apart (T = __nv_bfloat16), whole grid
+// only; the float32 instantiations stay as they were.
 #include "common.cuh"
 
 namespace {
@@ -111,11 +118,10 @@ struct ZSlab {
 // kLattice: the substep of the identity map (no map read); else of `maps`.
 // kSlab: the output, the faces and the map are slabs of the grid (zs); nk
 // is the faces' cell extent.
-template <bool kLattice, bool kSlab>
+template <bool kLattice, bool kSlab, typename T>
 __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
-    dmc_substep_kernel(const float* __restrict__ u,
-                       const float* __restrict__ v,
-                       const float* __restrict__ w, int ni, int nj, int nk,
+    dmc_substep_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                       const T* __restrict__ w, int ni, int nj, int nk,
                        const float* __restrict__ maps, Params P, ZSlab zs,
                        int* __restrict__ overflow, float* __restrict__ out) {
   const int nko = kSlab ? zs.nko : nk;
@@ -156,9 +162,9 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
   const unsigned sw = (unsigned)nj * (nk + 1);
   const unsigned ov = iv + (unsigned)i * nk;
   const unsigned ow = iv + (unsigned)i * nj + j;
-  const float vu = 0.5f * (__ldg(u + iv) + __ldg(u + (iv + su)));
-  const float vv = 0.5f * (__ldg(v + ov) + __ldg(v + (ov + nk)));
-  const float vw = 0.5f * (__ldg(w + ow) + __ldg(w + (ow + 1)));
+  const float vu = 0.5f * (gfs::load(u + iv) + gfs::load(u + (iv + su)));
+  const float vv = 0.5f * (gfs::load(v + ov) + gfs::load(v + (ov + nk)));
+  const float vw = 0.5f * (gfs::load(w + ow) + gfs::load(w + (ow + 1)));
   const bool sx = vu > 0.0f, sy = vv > 0.0f, sz = vw > 0.0f;
   // the upwind cell (i -+ 1, j -+ 1, k -+ 1), inside the lattice
   const unsigned tu = sx ? iv - su : iv + su;
@@ -169,9 +175,9 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
   const unsigned step_z = sz ? 0u - 1u : 1u;
   const unsigned tu1 = tu + step_y + step_z, tv1 = tv0 + step_y + step_z,
                  tw1 = tw0 + step_yw + step_z;
-  const float tu_ = 0.5f * (__ldg(u + tu1) + __ldg(u + (tu1 + su)));
-  const float tv_ = 0.5f * (__ldg(v + tv1) + __ldg(v + (tv1 + nk)));
-  const float tw_ = 0.5f * (__ldg(w + tw1) + __ldg(w + (tw1 + 1)));
+  const float tu_ = 0.5f * (gfs::load(u + tu1) + gfs::load(u + (tu1 + su)));
+  const float tv_ = 0.5f * (gfs::load(v + tv1) + gfs::load(v + (tv1 + nk)));
+  const float tw_ = 0.5f * (gfs::load(w + tw1) + gfs::load(w + (tw1 + 1)));
   const float disp_x = dmc_disp(vu, tu_, sx, P.sh, P.thresh);
   const float disp_y = dmc_disp(vv, tv_, sy, P.sh, P.thresh);
   const float disp_z = dmc_disp(vw, tw_, sz, P.sh, P.thresh);
@@ -196,12 +202,12 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
   }
 }
 
-template <bool kLattice, bool kSlab>
-void launch(dim3 grid, dim3 block, cudaStream_t stream, const float* u,
-            const float* v, const float* w, int ni, int nj, int nk,
+template <bool kLattice, bool kSlab, typename T>
+void launch(dim3 grid, dim3 block, cudaStream_t stream, const T* u,
+            const T* v, const T* w, int ni, int nj, int nk,
             const float* maps, const Params& P, ZSlab zs, int* overflow,
             float* out) {
-  dmc_substep_kernel<kLattice, kSlab><<<grid, block, 0, stream>>>(
+  dmc_substep_kernel<kLattice, kSlab, T><<<grid, block, 0, stream>>>(
       u, v, w, ni, nj, nk, maps, P, zs, overflow, out);
 }
 
@@ -214,9 +220,11 @@ void launch(dim3 grid, dim3 block, cudaStream_t stream, const float* u,
 // nk - 1, the map (3, ni, nj, nkm) and the output (3, ni, nj, nko), and a
 // cell whose map sample used a plane outside the map adds 1 to *overflow
 // where that is not NULL (the lattice mode reads no map and counts
-// nothing).
+// nothing). bf16 != 0: u, v, w are bfloat16 (the map mode on the whole grid
+// only), else float32.
 extern "C" int gfs_dmc_substep(const void* u, const void* v, const void* w,
-                               int ni, int nj, int nk, const void* maps,
+                               int bf16, int ni, int nj, int nk,
+                               const void* maps,
                                float sh, float thresh, float h,
                                const float* hi_host, const int* slab_host,
                                void* overflow, void* out, void* stream) {
@@ -231,7 +239,8 @@ extern "C" int gfs_dmc_substep(const void* u, const void* v, const void* w,
       3LL * ni * nj * nk >= limit || (long long)(ni + 1) * nj * nk >= limit ||
       (long long)ni * (nj + 1) * nk >= limit ||
       (long long)ni * nj * (nk + 1) >= limit ||
-      3LL * ni * nj * zs.nko >= limit || 3LL * ni * nj * zs.nkm >= limit)
+      3LL * ni * nj * zs.nko >= limit || 3LL * ni * nj * zs.nkm >= limit ||
+      (bf16 && (slab || maps == nullptr)))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kBlockK, kBlockJ, kBlockI);
   const dim3 grid((zs.nko + kBlockK - 1) / kBlockK,
@@ -243,7 +252,11 @@ extern "C" int gfs_dmc_substep(const void* u, const void* v, const void* w,
              *fw = (const float*)w, *m = (const float*)maps;
   auto* o = (float*)out;
   auto* ov = (int*)overflow;
-  if (maps == nullptr && slab)
+  if (bf16)
+    launch<false, false>(grid, block, st, (const __nv_bfloat16*)u,
+                         (const __nv_bfloat16*)v, (const __nv_bfloat16*)w, ni,
+                         nj, nk, m, P, zs, ov, o);
+  else if (maps == nullptr && slab)
     launch<true, true>(grid, block, st, fu, fv, fw, ni, nj, nk, m, P, zs, ov,
                        o);
   else if (maps == nullptr)

@@ -49,6 +49,12 @@
 // sample mode 0.306 ms where the min/max and trilerp_sample's C=2 sample
 // took 0.457 in two launches. Per-channel floors cost 6%, eight corner
 // loads 4%, a 32 x 2 x 2 block 1% (PERF.md, row 3).
+//
+// The bf16 mode (EngineMode.interp_bf16, the JAX package's bf16 field
+// windows), both modes: the fields are bfloat16, each value widened to
+// float32 at its load (gfs::load), so the min, the max and the sample are
+// the float32 kernel's of the rounded fields, bit for bit. Compiled apart
+// (T = __nv_bfloat16); the float32 instantiations stay as they were.
 #include "common.cuh"
 
 namespace {
@@ -66,9 +72,9 @@ using gfs::Corners;
 using gfs::ZPair;
 using gfs::zpair;
 
-template <bool kShared, bool kSample>
+template <bool kShared, bool kSample, typename T>
 __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
-    minmax_sample_kernel(const float* __restrict__ fields, int C, int nx,
+    minmax_sample_kernel(const T* __restrict__ fields, int C, int nx,
                          int ny, int nz, const float* __restrict__ px,
                          const float* __restrict__ py,
                          const float* __restrict__ pz, int d0, int d1, int d2,
@@ -110,11 +116,29 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
   }
 }
 
+// One launch of the instantiation for T, shared offsets and the sample.
+template <typename T>
+void launch(const T* fields, bool shared, bool sample, dim3 grid, dim3 block,
+            cudaStream_t stream, int C, int nx, int ny, int nz,
+            const float* px, const float* py, const float* pz, int d0, int d1,
+            int d2, float h, const Offsets& offs, float* mn, float* mx,
+            float* sample_out) {
+  const auto kernel =
+      shared ? (sample ? minmax_sample_kernel<true, true, T>
+                       : minmax_sample_kernel<true, false, T>)
+             : (sample ? minmax_sample_kernel<false, true, T>
+                       : minmax_sample_kernel<false, false, T>);
+  kernel<<<grid, block, 0, stream>>>(fields, C, nx, ny, nz, px, py, pz, d0,
+                                     d1, d2, h, offs, mn, mx, sample_out);
+}
+
 }  // namespace
 
-// sample: null, or where the C trilinear samples go (the sample mode).
-extern "C" int gfs_minmax_sample(const void* fields, int C, int nx, int ny,
-                                 int nz, const void* px, const void* py,
+// bf16 != 0: the fields are bfloat16, else float32. sample: null, or where
+// the C trilinear samples go (the sample mode).
+extern "C" int gfs_minmax_sample(const void* fields, int bf16, int C,
+                                 int nx, int ny, int nz, const void* px,
+                                 const void* py,
                                  const void* pz, long long n_out, int d1,
                                  int d2, float h, const float* offs_host,
                                  void* mn, void* mx, void* sample,
@@ -136,14 +160,15 @@ extern "C" int gfs_minmax_sample(const void* fields, int C, int nx, int ny,
       offs.o[c][a] = offs_host[3 * c + a];
       shared = shared && offs.o[c][a] == offs.o[0][a];
     }
-  const auto kernel =
-      shared ? (sample ? minmax_sample_kernel<true, true>
-                       : minmax_sample_kernel<true, false>)
-             : (sample ? minmax_sample_kernel<false, true>
-                       : minmax_sample_kernel<false, false>);
-  kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)fields, C, nx, ny, nz, (const float*)px,
-      (const float*)py, (const float*)pz, (int)d0, d1, d2, h, offs,
-      (float*)mn, (float*)mx, (float*)sample);
+  if (bf16)
+    launch((const __nv_bfloat16*)fields, shared, sample != nullptr, grid,
+           block, (cudaStream_t)stream, C, nx, ny, nz, (const float*)px,
+           (const float*)py, (const float*)pz, (int)d0, d1, d2, h, offs,
+           (float*)mn, (float*)mx, (float*)sample);
+  else
+    launch((const float*)fields, shared, sample != nullptr, grid, block,
+           (cudaStream_t)stream, C, nx, ny, nz, (const float*)px,
+           (const float*)py, (const float*)pz, (int)d0, d1, d2, h, offs,
+           (float*)mn, (float*)mx, (float*)sample);
   return (int)cudaGetLastError();
 }

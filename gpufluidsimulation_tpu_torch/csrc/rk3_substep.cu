@@ -63,6 +63,17 @@
 // 4x slower. The kernel stays bound by instruction throughput (~700 SASS
 // instructions a node, 72 gathers among them): 2.5-3.5x its bytes bound
 // (PERF.md, rows 5-6).
+//
+// The bf16 mode (EngineMode.interp_bf16, the JAX package's bf16 MAC pack):
+// the faces every velocity sample reads are bfloat16, widened to float32 at
+// each load (gfs::load), all arithmetic after it float32. In the lattice
+// mode the first stage is the exception: the JAX identity peel takes its
+// stage-1 velocity k1 from the unrounded faces (a float32 block input), so
+// stage 1 reads the float32 faces (F1) and stages 2 and 3 the bfloat16
+// ones. Compiled apart (T = __nv_bfloat16), whole grid only; the float32
+// instantiations stay as they were.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -82,11 +93,12 @@ using gfs::ZPair;
 using gfs::zpair;
 
 // The MAC faces of an (ni, nj, nk) grid: u (ni+1, nj, nk), v (ni, nj+1,
-// nk), w (ni, nj, nk+1), k-fastest.
+// nk), w (ni, nj, nk+1), k-fastest, stored as T.
+template <typename T>
 struct Faces {
-  const float* __restrict__ u;
-  const float* __restrict__ v;
-  const float* __restrict__ w;
+  const T* __restrict__ u;
+  const T* __restrict__ v;
+  const T* __restrict__ w;
   int ni, nj, nk;
 };
 
@@ -98,8 +110,9 @@ struct ZSlab {
 
 // The MAC velocity at cell-lattice grid coordinates g = p/h: each
 // staggered component's own lattice sits half a cell lower on its axis.
-template <bool kSlab>
-__device__ __forceinline__ void mac_velocity(const Faces& F, const ZSlab& zs,
+template <bool kSlab, typename T>
+__device__ __forceinline__ void mac_velocity(const Faces<T>& F,
+                                             const ZSlab& zs,
                                              float gx, float gy, float gz,
                                              float* ou, float* ov, float* ow,
                                              bool& out) {
@@ -126,11 +139,13 @@ struct Params {
 };
 
 // kLattice: start at the node's own lattice coordinate; else read it.
-// kSlab: the faces are a slab of the grid (zs).
-template <bool kLattice, bool kSlab>
+// kSlab: the faces are a slab of the grid (zs). T: the faces' storage; with
+// bfloat16 faces the lattice mode's stage 1 reads the float32 faces F1.
+template <bool kLattice, bool kSlab, typename T>
 __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI,
                                   kSlab ? kMinBlocksSlab : kMinBlocks)
-    rk3_substep_kernel(Faces F, const float* __restrict__ px,
+    rk3_substep_kernel(Faces<T> F, Faces<float> F1,
+                       const float* __restrict__ px,
                        const float* __restrict__ py,
                        const float* __restrict__ pz, int d0, int d1, int d2,
                        Params P, ZSlab zs, int* __restrict__ overflow,
@@ -153,7 +168,10 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI,
   }
   float u1, v1, w1, u2, v2, w2, u3, v3, w3;
   bool outside = false;
-  mac_velocity<kSlab>(F, zs, gx, gy, gz, &u1, &v1, &w1, outside);
+  if (kLattice && !std::is_same<T, float>::value)
+    mac_velocity<kSlab>(F1, zs, gx, gy, gz, &u1, &v1, &w1, outside);
+  else
+    mac_velocity<kSlab>(F, zs, gx, gy, gz, &u1, &v1, &w1, outside);
   mac_velocity<kSlab>(F, zs, gx + P.a * u1, gy + P.a * v1, gz + P.a * w1,
                       &u2, &v2, &w2, outside);
   mac_velocity<kSlab>(F, zs, gx + P.b * u2, gy + P.b * v2, gz + P.b * w2,
@@ -168,19 +186,22 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI,
     atomicAdd(overflow, 1);
 }
 
-template <bool kLattice, bool kSlab>
-void launch(dim3 grid, dim3 block, cudaStream_t stream, const Faces& F,
-            const float* p, int d0, int d1, int d2, const Params& P,
-            ZSlab zs, int* overflow, float* o, long long n) {
+template <bool kLattice, bool kSlab, typename T>
+void launch(dim3 grid, dim3 block, cudaStream_t stream, const Faces<T>& F,
+            const Faces<float>& F1, const float* p, int d0, int d1, int d2,
+            const Params& P, ZSlab zs, int* overflow, float* o, long long n) {
   const float* px = kLattice ? nullptr : p;
   const float* py = kLattice ? nullptr : p + n;
   const float* pz = kLattice ? nullptr : p + 2 * n;
-  rk3_substep_kernel<kLattice, kSlab><<<grid, block, 0, stream>>>(
-      F, px, py, pz, d0, d1, d2, P, zs, overflow, o, o + n, o + 2 * n);
+  rk3_substep_kernel<kLattice, kSlab, T><<<grid, block, 0, stream>>>(
+      F, F1, px, py, pz, d0, d1, d2, P, zs, overflow, o, o + n, o + 2 * n);
 }
 
 }  // namespace
 
+// bf16 != 0: u, v, w are bfloat16 (whole grid only), and the lattice
+// mode's stage 1 reads the float32 faces u1, v1, w1; else u, v, w are
+// float32 and u1, v1, w1 are not read.
 // pos == NULL selects the lattice mode: the (d0, d1, d2) block of the
 // kind whose face vector is dim_host, (ni, nj, nk) on the whole grid.
 // nkg == 0 selects the whole-grid kernel; else the faces hold the cell
@@ -188,7 +209,9 @@ void launch(dim3 grid, dim3 block, cudaStream_t stream, const Faces& F,
 // block starts at global plane oz0, and each node that used a z node
 // outside the faces' planes adds 1 to *overflow where that is not NULL.
 extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
-                               int ni, int nj, int nk, const void* pos,
+                               int bf16, const void* u1, const void* v1,
+                               const void* w1, int ni, int nj, int nk,
+                               const void* pos,
                                int d0, int d1, int d2, const float* dim_host,
                                float a, float b, float c1, float c2,
                                float c3, const float* clamp_host, int nkg,
@@ -201,14 +224,17 @@ extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
       n >= limit || (long long)(ni + 1) * nj * nk >= limit ||
       (long long)ni * (nj + 1) * nk >= limit ||
       (long long)ni * nj * (nk + 1) >= limit ||
-      (slab && nkg < 2))
+      (slab && nkg < 2) || (bf16 && slab) ||
+      (bf16 && pos == nullptr && (!u1 || !v1 || !w1)))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kBlockK, kBlockJ, kBlockI);
   const dim3 grid((d2 + kBlockK - 1) / kBlockK, (d1 + kBlockJ - 1) / kBlockJ,
                   (d0 + kBlockI - 1) / kBlockI);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
-  const Faces F{(const float*)u, (const float*)v, (const float*)w, ni, nj,
-                nk};
+  const Faces<float> F{(const float*)u, (const float*)v, (const float*)w,
+                       ni, nj, nk};
+  const Faces<float> F1{(const float*)u1, (const float*)v1, (const float*)w1,
+                        ni, nj, nk};
   const Params P{a, b, c1, c2, c3,
                  clamp_host[0], clamp_host[1], clamp_host[2], clamp_host[3],
                  clamp_host[4], clamp_host[5],
@@ -218,13 +244,27 @@ extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
   const float* p = (const float*)pos;
   float* o = (float*)out;
   int* ov = (int*)overflow;
-  if (pos == nullptr && slab)
-    launch<true, true>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
-  else if (pos == nullptr)
-    launch<true, false>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
-  else if (slab)
-    launch<false, true>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
-  else
-    launch<false, false>(grid, block, st, F, p, d0, d1, d2, P, zs, ov, o, n);
+  if (bf16) {
+    const Faces<__nv_bfloat16> B{(const __nv_bfloat16*)u,
+                                 (const __nv_bfloat16*)v,
+                                 (const __nv_bfloat16*)w, ni, nj, nk};
+    if (pos == nullptr)
+      launch<true, false>(grid, block, st, B, F1, p, d0, d1, d2, P, zs, ov,
+                          o, n);
+    else
+      launch<false, false>(grid, block, st, B, F1, p, d0, d1, d2, P, zs, ov,
+                           o, n);
+  } else if (pos == nullptr && slab) {
+    launch<true, true>(grid, block, st, F, F, p, d0, d1, d2, P, zs, ov, o, n);
+  } else if (pos == nullptr) {
+    launch<true, false>(grid, block, st, F, F, p, d0, d1, d2, P, zs, ov, o,
+                        n);
+  } else if (slab) {
+    launch<false, true>(grid, block, st, F, F, p, d0, d1, d2, P, zs, ov, o,
+                        n);
+  } else {
+    launch<false, false>(grid, block, st, F, F, p, d0, d1, d2, P, zs, ov, o,
+                         n);
+  }
   return (int)cudaGetLastError();
 }

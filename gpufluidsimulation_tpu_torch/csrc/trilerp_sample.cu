@@ -1,4 +1,5 @@
-// trilerp_sample: C stacked float32 fields sampled at one position lattice.
+// trilerp_sample: C stacked float32 (or bfloat16) fields sampled at one
+// position lattice.
 //
 // Replaces the TPU kernels gpufluidsimulation_tpu/ops/interp_fast.py
 // _kernel (single field, pallas_call in _sample3_padded) and _kernel_multi
@@ -60,6 +61,13 @@
 // instruction throughput, ~700 instructions an output channel, not by
 // device memory: 0.40 ms at C=1 against its 0.10 ms bound (PERF.md,
 // row 1).
+//
+// The bf16 mode (EngineMode.interp_bf16, the JAX package's bf16 field
+// windows): the fields are bfloat16, each value widened to float32 at its
+// load (gfs::load) and every operation after it the float32 kernel's, so
+// the result is the float32 kernel's on the rounded fields, bit for bit.
+// It is compiled apart (T = __nv_bfloat16) on the whole grid only; the
+// float32 instantiations stay as they were.
 #include "common.cuh"
 
 namespace {
@@ -96,7 +104,8 @@ __device__ __forceinline__ Axis make_axis(float g, int n, int stride) {
 
 // The dual volume sample of one channel from its 27-node neighbourhood:
 // the 8 corners summed in _VOL3 order, blended with the centre.
-__device__ __forceinline__ float dual_sample(const float* __restrict__ f,
+template <typename T>
+__device__ __forceinline__ float dual_sample(const T* __restrict__ f,
                                              const Axis& ax, const Axis& ay,
                                              const Axis& az) {
   float s[9];
@@ -114,8 +123,8 @@ struct ZSlab {
 
 // The clamped trilerp of gfs::trilerp_clamped with int32 offsets; on a slab
 // (kSlab) the z corners are taken to it and `out` set where one left it.
-template <bool kSlab>
-__device__ __forceinline__ float trilerp32(const float* __restrict__ f,
+template <bool kSlab, typename T>
+__device__ __forceinline__ float trilerp32(const T* __restrict__ f,
                                            int nx, int ny, int nz, float gx,
                                            float gy, float gz, ZSlab zs,
                                            bool& out) {
@@ -134,14 +143,14 @@ __device__ __forceinline__ float trilerp32(const float* __restrict__ f,
     ka = clamp_node(k0f, nz);
     kb = clamp_node(k0f + 1.0f, nz);
   }
-  const float v000 = __ldg(f + (ia + ja + ka));
-  const float v100 = __ldg(f + (ib + ja + ka));
-  const float v010 = __ldg(f + (ia + jb + ka));
-  const float v110 = __ldg(f + (ib + jb + ka));
-  const float v001 = __ldg(f + (ia + ja + kb));
-  const float v101 = __ldg(f + (ib + ja + kb));
-  const float v011 = __ldg(f + (ia + jb + kb));
-  const float v111 = __ldg(f + (ib + jb + kb));
+  const float v000 = gfs::load(f + (ia + ja + ka));
+  const float v100 = gfs::load(f + (ib + ja + ka));
+  const float v010 = gfs::load(f + (ia + jb + ka));
+  const float v110 = gfs::load(f + (ib + jb + ka));
+  const float v001 = gfs::load(f + (ia + ja + kb));
+  const float v101 = gfs::load(f + (ib + ja + kb));
+  const float v011 = gfs::load(f + (ia + jb + kb));
+  const float v111 = gfs::load(f + (ib + jb + kb));
   const float c00 = (1.0f - fx) * v000 + fx * v100;
   const float c10 = (1.0f - fx) * v010 + fx * v110;
   const float c01 = (1.0f - fx) * v001 + fx * v101;
@@ -151,9 +160,9 @@ __device__ __forceinline__ float trilerp32(const float* __restrict__ f,
   return (1.0f - fz) * c0 + fz * c1;
 }
 
-template <bool kDual, bool kSlab>
+template <bool kDual, bool kSlab, typename T>
 __global__ void trilerp_sample_kernel(
-    const float* __restrict__ fields, int C, int nx, int ny, int nz,
+    const T* __restrict__ fields, int C, int nx, int ny, int nz,
     const float* __restrict__ px, const float* __restrict__ py,
     const float* __restrict__ pz, int n_out, int d0, int d1, int d2,
     float h, Offsets offs, ZSlab zs, int* __restrict__ overflow,
@@ -171,7 +180,7 @@ __global__ void trilerp_sample_kernel(
   Axis ax, ay, az;
   bool outside = false;
   for (int c = 0; c < C; ++c) {
-    const float* f = fields + c * field_size;
+    const T* f = fields + c * field_size;
     const float gx = x - offset(offs, c, 0);
     const float gy = y - offset(offs, c, 1);
     const float gz = z - offset(offs, c, 2);
@@ -199,33 +208,35 @@ __global__ void trilerp_sample_kernel(
     atomicAdd(overflow, 1);
 }
 
-template <bool kDual, bool kSlab>
-void launch(dim3 grid, dim3 block, cudaStream_t stream, const float* fields,
+template <bool kDual, bool kSlab, typename T>
+void launch(dim3 grid, dim3 block, cudaStream_t stream, const T* fields,
             int C, int nx, int ny, int nz, const float* px, const float* py,
             const float* pz, int n_out, int d0, int d1, int d2, float h,
             const Offsets& offs, ZSlab zs, int* overflow, float* out) {
-  trilerp_sample_kernel<kDual, kSlab><<<grid, block, 0, stream>>>(
+  trilerp_sample_kernel<kDual, kSlab, T><<<grid, block, 0, stream>>>(
       fields, C, nx, ny, nz, px, py, pz, n_out, d0, d1, d2, h, offs, zs,
       overflow, out);
 }
 
 }  // namespace
 
+// bf16 != 0: the fields are bfloat16 (whole grid only), else float32.
 // nzg == 0 selects the whole-grid kernel; else the field holds planes
 // z0 .. z0 + nz - 1 of a grid of nzg planes, and each output node that
 // used a z node outside them adds 1 to *overflow where that is not NULL.
-extern "C" int gfs_trilerp_sample(const void* fields, int C, int nx, int ny,
-                                  int nz, const void* px, const void* py,
-                                  const void* pz, long long n_out, int d1,
-                                  int d2, float h, const float* offs_host,
-                                  int dual, int nzg, int z0, void* overflow,
-                                  void* out, void* stream) {
+extern "C" int gfs_trilerp_sample(const void* fields, int bf16, int C,
+                                  int nx, int ny, int nz, const void* px,
+                                  const void* py, const void* pz,
+                                  long long n_out, int d1, int d2, float h,
+                                  const float* offs_host, int dual, int nzg,
+                                  int z0, void* overflow, void* out,
+                                  void* stream) {
   const long long limit = 1LL << 31;
   const bool slab = nzg != 0;
   if (C < 1 || C > kMaxC || n_out < 1 || d1 < 1 || d2 < 1 ||
       n_out % ((long long)d1 * d2) != 0 ||
       (long long)C * nx * ny * nz >= limit || (long long)C * n_out >= limit ||
-      (slab && nzg < 1))
+      (slab && nzg < 1) || (slab && bf16))
     return (int)cudaErrorInvalidValue;
   const long long d0 = n_out / ((long long)d1 * d2);
   const dim3 block(kBlockK, kBlockJ, kBlockI);
@@ -242,7 +253,15 @@ extern "C" int gfs_trilerp_sample(const void* fields, int C, int nx, int ny,
              *z = (const float*)pz;
   auto* o = (float*)out;
   auto* ov = (int*)overflow;
-  if (dual && slab)
+  if (bf16) {
+    const auto* fb = (const __nv_bfloat16*)fields;
+    if (dual)
+      launch<true, false>(grid, block, st, fb, C, nx, ny, nz, x, y, z,
+                          (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
+    else
+      launch<false, false>(grid, block, st, fb, C, nx, ny, nz, x, y, z,
+                           (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
+  } else if (dual && slab)
     launch<true, true>(grid, block, st, f, C, nx, ny, nz, x, y, z,
                        (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
   else if (dual)

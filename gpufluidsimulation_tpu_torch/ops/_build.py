@@ -162,14 +162,16 @@ def on_card(t, name: str) -> bool:
     raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def require(t, name: str, shape=None, ndim=None) -> None:
-    """Raise unless `t` is a contiguous float32 CUDA tensor of `shape`."""
+def require(t, name: str, shape=None, ndim=None, dtype=None) -> None:
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` (float32
+    when None) and `shape`."""
     import torch
 
+    dtype = torch.float32 if dtype is None else dtype
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):

@@ -29,6 +29,17 @@ corners at a two-stage midpoint backtrace (``minmax_sample``) with the
 trilinear sample there as fallback, as the JAX package's exact path
 computes it.
 
+The bf16 mode (``EngineMode.interp_bf16``): the 3D functions take a
+`window`, the bfloat16 rounding of the faces (``window_faces``, made once
+a step by the solver, as the JAX package packs its bf16 MAC triplet once
+a frame). Every velocity sample of the traces, the DMC substeps and
+MacCormack's second midpoint stage reads it, and the fields that the
+semi-Lagrangian, MacCormack clamp and fallback samples read are rounded
+to bfloat16 too; the identity peels (the first stage of
+``rk3_substep_lattice``, ``dmc_substep_lattice``) and MacCormack's first
+midpoint stage read the float32 faces, as in JAX. `window=None` is the
+float32 mode.
+
 The 2D half (``trace_rk3_2d`` .. ``update_forward_map_2d``) follows the
 JAX package's 2D functions operation for operation on world positions.
 A whole CFL-substepped trace is one launch of the ``bilerp_sample``
@@ -85,6 +96,21 @@ def _sh(sub, h, sign=1.0):
 # ---------------------------------------------------------------------------
 
 
+def window_faces(u, v, w, bf16):
+    """The faces the window samplers read: None (the float32 faces
+    themselves) or, in the bf16 mode, their bfloat16 rounding."""
+    if not bf16:
+        return None
+    return tuple(f.to(interp_fast.BF16) for f in (u, v, w))
+
+
+def _values(fields, window):
+    """Stacked field values as the samplers read them: rounded to bfloat16
+    in the bf16 mode, as the JAX package pads its value windows."""
+    stacked = torch.stack(list(fields))
+    return stacked if window is None else stacked.to(interp_fast.BF16)
+
+
 def _clamp_grid(grid, lo=1.0, hi=1.0):
     return (float(lo), float(grid.ni - hi), float(lo), float(grid.nj - hi),
             float(lo), float(grid.nk - hi))
@@ -119,38 +145,42 @@ def _cropped_positions(grid, kind, device=None):
 
 
 def trace_3d(grid, u, v, w, cfldt, dt, px, py, pz, from_identity=False,
-             kind="c"):
+             kind="c", window=None):
     """CFL-substepped RK3 trace of world positions by `dt` (signed).
     ``from_identity=True`` asserts the positions are `kind`'s node
     lattice cropped to the cell block (px, py, pz are then not read); the
     march starts from the exact lattice coordinates (the JAX package's
     identity peel, whose stage 1 is the staggered average there): its
     first substep is ``rk3_substep_lattice``, which on the card forms
-    them in the kernel, so the lattice is never materialized there."""
+    them in the kernel, so the lattice is never materialized there.
+    `window`: the bf16 mode's faces (``window_faces``), which every stage
+    samples but the identity peel's first."""
     h = grid.h
     sign = 1.0 if dt >= 0 else -1.0
     clamp = _clamp_grid(grid)
     subs = substeps(cfldt, abs(dt))
+    faces = (u, v, w) if window is None else window
     if from_identity and subs:
         pos = interp_fast.rk3_substep_lattice(
-            u, v, w, grid.dim_of(kind), _sh(subs[0], h, sign), clamp)
+            *faces, grid.dim_of(kind), _sh(subs[0], h, sign), clamp,
+            stage1=None if window is None else (u, v, w))
         subs = subs[1:]
     elif from_identity:
         pos, _ = _cropped_positions(grid, kind, u.device)
     else:
         pos = torch.stack([interp.div_scalar(p, h) for p in (px, py, pz)])
     for sub in subs:
-        pos = interp_fast.rk3_substep(u, v, w, pos, _sh(sub, h, sign), clamp)
+        pos = interp_fast.rk3_substep(*faces, pos, _sh(sub, h, sign), clamp)
     return pos[0] * h, pos[1] * h, pos[2] * h
 
 
 def update_forward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
-                          from_identity=False):
+                          from_identity=False, window=None):
     """Forward-map march X <- trace(X, +dt); outside the interior band
     (interior_mask('c', 2, 3)) the old map is kept."""
     mx, my, mz = map_xyz
     ox, oy, oz = trace_3d(grid, u, v, w, cfldt, dt, mx, my, mz,
-                          from_identity=from_identity)
+                          from_identity=from_identity, window=window)
     mask = grid.interior_mask("c", lo=2, hi=3, device=mx.device)
     return (torch.where(mask, ox, mx), torch.where(mask, oy, my),
             torch.where(mask, oz, mz))
@@ -169,17 +199,19 @@ def _pad_plane(out_crop, src, ax):
     return torch.cat([out_crop, src.narrow(ax, src.shape[ax] - 1, 1)], dim=ax)
 
 
-def semilag_multi_3d(grid, kind, fields, u, v, w, cfldt, dt):
+def semilag_multi_3d(grid, kind, fields, u, v, w, cfldt, dt, window=None):
     """Trace each node of `kind`'s lattice by `dt` (signed; pass -dt to
     backtrace) once and sample every field of `fields` there (plain
     trilinear). Nodes outside the update band
-    interior_mask(kind, 2, 3, hi_add_dim=True) keep their values."""
+    interior_mask(kind, 2, 3, hi_add_dim=True) keep their values.
+    `window`: the bf16 mode's faces (the fields are then sampled
+    rounded)."""
     ax = _staggered_axis(grid, kind)
     bx, by, bz = trace_3d(grid, u, v, w, cfldt, dt, None, None, None,
-                          from_identity=True, kind=kind)
+                          from_identity=True, kind=kind, window=window)
     off = grid.off_of(kind)
     out = interp_fast.trilerp_sample(
-        torch.stack(list(fields)), bx.contiguous(), by.contiguous(),
+        _values(fields, window), bx.contiguous(), by.contiguous(),
         bz.contiguous(), grid.h, (off,) * len(fields), dual=False)
     mask = grid.interior_mask(kind, lo=2, hi=3, device=u.device,
                               hi_add_dim=True)
@@ -187,14 +219,15 @@ def semilag_multi_3d(grid, kind, fields, u, v, w, cfldt, dt):
             for i, f in enumerate(fields)]
 
 
-def semilag_3d(grid, kind, field_src, u, v, w, cfldt, dt):
-    return semilag_multi_3d(grid, kind, [field_src], u, v, w, cfldt, dt)[0]
+def semilag_3d(grid, kind, field_src, u, v, w, cfldt, dt, window=None):
+    return semilag_multi_3d(grid, kind, [field_src], u, v, w, cfldt, dt,
+                            window)[0]
 
 
-def semilag_kinds_3d(grid, groups, u, v, w, cfldt, dt):
+def semilag_kinds_3d(grid, groups, u, v, w, cfldt, dt, window=None):
     """semilag_multi_3d over several (kind, [fields]) groups; one field
     list per group."""
-    return [semilag_multi_3d(grid, k, fs, u, v, w, cfldt, dt)
+    return [semilag_multi_3d(grid, k, fs, u, v, w, cfldt, dt, window)
             for k, fs in groups]
 
 
@@ -203,17 +236,18 @@ def semilag_kinds_3d(grid, groups, u, v, w, cfldt, dt):
 # ---------------------------------------------------------------------------
 
 
-def _trace_clamp(grid, kind, srcs, fwds, backs, packed, dt):
+def _trace_clamp(grid, kind, srcs, fwds, backs, packed, dt, window=None):
     """The trace clamp of maccormack_multi_3d: the MacCormack corrections
     fwd + 0.5*(src - back) of every field, replaced by the trilinear
     sample of src at the two-stage midpoint backtrace wherever they leave
     the min/max of src's 8 corners there. `packed` is the MAC triplet
     (interp.mac_pack_3d); both midpoint stages sample it with one C=3
     ``trilerp_sample`` launch each (stage 1 at the lattice itself, the
-    staggered average there). One ``minmax_sample`` launch in its sample
-    mode gives the min/max and the fallback sample from the same 8
-    corners. The positions are not clamped into the domain: near walls
-    the corner indices clamp instead."""
+    staggered average there), the second, in the bf16 mode, the pack of
+    `window` instead. One ``minmax_sample`` launch in its sample mode
+    gives the min/max and the fallback sample from the same 8 corners (of
+    the rounded fields in the bf16 mode). The positions are not clamped
+    into the domain: near walls the corner indices clamp instead."""
     h = grid.h
     pos, ax = _cropped_positions(grid, kind, srcs[0].device)
     px, py, pz = pos * h      # the kind's world lattice, as node_coords
@@ -221,10 +255,11 @@ def _trace_clamp(grid, kind, srcs, fwds, backs, packed, dt):
     mx_ = px - 0.5 * dt * vel1[0]
     my_ = py - 0.5 * dt * vel1[1]
     mz_ = pz - 0.5 * dt * vel1[2]
-    vel2 = interp_fast.trilerp_sample(packed, mx_, my_, mz_, h,
-                                      interp.MAC_OFFS)
+    vel2 = interp_fast.trilerp_sample(
+        packed if window is None else interp.mac_pack_3d(*window), mx_,
+        my_, mz_, h, interp.MAC_OFFS)
     bx, by, bz = px - dt * vel2[0], py - dt * vel2[1], pz - dt * vel2[2]
-    stacked = torch.stack(list(srcs))
+    stacked = _values(srcs, window)
     offs = (grid.off_of(kind),) * len(srcs)
     mn, mx, fallback = interp_fast.minmax_sample(stacked, bx, by, bz, h, offs,
                                                  sample=True)
@@ -237,23 +272,26 @@ def _trace_clamp(grid, kind, srcs, fwds, backs, packed, dt):
     return outs
 
 
-def maccormack_kinds_3d(grid, groups, u, v, w, cfldt, dt):
+def maccormack_kinds_3d(grid, groups, u, v, w, cfldt, dt, window=None):
     """MacCormack over several (kind, [fields], clamp) groups: a backward
     semilag stage (trace by -dt), a forward one (+dt) of its result, the
     correction fwd + 0.5*(src - back) and a clamp. `clamp` is 'trace'
     (the scalar clamp: corner min/max at the midpoint backtrace with the
     semilag fallback, clamp_extrema_kernel) or 'neighborhood' (the
-    velocity clamp: the 27-point clamp, clampExtrema_kernel)."""
+    velocity clamp: the 27-point clamp of the unrounded fields,
+    clampExtrema_kernel). `window`: the bf16 mode's faces."""
     packed = None
     outs = []
     for kind, fields, clamp in groups:
-        fwds = semilag_multi_3d(grid, kind, fields, u, v, w, cfldt, -dt)
-        backs = semilag_multi_3d(grid, kind, fwds, u, v, w, cfldt, dt)
+        fwds = semilag_multi_3d(grid, kind, fields, u, v, w, cfldt, -dt,
+                                window)
+        backs = semilag_multi_3d(grid, kind, fwds, u, v, w, cfldt, dt,
+                                 window)
         if clamp == "trace":
             if packed is None:
                 packed = interp.mac_pack_3d(u, v, w)
             outs.append(_trace_clamp(grid, kind, fields, fwds, backs, packed,
-                                     dt))
+                                     dt, window))
         elif clamp == "neighborhood":
             outs.append([clamp_extrema_neighborhood(s, f + 0.5 * (s - b))
                          for s, f, b in zip(fields, fwds, backs)])
@@ -262,15 +300,16 @@ def maccormack_kinds_3d(grid, groups, u, v, w, cfldt, dt):
     return outs
 
 
-def maccormack_multi_3d(grid, kind, srcs, u, v, w, cfldt, dt):
+def maccormack_multi_3d(grid, kind, srcs, u, v, w, cfldt, dt, window=None):
     """MacCormack of several same-kind fields sharing every trace, with
     the trace clamp."""
     return maccormack_kinds_3d(grid, [(kind, srcs, "trace")], u, v, w,
-                               cfldt, dt)[0]
+                               cfldt, dt, window)[0]
 
 
-def maccormack_3d(grid, kind, src, u, v, w, cfldt, dt):
-    return maccormack_multi_3d(grid, kind, [src], u, v, w, cfldt, dt)[0]
+def maccormack_3d(grid, kind, src, u, v, w, cfldt, dt, window=None):
+    return maccormack_multi_3d(grid, kind, [src], u, v, w, cfldt, dt,
+                               window)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -306,12 +345,14 @@ def dmc_backward_step_3d(grid, u, v, w, map_x, map_y, map_z, substep):
 
 
 def update_backward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
-                           from_identity=False):
+                           from_identity=False, window=None):
     """CFL-substepped backward-map update, one ``dmc_substep`` launch a
     substep. ``from_identity=True`` asserts the incoming map is the
     identity: substep 1 is then the lattice mode
     ``dmc_substep_lattice``, which on the card forms the identity in the
-    kernel, so no map, index or displacement tensor is built for it."""
+    kernel, so no map, index or displacement tensor is built for it. It
+    reads the float32 faces; the later substeps read `window` in the bf16
+    mode (the JAX package's bf16 MAC pack)."""
     subs = substeps(cfldt, dt)
     h = grid.h
     thresh = interp_fast.dmc_threshold(h)
@@ -321,8 +362,9 @@ def update_backward_map_3d(grid, u, v, w, map_xyz, cfldt, dt,
         subs = subs[1:]
     else:
         maps = torch.stack(list(map_xyz))
+    faces = (u, v, w) if window is None else window
     for sub in subs:
-        maps = interp_fast.dmc_substep(u, v, w, maps, float(_sh(sub, h)),
+        maps = interp_fast.dmc_substep(*faces, maps, float(_sh(sub, h)),
                                        thresh)
     return maps[0], maps[1], maps[2]
 

@@ -14,7 +14,8 @@ takes the plain PyTorch version for a CPU tensor and launches its CUDA
 kernel (``csrc/``) for a CUDA tensor; anything else raises. A wrapper adds
 one to its ``launches`` count for every kernel launch and nowhere else;
 the wrappers with a slab mode also add one to their ``slab_launches`` for
-each launch in that mode.
+each launch in that mode, and those with a bf16 mode to their
+``bf16_launches`` for each launch in it.
 
 The slab modes of ``trilerp_sample``, ``rk3_substep`` and ``dmc_substep``
 (and their lattice modes) serve the sharded path
@@ -29,6 +30,16 @@ The kernels gather exactly with clamped indices, as
 windows, reach contract and coverage renormalization have no counterpart
 here, so nothing is ever truncated and the port's ``interp_overflow`` is
 always 0.
+
+The bf16 mode (``EngineMode.interp_bf16``, the JAX package's bf16 field
+windows): ``trilerp_sample``, ``minmax_sample``, ``rk3_substep`` (and its
+lattice mode) and ``dmc_substep`` take their field values (the sampled
+fields, the MAC faces) as bfloat16 and widen each to float32 at its load;
+positions, maps, bounds and outputs stay float32. Their plain versions
+are the float32 ones on the widened values, so a bfloat16 launch equals
+its plain version bit for bit. The slab modes, ``dmc_substep_lattice``
+(the identity peel reads the unrounded faces, as in JAX) and the other
+kernels take float32 only.
 
 The vol9 fixup keeps the JAX package's adaptive decision: per block of
 16 x 16 x (256 or 128) cell-lattice nodes and per channel, the dual
@@ -114,12 +125,42 @@ def _count(overflow, outside):
         overflow += outside.sum(dtype=torch.int32)
 
 
+# the storage of field values in the bf16 mode (EngineMode.interp_bf16)
+BF16 = torch.bfloat16
+
+
+def is_bf16(name, *values):
+    """True when the field values `values` are all bfloat16 (the bf16
+    mode), False when none is (the kernels then take float32); a mix
+    raises."""
+    dtypes = {t.dtype for t in values}
+    if BF16 not in dtypes:
+        return False
+    if dtypes == {BF16}:
+        return True
+    raise ValueError(f"{name}: field values must be all bfloat16 or none, "
+                     f"got {sorted(str(d) for d in dtypes)}")
+
+
+def widen(t):
+    """The float32 values of a float32 or bfloat16 tensor (exact)."""
+    return t if t.dtype == torch.float32 else t.float()
+
+
+def _no_slab_bf16(name, bf16, slab):
+    if bf16 and slab is not None:
+        raise NotImplementedError(
+            f"{name}: the bf16 mode (interp_bf16) of the slab mode, which "
+            "the sharded step runs, is not ported")
+
+
 def _check_sample_args(name, fields, offs, px, py, pz):
     C = fields.shape[0]
     if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
         raise ValueError(f"{name}: need 1..{MAX_CHANNELS} channels with one "
                          f"offset each, got {C} and {len(offs)}")
-    _build.require(fields, "fields", ndim=4)
+    _build.require(fields, "fields", ndim=4, dtype=fields.dtype
+                   if fields.dtype == BF16 else None)
     for pname, p in (("px", px), ("py", py), ("pz", pz)):
         _build.require(p, pname, shape=px.shape)
         if p.device != fields.device:
@@ -138,6 +179,7 @@ def trilerp_sample_plain(fields, px, py, pz, h, offs, dual=False,
     """Plain version: (C, *px.shape) samples of the C stacked fields; on a
     slab (``Slab``: the fields hold planes slab.src .. of a grid of slab.nz)
     each output node that used a plane outside it adds 1 to `overflow`."""
+    fields = widen(fields)
     x, y, z = (interp.div_scalar(p, h) for p in (px, py, pz))
     outside = []
 
@@ -174,8 +216,11 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False, slab=None,
     With a ``Slab`` the fields hold planes slab.src .. slab.src + nz - 1
     of a grid of slab.nz planes (the slab mode); positions stay global,
     and each output node that used a plane outside the slab adds 1 to the
-    one-element int32 tensor `overflow`, when one is given.
+    one-element int32 tensor `overflow`, when one is given. The fields
+    may be bfloat16 (the bf16 mode, not on a slab).
     """
+    bf16 = is_bf16("trilerp_sample", fields)
+    _no_slab_bf16("trilerp_sample", bf16, slab)
     if not _build.on_card(fields, "trilerp_sample"):
         return trilerp_sample_plain(fields, px, py, pz, h, offs, dual, slab,
                                     overflow)
@@ -188,12 +233,13 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False, slab=None,
     offs_host = (_F * (3 * C))(*[float(o) for off in offs for o in off])
     fn = _build.function(
         "trilerp_sample", "gfs_trilerp_sample",
-        [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _F,
+        [_P, _I, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _F,
          ctypes.POINTER(_F), _I, _I, _I, _P, _P, _P])
     # the kernel tiles the output lattice by its last two extents
     d1, d2 = ((1,) * 2 + tuple(px.shape))[-2:]
     with _build.current(fields):
-        err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
+        err = fn(_build.ptr(fields), int(bf16), C, *fields.shape[1:],
+                 _build.ptr(px),
                  _build.ptr(py), _build.ptr(pz), px.numel(), d1, d2,
                  float(h), offs_host, int(bool(dual)),
                  0 if slab is None else slab.nz,
@@ -202,11 +248,13 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False, slab=None,
     _build.check(err, "trilerp_sample")
     trilerp_sample.launches += 1
     trilerp_sample.slab_launches += slab is not None
+    trilerp_sample.bf16_launches += bf16
     return out
 
 
 trilerp_sample.launches = 0
 trilerp_sample.slab_launches = 0
+trilerp_sample.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -218,6 +266,7 @@ def minmax_sample_plain(fields, px, py, pz, h, offs, sample=False):
     """Plain version: (mn, mx), each (C, *px.shape), the min and max of
     the 8 clamped trilinear corner values of each field; with `sample`
     also ``trilerp_sample_plain``'s samples at the same positions."""
+    fields = widen(fields)
     x, y, z = (interp.div_scalar(p, h) for p in (px, py, pz))
     mns, mxs = [], []
     for c in range(fields.shape[0]):
@@ -253,7 +302,9 @@ def minmax_sample(fields, px, py, pz, h, offs, sample=False):
     so positions outside the domain are taken as they come. Returns
     (mn, mx), each (C, *px.shape); with `sample` also the clamped
     trilinear samples there, which ``trilerp_sample`` (dual=False) gives,
-    blended from the same corners in the same launch."""
+    blended from the same corners in the same launch. The fields may be
+    bfloat16 (the bf16 mode)."""
+    bf16 = is_bf16("minmax_sample", fields)
     if not _build.on_card(fields, "minmax_sample"):
         return minmax_sample_plain(fields, px, py, pz, h, offs, sample)
     C = _check_sample_args("minmax_sample", fields, offs, px, py, pz)
@@ -263,22 +314,25 @@ def minmax_sample(fields, px, py, pz, h, offs, sample=False):
     offs_host = (_F * (3 * C))(*[float(o) for off in offs for o in off])
     fn = _build.function(
         "minmax_sample", "gfs_minmax_sample",
-        [_P, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _F,
+        [_P, _I, _I, _I, _I, _I, _P, _P, _P, _LL, _I, _I, _F,
          ctypes.POINTER(_F), _P, _P, _P, _P])
     # the kernel tiles the output lattice by its last two extents
     d1, d2 = ((1,) * 2 + tuple(px.shape))[-2:]
     with _build.current(fields):
-        err = fn(_build.ptr(fields), C, *fields.shape[1:], _build.ptr(px),
+        err = fn(_build.ptr(fields), int(bf16), C, *fields.shape[1:],
+                 _build.ptr(px),
                  _build.ptr(py), _build.ptr(pz), px.numel(), d1, d2,
                  float(h), offs_host, _build.ptr(out[0]), _build.ptr(out[1]),
                  _build.ptr(out[2]) if sample else None,
                  _build.stream(fields))
     _build.check(err, "minmax_sample")
     minmax_sample.launches += 1
+    minmax_sample.bf16_launches += bf16
     return tuple(out)
 
 
 minmax_sample.launches = 0
+minmax_sample.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -319,16 +373,21 @@ def _mac_velocity_slab(u, v, w, gx, gy, gz, slab, outside):
     return vals
 
 
-def rk3_substep_plain(u, v, w, pos, sh, clamp, slab=None, overflow=None):
+def rk3_substep_plain(u, v, w, pos, sh, clamp, slab=None, overflow=None,
+                      stage1=None):
     """Plain version: one RK3 substep of stacked grid-coordinate positions
     (3, ...) through the MAC velocity, clamped to clamp = (lo_x, hi_x,
     lo_y, hi_y, lo_z, hi_z) in grid units. On a slab (``Slab``: the faces
     hold the cell planes slab.src .. of a grid of slab.nz cells) each
-    position that used a plane outside it adds 1 to `overflow`."""
+    position that used a plane outside it adds 1 to `overflow`. The faces
+    are widened to float32; `stage1`, when given, is the triplet the first
+    stage samples instead (``rk3_substep_lattice``)."""
     a, b, c1, c2, c3 = rk3_coefficients(sh)
+    u, v, w = widen(u), widen(v), widen(w)
     gx, gy, gz = pos[0], pos[1], pos[2]
     outside = []
-    u1, v1, w1 = _mac_velocity_slab(u, v, w, gx, gy, gz, slab, outside)
+    u1, v1, w1 = _mac_velocity_slab(*(stage1 or (u, v, w)), gx, gy, gz, slab,
+                                    outside)
     u2, v2, w2 = _mac_velocity_slab(u, v, w, gx + a * u1, gy + a * v1,
                                     gz + a * w1, slab, outside)
     u3, v3, w3 = _mac_velocity_slab(u, v, w, gx + b * u2, gy + b * v2,
@@ -356,12 +415,14 @@ def lattice_positions(shape, dim, device=None, z0=0):
                         ar[2][None, None, :].expand(shape)])
 
 
-def _faces(name, u, v, w):
-    """The (ni, nj, nk) cell block of a MAC triplet on the card, checked."""
+def _faces(name, u, v, w, bf16=False):
+    """The (ni, nj, nk) cell block of a MAC triplet on the card, checked
+    (bfloat16 faces with `bf16`, else float32)."""
     ni, nj, nk = v.shape[0], u.shape[1], u.shape[2]
-    _build.require(u, "u", shape=(ni + 1, nj, nk))
-    _build.require(v, "v", shape=(ni, nj + 1, nk))
-    _build.require(w, "w", shape=(ni, nj, nk + 1))
+    dt = BF16 if bf16 else None
+    _build.require(u, "u", shape=(ni + 1, nj, nk), dtype=dt)
+    _build.require(v, "v", shape=(ni, nj + 1, nk), dtype=dt)
+    _build.require(w, "w", shape=(ni, nj, nk + 1), dtype=dt)
     if not u.device == v.device == w.device:
         raise ValueError(f"{name}: tensors on different devices")
     return ni, nj, nk
@@ -379,11 +440,12 @@ def rk3_check_sizes(cell_shape, n):
 
 
 def _rk3_launch(u, v, w, pos, shape, dim, sh, clamp, out, slab=None,
-                overflow=None):
+                overflow=None, stage1=None):
     """One rk3_substep kernel launch: from `pos` (3, *shape), or from the
     lattice of face vector `dim` where `pos` is None; on a ``Slab`` the
     faces hold the cell planes slab.src .. and the lattice starts at
-    global plane slab.out."""
+    global plane slab.out. bfloat16 faces launch the bf16 mode, whose
+    lattice mode samples stage 1 from the float32 triplet `stage1`."""
     ni, nj, nk = v.shape[0], u.shape[1], u.shape[2]
     n = out[0].numel()
     rk3_check_sizes((ni, nj, nk), n)
@@ -392,13 +454,16 @@ def _rk3_launch(u, v, w, pos, shape, dim, sh, clamp, out, slab=None,
     d1, d2 = ((1,) * 2 + tuple(shape))[-2:]
     fn = _build.function(
         "rk3_substep", "gfs_rk3_substep",
-        [_P, _P, _P, _I, _I, _I, _P, _I, _I, _I, ctypes.POINTER(_F),
-         _F, _F, _F, _F, _F, ctypes.POINTER(_F), _I, _I, _I, _P, _P, _P])
+        [_P, _P, _P, _I, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
+         ctypes.POINTER(_F), _F, _F, _F, _F, _F, ctypes.POINTER(_F), _I, _I,
+         _I, _P, _P, _P])
     dim_host = (_F * 3)(*[float(d) for d in dim])
     clamp_host = (_F * 6)(*[float(c) for c in clamp])
     zs = (0, 0, 0) if slab is None else (slab.nz, slab.src, slab.out)
+    s1 = (None,) * 3 if stage1 is None else [_build.ptr(f) for f in stage1]
     with _build.current(out):
-        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), ni, nj, nk,
+        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w),
+                 int(u.dtype == BF16), *s1, ni, nj, nk,
                  None if pos is None else _build.ptr(pos), n // (d1 * d2),
                  d1, d2, dim_host, *rk3_coefficients(sh), clamp_host, *zs,
                  ov, _build.ptr(out), _build.stream(out))
@@ -420,12 +485,15 @@ def rk3_substep(u, v, w, pos, sh, clamp, slab=None, overflow=None):
     the MAC faces of an (ni, nj, nk) grid; with a ``Slab`` (the slab
     mode), the cell planes slab.src .. slab.src + nk - 1 of a grid of
     slab.nz cells, the positions staying global, and each position that
-    used a plane outside the faces adds 1 to `overflow`, when given."""
+    used a plane outside the faces adds 1 to `overflow`, when given. The
+    faces may be bfloat16 (the bf16 mode, not on a slab)."""
+    bf16 = is_bf16("rk3_substep", u, v, w)
+    _no_slab_bf16("rk3_substep", bf16, slab)
     if slab is not None:
         _check_velocity_slab("rk3_substep", slab, u.shape[2])
     if not _build.on_card(pos, "rk3_substep"):
         return rk3_substep_plain(u, v, w, pos, sh, clamp, slab, overflow)
-    _faces("rk3_substep", u, v, w)
+    _faces("rk3_substep", u, v, w, bf16)
     _build.require(pos, "pos")
     if pos.dim() < 2 or pos.shape[0] != 3:
         raise ValueError(f"rk3_substep: pos must be (3, ...), got "
@@ -437,22 +505,35 @@ def rk3_substep(u, v, w, pos, sh, clamp, slab=None, overflow=None):
                 slab, overflow)
     rk3_substep.launches += 1
     rk3_substep.slab_launches += slab is not None
+    rk3_substep.bf16_launches += bf16
     return out
 
 
 rk3_substep.launches = 0
 rk3_substep.slab_launches = 0
+rk3_substep.bf16_launches = 0
 
 
 def rk3_substep_lattice(u, v, w, kind_dim, sh, clamp, slab=None,
-                        overflow=None):
+                        overflow=None, stage1=None):
     """``rk3_substep`` from the lattice of the kind with face vector
     `kind_dim`, cropped to the (ni, nj, nk) cell block: node (i, j, k)
     starts at (i - 0.5*dim_x, j - 0.5*dim_y, k - 0.5*dim_z). On the card
     the kernel forms those coordinates itself and reads no positions.
     Returns (3, ni, nj, nk). With a ``Slab`` the faces are a slab as in
     ``rk3_substep`` and the block is the slab.out_nz planes from global
-    plane slab.out: (3, ni, nj, slab.out_nz)."""
+    plane slab.out: (3, ni, nj, slab.out_nz).
+
+    The bf16 mode (bfloat16 faces, no slab) needs `stage1`, the float32
+    faces: the JAX identity peel takes its stage-1 velocity from the
+    unrounded faces and only stages 2 and 3 from the bf16 pack."""
+    bf16 = is_bf16("rk3_substep_lattice", u, v, w)
+    _no_slab_bf16("rk3_substep_lattice", bf16, slab)
+    if bf16 != (stage1 is not None) or (
+            bf16 and is_bf16("rk3_substep_lattice", *stage1)):
+        raise ValueError("rk3_substep_lattice: bfloat16 faces need the "
+                         "float32 faces of stage 1 (stage1), float32 faces "
+                         "take none")
     ni, nj = v.shape[0], u.shape[1]
     if slab is None:
         shape, z0 = (ni, nj, u.shape[2]), 0
@@ -466,18 +547,25 @@ def rk3_substep_lattice(u, v, w, kind_dim, sh, clamp, slab=None,
     if not _build.on_card(u, "rk3_substep_lattice"):
         return rk3_substep_plain(
             u, v, w, lattice_positions(shape, kind_dim, u.device, z0), sh,
-            clamp, slab, overflow)
-    _faces("rk3_substep_lattice", u, v, w)
+            clamp, slab, overflow, stage1)
+    _faces("rk3_substep_lattice", u, v, w, bf16)
+    if bf16:
+        _faces("rk3_substep_lattice", *stage1)
+        if tuple(f.shape for f in stage1) != (u.shape, v.shape, w.shape):
+            raise ValueError("rk3_substep_lattice: stage1 faces of another "
+                             "grid")
     out = torch.empty((3,) + shape, dtype=torch.float32, device=u.device)
     _rk3_launch(u, v, w, None, shape, kind_dim, sh, clamp, out, slab,
-                overflow)
+                overflow, stage1)
     rk3_substep_lattice.launches += 1
     rk3_substep_lattice.slab_launches += slab is not None
+    rk3_substep_lattice.bf16_launches += bf16
     return out
 
 
 rk3_substep_lattice.launches = 0
 rk3_substep_lattice.slab_launches = 0
+rk3_substep_lattice.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -506,8 +594,9 @@ def _upwind_corner(f, sx, sy, sz):
 
 def dmc_displacements(u, v, w, sh, thresh):
     """Signed exponential DMC displacements (cells) at the cell lattice for
-    one substep (advect.dmc_displacements_3d, the kernel's arithmetic)."""
-    vel = interp.mac_velocity_at_c_3d(u, v, w)
+    one substep (advect.dmc_displacements_3d, the kernel's arithmetic), of
+    the faces widened to float32."""
+    vel = interp.mac_velocity_at_c_3d(widen(u), widen(v), widen(w))
     signs = [c > 0 for c in vel]
     outs = []
     for velc, s_ in zip(vel, signs):
@@ -628,13 +717,14 @@ def _dmc_launch(u, v, w, maps, sh, thresh, h, out, slab=None,
                 overflow=None):
     """One dmc_substep kernel launch: the substep of `maps`, or of the
     identity map of cell size `h` (the lattice mode) where `maps` is
-    None; on a ``Slab`` of the grid as ``dmc_substep`` says."""
+    None; on a ``Slab`` of the grid as ``dmc_substep`` says; bfloat16
+    faces launch the bf16 mode."""
     shape = (v.shape[0], u.shape[1], u.shape[2])
     dmc_check_sizes(shape)
     ov = _overflow_arg(slab, overflow, out.device)
     fn = _build.function(
         "dmc_substep", "gfs_dmc_substep",
-        [_P, _P, _P, _I, _I, _I, _P, _F, _F, _F, ctypes.POINTER(_F),
+        [_P, _P, _P, _I, _I, _I, _I, _P, _F, _F, _F, ctypes.POINTER(_F),
          ctypes.POINTER(_I), _P, _P, _P])
     # the lattice mode's clamp, (n - 1)*h rounded to float32 as
     # torch.clamp rounds its bound
@@ -646,7 +736,8 @@ def _dmc_launch(u, v, w, maps, sh, thresh, h, out, slab=None,
         zs = (_I * 6)(slab.nz, slab.out, slab.out_nz, slab.src, slab.map,
                       nkm)
     with _build.current(out):
-        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w), *shape,
+        err = fn(_build.ptr(u), _build.ptr(v), _build.ptr(w),
+                 int(u.dtype == BF16), *shape,
                  None if maps is None else _build.ptr(maps), float(sh),
                  float(thresh), float(h), hi, zs, ov, _build.ptr(out),
                  _build.stream(out))
@@ -665,12 +756,18 @@ def dmc_substep(u, v, w, maps, sh, thresh, slab=None, overflow=None):
     band, the lattice and the map coordinate are global; a map corner
     outside the map's planes is clamped to its edge, and each cell that
     used one adds 1 to `overflow`, when given. The faces must hold every
-    output plane and the planes beside them, the map every output plane."""
+    output plane and the planes beside them, the map every output plane.
+
+    The faces may be bfloat16 (the bf16 mode, not on a slab): the JAX
+    package's DMC substeps read its bf16 MAC pack; the map stays
+    float32."""
+    bf16 = is_bf16("dmc_substep", u, v, w)
+    _no_slab_bf16("dmc_substep", bf16, slab)
     if slab is not None:
         _dmc_slab_planes("dmc_substep", slab, u.shape[2], maps.shape[3])
     if not _build.on_card(maps, "dmc_substep"):
         return dmc_substep_plain(u, v, w, maps, sh, thresh, slab, overflow)
-    shape = _faces("dmc_substep", u, v, w)
+    shape = _faces("dmc_substep", u, v, w, bf16)
     if slab is None:
         _build.require(maps, "maps", shape=(3,) + shape)
         out = torch.empty_like(maps)
@@ -686,11 +783,13 @@ def dmc_substep(u, v, w, maps, sh, thresh, slab=None, overflow=None):
     _dmc_launch(u, v, w, maps, sh, thresh, 0.0, out, slab, overflow)
     dmc_substep.launches += 1
     dmc_substep.slab_launches += slab is not None
+    dmc_substep.bf16_launches += bf16
     return out
 
 
 dmc_substep.launches = 0
 dmc_substep.slab_launches = 0
+dmc_substep.bf16_launches = 0
 
 
 def dmc_substep_lattice(u, v, w, sh, thresh, h, slab=None):
@@ -699,7 +798,11 @@ def dmc_substep_lattice(u, v, w, sh, thresh, h, slab=None):
     forms each cell's position itself and reads no map. Returns (3, ni,
     nj, nk); with a ``Slab`` (the faces as in ``dmc_substep``) the
     slab.out_nz planes from global plane slab.out. It reads no map, so it
-    has nothing to count."""
+    has nothing to count. It stands for the JAX identity peel, which reads
+    the unrounded faces in the bf16 mode too: the faces are float32."""
+    if is_bf16("dmc_substep_lattice", u, v, w):
+        raise ValueError("dmc_substep_lattice: the identity peel reads the "
+                         "float32 faces, in the bf16 mode too")
     if slab is not None:
         _dmc_slab_planes("dmc_substep_lattice", slab, u.shape[2])
     if not _build.on_card(u, "dmc_substep_lattice"):

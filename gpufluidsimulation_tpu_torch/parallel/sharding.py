@@ -153,6 +153,10 @@ def sharded_step(solver, mesh: Mesh, halo_smoother: bool = True,
     from gpufluidsimulation_tpu_torch.solvers import smoke3d
 
     check_placement(mesh, solver.device, "sharded_step")
+    if getattr(solver.cfg.engine_mode, "interp_bf16", None):
+        raise NotImplementedError(
+            "interp_bf16=True in sharded_step: the bf16 mode of the slab "
+            "kernels is not ported")
     step_fn = smoke3d._STEPS[solver.cfg.scheme]
     ctx = solver.ctx
     if halo_smoother and ctx is not None and not solver.cfg.boundaries:

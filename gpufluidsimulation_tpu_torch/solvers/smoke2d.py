@@ -135,6 +135,11 @@ def check_supported(cfg: Smoke2DConfig) -> None:
                                                       config.EngineMode):
         raise NotImplementedError(f"engine_mode {cfg.engine_mode!r} (the "
                                   "port's config.EngineMode only)")
+    if cfg.engine_mode is not None and cfg.engine_mode.interp_bf16:
+        raise NotImplementedError(
+            "interp_bf16=True in the 2D solver: the bf16 mode of "
+            "bilerp_sample, whose samples the JAX package rounds, is not "
+            "ported")
 
 
 def init_state(cfg: Smoke2DConfig, device=None) -> Smoke2DState:

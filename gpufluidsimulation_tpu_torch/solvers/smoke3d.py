@@ -270,6 +270,7 @@ def check_supported(cfg: Smoke3DConfig) -> None:
         raise NotImplementedError(
             "the PyTorch port does not run this configuration; "
             "unsupported: " + "; ".join(problems))
+    _bf16(cfg)     # raises for the bf16 mode's unported paths
 
 
 def _aux_dead(cfg: Smoke3DConfig) -> bool:
@@ -278,6 +279,20 @@ def _aux_dead(cfg: Smoke3DConfig) -> bool:
     and the scalar advector's own maps are then None in the state."""
     return (cfg.scheme == Scheme.BIMOCQ and cfg.reinit_mode == "always"
             and cfg.blend_coeff == 1.0)
+
+
+def _bf16(cfg: Smoke3DConfig) -> bool:
+    """The bf16 mode (``EngineMode.interp_bf16``); raises with vol9 or a
+    sharded mesh."""
+    return cfg.engine_mode is not None and cfg.engine_mode.bf16
+
+
+def _window(cfg: Smoke3DConfig, u, v, w):
+    """The faces the window samplers read this step: None in float32, in
+    the bf16 mode their bfloat16 rounding, made once for every trace,
+    march and MacCormack midpoint of this velocity (the JAX package packs
+    them once a frame)."""
+    return advect.window_faces(u, v, w, _bf16(cfg))
 
 
 def _volume_mode(cfg: Smoke3DConfig) -> str:
@@ -503,17 +518,18 @@ def _step_semilag(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     cfldt = np.float32(np.float32(g.h) / maxvel)
     (rho, T), (u,), (v,), (w,) = advect.semilag_kinds_3d(
         g, [("c", [s.rho, s.T]), ("u", [s.u]), ("v", [s.v]), ("w", [s.w])],
-        s.u, s.v, s.w, cfldt, -cfg.dt)
+        s.u, s.v, s.w, cfldt, -cfg.dt, _window(cfg, s.u, s.v, s.w))
     return _finish_step(cfg, g, ctx, base, s, (u, v, w, rho, T), maxvel,
                         cfldt)
 
 
-def _maccormack_vel(g, u, v, w, au, av, aw, cfldt, dt):
+def _maccormack_vel(g, u, v, w, au, av, aw, cfldt, dt, window=None):
     """MacCormack of the staggered triplet (au, av, aw) traced in
-    (u, v, w), with the velocity (27-point neighbourhood) clamp."""
+    (u, v, w), with the velocity (27-point neighbourhood) clamp; `window`:
+    the bf16 mode's faces of (u, v, w)."""
     (cu,), (cv,), (cw,) = advect.maccormack_kinds_3d(
         g, [("u", [au], "neighborhood"), ("v", [av], "neighborhood"),
-            ("w", [aw], "neighborhood")], u, v, w, cfldt, dt)
+            ("w", [aw], "neighborhood")], u, v, w, cfldt, dt, window)
     return cu, cv, cw
 
 
@@ -525,7 +541,7 @@ def _step_maccormack(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     (rho, T), (u,), (v,), (w,) = advect.maccormack_kinds_3d(
         g, [("c", [s.rho, s.T], "trace"), ("u", [s.u], "neighborhood"),
             ("v", [s.v], "neighborhood"), ("w", [s.w], "neighborhood")],
-        s.u, s.v, s.w, cfldt, cfg.dt)
+        s.u, s.v, s.w, cfldt, cfg.dt, _window(cfg, s.u, s.v, s.w))
     return _finish_step(cfg, g, ctx, base, s, (u, v, w, rho, T), maxvel,
                         cfldt)
 
@@ -540,9 +556,11 @@ def _step_reflection(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     half = 0.5 * dt
     maxvel = _max_velocity(s.u, s.v, s.w)
     cfldt = np.float32(np.float32(g.h) / maxvel)
+    window = _window(cfg, s.u, s.v, s.w)
     rho, T = advect.maccormack_multi_3d(g, "c", [s.rho, s.T], s.u, s.v, s.w,
-                                        cfldt, dt)
-    u, v, w = _maccormack_vel(g, s.u, s.v, s.w, s.u, s.v, s.w, cfldt, half)
+                                        cfldt, dt, window)
+    u, v, w = _maccormack_vel(g, s.u, s.v, s.w, s.u, s.v, s.w, cfldt, half,
+                              window)
     u, v, w, rho, T = _forces_and_project(cfg, g, u, v, w, rho, T, s.frame,
                                           half)
     bnd = (_update_boundary(cfg, g, s.frame, dt, base)
@@ -551,7 +569,8 @@ def _step_reflection(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     u_save, v_save, w_save = u, v, w
     u, v, w, _, it1, res1, _ = _project3(cfg, ctx, bnd, u, v, w)
     ru, rv, rw = 2.0 * u - u_save, 2.0 * v - v_save, 2.0 * w - w_save
-    u2, v2, w2 = _maccormack_vel(g, u, v, w, ru, rv, rw, cfldt, half)
+    u2, v2, w2 = _maccormack_vel(g, u, v, w, ru, rv, rw, cfldt, half,
+                                 _window(cfg, u, v, w))
     v2 = forces.buoyancy_3d(v2, rho, T, cfg.alpha, cfg.beta, half)
     if cfg.viscosity:
         coef = cfg.viscosity * half / (g.h * g.h)
@@ -576,6 +595,9 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     dt = cfg.dt
     always = cfg.reinit_mode == "always"
     mode = _volume_mode(cfg)
+    bf16 = _bf16(cfg)
+    # the bf16 mode's faces: every trace and march of this velocity
+    window = _window(cfg, s.u, s.v, s.w)
     # the z-slab routing of the marches and lattice samples under a mesh
     sharded = sharded_interp.Sampling.of(cfg.engine_mode, s.u.device)
     maxvel = _max_velocity(s.u, s.v, s.w)
@@ -588,10 +610,12 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
     # at the end of every step): the backward march's first substep is
     # the identity peel, and the scalar maps are the velocity maps
     vel_map = mp.update_mapping_3d(s.vel_map, g, s.u, s.v, s.w, cfldt, dt,
-                                   from_identity=always, sharded=sharded)
+                                   from_identity=always, sharded=sharded,
+                                   window=window)
     if not always:
         scalar_map = mp.update_mapping_3d(s.scalar_map, g, s.u, s.v, s.w,
-                                          cfldt, dt, sharded=sharded)
+                                          cfldt, dt, sharded=sharded,
+                                          window=window)
     elif s.scalar_map.fwd is None:
         scalar_map = s.scalar_map          # counter-only alias
     else:
@@ -602,7 +626,7 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
         # semi-Lagrangian fallbacks for the boundary shell
         (sl_u,), (sl_v,), (sl_w,), (sl_rho, sl_T) = advect.semilag_kinds_3d(
             g, [("u", [s.u]), ("v", [s.v]), ("w", [s.w]),
-                ("c", [s.rho, s.T])], s.u, s.v, s.w, cfldt, -dt)
+                ("c", [s.rho, s.T])], s.u, s.v, s.w, cfldt, -dt, window)
 
     # the two-level blend is blend_coeff once a map has been reinitialized
     # and 1 before; at 1 the level-2 term has weight exactly 0 (None)
@@ -624,7 +648,8 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
         return mp.bimocq_advect_3d(
             g, kind, cur, init, prev, maps.bwd, maps.bwd_prev, maps.fwd, b,
             mode=mode, map_stats=(stats.get(id(maps.bwd)),
-                                  stats.get(id(maps.fwd))), sharded=sharded)
+                                  stats.get(id(maps.fwd))), sharded=sharded,
+            bf16=bf16)
 
     blend_v = blend(vel_map)
     (u,) = pull_back("u", [s.u], [s.u_init], [s.u_prev], vel_map, blend_v)
@@ -681,14 +706,15 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
                                                      (dp, proj_coeff)])],
                                    vel_map.fwd, mode=mode,
                                    fwd_stats=stats.get(id(vel_map.fwd)),
-                                   sharded=sharded)[0]
+                                   sharded=sharded, bf16=bf16)[0]
             for kind, base, ext, dp in (("u", u_init, du_ext, du_p),
                                         ("v", v_init, dv_ext, dv_p),
                                         ("w", w_init, dw_ext, dw_p)))
         rho_init, T_init = mp.accumulate_multi_3d(
             g, "c", [(rho_init, [(drho_ext, 1.0)]), (T_init, [(dT_ext, 1.0)])],
             scalar_map.fwd, mode=mode,
-            fwd_stats=stats.get(id(scalar_map.fwd)), sharded=sharded)
+            fwd_stats=stats.get(id(scalar_map.fwd)), sharded=sharded,
+            bf16=bf16)
 
     u_prev, v_prev, w_prev = s.u_prev, s.v_prev, s.w_prev
     if always or vel_reinit:
@@ -699,7 +725,7 @@ def _step_bimocq(cfg: Smoke3DConfig, g: Grid3D, ctx, base,
             u_prev, v_prev, w_prev = u_init, v_init, w_init
         u_init, v_init, w_init = (
             mp.accumulate_multi_3d(g, kind, [(f, [(dp, 1.0)])], vel_map.fwd,
-                                   identity=True, mode=mode)[0]
+                                   identity=True, mode=mode, bf16=bf16)[0]
             for kind, f, dp in (("u", u, du_p), ("v", v, dv_p),
                                 ("w", w, dw_p)))
     rho_prev, T_prev = s.rho_prev, s.T_prev

@@ -1479,9 +1479,10 @@ def minmax_variants(n, out_dir, parent=None, rounds=4):
         fn = lib.gfs_minmax_sample
         fn.restype = I
         first = edits is None
+        # the first port's signature, or the shipped one (its bf16 flag 0)
         fn.argtypes = ([P, I, I, I, I, P, P, P, LL, F, ctypes.POINTER(F), P,
                         P, P] if first else
-                       [P, I, I, I, I, P, P, P, LL, I, I, F,
+                       [P, I, I, I, I, I, P, P, P, LL, I, I, F,
                         ctypes.POINTER(F), P, P, P, P])
         for case, f in cases:
             C = f.shape[0]
@@ -1496,7 +1497,8 @@ def minmax_variants(n, out_dir, parent=None, rounds=4):
                     p3 = [_build.ptr(q) for q in pos]
                     size = (pos[0].numel(),) if first else (
                         pos[0].numel(), n, n)
-                    err = fn(_build.ptr(f), C, *f.shape[1:], *p3, *size,
+                    err = fn(_build.ptr(f), *(() if first else (0,)), C,
+                             *f.shape[1:], *p3, *size,
                              float(h), offs, _build.ptr(out[0]),
                              _build.ptr(out[1]),
                              *(() if first else (

@@ -222,5 +222,8 @@ def test_dmc_step_from_the_identity_and_the_jitted_jax_step(ref):
         assert i in (1, NI - 2) or j in (1, NJ - 2), (i, j)
 
 
+jax_oracle.prefetch(__file__, "advect2d")
+
+
 if __name__ == "__main__":
     jax_oracle.serve(_jax_run)

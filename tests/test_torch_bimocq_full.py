@@ -13,8 +13,10 @@ solver feeding exactly one test function:
   Pallas kernels in interpret mode).
 
 The JAX runs happen in a child process with a single-threaded XLA
-(tests/jax_oracle.py), which writes their states under ``tmp_path``. The
-exact-form JAX steps run op by op (``jax.disable_jit``): jitted, the JAX exact
+(tests/jax_oracle.py), shared by the workers (``jax_oracle.shared``). The
+dual-form JAX steps run outside jit, each Pallas call (interpret mode)
+jitted on its own: ~140 s, where compiling the whole interpret-mode step
+took ~510 s in the suite. The exact-form JAX steps run op by op (``jax.disable_jit``): jitted, the JAX exact
 path's DMC substep differs from the same function run op by op by up to
 0.17 cell (127 of 4096 cells at 16^3 after one substep from the identity,
 at the upwind velocity samples px +- h, which lie on lattice planes),
@@ -56,6 +58,9 @@ from gpufluidsimulation_tpu_torch.solvers import smoke3d
 from tests import jax_oracle
 
 N = 16
+EXACT_RUNS = ("exact_counter", "exact_adaptive")    # one child
+jax_oracle.prefetch(__file__, *EXACT_RUNS)
+jax_oracle.prefetch(__file__, "dual_adaptive")
 FAST = config.EngineMode(fast_interp=True, interp_interpret=True)
 EXACT = config.EngineMode(fast_interp=False)
 FIELDS = ("u", "v", "w", "rho", "T", "u_init", "v_init", "w_init",
@@ -161,7 +166,7 @@ RUNS = {
 
 
 def _jax_run(name):
-    return _jax_states(*RUNS[name])
+    return _jax_states(*RUNS[name], eager=RUNS[name][0].fast_interp)
 
 
 def _jax_states(mode, reinit, blend, steps, dt, eager=False):
@@ -260,12 +265,11 @@ def _reinit_frames(states):
     return vel, sc
 
 
-def test_bimocq_exact_counter_and_adaptive_match_jax(tmp_path):
+def test_bimocq_exact_counter_and_adaptive_match_jax(tmp_path_factory):
     """Counter reinit with blend 0.5 and adaptive reinit with blend 1, in
     the exact volume form, 4 steps each (one child process for both JAX
     runs: they share its operation compiles)."""
-    runs = jax_oracle.run(__file__, tmp_path, "exact_counter",
-                          "exact_adaptive")
+    runs = jax_oracle.shared(tmp_path_factory, __file__, *EXACT_RUNS)
     cfg, states = _compare_run("exact_counter", runs["exact_counter"])
     assert cfg.engine_mode.volume_exact and cfg.blend_coeff == 0.5
     # vel reinits at frames 0 and 3, scalar at 0 only; the blend is live
@@ -278,11 +282,11 @@ def test_bimocq_exact_counter_and_adaptive_match_jax(tmp_path):
     assert _reinit_frames(states) == ([0, 2], [0])
 
 
-def test_bimocq_dual_adaptive_blend_half_matches_jax(tmp_path):
-    """The slice's one interpret-mode step compile: the JAX production
-    numerics (dual volume form, Pallas samplers, fused marches)."""
+def test_bimocq_dual_adaptive_blend_half_matches_jax(tmp_path_factory):
+    """The JAX production numerics (dual volume form, Pallas samplers,
+    fused marches), its step run outside jit."""
     launches = interp_fast.trilerp_sample.launches
-    run = jax_oracle.run(__file__, tmp_path, "dual_adaptive")
+    run = jax_oracle.shared(tmp_path_factory, __file__, "dual_adaptive")
     cfg, states = _compare_run("dual_adaptive", run["dual_adaptive"])
     assert not cfg.engine_mode.volume_exact
     # the velocity maps' second reinit (frame 2) is the distortion's: the

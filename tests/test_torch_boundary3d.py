@@ -14,7 +14,8 @@ solver under ``EngineMode(fast_interp=True, interp_interpret=True,
 rbgs=True, spectral_poisson=False)``: every Pallas kernel of the step (the
 samplers, both map marches, the semi-Lagrangian traces, viscosity, the
 masked red-black smoother) in interpret mode; its one-off compile takes
-~65 s. Bound: 1e-4 of each field's scale, with the same CG iteration count
+~65 s, once a test session in a child process shared by the workers
+(tests/jax_oracle.shared). Bound: 1e-4 of each field's scale, with the same CG iteration count
 every step (measured, of each field's scale: u 4.9e-6, v 9.7e-6, w 8.6e-6,
 rho and T 8.3e-6, w_init 1.7e-5, the maps 0), far inside the 2e-3 fidelity
 bound of tests/test_fidelity3d.py.
@@ -36,6 +37,8 @@ from gpufluidsimulation_tpu_torch.ops import poisson, stencil_kernels
 from gpufluidsimulation_tpu_torch.scenes import scenes3d
 from gpufluidsimulation_tpu_torch.solvers import smoke3d
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+from tests import jax_oracle
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 MODE = config.EngineMode(fast_interp=True, interp_interpret=True, rbgs=True,
                          spectral_poisson=False)
@@ -136,17 +139,34 @@ def test_blend_and_clear_boundary():
     assert smoke3d._clear_boundary(None, ones) is ones
 
 
-@pytest.fixture(scope="module")
-def jax_obstacle_run():
-    """The JAX obstacle scene (one ~65 s interpret-mode compile) and its
-    states after each of 3 steps."""
-    solver, state = jscenes.make_moving_obstacle(
+def _jax_obstacle():
+    return jscenes.make_moving_obstacle(
         ni=16, nj=16, nk=16, dt=0.02, proj_max_iters=40, engine_mode=MODE)
+
+
+def _jax_run(name):
+    """The JAX obstacle scene's states after each of 3 steps (one ~65 s
+    interpret-mode compile), flat: key "k:field" after k steps."""
+    solver, state = _jax_obstacle()
     states = [_flatten(state)]
     for _ in range(3):
         state = solver.step(state)
         states.append(_flatten(state))
-    return solver.cfg, states
+    return {f"{k}:{key}": val for k, st in enumerate(states)
+            for key, val in st.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_obstacle_run(tmp_path_factory):
+    """The JAX obstacle scene's configuration and its states after each
+    of 3 steps."""
+    flat = jax_oracle.shared(tmp_path_factory, __file__, "obstacle")[
+        "obstacle"]
+    states = [{} for _ in range(4)]
+    for key, val in flat.items():
+        k, field = key.split(":", 1)
+        states[int(k)][field] = val
+    return _jax_obstacle()[0].cfg, states
 
 
 def test_three_obstacle_steps_match_jax(jax_obstacle_run):
@@ -183,8 +203,8 @@ def test_three_obstacle_steps_match_jax(jax_obstacle_run):
     assert stencil_kernels.masked_rbgs_smooth.launches == 0
 
 
-def test_obstacle_config_across_and_refusals(jax_obstacle_run):
-    jcfg, _ = jax_obstacle_run
+def test_obstacle_config_across_and_refusals():
+    jcfg = _jax_obstacle()[0].cfg
     d = dataclasses.asdict(jcfg)
     with pytest.raises(ValueError, match="trans"):
         convert.config_from_dict(d)         # the JAX closure is not carried
@@ -201,13 +221,15 @@ def test_obstacle_config_across_and_refusals(jax_obstacle_run):
     vbd = convert.config_from_dict(voxel).boundaries[0]
     assert vbd.kind == "voxel" and vbd.is_voxel
     assert vbd.sdf_grid.dtype == np.float32 and vbd.sdf_grid.shape == (4,) * 3
-    # the Jacobi-smoothed V-cycle is carried across; bf16 windows are not
+    # the Jacobi-smoothed V-cycle and the bf16 windows are carried across
+    # (the vol9, sharded and 2D refusals of the bf16 mode:
+    # tests/test_torch_bf16.py)
     mode = dict(d["engine_mode"], rbgs=False)
     assert convert.config_from_dict(dict(
         static, engine_mode=mode)).engine_mode.rbgs is False
     mode = dict(d["engine_mode"], interp_bf16=True)
-    with pytest.raises(NotImplementedError, match="interp_bf16"):
-        convert.config_from_dict(dict(static, engine_mode=mode))
+    assert convert.config_from_dict(dict(
+        static, engine_mode=mode)).engine_mode.interp_bf16 is True
     # the prefilter and vol9 volume forms are carried across
     for field, value, form in (("volume_dual", False, "prefilter"),
                                ("volume_vol9", True, "vol9")):
@@ -238,3 +260,10 @@ def test_scene_table_and_mgpcg_ownership():
         scheme=Scheme.BIMOCQ, ni=8, nj=8, nk=8, device="cpu",
         engine_mode=EngineMode(spectral_poisson=False))
     assert solver.ctx is not None and solver.ctx.bc == "dirichlet"
+
+
+jax_oracle.prefetch(__file__, "obstacle")
+
+
+if __name__ == "__main__":
+    jax_oracle.serve(_jax_run)

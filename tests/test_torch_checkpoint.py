@@ -30,6 +30,7 @@ from gpufluidsimulation_tpu.solvers.schemes import Scheme as JScheme
 from gpufluidsimulation_tpu_torch import convert
 from gpufluidsimulation_tpu_torch.io_utils import checkpoint
 from gpufluidsimulation_tpu_torch.solvers import smoke3d
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 CONFIGS = {
     "always": dict(reinit_mode="always", blend_coeff=1.0),

@@ -172,5 +172,8 @@ def test_cli_refusals(tmp_path, capsys, monkeypatch):
     assert not any(tmp_path.iterdir())
 
 
+jax_oracle.prefetch(__file__, "cli_scene")
+
+
 if __name__ == "__main__":
     jax_oracle.serve(_jax_run)

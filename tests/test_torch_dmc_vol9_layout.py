@@ -35,6 +35,7 @@ from gpufluidsimulation_tpu_torch.core import interp
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D, band_mask
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
 from tests.test_torch_rk3_prefilter_layout import _coord, _trilerp, _zpair
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 CSRC = Path(interp_fast.__file__).resolve().parent.parent / "csrc"
 

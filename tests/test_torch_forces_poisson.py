@@ -21,6 +21,7 @@ from gpufluidsimulation_tpu.ops import poisson as jpoisson
 from gpufluidsimulation_tpu.ops import spectral as jspectral
 from gpufluidsimulation_tpu_torch.ops import forces, poisson, spectral
 from gpufluidsimulation_tpu_torch.ops import stencil_kernels
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 SHAPE = (16, 20, 24)
 

@@ -23,6 +23,7 @@ from gpufluidsimulation_tpu.core import interp as jinterp
 from gpufluidsimulation_tpu.ops import interp_fast as jfast
 from gpufluidsimulation_tpu_torch.core import grids, interp
 from gpufluidsimulation_tpu_torch.ops import interp_fast
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 NI, NJ = 24, 40
 H = 1.0 / NI

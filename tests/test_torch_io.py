@@ -33,6 +33,7 @@ from gpufluidsimulation_tpu_torch import native
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D
 from gpufluidsimulation_tpu_torch.core.interp import sample3_separable
 from gpufluidsimulation_tpu_torch.io_utils import mesh, vdb, volume
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 REPO = Path(__file__).resolve().parent.parent
 SHAPE = (20, 17, 24)

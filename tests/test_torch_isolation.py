@@ -13,6 +13,7 @@ import torch
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D
 from gpufluidsimulation_tpu_torch.ops import _build, interp_fast
 from gpufluidsimulation_tpu_torch.ops import stencil_kernels
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "gpufluidsimulation_tpu_torch"

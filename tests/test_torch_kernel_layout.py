@@ -24,6 +24,7 @@ import torch
 
 from gpufluidsimulation_tpu_torch.core import interp
 from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 NX, NY, NZ = 13, 10, 17
 

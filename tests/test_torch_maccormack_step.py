@@ -103,6 +103,8 @@ RUNS = {
     "reflection_vortex": (lambda: _vortex(JScheme.MAC_REFLECTION), 0.06, 3),
     "reflection_obstacle": (_obstacle, 0.2, 2),
 }
+for _name in RUNS:
+    jax_oracle.prefetch(__file__, _name)
 
 
 def _jax_run(name):
@@ -119,13 +121,13 @@ def _jax_run(name):
     return out
 
 
-def _run_both(tmp_path, name, trans=()):
+def _run_both(tmp_path_factory, name, trans=()):
     """The JAX run `name` (in a child process, tests/jax_oracle.py) and
     the port on the CPU from the same state; returns the port's config,
     the pairs of flat states after each step and the port's substep
     counts."""
     make, _, steps = RUNS[name]
-    run = jax_oracle.run(__file__, tmp_path, name)[name]
+    run = jax_oracle.shared(tmp_path_factory, __file__, name)[name]
     want = [{key.split("#", 1)[1]: val for key, val in run.items()
              if key.split("#", 1)[0] == str(k)} for k in range(steps + 1)]
     cfg = convert.config_from_dict(dataclasses.asdict(make()[0].cfg),
@@ -152,9 +154,9 @@ def _assert_steps_match(pairs, rel=1e-4):
         assert np.isfinite(got["proj_res"]) and got["proj_res"] <= 1e-4
 
 
-def test_maccormack_vortex_steps_match_jax(tmp_path):
+def test_maccormack_vortex_steps_match_jax(tmp_path_factory):
     launches = interp_fast.minmax_sample.launches
-    cfg, pairs, subs = _run_both(tmp_path, "maccormack_vortex")
+    cfg, pairs, subs = _run_both(tmp_path_factory, "maccormack_vortex")
     assert cfg.scheme == Scheme.MACCORMACK and cfg.engine_mode.volume_exact
     _assert_steps_match(pairs)
     assert subs[0] == 3                     # CFL ~2.4 at the seed
@@ -162,8 +164,8 @@ def test_maccormack_vortex_steps_match_jax(tmp_path):
     assert float(pairs[-1][0]["rho"].max()) > 0.5
 
 
-def test_reflection_vortex_steps_match_jax(tmp_path):
-    cfg, pairs, subs = _run_both(tmp_path, "reflection_vortex")
+def test_reflection_vortex_steps_match_jax(tmp_path_factory):
+    cfg, pairs, subs = _run_both(tmp_path_factory, "reflection_vortex")
     assert cfg.scheme == Scheme.MAC_REFLECTION
     _assert_steps_match(pairs)
     assert subs[0] == 2                     # half steps: CFL ~1.2
@@ -171,9 +173,9 @@ def test_reflection_vortex_steps_match_jax(tmp_path):
     assert all(int(got["proj_iters"]) == 2 for got, _ in pairs)
 
 
-def test_reflection_obstacle_steps_match_jax(tmp_path):
+def test_reflection_obstacle_steps_match_jax(tmp_path_factory):
     trans = (scenes3d.sweep_trans(0.125 * N * (0.2 / N)),)   # 0.125 lz
-    cfg, pairs, _ = _run_both(tmp_path, "reflection_obstacle", trans)
+    cfg, pairs, _ = _run_both(tmp_path_factory, "reflection_obstacle", trans)
     assert cfg.boundaries and cfg.scheme == Scheme.MAC_REFLECTION
     _assert_steps_match(pairs)
     for got, want in pairs:

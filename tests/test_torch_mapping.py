@@ -21,6 +21,7 @@ from gpufluidsimulation_tpu.core import grids as jgrids
 from gpufluidsimulation_tpu_torch.bimocq import mapping
 from gpufluidsimulation_tpu_torch.core import grids
 from gpufluidsimulation_tpu_torch.ops import interp_fast
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 SHAPE = (16, 20, 24)
 H = 0.2 / SHAPE[0]

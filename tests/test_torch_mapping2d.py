@@ -222,5 +222,8 @@ def test_multi_field_forms_are_each_fields(blend):
     assert dataclasses.is_dataclass(mp.init_mapping(g))
 
 
+jax_oracle.prefetch(__file__, "mapping2d")
+
+
 if __name__ == "__main__":
     jax_oracle.serve(_jax_run)

@@ -214,5 +214,9 @@ def test_rbgs_mode_across_and_in_the_solver():
     assert bool(torch.isfinite(state.u).all())
 
 
+for _name in ("cycles", "solves"):
+    jax_oracle.prefetch(__file__, _name)
+
+
 if __name__ == "__main__":
     jax_oracle.serve(_jax_run)

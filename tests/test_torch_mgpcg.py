@@ -28,6 +28,7 @@ import torch
 from gpufluidsimulation_tpu import config
 from gpufluidsimulation_tpu.ops import poisson as jpoisson
 from gpufluidsimulation_tpu_torch.ops import poisson
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 MODE = config.EngineMode(rbgs=True, interp_interpret=True,
                          spectral_poisson=False)

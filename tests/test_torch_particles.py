@@ -31,9 +31,9 @@ The dense path keeps the seeding order, the port the bin order, so the
 particles carry their index in C_x[:, 0], which FLIP only permutes, and
 each package's columns are compared in that order.
 
-All JAX references come from one child process that the pytest-xdist
-workers share (tests/jax_oracle.shared), each whole-step oracle feeding
-one test function.
+All JAX references come from two child processes that the pytest-xdist
+workers share (tests/jax_oracle.shared), one for the stages and one for
+the whole steps, each whole-step oracle feeding one test function.
 """
 
 import dataclasses
@@ -198,15 +198,22 @@ def _jax_steps():
 
 
 def _jax_run(name):
-    out = {f"stage#{k}": v for k, v in _jax_stages().items()}
-    out.update(_jax_steps())
-    return out
+    if name == "stages":
+        return {f"stage#{k}": v for k, v in _jax_stages().items()}
+    return _jax_steps()
+
+
+@pytest.fixture(scope="module")
+def stage_ref(tmp_path_factory):
+    """The stage references (a child of their own: the stage tests do not
+    wait for the whole steps)."""
+    return jax_oracle.shared(tmp_path_factory, __file__, "stages")["stages"]
 
 
 @pytest.fixture(scope="module")
 def ref(tmp_path_factory):
-    return jax_oracle.shared(tmp_path_factory, __file__,
-                             "particles")["particles"]
+    """The whole-step references."""
+    return jax_oracle.shared(tmp_path_factory, __file__, "steps")["steps"]
 
 
 def _close(label, got, want, tol):
@@ -235,7 +242,8 @@ def _port_particles():
 # ---------------------------------------------------------------------------
 
 
-def test_seed_and_bin_sort_match_jax_exactly(ref):
+def test_seed_and_bin_sort_match_jax_exactly(stage_ref):
+    ref = stage_ref
     g = Grid2D(NI, NJ, H)
     seeded = part.seed_particles(g, N)
     np.testing.assert_array_equal(seeded.pos.numpy(), ref["stage#seed#pos"])
@@ -257,7 +265,8 @@ def test_seed_and_bin_sort_match_jax_exactly(ref):
 @pytest.mark.parametrize("sorted_bins", [True, False],
                          ids=["sorted", "unsorted"])
 @pytest.mark.parametrize("order", ["flip", "apic", "polypic"])
-def test_p2g_matches_jax(ref, order, sorted_bins):
+def test_p2g_matches_jax(stage_ref, order, sorted_bins):
+    ref = stage_ref
     g = Grid2D(NI, NJ, H)
     p = _port_particles()
     if sorted_bins:
@@ -274,7 +283,8 @@ def test_p2g_matches_jax(ref, order, sorted_bins):
                1e-6)
 
 
-def test_g2p_and_update_cp_match_jax(ref):
+def test_g2p_and_update_cp_match_jax(stage_ref):
+    ref = stage_ref
     g = Grid2D(NI, NJ, H)
     p = part.bin_sort(g, _port_particles())
     fields = [torch.from_numpy(f) for f in _fields()]
@@ -382,6 +392,10 @@ def test_flip_state_round_trips_through_convert(ref):
     for key, val in arrays.items():
         np.testing.assert_array_equal(again[key], val, err_msg=key)
     assert dataclasses.is_dataclass(mine.particles)
+
+
+for _name in ("stages", "steps"):
+    jax_oracle.prefetch(__file__, _name)
 
 
 if __name__ == "__main__":

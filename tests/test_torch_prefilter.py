@@ -48,6 +48,8 @@ ADVECT_CASES = [("v", None), ("v", 0.6), ("c", None), ("c", 0.6)]
 # whole steps: (reinit, blend, steps, dt)
 STEP_RUN = ("always", 0.5, 3, 0.25)
 STAGES = ("filters", "advect")
+jax_oracle.prefetch(__file__, *STAGES)
+jax_oracle.prefetch(__file__, "steps")
 
 
 @pytest.fixture(autouse=True)
@@ -113,7 +115,7 @@ def _jax_run(name):
     if name in STAGES:
         return _jax_stage(name)
     reinit, blend, steps, dt = STEP_RUN
-    return full._jax_states(PREFILTER, reinit, blend, steps, dt)
+    return full._jax_states(PREFILTER, reinit, blend, steps, dt, eager=True)
 
 
 # ---------------------------------------------------------------------------
@@ -123,11 +125,11 @@ def _jax_run(name):
 
 # the whole-step test first: it is the file's longest, and the workers
 # take tests in file order
-def test_bimocq_prefilter_always_step_matches_jax(tmp_path):
+def test_bimocq_prefilter_always_step_matches_jax(tmp_path_factory):
     """BiMocq 'always', blend 0.5 (the prev tier and the accumulates
     live), prefilter volume form: 3 whole steps at 16^3."""
     reinit, blend, steps, dt = STEP_RUN
-    run = jax_oracle.run(__file__, tmp_path, "steps")["steps"]
+    run = jax_oracle.shared(tmp_path_factory, __file__, "steps")["steps"]
     before = interp_fast.volume_prefilter.launches
     cfg, states = full._compare_states(run, PREFILTER, reinit, blend, steps,
                                        dt)

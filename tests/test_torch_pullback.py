@@ -298,5 +298,8 @@ def test_pullback_sample_argument_checks():
         call([u, v, w], dims, maps=maps[:, :-1])
 
 
+jax_oracle.prefetch(__file__, *NAMES)
+
+
 if __name__ == "__main__":
     jax_oracle.serve(_jax_run)

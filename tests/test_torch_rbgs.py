@@ -20,6 +20,7 @@ import torch
 from gpufluidsimulation_tpu.ops import pallas_kernels as jk
 from gpufluidsimulation_tpu.ops import poisson as jpoisson
 from gpufluidsimulation_tpu_torch.ops import poisson, stencil_kernels
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 SHAPES = [(16, 16, 16), (20, 17, 24)]
 

@@ -29,6 +29,7 @@ import torch
 
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 CSRC = Path(interp_fast.__file__).resolve().parent.parent / "csrc"
 NI, NJ, NK = 12, 20, 16

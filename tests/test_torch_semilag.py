@@ -21,6 +21,7 @@ from gpufluidsimulation_tpu.core.grids import Grid3D as JGrid3D
 from gpufluidsimulation_tpu.ops import advect as jadvect
 from gpufluidsimulation_tpu_torch.core.grids import Grid3D
 from gpufluidsimulation_tpu_torch.ops import advect, interp_fast
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 NI, NJ, NK = 16, 20, 24
 H = 0.2 / NI

@@ -25,6 +25,7 @@ from gpufluidsimulation_tpu.solvers.schemes import Scheme as JScheme
 from gpufluidsimulation_tpu_torch import convert
 from gpufluidsimulation_tpu_torch.scenes import scenes3d
 from gpufluidsimulation_tpu_torch.solvers import smoke3d
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 DT = 0.5
 MODE = config.EngineMode(fast_interp=True, interp_interpret=True, rbgs=True,

@@ -525,6 +525,9 @@ def test_make_mesh_needs_cards_or_devices():
             mesh, devices=(torch.device("meta"),) * 3))
 
 
+jax_oracle.prefetch(__file__, "sharding")
+
+
 if __name__ == "__main__":
     # 8 virtual CPU devices, before jax is imported; in front of the
     # child's flags, since XLA stops reading them at their last token,

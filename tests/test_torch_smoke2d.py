@@ -414,5 +414,10 @@ def test_particle_schemes_and_step_checked(monkeypatch):
         smoke2d.Smoke2D(smoke2d.Smoke2DConfig(ni=8, nj=8, L=1.0))
 
 
+for _name in ("scenes", "noncubic3d",
+              *dict.fromkeys(_child(n, p) for n, p in CASES)):
+    jax_oracle.prefetch(__file__, _name)
+
+
 if __name__ == "__main__":
     jax_oracle.serve(_jax_run)

@@ -13,6 +13,10 @@ Tolerance: float32 round-off through three steps of gathers and dense
 transforms, measured at ~1e-5 of each field's scale (rho 8.5e-6, T 4.2e-4
 of 50, u 3.6e-7 of 0.06); the bound is 1e-4 of the field's scale, far
 inside the 2e-3 fidelity bound of tests/test_fidelity3d.py.
+
+The JAX steps run once a test session, in a child process shared by the
+workers (tests/jax_oracle.shared); the tests that need only the JAX
+configuration build it here.
 """
 
 import dataclasses
@@ -31,6 +35,8 @@ from gpufluidsimulation_tpu_torch import convert
 from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
 from gpufluidsimulation_tpu_torch.solvers import smoke3d
 from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
+from tests import jax_oracle
+from tests import torch_threads  # noqa: F401 (one CPU torch thread)
 
 N = 16
 STEPS = 3
@@ -66,17 +72,28 @@ def _flatten(state):
     return out
 
 
-@pytest.fixture(scope="module")
-def jax_run():
-    """One JAX solver (one ~60 s interpret-mode compile) and its states."""
-    cfg = _jax_cfg()
-    solver = JSmoke3D(cfg)
+def _jax_run(name):
+    """The JAX solver's states (one ~60 s interpret-mode compile), flat:
+    key "k:field" for the state after k steps."""
+    solver = JSmoke3D(_jax_cfg())
     state = solver.init_state()
     states = [_flatten(state)]
     for _ in range(STEPS):
         state = solver.step(state)     # donates its input: fresh each step
         states.append(_flatten(state))
-    return cfg, states
+    return {f"{k}:{key}": val for k, st in enumerate(states)
+            for key, val in st.items()}
+
+
+@pytest.fixture(scope="module")
+def jax_run(tmp_path_factory):
+    """The JAX configuration and its states after 0 .. STEPS steps."""
+    flat = jax_oracle.shared(tmp_path_factory, __file__, "steps")["steps"]
+    states = [{} for _ in range(STEPS + 1)]
+    for key, val in flat.items():
+        k, field = key.split(":", 1)
+        states[int(k)][field] = val
+    return _jax_cfg(), states
 
 
 def _port_cfg(jcfg):
@@ -124,8 +141,8 @@ def test_state_round_trip_and_dieted_leaves(jax_run):
         np.testing.assert_array_equal(back[key], val, err_msg=key)
 
 
-def test_config_from_dict_matches_jax_fields(jax_run):
-    jcfg, _ = jax_run
+def test_config_from_dict_matches_jax_fields():
+    jcfg = _jax_cfg()
     cfg = _port_cfg(jcfg)
     assert cfg.scheme == Scheme.BIMOCQ
     assert (cfg.ni, cfg.nj, cfg.nk, cfg.L, cfg.dt) == (
@@ -135,11 +152,11 @@ def test_config_from_dict_matches_jax_fields(jax_run):
     assert (em.center, em.radius, em.sign) == ((0.1, 0.1, 0.1), 0.04, 1.0)
 
 
-def test_default_device_raises_without_cuda(monkeypatch, jax_run):
+def test_default_device_raises_without_cuda(monkeypatch):
     """Smoke3D(cfg) with no device is the card; without one it raises
     instead of running on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    cfg = _port_cfg(jax_run[0])
+    cfg = _port_cfg(_jax_cfg())
     with pytest.raises(RuntimeError, match="no CUDA device"):
         smoke3d.Smoke3D(cfg)
     with pytest.raises(RuntimeError):
@@ -157,7 +174,7 @@ def test_default_device_raises_without_cuda(monkeypatch, jax_run):
                                         kind="voxel"),)),
     dict(engine_mode=config.EngineMode(spectral_poisson=False)),
 ])
-def test_unported_configs_raise(jax_run, change):
+def test_unported_configs_raise(change):
     """What the port does not run raises: emitters and boundaries that
     are not its own classes, the JAX package's own mode objects (vol9
     among them), unknown boundary kinds, a voxel boundary without its
@@ -165,7 +182,7 @@ def test_unported_configs_raise(jax_run, change):
     counter/adaptive reinit and blends below 1 run since the third slice
     (tests/test_torch_maccormack_step.py, test_torch_bimocq_full.py),
     voxel level sets since the twelfth (tests/test_torch_voxel.py)."""
-    cfg = dataclasses.replace(_port_cfg(jax_run[0]), **change)
+    cfg = dataclasses.replace(_port_cfg(_jax_cfg()), **change)
     with pytest.raises(NotImplementedError):
         smoke3d.Smoke3D(cfg, device="cpu")
 
@@ -185,3 +202,10 @@ def test_configs_that_now_run(change):
     flags = smoke3d._update_boundary(cfg, cfg.grid, 0, cfg.dt,
                                      smoke3d.boundary_base_flags(cfg.grid))[0]
     assert bool((flags == 3).all())
+
+
+jax_oracle.prefetch(__file__, "steps")
+
+
+if __name__ == "__main__":
+    jax_oracle.serve(_jax_run)

@@ -65,6 +65,8 @@ STEP_RUN = ("adaptive", 0.5, 3, 0.25)
 # the stage-level JAX references, each one child per test session
 STAGES = tuple(f"fixups_{k[0]}" for k in KINDS) + ("advect_exact",
                                                    "advect_default")
+for _name in STAGES + ("steps",):
+    jax_oracle.prefetch(__file__, _name)
 
 
 @pytest.fixture(autouse=True)
@@ -220,9 +222,9 @@ def _jax_run(name):
 
 # the whole-step test first: it is the file's longest, and the workers
 # take tests in file order
-def test_bimocq_vol9_adaptive_step_matches_jax(tmp_path, port_flags):
+def test_bimocq_vol9_adaptive_step_matches_jax(tmp_path_factory, port_flags):
     """Adaptive reinit, blend 0.5, vol9: 3 whole steps at 16^3."""
-    run = jax_oracle.run(__file__, tmp_path, "steps")["steps"]
+    run = jax_oracle.shared(tmp_path_factory, __file__, "steps")["steps"]
     interp_fast.reset_vol9_block_counts()
     cfg, states = full._compare_states(run, VOL9, *STEP_RUN)
     assert cfg.engine_mode.volume_mode == "vol9"

@@ -324,5 +324,9 @@ def test_voxel_config_across():
                                  F32(0.06), F32(0.06))
 
 
+for _name in ("voxel_scene", "voxel_stages"):
+    jax_oracle.prefetch(__file__, _name)
+
+
 if __name__ == "__main__":
     jax_oracle.serve(_jax_run)
