@@ -141,18 +141,30 @@ Phases, each of which fails loudly (non-zero exit, no result line):
     alone, every BMP a 24-bit image of the grid's size, the level-set
     file finite and equal to the frame's rho;
 14. the bf16 mode (EngineMode.interp_bf16), run after phase 9: each of
-    the four kernels with a bf16 mode (trilerp_sample C=1 and C=2 dual,
-    plain, C=3 on the MAC pack, also with NaNs sown; minmax_sample in both
-    modes; rk3_substep displaced and in its lattice mode for every kind;
-    dmc_substep from a displaced map) bit for bit against its plain
-    version at the n^3 shapes, each timed by CUDA graph beside its
-    float32 form; parity card vs CPU of the bf16 main path and MacCormack
-    at 32^3 (3 steps, 2e-3 of scale); the bf16 main path at n^3 with its
-    bf16-mode launches and conversions to bfloat16 a step counted, and
-    the drift of rho and u from the float32 main path after 8 steps; the
-    bf16 MacCormack path at n^3 (one bf16 minmax_sample launch a step).
+    the six kernels with a bf16 mode (trilerp_sample C=1 and C=2 dual,
+    plain, C=3 on the MAC pack, and its slab mode dual C=1 and C=2;
+    minmax_sample in both modes; rk3_substep displaced and in its
+    lattice mode for every kind, and in its slab modes, the lattice one
+    with stage 1 from the rounded faces; dmc_substep from a displaced
+    map; vol9_fixup C=1 and C=2 at tol 0 and the default tol, deciding on
+    the float32 fields; bilerp_sample's sample mode at C=1-4 and its
+    trace mode with bf16 foot samples and the float32 min/max, at 256^2
+    and 256x1280) bit for bit against its plain version, also with NaNs
+    sown, each timed by CUDA graph beside its float32 form (with
+    grid_sample on the widened fields where one call computes the same
+    function); the slab modes at 256^3 origins 0/64/192 and 37x29x45
+    origins 0/15/30, within the halo (equal to the whole-grid launch) and
+    past it (counted); parity card vs CPU at 32^3 of the bf16 main path,
+    MacCormack, the vol9 form and the main path through sharded_step on
+    4 slabs, and of 2D BiMocq at 64^2 (3 steps, 2e-3 of scale); the bf16
+    main, MacCormack, vol9 (cell 7) and sharded (cell 18) paths at n^3
+    and the bf16 Taylor-vortex BiMocq and Rayleigh-Taylor 2D paths, each
+    beside its float32 path timed in turn, with its bf16-mode launches a
+    step counted (and checked) and its conversions to bfloat16 counted
+    in one more step; the drift of rho and u from the float32 main path
+    after 8 steps.
 Then it prints one JSON line with every kernel's numbers (the three with a
-slab mode carry its numbers under "slab", the four with a bf16 mode under
+slab mode carry its numbers under "slab", the six with a bf16 mode under
 "bf16") and, last, the device line. It never imports JAX or the JAX
 package.
 """
@@ -162,6 +174,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import ctypes
+import dataclasses
 import gc
 import io
 import json
@@ -1453,6 +1466,42 @@ def vol9_map_spread(gg, dev):
     return checked
 
 
+def vol9_field(shape, amp, xs, ys, rng, dev):
+    """A smooth field of size `amp` on the nodes of x range `xs` and y
+    range `ys`, over a background wave of 1/1000 of it, ~6 cells long,
+    where the vol9 decision falls below tol but the dual form still
+    differs from the exact composition."""
+    import torch
+
+    f = smooth(shape, rng, amp, dev)
+    mask = torch.zeros_like(f, dtype=torch.bool)
+    mask[xs, ys] = True
+    idx = torch.meshgrid(*[torch.arange(m, device=dev, dtype=torch.float32)
+                           for m in shape], indexing="ij")
+    k = rng.uniform(0.8, 1.2, 3)
+    wave = torch.sin(sum(float(kk) * ii for kk, ii in zip(k, idx))
+                     + float(rng.uniform(0, 2 * np.pi)))
+    return torch.where(mask, f, 0.0) + (amp / 1000) * wave
+
+
+def vol9_cases(gg, rng, dev):
+    """The vol9 inputs of grid `gg`: (label, fields, kind, clamp, band_lo)
+    for u (C=1, a patch at x < n*3/8; the error stage's clamp and band)
+    and rho+T (C=2, patches at x >= n/2, y < n/2 and y >= n*5/8; the
+    advect stage's)."""
+    import torch
+
+    n0, n1 = gg.shape_c[:2]
+    vu = vol9_field(gg.shape_u, 1.0, slice(0, 3 * n0 // 8), slice(None),
+                    rng, dev)[None].contiguous()
+    vc = torch.stack([
+        vol9_field(gg.shape_c, 1.0, slice(n0 // 2, None), slice(0, n1 // 2),
+                   rng, dev),
+        vol9_field(gg.shape_c, 50.0, slice(None), slice(5 * n1 // 8, None),
+                   rng, dev)]).contiguous()
+    return (("C=1 u", vu, "u", 0.0, 1), ("C=2 c", vc, "c", 1.0, 2))
+
+
 def vol9_phase(g, rng, dev, compare, positions):
     """Phase 2, ``vol9_fixup``: bit for bit against its plain version, u
     (C=1, the error stage's clamp and band) and rho+T (C=2, the advect
@@ -1476,31 +1525,8 @@ def vol9_phase(g, rng, dev, compare, positions):
 
     h = g.h
 
-    def vol9_field(shape, amp, xs, ys):
-        """A smooth field of size `amp` on the nodes of x range `xs` and y
-        range `ys`, over a background wave of 1/1000 of it, ~6 cells long,
-        where the decision falls below tol but the dual form still differs
-        from the exact composition."""
-        f = smooth(shape, rng, amp, dev)
-        mask = torch.zeros_like(f, dtype=torch.bool)
-        mask[xs, ys] = True
-        idx = torch.meshgrid(*[torch.arange(m, device=dev, dtype=torch.float32)
-                               for m in shape], indexing="ij")
-        k = rng.uniform(0.8, 1.2, 3)
-        wave = torch.sin(sum(float(kk) * ii for kk, ii in zip(k, idx))
-                         + float(rng.uniform(0, 2 * np.pi)))
-        return torch.where(mask, f, 0.0) + (amp / 1000) * wave
-
     def fields_of(gg):
-        n0, n1 = gg.shape_c[:2]
-        vu = vol9_field(gg.shape_u, 1.0, slice(0, 3 * n0 // 8),
-                        slice(None))[None].contiguous()
-        vc = torch.stack([
-            vol9_field(gg.shape_c, 1.0, slice(n0 // 2, None),
-                       slice(0, n1 // 2)),
-            vol9_field(gg.shape_c, 50.0, slice(None),
-                       slice(5 * n1 // 8, None))]).contiguous()
-        return (("C=1 u", vu, "u", 0.0, 1), ("C=2 c", vc, "c", 1.0, 2))
+        return vol9_cases(gg, rng, dev)
 
     def band_of(gg, kind, band_lo):
         dim = gg.dim_of(kind)
@@ -1547,16 +1573,8 @@ def vol9_phase(g, rng, dev, compare, positions):
     results = {}
     maps = torch.stack(positions("c")).contiguous()
     stats = interp_fast.vol9_map_stats(maps, h, g.shape_c)
-    n0, n1 = g.shape_c[:2]
-    vu = vol9_field(g.shape_u, 1.0, slice(0, 3 * n0 // 8),
-                    slice(None))[None].contiguous()
-    vc = torch.stack([
-        vol9_field(g.shape_c, 1.0, slice(n0 // 2, None), slice(0, n1 // 2)),
-        vol9_field(g.shape_c, 50.0, slice(None),
-                   slice(5 * n1 // 8, None))]).contiguous()
     variants = []
-    for label, f, kind, clamp, band_lo in (("C=1 u", vu, "u", 0.0, 1),
-                                           ("C=2 c", vc, "c", 1.0, 2)):
+    for label, f, kind, clamp, band_lo in vol9_cases(g, rng, dev):
         dim = g.dim_of(kind)
         band = (band_lo + dim[0], band_lo + dim[1], band_lo + dim[2],
                 band_lo + 1)
@@ -2259,20 +2277,13 @@ def sharded_phase(solver, single_ms, profile=None):
     launches, of which the first substep's in the lattice mode, and 3 D +
     3 trilerp_sample launches a stage set (u, v and c sharded, w whole),
     all but w's in the slab mode."""
-    import types
-
-    import torch
-
     from gpufluidsimulation_tpu_torch.ops import interp_fast, stencil_kernels
-    from gpufluidsimulation_tpu_torch.parallel.sharding import (
-        make_mesh, shard_state, sharded_step)
 
     D = SHARDED_SLABS
-    mesh = make_mesh(D, devices=[torch.device("cuda", 0)] * D)
-    step = sharded_step(solver, mesh, halo=SHARDED_HALO)
+    path, step = sharded_path(solver)
     t0 = time.time()
     ref = solver.init_state()
-    got = shard_state(solver.init_state(), mesh)
+    got = path.init_state()
     for _ in range(SHARDED_COMPARE_STEPS):
         ref = solver.step(ref)
         got = step(got)
@@ -2301,9 +2312,6 @@ def sharded_phase(solver, single_ms, profile=None):
         for fn in slab_fns:
             fn.slab_launches = 0
 
-    path = types.SimpleNamespace(
-        cfg=solver.cfg, step=step,
-        init_state=lambda: shard_state(solver.init_state(), mesh))
     steps = SHARDED_STEPS
     state, res = timed_steps(path, steps, MAIN_KERNELS,
                              on_reset=reset_slab_counts)
@@ -2945,8 +2953,12 @@ def profile_steps(solver, state, path, title, mode, ms_per_step, steps=2):
 # the kernels with a bf16 mode (EngineMode.interp_bf16): their field values
 # are read as bfloat16 and widened at the load
 BF16_KERNELS = ("trilerp_sample", "minmax_sample", "rk3_substep",
-                "dmc_substep")
-BF16_WRAPPERS = BF16_KERNELS + ("rk3_substep_lattice",)
+                "dmc_substep", "vol9_fixup", "bilerp_sample")
+# the other wrappers with a bf16 mode and a bf16 count of their own, by
+# kernel
+BF16_MODES = {"rk3_substep": ("rk3_substep_lattice",),
+              "bilerp_sample": ("bilerp_trace",)}
+BF16_WRAPPERS = BF16_KERNELS + sum(BF16_MODES.values(), ())
 BF16_DRIFT_STEPS = 8
 
 
@@ -2962,18 +2974,57 @@ def bf16_same_bits(label, got, want, values=False):
     return err
 
 
+def sow_nans(t):
+    """A copy of `t` with a NaN at every 997th element."""
+    t = t.clone()
+    t.view(-1)[::997] = float("nan")
+    return t
+
+
+def grid_sample_3d(fields, pos, h, off):
+    """A yardstick, used nowhere in the port: one grid_sample call (5-D,
+    bilinear, border padding, align_corners), the clamped trilinear sample
+    of the C stacked float32 fields (C, X, Y, Z) on the lattice (i +
+    off)*h at world positions `pos`: trilerp_sample's plain form."""
+    import torch
+    import torch.nn.functional as F
+
+    dims = fields.shape[1:]
+    grid5 = torch.stack([(pos[a] / h - off[a]) * (2.0 / (dims[a] - 1)) - 1.0
+                         for a in (2, 1, 0)], dim=-1)[None]
+    return lambda: F.grid_sample(fields[None], grid5, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+
+
+def grid_sample_2d(fields, pos, h, off):
+    """A yardstick as ``grid_sample_3d`` (4-D): the C stacked 2D float32
+    fields (C, X, Y) at world positions `pos` of shape (X', Y')."""
+    import torch
+    import torch.nn.functional as F
+
+    dims = fields.shape[1:]
+    grid4 = torch.stack([(pos[a] / h - off[a]) * (2.0 / (dims[a] - 1)) - 1.0
+                         for a in (1, 0)], dim=-1)[None]
+    return lambda: F.grid_sample(fields[None], grid4, mode="bilinear",
+                                 padding_mode="border", align_corners=True)
+
+
 def bf16_kernel_phase(n, seed):
-    """Phase 14a: each of the four kernels' bf16 modes at n^3 shapes
-    against its plain version (the float32 one on the widened values) on
-    the same inputs, bit for bit, NaN for NaN, and timed by CUDA graph
-    beside its float32 form on the unrounded inputs. trilerp_sample: C=1
-    dual (u), C=2 dual (rho+T), C=1 plain, C=3 plain on the MAC pack (the
-    trace clamp's second midpoint stage), also with NaNs sown into the
-    fields; minmax_sample: C=2 in both modes; rk3_substep from displaced
-    positions and in its lattice mode for every kind (stage 1 from the
-    float32 faces); dmc_substep from a displaced map. Bounds: the bytes
-    with the bf16 fields at 2 bytes a value (the lattice mode also reads
-    the float32 faces), or the float32 operations of the float32 form."""
+    """Phase 14a: each kernel's bf16 modes against its plain version (the
+    float32 one on the widened values) on the same inputs, bit for bit,
+    NaN for NaN (also with NaNs sown into the bfloat16 fields), and timed
+    by CUDA graph beside its float32 form on the unrounded inputs.
+    trilerp_sample at n^3: C=1 dual (u), C=2 dual (rho+T), C=1 plain, C=3
+    plain on the MAC pack (the trace clamp's second midpoint stage), and
+    its slab mode (``bf16_slab_checks``); minmax_sample: C=2 in both
+    modes; rk3_substep from displaced positions and in its lattice mode
+    for every kind (stage 1 from the float32 faces), and its slab modes;
+    dmc_substep from a displaced map; vol9_fixup (``bf16_vol9_checks``);
+    bilerp_sample's sample and trace modes (``bf16_bilerp_checks``).
+    Bounds: the bytes with the bf16 fields at 2 bytes a value (float32
+    inputs beside them at 4), or the float32 operations of the float32
+    form; library: one PyTorch call of the same function where there is
+    one (grid_sample on the widened fields)."""
     import torch
 
     from gpufluidsimulation_tpu_torch.core import interp
@@ -2992,16 +3043,20 @@ def bf16_kernel_phase(n, seed):
         return [(p + smooth(p.shape, rng, amp_cells * h, dev)).contiguous()
                 for p in (px, py, pz)]
 
-    def record(name, label, run16, run32, plain, err, nbytes, nops):
+    def record(name, label, run16, run32, plain, err, nbytes, nops,
+               library=None, **extra):
         k_ms = graph_ms(run16)
         f_ms = graph_ms(run32)
         p_ms = cuda_time(plain, 2, warmup=1)
+        lib_ms = None if library is None else graph_ms(library)
         b_ms, b_by = bound_ms(nbytes, nops)
         out[name].append(dict(variant=label, max_abs_err=err, tol=0.0,
                               ms=k_ms, float32_ms=f_ms, plain_ms=p_ms,
-                              bound_ms=b_ms, bound_by=b_by))
+                              bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, **extra))
         log(f"[bf16] {name} {label}: {k_ms:.4f} ms (float32 {f_ms:.4f}, "
-            f"plain {p_ms:.3f}, bf16 bound {b_ms:.4f} by {b_by})")
+            f"plain {p_ms:.3f}, bf16 bound {b_ms:.4f} by {b_by}, library "
+            f"{lib_ms})")
 
     fu = smooth(g.shape_u, rng, 0.06, dev)[None].contiguous()
     fc = torch.stack([smooth(g.shape_c, rng, 1.0, dev),
@@ -3018,12 +3073,12 @@ def bf16_kernel_phase(n, seed):
         f16 = f32.to(bf)
         got = ifa.trilerp_sample(f16, *pos, h, offs, dual=dual)
         err = bf16_same_bits(f"trilerp_sample {label}", got,
-                        ifa.trilerp_sample_plain(f16, *pos, h, offs, dual))
-        sown = f16.clone()
-        sown.view(-1)[::997] = float("nan")
+                             ifa.trilerp_sample_plain(f16, *pos, h, offs,
+                                                      dual))
+        sown = sow_nans(f16)
         bf16_same_bits(f"trilerp_sample {label}, NaNs sown",
-                  ifa.trilerp_sample(sown, *pos, h, offs, dual=dual),
-                  ifa.trilerp_sample_plain(sown, *pos, h, offs, dual))
+                       ifa.trilerp_sample(sown, *pos, h, offs, dual=dual),
+                       ifa.trilerp_sample_plain(sown, *pos, h, offs, dual))
         n_out, C = pos[0].numel(), f32.shape[0]
         nops = (dual_ops(pos, h, offs) if dual
                 else n_out * (6 + C * TRILERP_OPS))
@@ -3031,7 +3086,9 @@ def bf16_kernel_phase(n, seed):
                lambda: ifa.trilerp_sample(f16, *pos, h, offs, dual=dual),
                lambda: ifa.trilerp_sample(f32, *pos, h, offs, dual=dual),
                lambda: ifa.trilerp_sample_plain(f16, *pos, h, offs, dual),
-               err, 2 * f16.numel() + 4 * (3 + C) * n_out, nops)
+               err, 2 * f16.numel() + 4 * (3 + C) * n_out, nops,
+               library=(grid_sample_3d(ifa.widen(f16), pos, h, offs[0])
+                        if C == 1 and not dual else None))
 
     fc16 = fc.to(bf)
     offs = (g.OFF_C,) * 2
@@ -3059,8 +3116,8 @@ def bf16_kernel_phase(n, seed):
     start = (lat + torch.stack([smooth(g.shape_c, rng, 2.0, dev)
                                 for _ in range(3)])).contiguous()
     err = bf16_same_bits("rk3_substep displaced",
-                    ifa.rk3_substep(*faces16, start, sh, clamp),
-                    ifa.rk3_substep_plain(*faces16, start, sh, clamp))
+                         ifa.rk3_substep(*faces16, start, sh, clamp),
+                         ifa.rk3_substep_plain(*faces16, start, sh, clamp))
     record("rk3_substep", "displaced positions",
            lambda: ifa.rk3_substep(*faces16, start, sh, clamp),
            lambda: ifa.rk3_substep(u, v, w, start, sh, clamp),
@@ -3071,10 +3128,10 @@ def bf16_kernel_phase(n, seed):
         got = ifa.rk3_substep_lattice(*faces16, dim, sh, clamp,
                                       stage1=(u, v, w))
         err = bf16_same_bits(f"rk3_substep lattice mode {kind}", got,
-                        ifa.rk3_substep_plain(
-                            *faces16, ifa.lattice_positions(g.shape_c, dim,
-                                                            dev),
-                            sh, clamp, stage1=(u, v, w)))
+                             ifa.rk3_substep_plain(
+                                 *faces16, ifa.lattice_positions(g.shape_c,
+                                                                 dim, dev),
+                                 sh, clamp, stage1=(u, v, w)))
         if kind == "c":
             record("rk3_substep", "lattice mode (identity peel), cell kind",
                    lambda: ifa.rk3_substep_lattice(*faces16, dim, sh, clamp,
@@ -3089,60 +3146,448 @@ def bf16_kernel_phase(n, seed):
                                    for _ in range(3)])).contiguous()
     sub = float(np.float32(np.float32(h / 0.06) / np.float32(h)))
     err = bf16_same_bits("dmc_substep displaced map",
-                    ifa.dmc_substep(*faces16, maps, sub, thresh),
-                    ifa.dmc_substep_plain(*faces16, maps, sub, thresh))
+                         ifa.dmc_substep(*faces16, maps, sub, thresh),
+                         ifa.dmc_substep_plain(*faces16, maps, sub, thresh))
     record("dmc_substep", "displaced map",
            lambda: ifa.dmc_substep(*faces16, maps, sub, thresh),
            lambda: ifa.dmc_substep(u, v, w, maps, sub, thresh),
            lambda: ifa.dmc_substep_plain(*faces16, maps, sub, thresh),
            err, 2 * face_vals + 4 * 6 * N, N * DMC_OPS)
+    del fu, fc, fc16, u, v, w, pack, pu, pc, faces16, lat, start, maps
+    bf16_vol9_checks(g, rng, dev, positions, record)
+    bf16_slab_checks(n, rng, dev, record)
+    bf16_bilerp_checks(rng, dev, record)
     return {name: dict(rows[0], variants=rows) for name, rows in out.items()}
 
 
-def bf16_conversions(calls):
-    """Count the bf16 mode's conversions to bfloat16 (one elementwise
-    launch each) in `calls` until the returned function restores: the
-    faces (three a call) and every rounded field sample."""
-    from gpufluidsimulation_tpu_torch.bimocq import mapping
-    from gpufluidsimulation_tpu_torch.ops import advect
+def bf16_vol9_checks(g, rng, dev, positions, record):
+    """vol9_fixup's bf16 mode at n^3 (phase 14a): u (C=1) and rho+T (C=2)
+    through a map displaced by up to ~2 cells, at tol 0 and at the default
+    tol, whose flagged share must lie strictly between 0 and 1 (phase 2's
+    rule). The decision reads the float32 fields, the composition their
+    bfloat16 rounding, as the JAX package's fixup does. Timed as row 8:
+    the kernel launch with the flags given, beside its float32 launch."""
+    import torch
 
-    window, values, sample = (advect.window_faces, advect._values,
-                              mapping._sample_fields_at)
+    from gpufluidsimulation_tpu_torch.bimocq import mapping as mp
+    from gpufluidsimulation_tpu_torch.ops import interp_fast as ifa
 
-    def window_faces(u, v, w, bf16):
-        calls.append(3 if bf16 else 0)
-        return window(u, v, w, bf16)
+    h = g.h
+    maps = torch.stack(positions("c")).contiguous()
+    stats = ifa.vol9_map_stats(maps, h, g.shape_c)
+    _, block, _ = ifa.vol9_blocks(g.shape_c)
+    for label, f, kind, clamp, band_lo in vol9_cases(g, rng, dev):
+        dim = g.dim_of(kind)
+        band = (band_lo + dim[0], band_lo + dim[1], band_lo + dim[2],
+                band_lo + 1)
+        f16 = f.to(torch.bfloat16)
+        sown = sow_nans(f16)
+        p1 = [p.contiguous()
+              for p in mp.map_at_lattice_3d(g, maps, kind, clamp, clamp)]
+        offs = (g.off_of(kind),) * len(f)
+        duals = ifa.trilerp_sample(f16, *p1, h, offs, dual=True)
+        duals32 = ifa.trilerp_sample(f, *p1, h, offs, dual=True)
+        for tol_label, tol in (("tol=0", 0.0), ("default tol", None)):
+            name = f"{label} {tol_label}"
+            kw = dict(band=band, tol=tol)
 
-    def _values(fields, win):
-        calls.append(0 if win is None else 1)
-        return values(fields, win)
+            def fix(window):
+                return ifa.vol9_fixup(duals.clone(), f, stats, maps, p1, g,
+                                      kind, clamp, clamp, window=window, **kw)
 
-    def _sample_fields_at(*args, bf16=False, **kw):
-        calls.append(int(bf16))
-        return sample(*args, bf16=bf16, **kw)
+            def fix_plain(window):
+                return ifa.vol9_fixup_plain(duals, f, stats, maps, p1, g,
+                                            kind, clamp, clamp,
+                                            window=window, **kw)
 
-    advect.window_faces, advect._values = window_faces, _values
-    mapping._sample_fields_at = _sample_fields_at
+            err = bf16_same_bits(f"vol9_fixup {name}", fix(f16),
+                                 fix_plain(f16))
+            bf16_same_bits(f"vol9_fixup {name}, NaNs sown", fix(sown),
+                           fix_plain(sown))
+            flags = ifa.vol9_flags(f, p1, stats, g.shape_c, h, dim, clamp,
+                                   clamp, **kw)
+            flagged = float(flags.float().mean())
+            if tol is None and not 0.0 < flagged < 1.0:
+                raise AssertionError(f"vol9_fixup bf16 {name}: the flags go "
+                                     f"untested: flagged share {flagged}")
+            node_flags = ifa._expand_flags(flags, f.shape[1:], block)
+            n_chan = int(node_flags.sum())
+            n_any = int(node_flags.any(dim=0).sum())
+            share = n_any / node_flags[0].numel()
+            out16, out32 = duals.clone(), duals32.clone()
+            record("vol9_fixup", name,
+                   lambda: ifa.vol9_launch(out16, f16, maps, flags, g, kind,
+                                           clamp, clamp),
+                   lambda: ifa.vol9_launch(out32, f, maps, flags, g, kind,
+                                           clamp, clamp),
+                   lambda: fix_plain(f16), err,
+                   flags.numel() + 4 * share * maps.numel() + 6 * n_chan,
+                   vol9_ops(g, kind, n_any, n_chan), flagged_share=flagged)
 
-    def restore():
-        advect.window_faces, advect._values = window, values
-        mapping._sample_fields_at = sample
 
-    return restore
+def bf16_slab_checks(n, rng, dev, record):
+    """The slab modes' bf16 modes (phase 14a; the sharded path in the bf16
+    mode): trilerp_sample dual C=1 and C=2 and rk3_substep from displaced
+    positions and in its lattice mode with stage 1 from the rounded faces
+    widened (the sharded forward march from the identity), against their
+    plain versions bit for bit with equal overflow counts, on n^3 (slabs
+    of n/4 planes at origins 0, n/4 and 3n/4, halo 8) and 37x29x45 (slabs
+    of 15 at 0, 15 and 30, halo 4), from positions within the halo (no
+    count; equal to the whole-grid bf16 launch) and past it (the count not
+    0), as phase 2b; timed on the n^3 slab at origin n/4 beside the
+    float32 slab launch."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid3D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast as F
+
+    bf = torch.bfloat16
+
+    def zero():
+        return torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def check(name, got, want, ov_got, ov_want, whole=None, within=None):
+        err = bf16_same_bits(name, got, want)
+        c_got, c_want = int(ov_got), int(ov_want)
+        if c_got != c_want or (within is not None
+                               and (c_got == 0) != within):
+            raise AssertionError(f"bf16 {name}: overflow {c_got} (plain "
+                                 f"{c_want}), within the halo: {within}")
+        if whole is not None:
+            bf16_same_bits(f"{name} against the whole-grid launch", got,
+                           whole)
+        return err
+
+    for shape, D, halo in (((n, n, n), 4, 8), ((37, 29, 45), 3, 4)):
+        gg = Grid3D(*shape, 0.2 / shape[0])
+        h = gg.h
+        tag = "x".join(map(str, shape))
+        nk = shape[2]
+        nzl = nk // D
+        L = min(nzl + 2 * halo, nk)
+        f32 = torch.stack([smooth(shape, rng, 1.0, dev),
+                           smooth(shape, rng, 50.0, dev)]).contiguous()
+        f16 = f32.to(bf)
+        vel = [smooth(s_, rng, 0.06, dev)
+               for s_ in (gg.shape_u, gg.shape_v, gg.shape_w)]
+        vel16 = [t.to(bf) for t in vel]
+        top = max(float(t.abs().max()) for t in vel)
+        sh1 = float(np.float32(np.float32(h) / np.float32(top))
+                    / np.float32(h))
+        lat = torch.stack(gg.node_coords("c", device=dev))
+        clamp = (1.0, shape[0] - 1.0, 1.0, shape[1] - 1.0, 1.0, nk - 1.0)
+        ii = torch.arange(shape[0], device=dev)[:, None, None]
+        jj = torch.arange(shape[1], device=dev)[None, :, None]
+        sign = torch.where((ii + jj) % 2 == 0, 1.0, -1.0)
+        for z0 in (0, nzl, (D - 1) * nzl):
+            s0 = min(max(z0 - halo, 0), nk - L)
+            sl = slice(z0, z0 + nzl)
+            faces16, faces32 = ([t[..., s0:s0 + m].contiguous()
+                                 for t, m in zip(ts, (L, L, L + 1))]
+                                for ts in (vel16, vel))
+            zidx = torch.arange(z0 - halo, z0 + nzl + halo,
+                                device=dev).clamp(0, nk - 1)
+            ext16, ext32 = f16[..., zidx], f32[..., zidx]
+            xy = [lat[a][..., sl] + smooth(shape, rng, 2.0 * h, dev)[..., sl]
+                  for a in (0, 1)]
+
+            def positions(reach):
+                pz = lat[2][..., sl] + sign * (reach * h)
+                return [q.contiguous() for q in (*xy, pz)]
+
+            fslab = F.Slab(nz=nk, src=z0 - halo)
+            vslab = F.Slab(nz=nk, src=s0)
+            timing = shape[0] == n and z0 == nzl
+            for within in (True, False):
+                label = f"{tag} z0={z0} {'within' if within else 'past'}"
+                pos = positions(halo - 0.5 if within else halo + 3.0)
+                for C in (1, 2):
+                    e = ext16[:C].contiguous()
+                    offs = ((0.0, 0.0, 0.0),) * C
+                    ok, op = zero(), zero()
+                    err = check(
+                        f"trilerp_sample slab {label} C={C} dual",
+                        F.trilerp_sample(e, *pos, h, offs, True, fslab, ok),
+                        F.trilerp_sample_plain(e, *pos, h, offs, True, fslab,
+                                               op), ok, op,
+                        F.trilerp_sample(f16[:C].contiguous(), *pos, h, offs,
+                                         True) if within else None, within)
+                    if within and timing:
+                        e32, sown = ext32[:C].contiguous(), sow_nans(e)
+                        bf16_same_bits(
+                            f"trilerp_sample slab {label} C={C}, NaNs sown",
+                            F.trilerp_sample(sown, *pos, h, offs, True,
+                                             fslab),
+                            F.trilerp_sample_plain(sown, *pos, h, offs, True,
+                                                   fslab))
+                        record("trilerp_sample",
+                               f"slab mode C={C} dual, {n // D}-plane slab",
+                               lambda: F.trilerp_sample(e, *pos, h, offs,
+                                                        True, fslab),
+                               lambda: F.trilerp_sample(e32, *pos, h, offs,
+                                                        True, fslab),
+                               lambda: F.trilerp_sample_plain(
+                                   e, *pos, h, offs, True, fslab),
+                               err, 2 * e.numel() + 4 * (3 + C)
+                               * pos[0].numel(), dual_ops(pos, h, offs))
+                gpos = torch.stack([q / h for q in positions(
+                    halo - 2.5 if within else 2 * halo + 3.0)]).contiguous()
+                ok, op = zero(), zero()
+                err = check(
+                    f"rk3_substep slab {label} displaced",
+                    F.rk3_substep(*faces16, gpos, sh1, clamp, vslab, ok),
+                    F.rk3_substep_plain(*faces16, gpos, sh1, clamp, vslab,
+                                        op), ok, op,
+                    F.rk3_substep(*vel16, gpos, sh1, clamp)
+                    if within else None, within)
+                if within and timing:
+                    record("rk3_substep",
+                           f"slab mode displaced, {n // D}-plane slab",
+                           lambda: F.rk3_substep(*faces16, gpos, sh1, clamp,
+                                                 vslab),
+                           lambda: F.rk3_substep(*faces32, gpos, sh1, clamp,
+                                                 vslab),
+                           lambda: F.rk3_substep_plain(*faces16, gpos, sh1,
+                                                       clamp, vslab),
+                           err, 2 * sum(t.numel() for t in faces16)
+                           + 4 * 6 * gpos[0].numel(),
+                           gpos[0].numel() * RK3_OPS)
+            # the sharded forward march's first substep from the identity:
+            # every stage reads the rounded faces, stage 1 widened
+            lslab = F.Slab(nz=nk, src=s0, out=z0, out_nz=nzl)
+            wide = [F.widen(t) for t in faces16]
+            wide_whole = [F.widen(t) for t in vel16]
+            for kind in ("c", "u", "v", "w"):
+                dim = gg.dim_of(kind)
+                ok, op = zero(), zero()
+                err = check(
+                    f"rk3_substep slab {tag} z0={z0} lattice {kind}, "
+                    "stage 1 bf16",
+                    F.rk3_substep_lattice(*faces16, dim, sh1, clamp, lslab,
+                                          ok, stage1=wide),
+                    F.rk3_substep_plain(
+                        *faces16, F.lattice_positions(
+                            (shape[0], shape[1], nzl), dim, dev, z0), sh1,
+                        clamp, lslab, op, stage1=wide), ok, op,
+                    F.rk3_substep_lattice(*vel16, dim, sh1, clamp,
+                                          stage1=wide_whole)[..., sl], True)
+                if kind == "c" and timing:
+                    N = shape[0] * shape[1] * nzl
+                    nv = sum(t.numel() for t in faces16)
+                    record("rk3_substep",
+                           f"slab lattice mode, stage 1 bf16, cell kind, "
+                           f"{n // D}-plane slab",
+                           lambda: F.rk3_substep_lattice(
+                               *faces16, dim, sh1, clamp, lslab,
+                               stage1=wide),
+                           lambda: F.rk3_substep_lattice(
+                               *faces32, dim, sh1, clamp, lslab),
+                           lambda: F.rk3_substep_plain(
+                               *faces16, F.lattice_positions(
+                                   (shape[0], shape[1], nzl), dim, dev, z0),
+                               sh1, clamp, lslab, stage1=wide),
+                           err, 6 * nv + 4 * 3 * N, N * RK3_OPS)
 
 
-def bf16_path_phase(n, steps, scheme_steps):
-    """Phase 14b-d: parity of the bf16 main path and MacCormack on the
-    card against the port on the CPU at 32^3 (3 steps, 2e-3 of scale); the
-    bf16 main path at n^3 (1 warm-up and `steps` timed steps, launch
-    counts and bf16-mode counts reset before and read after: 12
-    trilerp_sample, 2 rk3_substep and 1 in its lattice mode and 2
-    dmc_substep launches a step in the bf16 mode, the backward march's
-    identity peel in float32) with its conversions to bfloat16 counted;
-    the drift of rho and u from the float32 main path after
-    BF16_DRIFT_STEPS steps from the same state; and the bf16 MacCormack
-    path at n^3 (1 bf16 minmax_sample launch a step, in its sample
-    mode)."""
+def bf16_bilerp_checks(rng, dev, record):
+    """bilerp_sample's bf16 modes at 256^2 and 256x1280 (phase 14a): the
+    sample mode at C = 1-4 cell fields from the cell lattice wandering 2
+    cells; the trace mode from the lattices (semi-Lagrangian foot samples
+    of C=1 and C=3, MacCormack's C=2 and C=4 with their corner min/max
+    and the foot), the foot samples reading the bfloat16 fields and the
+    min/max the float32 fields in the same launch: the min/max must equal
+    the float32 trace's, value for value."""
+    import torch
+
+    from gpufluidsimulation_tpu_torch.core.grids import Grid2D
+    from gpufluidsimulation_tpu_torch.ops import interp_fast as F
+
+    bf = torch.bfloat16
+    for ni, nj in ((256, 256), (256, 1280)):
+        g = Grid2D(ni, nj, 1.0 / ni)
+        h = g.h
+        tag = f"{ni}x{nj}"
+        u, v, extra = march_fields(g, rng, dev)
+        ex16 = [f.to(bf) for f in extra]
+        pos = [(q + smooth(q.shape, rng, 2.0 * h, dev)).contiguous()
+               for q in g.node_coords("c", dev)]
+        n_out = pos[0].numel()
+        for C in (1, 2, 3, 4):
+            offs = (g.OFF_C,) * C
+            f16, f32 = ex16[:C], extra[:C]
+            err = bf16_same_bits(f"bilerp_sample sample C={C} {tag}",
+                                 F.bilerp_sample(f16, *pos, h, offs),
+                                 F.bilerp_sample_plain(f16, *pos, h, offs))
+            sown = [sow_nans(f) for f in f16]
+            bf16_same_bits(f"bilerp_sample sample C={C} {tag}, NaNs sown",
+                           F.bilerp_sample(sown, *pos, h, offs),
+                           F.bilerp_sample_plain(sown, *pos, h, offs))
+            record("bilerp_sample", f"sample C={C} {tag}",
+                   lambda: F.bilerp_sample(f16, *pos, h, offs),
+                   lambda: F.bilerp_sample(f32, *pos, h, offs),
+                   lambda: F.bilerp_sample_plain(f16, *pos, h, offs), err,
+                   2 * C * f16[0].numel() + 4 * (2 + C) * n_out,
+                   n_out * (BILERP_POS_OPS + BILERP_OFFSET_OPS
+                            + C * BILERP_CHANNEL_OPS),
+                   library=grid_sample_2d(torch.stack(
+                       [F.widen(f) for f in f16]), pos, h, g.OFF_C))
+        for label, kind, count, C, minmax, foot in (
+                ("lattice c, 2 substeps, C=1", "c", 2, 1, False, False),
+                ("lattice c, 2 substeps, C=2 minmax", "c", 2, 2, True,
+                 False),
+                ("lattice u, 3 substeps (last partial), C=3", "u", 3, 3,
+                 False, False),
+                ("lattice c, 2 substeps back, C=4 minmax, foot", "c", -2, 4,
+                 True, True)):
+            origin = F.Lattice2D(g.shape_of(kind), g.off_of(kind))
+            off = g.off_of(kind)
+            f32 = (extra[:C] if kind == "c"
+                   else [u, u * 2.0, u + 1.0, -u][:C])
+            f16 = [f.to(bf) for f in f32]
+            subs = march_subs(count, h)
+            kw = dict(off=off, minmax=minmax, write_pos=foot)
+            mm = dict(minmax_fields=f32) if minmax else {}
+            name = f"bilerp_sample trace {label} {tag}"
+            err = 0.0
+            for sown in (False, True):
+                fs = [sow_nans(f) for f in f16] if sown else f16
+                got = F.bilerp_trace(u, v, h, subs, origin, fs, **kw, **mm)
+                want = F.bilerp_trace_plain(u, v, h, subs, origin, fs, **kw,
+                                            **mm)
+                for part, (a, b) in enumerate(zip(got, want)):
+                    if (a is None) != (b is None):
+                        raise AssertionError(f"{name}: output {part} "
+                                             "missing")
+                    if a is not None:
+                        err = max(err, bf16_same_bits(
+                            f"{name}{', NaNs sown' if sown else ''} output "
+                            f"{part}", a, b, values=part >= 2))
+                if minmax:
+                    ref = F.bilerp_trace(u, v, h, subs, origin, f32, **kw)
+                    for part in (2, 3):
+                        bf16_same_bits(f"{name}{', NaNs sown' if sown else ''}"
+                                       f" output {part} against the float32 "
+                                       "trace's", got[part], ref[part],
+                                       values=True)
+            n = origin.shape[0] * origin.shape[1]
+            outs = (2 if foot else 0) + C * (3 if minmax else 1)
+            nbytes = (4 * (u.numel() + v.numel()) + 2 * C * f32[0].numel()
+                      + (4 * C * f32[0].numel() if minmax else 0)
+                      + 4 * outs * n)
+            nops = n * (abs(count) * TRACE_SUBSTEP_OPS + TRACE_LATTICE_OPS
+                        + TRACE_FOOT_OPS + C * (
+                            TRACE_FIELD_OPS
+                            + (TRACE_MINMAX_OPS if minmax else 0)))
+            record("bilerp_sample", f"trace {label} {tag}",
+                   lambda: F.bilerp_trace(u, v, h, subs, origin, f16, **kw,
+                                          **mm),
+                   lambda: F.bilerp_trace(u, v, h, subs, origin, f32, **kw),
+                   lambda: F.bilerp_trace_plain(u, v, h, subs, origin, f16,
+                                                **kw, **mm),
+                   err, nbytes, nops)
+
+
+def bf16_conversions(step):
+    """step() and its conversions to bfloat16 (the bf16 mode's rounding of
+    faces and fields: aten._to_copy to bfloat16), counted by a dispatch
+    mode in this one step, apart from the timed steps."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    count = [0]
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if (func is torch.ops.aten._to_copy.default
+                    and kwargs.get("dtype") == torch.bfloat16):
+                count[0] += 1
+            return func(*args, **kwargs)
+
+    with Count():
+        out = step()
+    return out, count[0]
+
+
+def sharded_path(solver):
+    """`solver`'s step through ``sharded_step`` on SHARDED_SLABS slabs of
+    the card (halo SHARDED_HALO, fast sampling on, as for cards), in the
+    form ``timed_steps`` drives: (the path, its step)."""
+    import types
+
+    import torch
+
+    from gpufluidsimulation_tpu_torch.parallel.sharding import (
+        make_mesh, shard_state, sharded_step)
+
+    mesh = make_mesh(SHARDED_SLABS,
+                     devices=[torch.device("cuda", 0)] * SHARDED_SLABS)
+    step = sharded_step(solver, mesh, halo=SHARDED_HALO)
+    return types.SimpleNamespace(
+        cfg=solver.cfg, step=step,
+        init_state=lambda: shard_state(solver.init_state(), mesh)), step
+
+
+def sharded_parity_phase(n, mode, steps=3):
+    """Phase 14b: the main path's step in the engine mode `mode` through
+    ``sharded_step`` on SHARDED_SLABS slabs (halo SHARDED_HALO, fast
+    sampling on), on the card against the port on the CPU (slabs of the
+    CPU device), `steps` steps at n^3 from one numpy state: every field
+    within 2e-3 of its scale, interp_overflow and slab_clamped 0."""
+    from gpufluidsimulation_tpu_torch import convert
+    from gpufluidsimulation_tpu_torch.parallel.sharding import (
+        make_mesh, shard_state, sharded_step)
+    from gpufluidsimulation_tpu_torch.solvers import smoke3d
+
+    cfg = bench_config(n, engine_mode=mode)
+    gpu = smoke3d.Smoke3D(cfg)
+    cpu = smoke3d.Smoke3D(cfg, device="cpu")
+    step_g = sharded_path(gpu)[1]
+    mesh_c = make_mesh(SHARDED_SLABS, devices=["cpu"] * SHARDED_SLABS)
+    step_c = sharded_step(cpu, mesh_c, halo=SHARDED_HALO,
+                          fast_sampling=True)
+    start = convert.state_to_numpy(cpu.init_state())
+    sg = convert.state_from_numpy(start, cfg, gpu.device)
+    sc = shard_state(convert.state_from_numpy(start, cfg, "cpu"), mesh_c)
+    for _ in range(steps):
+        sg, sc = step_g(sg), step_c(sc)
+        for s in (sg, sc):
+            if s.interp_overflow != 0 or s.slab_clamped != 0:
+                raise AssertionError(f"sharded parity: overflow "
+                                     f"{s.interp_overflow}, slab_clamped "
+                                     f"{s.slab_clamped}")
+    a, b = convert.state_to_numpy(sg), convert.state_to_numpy(sc)
+    worst = {}
+    for key in FIELDS + ("rho", "T"):
+        err = float(np.abs(a[key].astype(np.float64) - b[key]).max())
+        worst[key] = err
+        if not np.isfinite(err) or err > 2e-3 * max(1.0, float(
+                np.abs(b[key]).max())):
+            raise AssertionError(f"sharded parity {key}: card vs cpu {err}")
+    log(f"[parity] sharded {SHARDED_SLABS} slabs, {mode}, {n}^3, {steps} "
+        "steps, card vs cpu max abs err (bound 2e-3 of scale): "
+        + json.dumps(worst))
+    return worst
+
+
+def bf16_path_phase(n, steps, scheme_steps, steps_2d):
+    """Phase 14b-d. Parity on the card against the port on the CPU (3
+    steps, 2e-3 of scale) of the bf16 main path, MacCormack and the vol9
+    form (adaptive, blend 0.5) at 32^3, the bf16 main path through
+    sharded_step on 4 slabs at 32^3 and 2D BiMocq at 64^2. The paths at
+    full width, each beside its float32 path timed in turn in this phase:
+    the bf16 main path (n^3; 12 trilerp_sample, 2 rk3_substep and 1 in
+    its lattice mode and 2 dmc_substep launches a step in the bf16 mode,
+    the backward march's identity peel in float32), bf16 MacCormack (1
+    bf16 minmax_sample launch a step), bf16_vol9 (cell 7: every
+    vol9_fixup launch in the bf16 mode), bf16_sharded (cell 18: 9 D bf16
+    trilerp_sample slab launches a step, w's float32, every rk3_substep
+    launch in the bf16 mode and no dmc_substep one), sim2d_bimocq_bf16
+    and sim2d_rt_bf16 (bf16 sample- and trace-mode launches, the maps'
+    and velocity's float32); each with its bf16-mode launches a step and
+    its conversions to bfloat16 in one more step; and the drift of rho
+    and u from the float32 main path after BF16_DRIFT_STEPS steps from
+    the same state."""
     import torch
 
     from gpufluidsimulation_tpu_torch.config import EngineMode
@@ -3151,56 +3596,109 @@ def bf16_path_phase(n, steps, scheme_steps):
     from gpufluidsimulation_tpu_torch.solvers.smoke3d import Smoke3D
 
     bf16 = EngineMode(interp_bf16=True)
+    vol9_16 = EngineMode(volume_vol9=True, interp_bf16=True)
+    small_gaps = dict(reinit_mode="adaptive", blend_coeff=0.5,
+                      vel_reinit_gap=2, scalar_reinit_gap=3)
     parity = {
         "main": parity_phase(bench_config(32, engine_mode=bf16),
                              "bf16 vortex"),
         "maccormack": parity_phase(bench_config(
             32, scheme=Scheme.MACCORMACK, engine_mode=bf16),
-            "bf16 maccormack vortex")}
+            "bf16 maccormack vortex"),
+        "vol9": parity_phase(bench_config(32, engine_mode=vol9_16,
+                                          **small_gaps),
+                             "bf16 bimocq adaptive blend 0.5 vol9 volume"),
+        "sharded": sharded_parity_phase(32, bf16),
+        "sim2d_bimocq": parity_2d_phase(64, 64, labels=("bimocq",),
+                                        engine_mode=bf16)}
     fns = [getattr(interp_fast, name) for name in BF16_WRAPPERS]
 
     def reset():
         for fn in fns:
             fn.bf16_launches = 0
-        conversions.clear()
 
-    conversions = []
-    restore = bf16_conversions(conversions)
-    results, by_path = {}, {}
-    try:
-        for label, cfg, n_steps, expect in (
-                ("bf16_main", bench_config(n, engine_mode=bf16), steps,
-                 MAIN_KERNELS),
-                ("bf16_maccormack", bench_config(
-                    n, scheme=Scheme.MACCORMACK, engine_mode=bf16),
-                 scheme_steps, ("minmax_sample", "rk3_substep",
-                                "trilerp_sample"))):
-            solver = Smoke3D(cfg)
-            state, res = timed_steps(solver, n_steps, expect, on_reset=reset)
-            del state
-            bf = {fn.__name__: fn.bf16_launches / n_steps for fn in fns}
-            res.update(bf16_launches_per_step=bf,
-                       conversions_per_step=sum(conversions) / n_steps)
-            by_path[label] = {fn.__name__: fn.bf16_launches for fn in fns}
-            results[label] = res
-            log(f"[bf16] {label} {n}^3: {res['ms_per_step']:.2f} ms/step, "
-                f"bf16-mode launches a step {json.dumps(bf)}, "
-                f"{res['conversions_per_step']} conversions to bfloat16 a "
-                "step")
-            log(f"[bf16] {label} " + json.dumps(res))
-    finally:
-        restore()
-    want = {"trilerp_sample": 12, "minmax_sample": 0, "rk3_substep": 2,
-            "rk3_substep_lattice": 1, "dmc_substep": 2}
-    if results["bf16_main"]["bf16_launches_per_step"] != want:
-        raise AssertionError(
-            f"bf16 main path: bf16-mode launches a step "
-            f"{results['bf16_main']['bf16_launches_per_step']}, expected "
-            f"{want}")
-    if results["bf16_maccormack"]["bf16_launches_per_step"][
-            "minmax_sample"] != 1:
+    paths, by_path = {}, {}
+
+    def note(label, res, n_steps, f32_ms, counts, step=None):
+        """Record a bf16 path's result: its bf16-mode launches a step (of
+        `counts`, read right after the timed steps) and (where `step` is
+        given) its conversions in one more step."""
+        bf = {k: c / n_steps for k, c in counts.items()}
+        if step is not None:
+            res["conversions_per_step"] = bf16_conversions(step)[1]
+        conv = res["conversions_per_step"]
+        res.update(bf16_launches_per_step=bf, float32_ms_per_step=f32_ms)
+        by_path[label] = counts
+        paths[label] = res
+        log(f"[bf16] {label}: {res['ms_per_step']:.2f} ms/step against the "
+            f"float32 path's {f32_ms:.2f} in turn, bf16-mode launches a "
+            f"step {json.dumps(bf)}, {conv} conversions to bfloat16 in one "
+            "more step")
+        log(f"[bf16] {label} " + json.dumps(res))
+
+    for label, cfg, n_steps, expect in (
+            ("bf16_main", bench_config(n, engine_mode=bf16), steps,
+             MAIN_KERNELS),
+            ("bf16_maccormack", bench_config(
+                n, scheme=Scheme.MACCORMACK, engine_mode=bf16),
+             scheme_steps, ("minmax_sample", "rk3_substep",
+                            "trilerp_sample")),
+            ("bf16_vol9", bench_config(n, reinit_mode="adaptive",
+                                       engine_mode=vol9_16),
+             scheme_steps, KERNELS[:4] + ("vol9_fixup",)),
+            ("bf16_sharded", bench_config(n, engine_mode=bf16),
+             SHARDED_STEPS, MAIN_KERNELS)):
+        f32_cfg = dataclasses.replace(cfg, engine_mode=dataclasses.replace(
+            cfg.engine_mode, interp_bf16=None))
+        runs = {}
+        for key, c in (("float32", f32_cfg), ("bf16", cfg)):
+            solver = Smoke3D(c)
+            path = sharded_path(solver)[0] if label == "bf16_sharded" \
+                else solver
+            state, res = timed_steps(path, n_steps, expect, on_reset=reset)
+            runs[key] = res
+            if key == "bf16":
+                note(label, res, n_steps, runs["float32"]["ms_per_step"],
+                     {fn.__name__: fn.bf16_launches for fn in fns},
+                     lambda: path.step(state))
+            del state, solver, path
+    for label, example in (("sim2d_bimocq_bf16", 0), ("sim2d_rt_bf16", 2)):
+        f32 = path_2d_phase(label.replace("_bf16", "_float32"), example,
+                            steps_2d, None)
+        res = path_2d_phase(label, example, steps_2d, None,
+                            engine_mode=bf16, bf16_fns=fns)
+        note(label, res, steps_2d, f32["ms_per_step"],
+             res.pop("bf16_launches"))
+    per = {k: paths[k]["bf16_launches_per_step"] for k in paths}
+    want = dict.fromkeys(BF16_WRAPPERS, 0)
+    want.update(trilerp_sample=12, rk3_substep=2, rk3_substep_lattice=1,
+                dmc_substep=2)
+    if per["bf16_main"] != want:
+        raise AssertionError(f"bf16 main path: bf16-mode launches a step "
+                             f"{per['bf16_main']}, expected {want}")
+    if per["bf16_maccormack"]["minmax_sample"] != 1:
         raise AssertionError("bf16 maccormack path: not one bf16 "
                              "minmax_sample launch a step")
+    vol9 = paths["bf16_vol9"]
+    if not (per["bf16_vol9"]["vol9_fixup"] > 0 and
+            per["bf16_vol9"]["vol9_fixup"]
+            == vol9["launches"]["vol9_fixup"] / scheme_steps):
+        raise AssertionError(f"bf16 vol9 path: {per['bf16_vol9']} bf16-mode "
+                             f"launches a step, {vol9['launches']} in all")
+    D, sharded = SHARDED_SLABS, paths["bf16_sharded"]
+    subs = sum(sharded["substeps"]) / SHARDED_STEPS
+    got = per["bf16_sharded"]
+    if (got["trilerp_sample"] != 9 * D or got["dmc_substep"] != 0
+            or got["rk3_substep"] + got["rk3_substep_lattice"] != D * subs):
+        raise AssertionError(f"bf16 sharded path: bf16-mode launches a step "
+                             f"{got}, expected 9 D trilerp_sample, no "
+                             f"dmc_substep and every one of the {D * subs} "
+                             "rk3_substep")
+    for label in ("sim2d_bimocq_bf16", "sim2d_rt_bf16"):
+        if not (per[label]["bilerp_sample"] > 0
+                and per[label]["bilerp_trace"] > 0):
+            raise AssertionError(f"{label}: bf16-mode launches a step "
+                                 f"{per[label]}")
     # the drift from the float32 main path
     states = {}
     for label, mode in (("float32", None), ("bf16", bf16)):
@@ -3216,12 +3714,10 @@ def bf16_path_phase(n, steps, scheme_steps):
         if not bool(torch.isfinite(a).all()):
             raise AssertionError(f"bf16 main path: non-finite {k}")
         drift[k] = float((a - b).abs().max() / b.abs().max())
-    results["drift_of_scale"] = drift
-    results["parity"] = parity
     log(f"[bf16] drift from the float32 main path after "
         f"{BF16_DRIFT_STEPS} steps at {n}^3 (max abs difference over the "
         f"float32 field's max): {json.dumps(drift)}")
-    return results, by_path
+    return dict(paths=paths, parity=parity, drift_of_scale=drift), by_path
 
 
 # ---------------------------------------------------------------------------
@@ -3976,7 +4472,8 @@ COUNTERS_2D = ("frame", "last_remeshing", "rho_last_remeshing",
                "substeps")
 
 
-def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
+def parity_2d_phase(ni=32, nj=48, steps=3, seed=3, labels=None,
+                    engine_mode=None):
     """Phase 11: each grid scheme at ni x nj (spectral projection, buoyancy
     on, dt 0.4: 2 or more CFL substeps), BiMocq in the level-set mode and
     the particle schemes FLIP, APIC and POLYPIC (4 x 4 particles a cell,
@@ -3986,7 +4483,8 @@ def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
     two-level pull-back and both remaps run. Every field and map, and
     every particle column (both sort on the same keys, so the order is
     the same), within 2e-3 of its scale (the 3D gate), every counter
-    (proj_iters, remap frames, substeps) equal."""
+    (proj_iters, remap frames, substeps) equal. `labels` keeps those
+    schemes only; `engine_mode` is every configuration's."""
     from gpufluidsimulation_tpu_torch import convert
     from gpufluidsimulation_tpu_torch.solvers import smoke2d
     from gpufluidsimulation_tpu_torch.solvers.schemes import Scheme
@@ -4007,9 +4505,11 @@ def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
             ("bimocq levelset", Scheme.BIMOCQ, dict(advect_levelset=True)),
             ("flip", Scheme.FLIP, {}), ("apic", Scheme.APIC, {}),
             ("polypic", Scheme.POLYPIC, {})):
+        if labels is not None and label not in labels:
+            continue
         cfg = smoke2d.Smoke2DConfig(ni=ni, nj=nj, L=1.0, scheme=scheme,
                                     alpha=0.2, beta=0.05, proj_tol=1e-5,
-                                    **extra)
+                                    engine_mode=engine_mode, **extra)
         gpu = smoke2d.Smoke2D(cfg)
         cpu = smoke2d.Smoke2D(cfg, device="cpu")
         arrays = dict(convert.state_to_numpy(cpu.init_state()), **start)
@@ -4039,7 +4539,8 @@ def parity_2d_phase(ni=32, nj=48, steps=3, seed=3):
             if not np.isfinite(err) or err > 2e-3 * scale:
                 raise AssertionError(f"parity 2D {label} {key}: card vs cpu "
                                      f"{err}")
-        log(f"[parity] 2D {label} {ni}x{nj}, {steps} steps, proj_iters "
+        mode = "" if engine_mode is None else f" {engine_mode}"
+        log(f"[parity] 2D {label} {ni}x{nj}{mode}, {steps} steps, proj_iters "
             f"{iters}, substeps {sg.substeps}, remaps (vel, scalar) "
             f"{(sg.total_resample_count, sg.total_scalar_resample)}, card vs "
             "cpu max abs err (bound 2e-3 of scale): "
@@ -4132,7 +4633,8 @@ def observe_plain_calls(calls):
     return restore
 
 
-def path_2d_phase(label, example, steps, profile, scheme=None):
+def path_2d_phase(label, example, steps, profile, scheme=None,
+                  engine_mode=None, bf16_fns=()):
     """Phase 12: a 2D scene as the CLI builds it (``make_scene_2d`` with
     BiMocq or `scheme`, the scene's init on the card, for the particle
     schemes the CLI's bootstrap from the grid, its fixed dt), 2 warm-up
@@ -4144,7 +4646,11 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
     mode (and a BiMocq path march its backward map in the DMC mode) and
     call no plain trace or DMC; a particle path must launch p2g_splat
     every step (and bilerp_sample's cp mode on APIC and PolyPIC) and call
-    no plain splat."""
+    no plain splat. `engine_mode` replaces the scene's (then one more step
+    counts the conversions to bfloat16, ``bf16_conversions``); the
+    `bf16_fns`' bf16-mode counts are set to 0 and read with the launch
+    counts. Returns the path's record, its launch counts by wrapper under
+    "launches"."""
     import torch
 
     from gpufluidsimulation_tpu_torch.scenes import scenes2d
@@ -4154,6 +4660,8 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
     scheme = Scheme.BIMOCQ if scheme is None else scheme
     particles = scheme in (Scheme.FLIP, Scheme.APIC, Scheme.POLYPIC)
     scene = scenes2d.make_scene_2d(example, scheme)
+    if engine_mode is not None:
+        scene.cfg = dataclasses.replace(scene.cfg, engine_mode=engine_mode)
     solver = smoke2d.Smoke2D(scene.cfg)
     t0 = time.time()
     state = scene.init(solver, solver.init_state())
@@ -4168,6 +4676,8 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
     torch.cuda.synchronize()
     for fn in fns.values():
         fn.launches = 0
+    for fn in bf16_fns:
+        fn.bf16_launches = 0
     restore = observe_plain_calls(plain_calls)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -4183,6 +4693,7 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
     host_ms = (time.time() - t0) / steps * 1e3
     ms = start.elapsed_time(end) / steps
     launches = {k: fn.launches for k, fn in fns.items()}
+    bf16_launches = {fn.__name__: fn.bf16_launches for fn in bf16_fns}
     if kernel_launches(launches, "bilerp_sample") == 0:
         raise AssertionError(f"the 2D path {label} never launched "
                              "bilerp_sample")
@@ -4219,6 +4730,10 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
 
     busy, kernels, prof = busy_ms(one, 2)
     state = holder[0]
+    conversions = None
+    if engine_mode is not None:
+        state, conversions = bf16_conversions(
+            lambda: solver.step(state, scene.dt))
     for key in ("u", "v", "rho", "T"):
         if not bool(torch.isfinite(getattr(state, key)).all()):
             raise AssertionError(f"2D path {label}: non-finite {key}")
@@ -4247,7 +4762,8 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
         idle_share=1.0 - busy / ms, substeps=state.substeps,
         proj_iters=state.proj_iters, cfl=state.cfl,
         remaps=[state.total_resample_count, state.total_scalar_resample],
-        rho_max=float(state.rho.max()))
+        rho_max=float(state.rho.max()), conversions_per_step=conversions,
+        bf16_launches=bf16_launches)
     log(f"[path2d] {label} " + json.dumps(res))
     if profile:
         table = prof.key_averages().table(sort_by="cuda_time_total",
@@ -4255,7 +4771,8 @@ def path_2d_phase(label, example, steps, profile, scheme=None):
         with open(profile, "a") as f:
             f.write(f"== 2D path {label}: 2 steps under the profiler, "
                     f"busy {busy:.3f} ms/step of {ms:.3f}\n{table}\n")
-    return launches
+    res["launches"] = launches
+    return res
 
 
 def cli_2d_phase():
@@ -4444,23 +4961,20 @@ def main():
     by_path.update(cli_phase(args.cli_res, args.cli_obstacle_res))
     t16 = time.time()
     bf16_results = bf16_kernel_phase(args.kernel_n, args.seed)
-    bf16_paths, bf16_by_path = bf16_path_phase(args.n, args.steps,
-                                               args.scheme_steps)
+    bf16_paths, bf16_by_path = bf16_path_phase(
+        args.n, args.steps, args.scheme_steps, args.steps_2d)
     log(f"[bf16] the bf16 phases took {time.time() - t16:.1f} s")
     t2d = time.time()
     results["bilerp_sample"] = bilerp_phase(rng2d)
     results["p2g_splat"] = p2g_phase(rng2d)
     parity_2d_phase()
-    by_path["sim2d_bimocq"] = path_2d_phase("sim2d_bimocq", 0,
-                                            args.steps_2d, args.profile)
-    by_path["sim2d_rt"] = path_2d_phase("sim2d_rt", 2, args.steps_2d,
-                                        args.profile)
     for label, example, scheme in (
+            ("sim2d_bimocq", 0, None), ("sim2d_rt", 2, None),
             ("sim2d_flip", 0, Scheme.FLIP), ("sim2d_apic", 0, Scheme.APIC),
             ("sim2d_polypic", 0, Scheme.POLYPIC),
             ("sim2d_rt_flip", 2, Scheme.FLIP)):
         by_path[label] = path_2d_phase(label, example, args.steps_2d,
-                                       args.profile, scheme)
+                                       args.profile, scheme)["launches"]
     by_path.update(cli_2d_phase())
     log(f"[path2d] the 2D phases took {time.time() - t2d:.1f} s")
     # each kernel's count comes from the path that was added for it
@@ -4495,12 +5009,12 @@ def main():
                     p: c[mode] for p, c in by_path.items()}
         if name in BF16_KERNELS:
             entry["bf16"] = dict(bf16_results[name], launches_by_path={
-                p: c[name] + c.get(LATTICE.get(name), 0)
+                p: c[name] + sum(c[m] for m in BF16_MODES.get(name, ()))
                 for p, c in bf16_by_path.items()}, paths={
-                p: {k: r[k] for k in ("ms_per_step", "launches",
-                                      "bf16_launches_per_step",
+                p: {k: r[k] for k in ("ms_per_step", "float32_ms_per_step",
+                                      "launches", "bf16_launches_per_step",
                                       "conversions_per_step")}
-                for p, r in bf16_paths.items() if p.startswith("bf16_")},
+                for p, r in bf16_paths["paths"].items()},
                 drift_of_scale=bf16_paths["drift_of_scale"])
         if name in SLAB_KERNELS:
             entry["slab"] = dict(slab_results[name], launches_by_path={

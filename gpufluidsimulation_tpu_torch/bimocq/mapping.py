@@ -38,8 +38,13 @@ The bf16 mode (``EngineMode.interp_bf16``): the marches read the bf16
 faces of ``update_mapping_3d``'s `window`, and with ``bf16=True`` every
 field that the pull-backs and accumulates sample (after its prefilter,
 where it has one) is rounded to bfloat16 first, as the JAX package pads
-its value windows; maps, the identity accumulate and the vol9 form (which
-raises) stay float32. The multi-kind pull-back
+its value windows: the vol9 fixup's composition too, whose decision reads
+the float32 fields. Under a mesh the slab samplers round and the
+z-staggered kind's whole samples do not (JAX gathers it exactly), and the
+sharded marches read the window's faces forward and the float32 faces
+backward. Maps and the identity accumulate stay float32. In 2D
+(``bf16=True`` of the pull-back, correction and accumulate) every field
+sample rounds and the map samples do not. The multi-kind pull-back
 (``bimocq_advect_multi_3d``, each sampling stage one ``pullback_sample``
 launch across all kinds) is parked, as in the JAX package: no solver path
 calls it.
@@ -110,9 +115,12 @@ def update_mapping_3d(mapping: MappingState, grid, u, v, w, cfldt, dt,
     z-sharded (``update_mapping_3d_sharded``), as the JAX package routes
     them. `window`: the bf16 mode's faces (``advect.window_faces``)."""
     if sharded is not None and sharded.divides(grid.nk):
+        if window is None:
+            window = advect.window_faces(u, v, w, sharded.bf16)
         return sharded_interp.update_mapping_3d_sharded(
             mapping, grid, u, v, w, cfldt, dt, sharded.mesh, sharded.halo,
-            from_identity=from_identity, counts=sharded.clamped)
+            from_identity=from_identity, counts=sharded.clamped,
+            window=window)
     bx, by, bz = advect.update_backward_map_3d(
         grid, u, v, w, (mapping.bwd[0], mapping.bwd[1], mapping.bwd[2]),
         cfldt, dt, from_identity=from_identity, window=window)
@@ -193,14 +201,19 @@ def _sample_fields_at(grid, kind, fields, positions, dual=False,
     whose z extent the mesh divides take one slab-mode launch a slab
     (``sample3_multi_sharded``), as the JAX package routes them; the
     z-staggered kind (nk + 1 planes) is sampled whole. `bf16` samples the
-    fields rounded to bfloat16 (the bf16 mode)."""
+    fields rounded to bfloat16 (the bf16 mode) on one device; under a mesh
+    the slab samples round where the routing says (``Sampling.bf16``) and
+    the whole samples read the float32 fields, which the JAX package
+    gathers exactly."""
     mx, my, mz = positions
     src = fields if torch.is_tensor(fields) else torch.stack(fields)
-    if bf16:
+    slabs = (sharded is not None and mx.dim() == 3
+             and tuple(src.shape[1:]) == tuple(mx.shape)
+             and sharded.divides(mx.shape[2]))
+    rounded = sharded.bf16 if slabs else (bf16 and sharded is None)
+    if rounded:
         src = src.to(interp_fast.BF16)
-    if (sharded is not None and mx.dim() == 3
-            and tuple(src.shape[1:]) == tuple(mx.shape)
-            and sharded.divides(mx.shape[2])):
+    if slabs:
         out = sharded_interp.sample3_multi_sharded(
             src, mx, my, mz, grid.h, (grid.off_of(kind),) * src.shape[0],
             sharded.mesh, halo=sharded.halo, dual=dual,
@@ -212,27 +225,24 @@ def _sample_fields_at(grid, kind, fields, positions, dual=False,
     return [out[i] for i in range(src.shape[0])]
 
 
-def _check_bf16(name, mode, bf16):
-    if bf16 and mode == "vol9":
-        raise NotImplementedError(
-            f"{name}: interp_bf16 with the vol9 volume form is not ported "
-            "(vol9_fixup has no bf16 mode)")
-
-
 def _vol9_sample(grid, kind, fields, map_stats, maps, clamp_lo, clamp_hi,
-                 band_lo, band_hi):
+                 band_lo, band_hi, bf16=False):
     """One vol9 stage over N same-shape fields: the dual ``trilerp_sample``
     launch at the map's lattice values, then ``vol9_fixup`` deciding on
-    the stage's band (band_lo + dim < idx < n - band_hi)."""
+    the stage's band (band_lo + dim < idx < n - band_hi). `bf16`: both
+    sample the fields' one bfloat16 rounding, the decision reads the
+    float32 fields (the JAX package's vol9 in its bf16 mode)."""
     dim = grid.dim_of(kind)
     src = torch.stack(fields)
+    window = src.to(interp_fast.BF16) if bf16 else None
     p1 = map_at_lattice_3d(grid, maps, kind, clamp_lo, clamp_hi)
     duals = interp_fast.trilerp_sample(
-        src, *(p.contiguous() for p in p1), grid.h,
-        (grid.off_of(kind),) * src.shape[0], dual=True)
+        src if window is None else window, *(p.contiguous() for p in p1),
+        grid.h, (grid.off_of(kind),) * src.shape[0], dual=True)
     out = interp_fast.vol9_fixup(
         duals, src, map_stats, maps, p1, grid, kind, clamp_lo, clamp_hi,
-        band=(band_lo + dim[0], band_lo + dim[1], band_lo + dim[2], band_hi))
+        band=(band_lo + dim[0], band_lo + dim[1], band_lo + dim[2], band_hi),
+        window=window)
     return [out[i] for i in range(src.shape[0])]
 
 
@@ -337,11 +347,10 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
     a plain trilinear launch. "exact" delegates to the single-field ops.
     `sharded` (a ``sharded_interp.Sampling``) routes the lattice samples
     of "dual" and "prefilter" through the slab kernels. `bf16`: every
-    sampled field is rounded to bfloat16 first (the bf16 mode; not with
-    "vol9")."""
+    sampled field is rounded to bfloat16 first (the bf16 mode; "vol9"
+    decides on the float32 fields)."""
     if mode not in VOLUME_MODES:
         raise ValueError(f"bimocq_advect_3d: unknown volume mode {mode!r}")
-    _check_bf16("bimocq_advect_3d", mode, bf16)
     if blend_coeff is not None and (bwd_prev is None
                                     or any(f is None for f in fields_prev)):
         raise ValueError("bimocq_advect_3d: a blend needs bwd_prev and the "
@@ -375,7 +384,7 @@ def bimocq_advect_3d(grid, kind, fields_cur, fields_init, fields_prev,
         if mode == "vol9":
             stats = map_stats[0] if maps is bwd else map_stats[1]
             return _vol9_sample(grid, kind, fields, stats, maps, clamp, clamp,
-                                band_lo, band_lo + 1)
+                                band_lo, band_lo + 1, bf16)
         return sample(fields, map_at_lattice_3d(grid, maps, kind, clamp,
                                                 clamp))
 
@@ -508,7 +517,6 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
     the JAX package's exact path does. `bf16`: the sampled sums (the
     changes in "exact") are rounded to bfloat16 first; the identity
     accumulate samples nothing."""
-    _check_bf16("accumulate_multi_3d", mode, bf16)
     if mode == "exact":
         outs = []
         for base, pairs in groups:
@@ -535,7 +543,7 @@ def accumulate_multi_3d(grid, kind, groups, fwd, identity=False,
             raise ValueError("accumulate_multi_3d: vol9 needs the map "
                              "statistics")
         deltas = _vol9_sample(grid, kind, combined, fwd_stats, fwd, 0.0, 0.0,
-                              1, 2)
+                              1, 2, bf16)
     else:
         p3 = map_at_lattice_3d(grid, fwd, kind, 0.0, 0.0)
         deltas = _sample_fields_at(
@@ -647,15 +655,17 @@ def _volume_eval_2d(grid, kind, eval_fn, device=None):
                                                         device)))
 
 
-def _sample_at(grid, kind, fields, px, py):
-    """Same-kind fields sampled at shared world positions, one launch:
-    (C, *px.shape)."""
+def _sample_at(grid, kind, fields, px, py, bf16=False):
+    """Same-kind fields (their bfloat16 rounding with `bf16`) sampled at
+    shared world positions, one launch: (C, *px.shape)."""
     return interp.sample2_lattice_multi(fields, px, py, grid.h,
-                                        (grid.off_of(kind),) * len(fields))
+                                        (grid.off_of(kind),) * len(fields),
+                                        bf16)
 
 
 def advect_bimocq_multi_2d(grid, kind, semis, inits, origins, dfields,
-                           dfield_prevs, bwd, bwd_prev, blend_coeff):
+                           dfield_prevs, bwd, bwd_prev, blend_coeff,
+                           bf16=False):
     """Two-level blended pull-back of one or two same-kind fields through
     the same maps (advectVelocity/advectScalars):
 
@@ -663,17 +673,19 @@ def advect_bimocq_multi_2d(grid, kind, semis, inits, origins, dfields,
           +  b    * vol< init(B(x)) + d(B(x)) >
 
     with the semi-Lagrangian result kept outside the band. At b = 1 the
-    level-2 term has weight 0 and is not evaluated."""
+    level-2 term has weight 0 and is not evaluated. `bf16` (here and in
+    the correction and the accumulate): the fields are sampled rounded to
+    bfloat16, the maps in float32."""
     dev = semis[0].device
     bx, by = _volume_positions_2d(grid, kind, dev)
     p1 = _map_sample_2d(grid, bwd, bx, by)
     s1 = _sample_at(grid, kind, [f for pair in zip(inits, dfields)
-                                 for f in pair], *p1)
+                                 for f in pair], *p1, bf16)
     vals = [s1[2 * k] + s1[2 * k + 1] for k in range(len(semis))]
     if blend_coeff != 1.0:
         p2 = _map_sample_2d(grid, bwd_prev, *p1)
         s2 = _sample_at(grid, kind, [f for pair in zip(origins, dfield_prevs)
-                                     for f in pair], *p2)
+                                     for f in pair], *p2, bf16)
         b = float(np.float32(blend_coeff))
         omb = float(np.float32(1.0 - blend_coeff))
         vals = [b * one + omb * ((s2[2 * k] + s1[2 * k + 1]) + s2[2 * k + 1])
@@ -685,13 +697,15 @@ def advect_bimocq_multi_2d(grid, kind, semis, inits, origins, dfields,
 
 
 def advect_bimocq_2d(grid, kind, semi_field, init_field, origin_field,
-                     dfield, dfield_prev, bwd, bwd_prev, blend_coeff):
+                     dfield, dfield_prev, bwd, bwd_prev, blend_coeff,
+                     bf16=False):
     return advect_bimocq_multi_2d(
         grid, kind, [semi_field], [init_field], [origin_field], [dfield],
-        [dfield_prev], bwd, bwd_prev, blend_coeff)[0]
+        [dfield_prev], bwd, bwd_prev, blend_coeff, bf16)[0]
 
 
-def correct_multi_2d(grid, kind, fields, field_inits, dfields, fwd, bwd):
+def correct_multi_2d(grid, kind, fields, field_inits, dfields, fwd, bwd,
+                     bf16=False):
     """Back-and-forth error correction of same-kind fields through the
     same maps (correctVelocity/correctScalars):
 
@@ -703,23 +717,26 @@ def correct_multi_2d(grid, kind, fields, field_inits, dfields, fwd, bwd):
     a, b = _BANDS_2D_CORRECT[kind]
     band = _band2(fields[0].shape, a, b, dev)
     bx, by = _volume_positions_2d(grid, kind, dev)
-    s = _sample_at(grid, kind, fields, *_map_sample_2d(grid, fwd, bx, by))
+    s = _sample_at(grid, kind, fields, *_map_sample_2d(grid, fwd, bx, by),
+                   bf16)
     tmps = []
     for k, (d, init) in enumerate(zip(dfields, field_inits)):
         tmp = torch.where(band, _volume_sum_2d(s[k]) - d, 0.0)
         tmps.append(0.5 * (tmp - init))
-    c = _sample_at(grid, kind, tmps, *_map_sample_2d(grid, bwd, bx, by))
+    c = _sample_at(grid, kind, tmps, *_map_sample_2d(grid, bwd, bx, by),
+                   bf16)
     return [advect.clamp_extrema_neighborhood(
         f, torch.where(band, f - _volume_sum_2d(c[k]), f))
         for k, f in enumerate(fields)]
 
 
-def correct_2d(grid, kind, field, field_init, dfield, fwd, bwd):
+def correct_2d(grid, kind, field, field_init, dfield, fwd, bwd,
+               bf16=False):
     return correct_multi_2d(grid, kind, [field], [field_init], [dfield],
-                            fwd, bwd)[0]
+                            fwd, bwd, bf16)[0]
 
 
-def accumulate_multi_2d(grid, kind, groups, fwd):
+def accumulate_multi_2d(grid, kind, groups, fwd, bf16=False):
     """dfield += vol< coeff * change(F(x)) > change by change, in order,
     for `groups` = [(dfield, [(change, coeff), ...]), ...] of one kind
     (accumulateVelocity/Scalars without error correction): every change
@@ -727,7 +744,8 @@ def accumulate_multi_2d(grid, kind, groups, fwd):
     dev = groups[0][0].device
     changes = [c for _, pairs in groups for c, _ in pairs]
     bx, by = _volume_positions_2d(grid, kind, dev)
-    s = _sample_at(grid, kind, changes, *_map_sample_2d(grid, fwd, bx, by))
+    s = _sample_at(grid, kind, changes, *_map_sample_2d(grid, fwd, bx, by),
+                   bf16)
     a, b = _BANDS_2D_ACCUM[kind]
     band = _band2(groups[0][0].shape, a, b, dev)
     outs, q = [], 0
@@ -740,9 +758,9 @@ def accumulate_multi_2d(grid, kind, groups, fwd):
     return outs
 
 
-def accumulate_2d(grid, kind, dfield, change, fwd, coeff=1.0):
+def accumulate_2d(grid, kind, dfield, change, fwd, coeff=1.0, bf16=False):
     return accumulate_multi_2d(grid, kind, [(dfield, [(change, coeff)])],
-                               fwd)[0]
+                               fwd, bf16)[0]
 
 
 def estimate_distortion_2d(grid, bwd, fwd):

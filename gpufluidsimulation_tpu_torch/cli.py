@@ -2,10 +2,11 @@
 
     python -m gpufluidsimulation_tpu_torch.cli sim2d <scheme> <example>
         [--frames F] [--out DIR] [--no-strict-contract] [--device DEV]
+        [--interp-bf16]
     python -m gpufluidsimulation_tpu_torch.cli sim3d <scheme3d> [--res N]
         [--example E] [--dt DT] [--frames F] [--out DIR] [--resume CKPT]
         [--checkpoint-every K] [--no-strict-contract] [--residual-trace]
-        [--device DEV]
+        [--device DEV] [--interp-bf16]
 
 2D (bimocq2D/main.cpp): scheme 0 Semilag, 1 MacCormack, 2 BFECC, 3
 Reflection, 4 FLIP, 5 APIC, 6 PolyPIC, 7 BiMocq; example 0 Taylor
@@ -34,6 +35,7 @@ a card they exit non-zero.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import sys
 
@@ -61,6 +63,9 @@ def _run_2d(args) -> int:
     try:
         scheme = Scheme(args.scheme)
         scene = scenes2d.make_scene_2d(args.example, scheme)
+        if args.interp_bf16:
+            scene.cfg = dataclasses.replace(
+                scene.cfg, engine_mode=config.EngineMode(interp_bf16=True))
         smoke2d.check_supported(scene.cfg)
     except (ValueError, NotImplementedError) as e:
         print(f"error: {e}", file=sys.stderr)
@@ -209,6 +214,10 @@ def main(argv=None) -> int:
     p2.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card; 'cpu' runs "
                          "the plain PyTorch versions)")
+    p2.add_argument("--interp-bf16", action="store_true",
+                    help="round the field values the samplers read to "
+                         "bfloat16 (EngineMode.interp_bf16; the JAX CLI's "
+                         "GFS_INTERP_BF16=1)")
     p2.set_defaults(fn=_run_2d)
 
     p3 = sub.add_parser("sim3d", help="3D solver (bimocq3D parity)")

@@ -14,6 +14,9 @@ import dataclasses
 import torch
 
 DTYPE = torch.float32
+# EngineMode.interp_bf16's value for the bf16 windows of the slab paths
+# alone (the JAX package's sharded step)
+SLABS = "slabs"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,11 +57,19 @@ class EngineMode:
     samplers widen it back to float32 at the load: the MAC faces that the
     traces, the map marches' substeps after an identity peel and
     MacCormack's midpoint read (rounded once a step), and the fields that
-    the pull-backs, accumulates and semi-Lagrangian and MacCormack samples
-    read. Maps, positions and everything else stay float32, the identity
-    peels' first stage included, as in JAX. None or False: float32. The
-    vol9 form, a sharded mesh and the 2D solver raise with it
-    (``bf16``)."""
+    the pull-backs (the vol9 fixup's composition too), accumulates and
+    semi-Lagrangian and MacCormack samples read. Maps, positions and
+    everything else stay float32, the identity peels' first stage and the
+    vol9 decision included, as in JAX. Under a mesh the slab samplers and
+    the forward march read bf16 (every stage: the JAX sharded march has no
+    peel), the backward march and the z-staggered kind's whole samples
+    float32. In 2D every field sample rounds, the velocity, map and
+    corner min/max samples and the particle transfers do not. ``SLABS``
+    ("slabs"): only the slab samplers and the sharded forward march
+    round, every other sample reads float32, as in the JAX package's
+    sharded step, which turns its single-device window samplers off
+    (``parallel.sharding.sharded_step`` sets it). None or False:
+    float32."""
 
     spectral_poisson: bool | None = None
     volume_exact: bool | None = None
@@ -88,23 +99,22 @@ class EngineMode:
                 "leave vol9 off for the dual form.")
         return "vol9" if self.volume_vol9 else "dual"
 
+    def __post_init__(self):
+        if self.interp_bf16 not in (None, False, True, SLABS):
+            raise ValueError(f"interp_bf16={self.interp_bf16!r}: None, False, "
+                             f"True or {SLABS!r}")
+
     @property
     def bf16(self) -> bool:
-        """True in the bf16 mode (``interp_bf16``); raises where the port
-        lacks it: the vol9 form and a sharded mesh."""
-        if not self.interp_bf16:
-            return False
-        if self.sharded is not None:
-            raise NotImplementedError(
-                "interp_bf16=True under a sharded mesh: the bf16 mode of "
-                "the slab kernels, which the sharded step runs, is not "
-                "ported")
-        if self.volume_mode == "vol9":
-            raise NotImplementedError(
-                "interp_bf16=True with the vol9 volume form: vol9_fixup, "
-                "which reads bf16 fields in the JAX package, has no bf16 "
-                "mode in the port")
-        return True
+        """True where the single-device samplers round (``interp_bf16``
+        True)."""
+        return bool(self.interp_bf16) and self.interp_bf16 != SLABS
+
+    @property
+    def slab_bf16(self) -> bool:
+        """True where the slab samplers and the sharded forward march
+        round (``interp_bf16`` True or ``SLABS``)."""
+        return bool(self.interp_bf16)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -196,9 +196,11 @@ def _engine_mode(m, sharded=True):
     as its mesh's size (``_sharded_sampling``; with ``sharded=False``,
     for the 2D solver, which has no sharded stage, it is dropped), carries
     ``interp_bf16`` across where the JAX package honours it (its window
-    samplers run: ``fast_interp`` not False, or under a mesh; with
-    ``fast_interp=False`` the exact engine rounds nothing and the port's
-    mode gets None), and accepts fields that do not change the result."""
+    samplers run: with ``fast_interp`` not False everywhere, True; with
+    ``fast_interp=False`` under a mesh outside the exact volume form only
+    in the slab samplers and the sharded march, ``config.SLABS``;
+    otherwise the exact engine rounds nothing and the port's mode gets
+    None), and accepts fields that do not change the result."""
     if m is None or isinstance(m, config.EngineMode):
         return m
     d = dict(m) if isinstance(m, dict) else dict(vars(m))
@@ -220,8 +222,8 @@ def _engine_mode(m, sharded=True):
     if exact:      # the volume form is exact whatever these say
         dual = vol9 = None
     bf16 = d.pop("interp_bf16", None)
-    if fast is False and not ss:
-        bf16 = None
+    if fast is False and bf16:
+        bf16 = None if exact or not ss else config.SLABS
     ss = _sharded_sampling(ss) if sharded else None
     if d:
         raise ValueError(f"unknown engine_mode fields {sorted(d)}")
@@ -230,7 +232,8 @@ def _engine_mode(m, sharded=True):
                              volume_dual=dual, volume_vol9=vol9,
                              rbgs=False if rbgs is False else None,
                              sharded_sampling=ss,
-                             interp_bf16=None if bf16 is None else bool(bf16))
+                             interp_bf16=(bf16 if bf16 in (None, config.SLABS)
+                                          else bool(bf16)))
 
 
 def _per_item(callables, n):
@@ -275,8 +278,9 @@ def config_from_dict(d: dict, boundary_trans=(), emitter_trans=(),
 def config_2d_from_dict(d: dict) -> smoke2d.Smoke2DConfig:
     """The port's 2D config from the JAX 2D config's plain field values
     (``dataclasses.asdict`` of it). ``engine_mode`` keeps its projection
-    (``spectral_poisson``); its other fields change nothing a 2D step
-    computes here."""
+    (``spectral_poisson``) and its bf16 field windows (``interp_bf16``,
+    where ``_engine_mode`` carries it); its other fields change nothing a
+    2D step computes here."""
     d = dict(d)
     d["engine_mode"] = _engine_mode(d.get("engine_mode"), sharded=False)
     known = {f.name for f in dataclasses.fields(smoke2d.Smoke2DConfig)}

@@ -277,22 +277,23 @@ def clamp_pos_2d(px, py, h, ni, nj, eps=1.0):
     return px.clamp(lx, hx), py.clamp(ly, hy)
 
 
-def sample2_lattice(field, px, py, h, off):
+def sample2_lattice(field, px, py, h, off, bf16=False):
     """``sample2`` through the ``bilerp_sample`` kernel: on a CUDA tensor
-    one launch, on a CPU tensor its plain version."""
-    from gpufluidsimulation_tpu_torch.ops import interp_fast
+    one launch, on a CPU tensor its plain version. `bf16` samples the
+    field's bfloat16 rounding (a field-value sample in the bf16 mode, as
+    the JAX package's ``values=True``)."""
+    return sample2_lattice_multi([field], px, py, h, (off,), bf16)[0]
 
-    return interp_fast.bilerp_sample(field[None], px, py, h, (off,))[0]
 
-
-def sample2_lattice_multi(fields, px, py, h, offs):
+def sample2_lattice_multi(fields, px, py, h, offs, bf16=False):
     """``sample2`` of C <= 4 same-shape fields at the same positions, one
-    ``bilerp_sample`` launch that reads each field in place: (C,
-    *px.shape)."""
+    ``bilerp_sample`` launch that reads each field in place (with `bf16`
+    its bfloat16 rounding): (C, *px.shape)."""
     from gpufluidsimulation_tpu_torch.ops import interp_fast
 
-    return interp_fast.bilerp_sample([f.contiguous() for f in fields], px,
-                                     py, h, tuple(offs))
+    fields = [(f.to(interp_fast.BF16) if bf16 else f).contiguous()
+              for f in fields]
+    return interp_fast.bilerp_sample(fields, px, py, h, tuple(offs))
 
 
 def mac_velocity_2d_lattice(u, v, px, py, h):

@@ -84,6 +84,21 @@
 // stores coalesce. The DMC mode does the same for a substep of the map
 // march. Offsets are unsigned 32-bit: the wrappers raise unless each
 // field and each output holds fewer than 2^31 values.
+//
+// The bf16 mode (EngineMode.interp_bf16, the JAX package's bf16 field
+// windows, which its 2D solver reads through sample2_fast wherever it
+// samples field values; its velocity samples, mac2_fast, and its map
+// samples stay float32): the sample mode and the trace mode's foot samples
+// read bfloat16 fields, each value widened to float32 at its load
+// (gfs::load) and every operation after it the float32 kernel's, so the
+// result is the float32 kernel's on the rounded fields, bit for bit. In
+// the trace mode the velocity stays float32, and MacCormack's corner
+// min/max, which the JAX package takes by exact gathers of the unrounded
+// field, reads the float32 fields from a second set of pointers in the
+// same launch. The mac, cp and DMC modes read float32 only. Compiled apart
+// (S = __nv_bfloat16); the float32 instantiations stay as they were.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -96,7 +111,7 @@ constexpr int kTraceThreads = 128;
 // Per-channel field pointer, extents, offset and (mac mode) band: a
 // sample is kept where 0 <= floor(gx) <= bx and 0 <= floor(gy) <= by.
 struct Channels {
-  const float* f[kMaxC];
+  const void* f[kMaxC];  // stored as the kernel's S
   int nx[kMaxC], ny[kMaxC];
   float ox[kMaxC], oy[kMaxC];
   float bx[kMaxC], by[kMaxC];
@@ -123,19 +138,21 @@ __device__ __forceinline__ Frac frac(float gx, float gy) {
   return w;
 }
 
-// The 4 clamped corners of an (nx, ny) field, y fastest.
+// The 4 clamped corners of an (nx, ny) field, y fastest, widened to
+// float32 from the field's storage S.
 struct Quad {
   float v00, v10, v01, v11;
 };
 
-__device__ __forceinline__ Quad corners(const float* __restrict__ f,
+template <typename S>
+__device__ __forceinline__ Quad corners(const S* __restrict__ f,
                                         const Frac& w, int nx, int ny) {
   const unsigned ia = clamp_node(w.i0, nx) * (unsigned)ny;
   const unsigned ib = clamp_node(w.i0 + 1.0f, nx) * (unsigned)ny;
   const unsigned ja = clamp_node(w.j0, ny);
   const unsigned jb = clamp_node(w.j0 + 1.0f, ny);
-  return {__ldg(f + (ia + ja)), __ldg(f + (ib + ja)), __ldg(f + (ia + jb)),
-          __ldg(f + (ib + jb))};
+  return {gfs::load(f + (ia + ja)), gfs::load(f + (ib + ja)),
+          gfs::load(f + (ia + jb)), gfs::load(f + (ib + jb))};
 }
 
 __device__ __forceinline__ float blend(const Quad& q, const Frac& w) {
@@ -156,7 +173,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
 }
 
-template <int kMode>
+template <int kMode, typename S>
 __global__ void __launch_bounds__(kThreads)
     bilerp_sample_kernel(Channels ch, int C, const float* __restrict__ px,
                          const float* __restrict__ py, unsigned n_out,
@@ -173,7 +190,8 @@ __global__ void __launch_bounds__(kThreads)
     if (c >= C) break;
     if (c > 0 && (ch.ox[c] != ch.ox[c - 1] || ch.oy[c] != ch.oy[c - 1]))
       w = frac(x - ch.ox[c], y - ch.oy[c]);
-    const Quad q = corners(ch.f[c], w, ch.nx[c], ch.ny[c]);
+    const Quad q = corners(static_cast<const S*>(ch.f[c]), w, ch.nx[c],
+                           ch.ny[c]);
     const bool valid = w.i0 >= 0.0f && w.i0 <= ch.bx[c] && w.j0 >= 0.0f &&
                        w.j0 <= ch.by[c];
     if (kMode == kCp) {
@@ -240,8 +258,9 @@ struct Trace {
   float* ox;                    // the foot (null: not written), element
   float* oy;                    // stride out_stride
   unsigned out_stride;
-  int C;                        // fields sampled at the foot
-  const float* f[kMaxC];
+  int C;                        // fields sampled at the foot, stored as
+  const void* f[kMaxC];         // the kernel's S
+  const float* fm[kMaxC];       // with bfloat16 f: their float32 fields
   int fnx, fny;                 // their extents
   float fox, foy;               // and their offset (units of h)
   float* samples;               // (C, n)
@@ -250,8 +269,10 @@ struct Trace {
 };
 
 // kLattice: the start is the lattice (lox, loy) of n / lny x lny nodes;
-// kMinmax: the corner min/max of each field at the foot.
-template <bool kLattice, bool kMinmax>
+// kMinmax: the corner min/max of each field at the foot (of the float32
+// fields fm where the sampled fields are bfloat16); S: the sampled fields'
+// storage.
+template <bool kLattice, bool kMinmax, typename S>
 __global__ void __launch_bounds__(kTraceThreads)
     bilerp_trace_kernel(Trace T) {
   const unsigned idx = blockIdx.x * (unsigned)kTraceThreads + threadIdx.x;
@@ -296,11 +317,14 @@ __global__ void __launch_bounds__(kTraceThreads)
 #pragma unroll
   for (int c = 0; c < kMaxC; ++c) {
     if (c >= T.C) break;
-    const Quad q = corners(T.f[c], w, T.fnx, T.fny);
+    const Quad q = corners(static_cast<const S*>(T.f[c]), w, T.fnx, T.fny);
     T.samples[(unsigned)c * T.n + idx] = blend(q, w);
     if (kMinmax) {
-      float lo = nan_min(nan_min(q.v00, q.v10), nan_min(q.v01, q.v11));
-      float hi = nan_max(nan_max(q.v00, q.v10), nan_max(q.v01, q.v11));
+      Quad m = q;
+      if constexpr (!std::is_same<S, float>::value)
+        m = corners(T.fm[c], w, T.fnx, T.fny);
+      float lo = nan_min(nan_min(m.v00, m.v10), nan_min(m.v01, m.v11));
+      float hi = nan_max(nan_max(m.v00, m.v10), nan_max(m.v01, m.v11));
       if (nan_foot) lo = hi = __int_as_float(0x7fc00000);
       T.mn[(unsigned)c * T.n + idx] = lo;
       T.mx[(unsigned)c * T.n + idx] = hi;
@@ -347,26 +371,40 @@ __global__ void __launch_bounds__(kTraceThreads) bilerp_dmc_kernel(Dmc D) {
   D.out[n + idx] = blend(corners(D.mapy, w, D.m.ni, D.m.nj), w);
 }
 
+template <typename S>
+void launch_trace(bool lattice, bool minmax, unsigned blocks,
+                  cudaStream_t st, const Trace& T) {
+  if (lattice && minmax)
+    bilerp_trace_kernel<true, true, S><<<blocks, kTraceThreads, 0, st>>>(T);
+  else if (lattice)
+    bilerp_trace_kernel<true, false, S><<<blocks, kTraceThreads, 0, st>>>(T);
+  else if (minmax)
+    bilerp_trace_kernel<false, true, S><<<blocks, kTraceThreads, 0, st>>>(T);
+  else
+    bilerp_trace_kernel<false, false, S><<<blocks, kTraceThreads, 0, st>>>(T);
+}
+
 }  // namespace
 
 // fields[c]: C field pointers with extents dims[2c], dims[2c+1] and
 // offsets offs[2c], offs[2c+1]; mode 0 samples, 1 is the mac mode and 2
 // the cp mode, both with the bands (2C values) that mode 0 takes as null;
-// hh is h*h rounded to float32 (the cp mode's divisor).
-extern "C" int gfs_bilerp_sample(const void* const* fields, const int* dims,
-                                 const float* offs, const float* bands,
-                                 int C, int mode, const void* px,
-                                 const void* py, long long n_out, float h,
-                                 float hh, void* out, void* stream) {
+// hh is h*h rounded to float32 (the cp mode's divisor). bf16 (mode 0
+// only): the fields are bfloat16, else float32.
+static int sample(const void* const* fields, const int* dims,
+                  const float* offs, const float* bands, int C, int mode,
+                  bool bf16, const void* px, const void* py, long long n_out,
+                  float h, float hh, void* out, void* stream) {
   const long long limit = 1LL << 31;
   const long long per = mode == kCp ? 4 : 1;
   if (C < 1 || C > kMaxC || n_out < 1 || (long long)C * n_out * per >= limit
-      || mode < kSample || mode > kCp || (mode != kSample && !bands))
+      || mode < kSample || mode > kCp || (mode != kSample && !bands) ||
+      (bf16 && mode != kSample))
     return (int)cudaErrorInvalidValue;
   Channels ch;
   for (int c = 0; c < kMaxC; ++c) {
     const int s = c < C ? c : 0;
-    ch.f[c] = (const float*)fields[s];
+    ch.f[c] = fields[s];
     ch.nx[c] = dims[2 * s];
     ch.ny[c] = dims[2 * s + 1];
     if (ch.nx[c] < 1 || ch.ny[c] < 1 ||
@@ -381,16 +419,41 @@ extern "C" int gfs_bilerp_sample(const void* const* fields, const int* dims,
   const cudaStream_t st = (cudaStream_t)stream;
   const float* x = (const float*)px;
   const float* y = (const float*)py;
-  if (mode == kMac)
-    bilerp_sample_kernel<kMac><<<blocks, kThreads, 0, st>>>(
+  if (bf16)
+    bilerp_sample_kernel<kSample, __nv_bfloat16><<<blocks, kThreads, 0, st>>>(
+        ch, C, x, y, (unsigned)n_out, h, hh, (float*)out);
+  else if (mode == kMac)
+    bilerp_sample_kernel<kMac, float><<<blocks, kThreads, 0, st>>>(
         ch, C, x, y, (unsigned)n_out, h, hh, (float*)out);
   else if (mode == kCp)
-    bilerp_sample_kernel<kCp><<<blocks, kThreads, 0, st>>>(
+    bilerp_sample_kernel<kCp, float><<<blocks, kThreads, 0, st>>>(
         ch, C, x, y, (unsigned)n_out, h, hh, (float*)out);
   else
-    bilerp_sample_kernel<kSample><<<blocks, kThreads, 0, st>>>(
+    bilerp_sample_kernel<kSample, float><<<blocks, kThreads, 0, st>>>(
         ch, C, x, y, (unsigned)n_out, h, hh, (float*)out);
   return (int)cudaGetLastError();
+}
+
+// float32 fields
+extern "C" int gfs_bilerp_sample(const void* const* fields, const int* dims,
+                                 const float* offs, const float* bands,
+                                 int C, int mode, const void* px,
+                                 const void* py, long long n_out, float h,
+                                 float hh, void* out, void* stream) {
+  return sample(fields, dims, offs, bands, C, mode, false, px, py, n_out, h,
+                hh, out, stream);
+}
+
+// bfloat16 fields (the bf16 mode), the sample mode (mode 0) only; the
+// same arguments
+extern "C" int gfs_bilerp_sample_bf16(const void* const* fields,
+                                      const int* dims, const float* offs,
+                                      const float* bands, int C, int mode,
+                                      const void* px, const void* py,
+                                      long long n_out, float h, float hh,
+                                      void* out, void* stream) {
+  return sample(fields, dims, offs, bands, C, mode, true, px, py, n_out, h,
+                hh, out, stream);
 }
 
 // One 2D trace. fp: h, the two coefficient sets (a, b, c1, c2, c3), the
@@ -399,14 +462,16 @@ extern "C" int gfs_bilerp_sample(const void* const* fields, const int* dims,
 // substeps, the final clamp on, the positions n, the lattice's nodes
 // along y (0: positions px, py are read), the input and output element
 // strides, C, the fields' extents (nx, ny), the min/max on: 10 ints. ox,
-// oy: the foot (both null: not written); fields: C pointers; samples, mn
-// and mx: (C, n) each (mn, mx only with the min/max on).
-extern "C" int gfs_bilerp_trace(const void* u, const void* v, int ni, int nj,
-                                const float* fp, const int* ip,
-                                const void* px, const void* py, void* ox,
-                                void* oy, const void* const* fields,
-                                void* samples, void* mn, void* mx,
-                                void* stream) {
+// oy: the foot (both null: not written); fields: C pointers, bfloat16 with
+// bf16, else float32; minmax_fields: with bf16 and the min/max on, the C
+// float32 fields whose corners the min/max reads, else not read; samples,
+// mn and mx: (C, n) each (mn, mx only with the min/max on).
+static int trace(const void* u, const void* v, int ni, int nj,
+                 const float* fp, const int* ip, const void* px,
+                 const void* py, void* ox, void* oy,
+                 const void* const* fields, bool bf16,
+                 const void* const* minmax_fields, void* samples, void* mn,
+                 void* mx, void* stream) {
   const long long limit = 1LL << 31;
   Trace T;
   T.m = {(const float*)u, (const float*)v, ni, nj, fp[0]};
@@ -434,29 +499,54 @@ extern "C" int gfs_bilerp_trace(const void* u, const void* v, int ni, int nj,
       (!lattice && (!px || !py)) || (!ox != !oy) ||
       (T.C && (T.fnx < 1 || T.fny < 1 || !samples ||
                (long long)T.fnx * T.fny >= limit)) ||
-      (minmax && (!T.C || !mn || !mx)))
+      (minmax && (!T.C || !mn || !mx)) ||
+      (bf16 && (!T.C || (minmax && !minmax_fields))))
     return (int)cudaErrorInvalidValue;
   T.n = (unsigned)n;
   T.px = (const float*)px;
   T.py = (const float*)py;
   T.ox = (float*)ox;
   T.oy = (float*)oy;
-  for (int c = 0; c < kMaxC; ++c)
-    T.f[c] = c < T.C ? (const float*)fields[c] : nullptr;
+  for (int c = 0; c < kMaxC; ++c) {
+    T.f[c] = c < T.C ? fields[c] : nullptr;
+    T.fm[c] = c < T.C && bf16 && minmax ? (const float*)minmax_fields[c]
+                                        : nullptr;
+  }
   T.samples = (float*)samples;
   T.mn = (float*)mn;
   T.mx = (float*)mx;
   const unsigned blocks = (unsigned)((n + kTraceThreads - 1) / kTraceThreads);
   const cudaStream_t st = (cudaStream_t)stream;
-  if (lattice && minmax)
-    bilerp_trace_kernel<true, true><<<blocks, kTraceThreads, 0, st>>>(T);
-  else if (lattice)
-    bilerp_trace_kernel<true, false><<<blocks, kTraceThreads, 0, st>>>(T);
-  else if (minmax)
-    bilerp_trace_kernel<false, true><<<blocks, kTraceThreads, 0, st>>>(T);
+  if (bf16)
+    launch_trace<__nv_bfloat16>(lattice, minmax, blocks, st, T);
   else
-    bilerp_trace_kernel<false, false><<<blocks, kTraceThreads, 0, st>>>(T);
+    launch_trace<float>(lattice, minmax, blocks, st, T);
   return (int)cudaGetLastError();
+}
+
+// float32 fields
+extern "C" int gfs_bilerp_trace(const void* u, const void* v, int ni, int nj,
+                                const float* fp, const int* ip,
+                                const void* px, const void* py, void* ox,
+                                void* oy, const void* const* fields,
+                                void* samples, void* mn, void* mx,
+                                void* stream) {
+  return trace(u, v, ni, nj, fp, ip, px, py, ox, oy, fields, false, nullptr,
+               samples, mn, mx, stream);
+}
+
+// bfloat16 fields (the bf16 mode) with, for the min/max, their float32
+// fields minmax_fields
+extern "C" int gfs_bilerp_trace_bf16(const void* u, const void* v, int ni,
+                                     int nj, const float* fp, const int* ip,
+                                     const void* px, const void* py,
+                                     void* ox, void* oy,
+                                     const void* const* fields,
+                                     const void* const* minmax_fields,
+                                     void* samples, void* mn, void* mx,
+                                     void* stream) {
+  return trace(u, v, ni, nj, fp, ip, px, py, ox, oy, fields, true,
+               minmax_fields, samples, mn, mx, stream);
 }
 
 // One 2D DMC substep of the map (mapx, mapy), (ni, nj) each, into the

@@ -72,7 +72,11 @@
 // at its load (gfs::load), all arithmetic after it float32. The lattice
 // mode stands for the JAX identity peel, which reads the unrounded faces,
 // so it has no bf16 mode. Compiled apart (T = __nv_bfloat16), whole grid
-// only; the float32 instantiations stay as they were.
+// only; the float32 instantiations stay as they were. The slab mode has no
+// bf16 mode either: the JAX package's sharded backward march forms its
+// centre and upwind velocities in XLA from the float32 velocity slabs and
+// samples the float32 map, so in the bf16 mode the sharded DMC substeps
+// read the float32 faces.
 #include "common.cuh"
 
 namespace {

@@ -70,8 +70,19 @@
 // mode the first stage is the exception: the JAX identity peel takes its
 // stage-1 velocity k1 from the unrounded faces (a float32 block input), so
 // stage 1 reads the float32 faces (F1) and stages 2 and 3 the bfloat16
-// ones. Compiled apart (T = __nv_bfloat16), whole grid only; the float32
-// instantiations stay as they were.
+// ones. Compiled apart (T = __nv_bfloat16); the float32 instantiations
+// stay as they were.
+//
+// The bf16 slab mode (the sharded forward march of the bf16 mode): the JAX
+// package's sharded march samples every stage from its per-shard bf16 MAC
+// pack and has no identity peel, so there stage 1 from the lattice reads
+// the rounded faces too. The wrapper passes the rounded faces widened to
+// float32 as F1 (widening is exact), so the lattice slab mode keeps one
+// code path for stage 1 and its result is the plain version's on the
+// rounded faces in all three stages, bit for bit. Forming the lattice
+// positions and taking the displaced mode instead would write and read 3
+// floats a node more; the widened copy costs one elementwise pass a march
+// from the identity.
 #include <type_traits>
 
 #include "common.cuh"
@@ -199,9 +210,9 @@ void launch(dim3 grid, dim3 block, cudaStream_t stream, const Faces<T>& F,
 
 }  // namespace
 
-// bf16 != 0: u, v, w are bfloat16 (whole grid only), and the lattice
-// mode's stage 1 reads the float32 faces u1, v1, w1; else u, v, w are
-// float32 and u1, v1, w1 are not read.
+// bf16 != 0: u, v, w are bfloat16, and the lattice mode's stage 1 reads
+// the float32 faces u1, v1, w1; else u, v, w are float32 and u1, v1, w1
+// are not read.
 // pos == NULL selects the lattice mode: the (d0, d1, d2) block of the
 // kind whose face vector is dim_host, (ni, nj, nk) on the whole grid.
 // nkg == 0 selects the whole-grid kernel; else the faces hold the cell
@@ -224,7 +235,7 @@ extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
       n >= limit || (long long)(ni + 1) * nj * nk >= limit ||
       (long long)ni * (nj + 1) * nk >= limit ||
       (long long)ni * nj * (nk + 1) >= limit ||
-      (slab && nkg < 2) || (bf16 && slab) ||
+      (slab && nkg < 2) ||
       (bf16 && pos == nullptr && (!u1 || !v1 || !w1)))
     return (int)cudaErrorInvalidValue;
   const dim3 block(kBlockK, kBlockJ, kBlockI);
@@ -248,8 +259,14 @@ extern "C" int gfs_rk3_substep(const void* u, const void* v, const void* w,
     const Faces<__nv_bfloat16> B{(const __nv_bfloat16*)u,
                                  (const __nv_bfloat16*)v,
                                  (const __nv_bfloat16*)w, ni, nj, nk};
-    if (pos == nullptr)
+    if (pos == nullptr && slab)
+      launch<true, true>(grid, block, st, B, F1, p, d0, d1, d2, P, zs, ov, o,
+                         n);
+    else if (pos == nullptr)
       launch<true, false>(grid, block, st, B, F1, p, d0, d1, d2, P, zs, ov,
+                          o, n);
+    else if (slab)
+      launch<false, true>(grid, block, st, B, F1, p, d0, d1, d2, P, zs, ov,
                           o, n);
     else
       launch<false, false>(grid, block, st, B, F1, p, d0, d1, d2, P, zs, ov,

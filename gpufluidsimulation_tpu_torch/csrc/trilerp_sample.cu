@@ -66,8 +66,10 @@
 // windows): the fields are bfloat16, each value widened to float32 at its
 // load (gfs::load) and every operation after it the float32 kernel's, so
 // the result is the float32 kernel's on the rounded fields, bit for bit.
-// It is compiled apart (T = __nv_bfloat16) on the whole grid only; the
-// float32 instantiations stay as they were.
+// It is compiled apart (T = __nv_bfloat16), on the whole grid and in the
+// slab mode (the sharded samplers of the bf16 mode: the JAX package's
+// sample3_fast_sharded / sample3_multi_sharded pad bf16 windows per shard);
+// the float32 instantiations stay as they were.
 #include "common.cuh"
 
 namespace {
@@ -220,7 +222,7 @@ void launch(dim3 grid, dim3 block, cudaStream_t stream, const T* fields,
 
 }  // namespace
 
-// bf16 != 0: the fields are bfloat16 (whole grid only), else float32.
+// bf16 != 0: the fields are bfloat16, else float32.
 // nzg == 0 selects the whole-grid kernel; else the field holds planes
 // z0 .. z0 + nz - 1 of a grid of nzg planes, and each output node that
 // used a z node outside them adds 1 to *overflow where that is not NULL.
@@ -236,7 +238,7 @@ extern "C" int gfs_trilerp_sample(const void* fields, int bf16, int C,
   if (C < 1 || C > kMaxC || n_out < 1 || d1 < 1 || d2 < 1 ||
       n_out % ((long long)d1 * d2) != 0 ||
       (long long)C * nx * ny * nz >= limit || (long long)C * n_out >= limit ||
-      (slab && nzg < 1) || (slab && bf16))
+      (slab && nzg < 1))
     return (int)cudaErrorInvalidValue;
   const long long d0 = n_out / ((long long)d1 * d2);
   const dim3 block(kBlockK, kBlockJ, kBlockI);
@@ -255,8 +257,14 @@ extern "C" int gfs_trilerp_sample(const void* fields, int bf16, int C,
   auto* ov = (int*)overflow;
   if (bf16) {
     const auto* fb = (const __nv_bfloat16*)fields;
-    if (dual)
+    if (dual && slab)
+      launch<true, true>(grid, block, st, fb, C, nx, ny, nz, x, y, z,
+                         (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
+    else if (dual)
       launch<true, false>(grid, block, st, fb, C, nx, ny, nz, x, y, z,
+                          (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
+    else if (slab)
+      launch<false, true>(grid, block, st, fb, C, nx, ny, nz, x, y, z,
                           (int)n_out, (int)d0, d1, d2, h, offs, zs, ov, o);
     else
       launch<false, false>(grid, block, st, fb, C, nx, ny, nz, x, y, z,

@@ -60,6 +60,16 @@
 // 2-5%; the hoisted-reciprocal division of jacobi_diffuse +2-6%; 1 - f
 // kept per map coordinate or the mapped positions staged in shared memory
 // no faster (PERF.md, row 8).
+//
+// The bf16 mode (EngineMode.interp_bf16, the JAX package's bf16 field
+// windows): the JAX fixup pads its field windows in bfloat16
+// (pad_fields(..., dtype) in vol9_fixup) while its decision reads the
+// unrounded fields. Here the fields are bfloat16, each value widened to
+// float32 at its load (gfs::load) and every operation after it the
+// float32 kernel's, so the result is the float32 kernel's on the rounded
+// fields, bit for bit; the map and the flags (vol9_flags of the float32
+// fields) stay float32 and uint8. Compiled apart (T = __nv_bfloat16); the
+// float32 instantiations stay as they were.
 #include "common.cuh"
 
 namespace {
@@ -92,11 +102,12 @@ __device__ __forceinline__ Axis map_axis(float x0, float h, int n,
 }
 
 // C channels: a template parameter, so that the field stage's loops over
-// the channels unroll with no code for channels that are not there
-template <int C>
+// the channels unroll with no code for channels that are not there. T:
+// the fields' storage.
+template <int C, typename T>
 __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
     vol9_fixup_kernel(const float* __restrict__ maps, int ni, int nj, int nk,
-                      const float* __restrict__ fields, int nx,
+                      const T* __restrict__ fields, int nx,
                       int ny, int nz, const uint8_t* __restrict__ flags,
                       int nb0, int nb1, int nb2, int bx, int by, int bz,
                       float h, Params p, float* __restrict__ out) {
@@ -163,14 +174,38 @@ __global__ void __launch_bounds__(kBlockK * kBlockJ * kBlockI)
       out[c * n_out + idx] = 0.5f * (acc[c] / 8.0f) + 0.5f * centre[c];
 }
 
+template <typename T>
+void launch(dim3 grid, dim3 block, cudaStream_t s, int C, const float* m,
+            int ni, int nj, int nk, const T* f, int nx, int ny, int nz,
+            const uint8_t* fl, int nb0, int nb1, int nb2, int bx, int by,
+            int bz, float h, const Params& p, float* o) {
+  switch (C) {
+    case 1:
+      vol9_fixup_kernel<1, T><<<grid, block, 0, s>>>(
+          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
+      break;
+    case 2:
+      vol9_fixup_kernel<2, T><<<grid, block, 0, s>>>(
+          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
+      break;
+    case 3:
+      vol9_fixup_kernel<3, T><<<grid, block, 0, s>>>(
+          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
+      break;
+    default:
+      vol9_fixup_kernel<4, T><<<grid, block, 0, s>>>(
+          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
+  }
+}
+
 }  // namespace
 
-extern "C" int gfs_vol9_fixup(const void* maps, int ni, int nj, int nk,
-                              const void* fields, int C, int nx, int ny,
-                              int nz, const void* flags, int nb0, int nb1,
-                              int nb2, int bx, int by, int bz, float h,
-                              const float* params_host, void* out,
-                              void* stream) {
+// One launch; bf16: the fields are bfloat16, else float32.
+static int vol9_fixup(const void* maps, int ni, int nj, int nk,
+                      const void* fields, bool bf16, int C, int nx, int ny,
+                      int nz, const void* flags, int nb0, int nb1, int nb2,
+                      int bx, int by, int bz, float h,
+                      const float* params_host, void* out, void* stream) {
   const long long limit = 1LL << 31;
   if (C < 1 || C > kMaxC || ni < 1 || nj < 1 || nk < 1 || nx < 1 ||
       ny < 1 || nz < 2 || bx < 1 || by < 1 || bz < 1 || bx % kBlockI ||
@@ -189,26 +224,36 @@ extern "C" int gfs_vol9_fixup(const void* maps, int ni, int nj, int nk,
                   (nx + kBlockI - 1) / kBlockI);
   if (grid.y > 65535 || grid.z > 65535) return (int)cudaErrorInvalidValue;
   const float* m = (const float*)maps;
-  const float* f = (const float*)fields;
   const uint8_t* fl = (const uint8_t*)flags;
   float* o = (float*)out;
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (C) {
-    case 1:
-      vol9_fixup_kernel<1><<<grid, block, 0, s>>>(
-          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
-      break;
-    case 2:
-      vol9_fixup_kernel<2><<<grid, block, 0, s>>>(
-          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
-      break;
-    case 3:
-      vol9_fixup_kernel<3><<<grid, block, 0, s>>>(
-          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
-      break;
-    default:
-      vol9_fixup_kernel<4><<<grid, block, 0, s>>>(
-          m, ni, nj, nk, f, nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
-  }
+  if (bf16)
+    launch(grid, block, s, C, m, ni, nj, nk, (const __nv_bfloat16*)fields,
+           nx, ny, nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
+  else
+    launch(grid, block, s, C, m, ni, nj, nk, (const float*)fields, nx, ny,
+           nz, fl, nb0, nb1, nb2, bx, by, bz, h, p, o);
   return (int)cudaGetLastError();
+}
+
+// float32 fields
+extern "C" int gfs_vol9_fixup(const void* maps, int ni, int nj, int nk,
+                              const void* fields, int C, int nx, int ny,
+                              int nz, const void* flags, int nb0, int nb1,
+                              int nb2, int bx, int by, int bz, float h,
+                              const float* params_host, void* out,
+                              void* stream) {
+  return vol9_fixup(maps, ni, nj, nk, fields, false, C, nx, ny, nz, flags,
+                    nb0, nb1, nb2, bx, by, bz, h, params_host, out, stream);
+}
+
+// bfloat16 fields (the bf16 mode); the same arguments
+extern "C" int gfs_vol9_fixup_bf16(const void* maps, int ni, int nj, int nk,
+                                   const void* fields, int C, int nx, int ny,
+                                   int nz, const void* flags, int nb0,
+                                   int nb1, int nb2, int bx, int by, int bz,
+                                   float h, const float* params_host,
+                                   void* out, void* stream) {
+  return vol9_fixup(maps, ni, nj, nk, fields, true, C, nx, ny, nz, flags,
+                    nb0, nb1, nb2, bx, by, bz, h, params_host, out, stream);
 }

@@ -51,7 +51,12 @@ of its sample mode, several fields at the same positions in one launch.
 What the JAX package computes twice with the same inputs is computed once
 here: the backtrace of MacCormack's and BFECC's clamp is the forward
 stage's own (so is the clamp's fallback sample, the forward stage's
-result).
+result). In the bf16 mode (`bf16=True`) every 2D field sample reads the
+field's bfloat16 rounding, as the JAX package's ``sample2_lattice(...,
+values=True)``; the traces' velocity, the map marches and MacCormack's
+corner min/max (exact gathers of the unrounded field in JAX) read
+float32, the min/max in the same trace-mode launch as the rounded foot
+samples.
 """
 
 from __future__ import annotations
@@ -423,29 +428,36 @@ def trace_2d(u, v, h, cfldt, dt, px, py):
 
 
 def _semilag_2d_at(grid, kind, fields, u, v, cfldt, dt, minmax=False,
-                   foot=False):
+                   foot=False, bf16=False):
     """Backtrace `kind`'s nodes by -dt and sample every field of `fields`
     there, in one trace-mode launch that forms the lattice itself; with
     `minmax` also each field's corner min/max there, with `foot` the
-    foot positions. Returns the ``interp_fast.TraceOut``."""
+    foot positions. `bf16`: the samples read the fields' bfloat16
+    rounding, the min/max the fields. Returns the
+    ``interp_fast.TraceOut``."""
     off = grid.off_of(kind)
+    sampled = [f.to(interp_fast.BF16) for f in fields] if bf16 else fields
     return interp_fast.bilerp_trace(
         u, v, grid.h, trace_substeps(cfldt, -np.float32(dt)),
-        interp_fast.Lattice2D(grid.shape_of(kind), off), fields, off,
-        minmax=minmax, write_pos=foot)
+        interp_fast.Lattice2D(grid.shape_of(kind), off), sampled, off,
+        minmax=minmax, write_pos=foot,
+        minmax_fields=fields if bf16 and minmax else None)
 
 
-def semilag_multi_2d(grid, kind, fields, u, v, cfldt, dt):
+def semilag_multi_2d(grid, kind, fields, u, v, cfldt, dt, bf16=False):
     """2D semiLagAdvect of several same-kind fields sharing one trace:
-    each node of `kind` is traced by -dt and the fields sampled there."""
-    return list(_semilag_2d_at(grid, kind, fields, u, v, cfldt,
-                               dt).samples)
+    each node of `kind` is traced by -dt and the fields (their bfloat16
+    rounding with `bf16`) sampled there."""
+    return list(_semilag_2d_at(grid, kind, fields, u, v, cfldt, dt,
+                               bf16=bf16).samples)
 
 
-def semilag_2d(grid, kind, field_src, u, v, w_unused, cfldt, dt):
+def semilag_2d(grid, kind, field_src, u, v, w_unused, cfldt, dt,
+               bf16=False):
     """2D semiLagAdvect: traces `kind`'s nodes with -dt."""
     del w_unused
-    return semilag_multi_2d(grid, kind, [field_src], u, v, cfldt, dt)[0]
+    return semilag_multi_2d(grid, kind, [field_src], u, v, cfldt, dt,
+                            bf16)[0]
 
 
 def _clamp_2d(dsts, mins, maxs, fallbacks):
@@ -456,45 +468,50 @@ def _clamp_2d(dsts, mins, maxs, fallbacks):
             for dst, mn, mx, fb in zip(dsts, mins, maxs, fallbacks)]
 
 
-def _maccormack_clamp_2d(grid, kind, src, dst, u, v, cfldt, dt):
+def _maccormack_clamp_2d(grid, kind, src, dst, u, v, cfldt, dt,
+                         bf16=False):
     """Corner min/max fallback clamp of solveMaccormack, standalone: its
     own backtrace by -dt, fallback sample of src and min/max there."""
-    fwd = _semilag_2d_at(grid, kind, [src], u, v, cfldt, dt, minmax=True)
+    fwd = _semilag_2d_at(grid, kind, [src], u, v, cfldt, dt, minmax=True,
+                         bf16=bf16)
     return _clamp_2d([dst], fwd.min, fwd.max, fwd.samples)[0]
 
 
-def maccormack_multi_2d(grid, kind, srcs, u, v, cfldt, dt):
+def maccormack_multi_2d(grid, kind, srcs, u, v, cfldt, dt, bf16=False):
     """solveMaccormack of several same-kind fields sharing every trace:
     fwd = SL(src, dt), back = SL(fwd, -dt), dst = fwd + 0.5*(src - back),
     clamped at fwd's backtrace with fwd as the fallback."""
-    fwd = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt, minmax=True)
+    fwd = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt, minmax=True,
+                         bf16=bf16)
     fwds = list(fwd.samples)
-    backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt))
+    backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt),
+                             bf16)
     dsts = [f + 0.5 * (s - b) for s, f, b in zip(srcs, fwds, backs)]
     return _clamp_2d(dsts, fwd.min, fwd.max, fwds)
 
 
-def maccormack_2d(grid, kind, src, u, v, cfldt, dt):
-    return maccormack_multi_2d(grid, kind, [src], u, v, cfldt, dt)[0]
+def maccormack_2d(grid, kind, src, u, v, cfldt, dt, bf16=False):
+    return maccormack_multi_2d(grid, kind, [src], u, v, cfldt, dt, bf16)[0]
 
 
-def bfecc_multi_2d(grid, kind, srcs, u, v, cfldt, dt):
+def bfecc_multi_2d(grid, kind, srcs, u, v, cfldt, dt, bf16=False):
     """solveBFECC of several same-kind fields sharing every trace: fwd =
     SL(src, dt), back = SL(fwd, -dt), dst = SL(0.5*(3 src - back), dt)
     (sampled at fwd's backtrace), clamped there with fwd as fallback."""
     fwd = _semilag_2d_at(grid, kind, srcs, u, v, cfldt, dt, minmax=True,
-                         foot=True)
+                         foot=True, bf16=bf16)
     fwds = list(fwd.samples)
-    backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt))
+    backs = semilag_multi_2d(grid, kind, fwds, u, v, cfldt, -np.float32(dt),
+                             bf16)
     mids = [0.5 * (3.0 * s - b) for s, b in zip(srcs, backs)]
     off = grid.off_of(kind)
     dsts = interp.sample2_lattice_multi(mids, fwd.pos[0], fwd.pos[1], grid.h,
-                                        (off,) * len(mids))
+                                        (off,) * len(mids), bf16)
     return _clamp_2d(list(dsts), fwd.min, fwd.max, fwds)
 
 
-def bfecc_2d(grid, kind, src, u, v, cfldt, dt):
-    return bfecc_multi_2d(grid, kind, [src], u, v, cfldt, dt)[0]
+def bfecc_2d(grid, kind, src, u, v, cfldt, dt, bf16=False):
+    return bfecc_multi_2d(grid, kind, [src], u, v, cfldt, dt, bf16)[0]
 
 
 def _sample_map_2d(grid, maps, px, py):

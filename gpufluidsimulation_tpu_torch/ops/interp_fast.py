@@ -32,14 +32,19 @@ here, so nothing is ever truncated and the port's ``interp_overflow`` is
 always 0.
 
 The bf16 mode (``EngineMode.interp_bf16``, the JAX package's bf16 field
-windows): ``trilerp_sample``, ``minmax_sample``, ``rk3_substep`` (and its
-lattice mode) and ``dmc_substep`` take their field values (the sampled
-fields, the MAC faces) as bfloat16 and widen each to float32 at its load;
-positions, maps, bounds and outputs stay float32. Their plain versions
-are the float32 ones on the widened values, so a bfloat16 launch equals
-its plain version bit for bit. The slab modes, ``dmc_substep_lattice``
-(the identity peel reads the unrounded faces, as in JAX) and the other
-kernels take float32 only.
+windows): ``trilerp_sample`` and ``rk3_substep`` (and its lattice mode),
+on the whole grid and in their slab modes, ``minmax_sample``,
+``dmc_substep`` (whole grid), ``vol9_fixup`` and ``bilerp_sample``'s
+sample and trace modes take their field values (the sampled fields, the
+MAC faces) as bfloat16 and widen each to float32 at its load; positions,
+maps, velocities of the 2D modes, bounds and outputs stay float32. Their
+plain versions are the float32 ones on the widened values, so a bfloat16
+launch equals its plain version bit for bit. ``dmc_substep``'s slab mode
+(the JAX package's sharded backward march reads the float32 faces),
+``dmc_substep_lattice`` (the identity peel reads the unrounded faces, as
+in JAX), ``bilerp_sample``'s mac, cp and DMC modes (JAX rounds no 2D
+velocity or map sample) and the other kernels take float32 only: a
+bfloat16 tensor there raises.
 
 The vol9 fixup keeps the JAX package's adaptive decision: per block of
 16 x 16 x (256 or 128) cell-lattice nodes and per channel, the dual
@@ -147,13 +152,6 @@ def widen(t):
     return t if t.dtype == torch.float32 else t.float()
 
 
-def _no_slab_bf16(name, bf16, slab):
-    if bf16 and slab is not None:
-        raise NotImplementedError(
-            f"{name}: the bf16 mode (interp_bf16) of the slab mode, which "
-            "the sharded step runs, is not ported")
-
-
 def _check_sample_args(name, fields, offs, px, py, pz):
     C = fields.shape[0]
     if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
@@ -217,10 +215,9 @@ def trilerp_sample(fields, px, py, pz, h, offs, dual=False, slab=None,
     of a grid of slab.nz planes (the slab mode); positions stay global,
     and each output node that used a plane outside the slab adds 1 to the
     one-element int32 tensor `overflow`, when one is given. The fields
-    may be bfloat16 (the bf16 mode, not on a slab).
+    may be bfloat16 (the bf16 mode).
     """
     bf16 = is_bf16("trilerp_sample", fields)
-    _no_slab_bf16("trilerp_sample", bf16, slab)
     if not _build.on_card(fields, "trilerp_sample"):
         return trilerp_sample_plain(fields, px, py, pz, h, offs, dual, slab,
                                     overflow)
@@ -486,9 +483,8 @@ def rk3_substep(u, v, w, pos, sh, clamp, slab=None, overflow=None):
     mode), the cell planes slab.src .. slab.src + nk - 1 of a grid of
     slab.nz cells, the positions staying global, and each position that
     used a plane outside the faces adds 1 to `overflow`, when given. The
-    faces may be bfloat16 (the bf16 mode, not on a slab)."""
+    faces may be bfloat16 (the bf16 mode)."""
     bf16 = is_bf16("rk3_substep", u, v, w)
-    _no_slab_bf16("rk3_substep", bf16, slab)
     if slab is not None:
         _check_velocity_slab("rk3_substep", slab, u.shape[2])
     if not _build.on_card(pos, "rk3_substep"):
@@ -524,11 +520,12 @@ def rk3_substep_lattice(u, v, w, kind_dim, sh, clamp, slab=None,
     ``rk3_substep`` and the block is the slab.out_nz planes from global
     plane slab.out: (3, ni, nj, slab.out_nz).
 
-    The bf16 mode (bfloat16 faces, no slab) needs `stage1`, the float32
-    faces: the JAX identity peel takes its stage-1 velocity from the
-    unrounded faces and only stages 2 and 3 from the bf16 pack."""
+    The bf16 mode (bfloat16 faces) needs `stage1`, float32 faces that
+    stage 1 samples: the JAX identity peel takes its stage-1 velocity from
+    the unrounded faces and only stages 2 and 3 from the bf16 pack. The
+    JAX sharded march has no peel and samples stage 1 from its bf16 pack
+    too: there `stage1` is the rounded faces widened to float32."""
     bf16 = is_bf16("rk3_substep_lattice", u, v, w)
-    _no_slab_bf16("rk3_substep_lattice", bf16, slab)
     if bf16 != (stage1 is not None) or (
             bf16 and is_bf16("rk3_substep_lattice", *stage1)):
         raise ValueError("rk3_substep_lattice: bfloat16 faces need the "
@@ -760,9 +757,12 @@ def dmc_substep(u, v, w, maps, sh, thresh, slab=None, overflow=None):
 
     The faces may be bfloat16 (the bf16 mode, not on a slab): the JAX
     package's DMC substeps read its bf16 MAC pack; the map stays
-    float32."""
+    float32. Its sharded march reads the float32 faces, so the slab mode
+    has no bf16 mode."""
     bf16 = is_bf16("dmc_substep", u, v, w)
-    _no_slab_bf16("dmc_substep", bf16, slab)
+    if bf16 and slab is not None:
+        raise ValueError("dmc_substep: the slab mode reads float32 faces, "
+                         "in the bf16 mode too")
     if slab is not None:
         _dmc_slab_planes("dmc_substep", slab, u.shape[2], maps.shape[3])
     if not _build.on_card(maps, "dmc_substep"):
@@ -1053,7 +1053,8 @@ def vol9_exact_plain(fields, maps, grid, kind, clamp_lo, clamp_hi):
     `kind` (the reference's advect_kernel): at each node p, the volume
     average of f(clamp(M(p + d*h))) over d in _VOL3 and the centre, M the
     trilinear sample of the (3, ni, nj, nk) world map `maps`. Plain
-    samplers throughout."""
+    samplers throughout; bfloat16 fields are widened."""
+    fields = widen(fields)
     lo, hi = clamp_bounds(grid, clamp_lo, clamp_hi)
     offs = (grid.off_of(kind),) * fields.shape[0]
 
@@ -1088,18 +1089,19 @@ def _vol9_merge_plain(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
 
 
 def vol9_fixup_plain(dual_outs, fields, map_stats, maps, p1, grid, kind,
-                     clamp_lo, clamp_hi, band=None, tol=None):
+                     clamp_lo, clamp_hi, band=None, tol=None, window=None):
     """Plain version: ``torch.where(flag, exact, dual)`` with the flags of
-    ``vol9_flags`` and the composition of ``vol9_exact_plain``."""
+    ``vol9_flags`` and the composition of ``vol9_exact_plain`` (of
+    `window` where given)."""
     flags = vol9_flags(fields, p1, map_stats, grid.shape_c, grid.h,
                        grid.dim_of(kind), clamp_lo, clamp_hi, band=band,
                        tol=tol)
-    return _vol9_merge_plain(dual_outs, fields, maps, flags, grid, kind,
-                             clamp_lo, clamp_hi)
+    return _vol9_merge_plain(dual_outs, fields if window is None else window,
+                             maps, flags, grid, kind, clamp_lo, clamp_hi)
 
 
 def vol9_fixup(dual_outs, fields, map_stats, maps, p1, grid, kind, clamp_lo,
-               clamp_hi, band=None, tol=None):
+               clamp_hi, band=None, tol=None, window=None):
     """Replace the dual volume form `dual_outs` (C, kind shape) of the C
     stacked source `fields` of `kind` by the exact 9-position composition
     through `maps` (clamped to [lo*h, n*h - hi*h]) on every block channel
@@ -1107,10 +1109,20 @@ def vol9_fixup(dual_outs, fields, map_stats, maps, p1, grid, kind, clamp_lo,
     `p1` the dual form's centre positions. On the card the kernel
     overwrites the flagged nodes of `dual_outs` in place and returns it;
     on the CPU a new tensor is returned. Adds the call's flagged and total
-    block channels to ``vol9_block_counts``."""
+    block channels to ``vol9_block_counts``.
+
+    `window` (the bf16 mode): the bfloat16 rounding of `fields`, which the
+    composition samples, while the decision reads the float32 `fields`,
+    as the JAX package's fixup pads bf16 field windows and decides on the
+    unrounded fields."""
     flags = vol9_flags(fields, p1, map_stats, grid.shape_c, grid.h,
                        grid.dim_of(kind), clamp_lo, clamp_hi, band=band,
                        tol=tol)
+    if window is not None:
+        if not is_bf16("vol9_fixup", window) or window.shape != fields.shape:
+            raise ValueError("vol9_fixup: the window is the bfloat16 "
+                             "rounding of the fields")
+        fields = window
     key = str(flags.device)
     prev = vol9_fixup.exact_blocks.get(key)
     n_flagged = flags.sum()
@@ -1150,13 +1162,15 @@ def vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
                 clamp_hi):
     """The ``vol9_fixup`` kernel launch alone, with the block flags of
     ``vol9_flags`` given: overwrites the flagged nodes of `dual_outs` in
-    place and returns it."""
+    place and returns it. The fields may be bfloat16 (the bf16 mode)."""
     C = fields.shape[0]
     if not 1 <= C <= MAX_CHANNELS:
         raise ValueError(f"vol9_fixup: need 1..{MAX_CHANNELS} channels, "
                          f"got {C}")
-    _build.require(fields, "fields", shape=(C,) + grid.shape_of(kind))
-    _build.require(dual_outs, "dual_outs", shape=fields.shape)
+    bf16 = is_bf16("vol9_fixup", fields)
+    _build.require(fields, "fields", shape=(C,) + grid.shape_of(kind),
+                   dtype=fields.dtype if bf16 else None)
+    _build.require(dual_outs, "dual_outs", shape=tuple(fields.shape))
     _build.require(maps, "maps", shape=(3,) + grid.shape_c)
     _, block, nb = vol9_blocks(grid.shape_c)
     if tuple(flags.shape) != (C,) + nb:
@@ -1170,7 +1184,7 @@ def vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
     lo, hi = clamp_bounds(grid, clamp_lo, clamp_hi)
     params = (_F * 9)(*grid.off_of(kind), *lo, *hi)
     fn = _build.function(
-        "vol9_fixup", "gfs_vol9_fixup",
+        "vol9_fixup", "gfs_vol9_fixup_bf16" if bf16 else "gfs_vol9_fixup",
         [_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _I, _I, _I, _I, _I, _I, _F,
          ctypes.POINTER(_F), _P, _P])
     with _build.current(fields):
@@ -1180,10 +1194,12 @@ def vol9_launch(dual_outs, fields, maps, flags, grid, kind, clamp_lo,
                  _build.stream(fields))
     _build.check(err, "vol9_fixup")
     vol9_fixup.launches += 1
+    vol9_fixup.bf16_launches += bf16
     return dual_outs
 
 
 vol9_fixup.launches = 0
+vol9_fixup.bf16_launches = 0
 vol9_fixup.exact_blocks = {}     # device -> flagged block channels (tensor)
 vol9_fixup.total_blocks = 0
 
@@ -1336,11 +1352,11 @@ sample3_pullback = pullback_sample
 
 def bilerp_sample_plain(fields, px, py, h, offs):
     """Plain version: (C, *px.shape) clamped bilinear samples of the C
-    2D fields (stacked (C, nx, ny) or a sequence of same-shape fields),
-    channel c on the lattice (i + offs[c])*h (``interp.sample2`` channel
-    by channel)."""
+    2D fields (stacked (C, nx, ny) or a sequence of same-shape fields,
+    float32 or bfloat16, widened), channel c on the lattice (i +
+    offs[c])*h (``interp.sample2`` channel by channel)."""
     x, y = interp.div_scalar(px, h), interp.div_scalar(py, h)
-    return torch.stack([interp.bilerp_grid(fields[c], x - offs[c][0],
+    return torch.stack([interp.bilerp_grid(widen(fields[c]), x - offs[c][0],
                                            y - offs[c][1])
                         for c in range(len(fields))])
 
@@ -1392,16 +1408,18 @@ def bilerp_sample_cp_plain(fields, px, py, h, offs, bands):
 _BILERP_MODES = {"sample": 0, "mac": 1, "cp": 2}
 
 
-def _bilerp_launch(name, fields, offs, bands, px, py, h, mode="sample"):
-    """One bilerp_sample kernel launch over the 2D float32 CUDA tensors
-    `fields` (each its own shape) at positions (px, py): (C, *px.shape)
-    samples, or (C, *px.shape, 4) coefficients in the cp mode."""
+def _bilerp_launch(name, fields, offs, bands, px, py, h, mode="sample",
+                   bf16=False):
+    """One bilerp_sample kernel launch over the 2D CUDA tensors `fields`
+    (each its own shape; bfloat16 with `bf16`, in the sample mode, else
+    float32) at positions (px, py): (C, *px.shape) samples, or (C,
+    *px.shape, 4) coefficients in the cp mode."""
     C = len(fields)
     if not 1 <= C <= MAX_CHANNELS or len(offs) != C:
         raise ValueError(f"{name}: need 1..{MAX_CHANNELS} fields with one "
                          f"offset each, got {C} and {len(offs)}")
     for c, f in enumerate(fields):
-        _build.require(f, f"fields[{c}]", ndim=2)
+        _build.require(f, f"fields[{c}]", ndim=2, dtype=BF16 if bf16 else None)
     for pname, p in (("px", px), ("py", py)):
         _build.require(p, pname, shape=px.shape)
         if p.device != fields[0].device:
@@ -1415,7 +1433,8 @@ def _bilerp_launch(name, fields, offs, bands, px, py, h, mode="sample"):
     if px.numel() == 0:
         return out
     fn = _build.function(
-        "bilerp_sample", "gfs_bilerp_sample",
+        "bilerp_sample", "gfs_bilerp_sample_bf16" if bf16
+        else "gfs_bilerp_sample",
         [_B, _B, _B, _B, _I, _I, _P, _P, _LL, _F, _F, _P, _P])
     # the arrays the C function reads, packed into bytes (ctypes arrays
     # cost the host several times as much)
@@ -1437,18 +1456,22 @@ def bilerp_sample(fields, px, py, h, offs):
     (C, nx, ny), or a sequence, which the kernel reads in place) at world
     positions (px, py) of any shape, channel c on the lattice (i +
     offs[c])*h: ``interp.sample2`` of each channel, in one launch.
-    Returns (C, *px.shape)."""
+    Returns (C, *px.shape). The fields may be bfloat16 (the bf16 mode)."""
+    bf16 = is_bf16("bilerp_sample", *fields)
     if not _build.on_card(px, "bilerp_sample"):
         return bilerp_sample_plain(fields, px, py, h, offs)
     fields = list(fields)
     if any(f.shape != fields[0].shape for f in fields):
         raise ValueError("bilerp_sample: fields of different shapes")
-    out = _bilerp_launch("bilerp_sample", fields, offs, None, px, py, h)
+    out = _bilerp_launch("bilerp_sample", fields, offs, None, px, py, h,
+                         bf16=bf16)
     bilerp_sample.launches += 1
+    bilerp_sample.bf16_launches += bf16
     return out
 
 
 bilerp_sample.launches = 0
+bilerp_sample.bf16_launches = 0
 
 
 def _mac_bands(u, v):
@@ -1563,14 +1586,15 @@ TraceOut = collections.namedtuple("TraceOut", "pos samples min max")
 
 def bilerp_trace_plain(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
                        minmax=False, write_pos=True, final_clamp=None,
-                       interleave=False):
+                       interleave=False, minmax_fields=None):
     """Plain version of the trace mode: the RK3 steps of ``start`` (a
     pair (px, py) of world positions, or a ``Lattice2D``) by each signed
     float32 substep of `subs` in turn (``rk3_step_2d_plain``), then
     ``final_clamp`` ((lo, hi) per axis, host doubles, as torch.clamp
     takes them), then at the foot the samples of `fields` (same shape, on
     the lattice (i + off)*h; ``bilerp_sample_plain``) and with `minmax`
-    their corner min/max (``bilerp_minmax_plain``)."""
+    the corner min/max (``bilerp_minmax_plain``) of `minmax_fields`, or
+    of `fields` where that is None."""
     if isinstance(start, Lattice2D):
         px, py = lattice_coords(start.shape, start.off, h, u.device)
     else:
@@ -1587,7 +1611,9 @@ def bilerp_trace_plain(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
         samples = bilerp_sample_plain(fields, px, py, h,
                                       (off,) * len(fields))
         if minmax:
-            mn, mx = bilerp_minmax_plain(fields, px, py, h, off)
+            mn, mx = bilerp_minmax_plain(
+                [widen(f) for f in (minmax_fields or fields)], px, py, h,
+                off)
     return TraceOut(pos, samples, mn, mx)
 
 
@@ -1607,6 +1633,8 @@ def trace_schedule(subs):
 
 
 _TRACE_ARGS = [_P, _P, _I, _I, _B, _B, _P, _P, _P, _P, _B, _P, _P, _P, _P]
+# gfs_bilerp_trace_bf16: the float32 fields of the min/max after the fields
+_TRACE_BF16_ARGS = _TRACE_ARGS[:11] + [_B] + _TRACE_ARGS[11:]
 _TRACE_FP, _TRACE_IP = struct.Struct("23f"), struct.Struct("10i")
 
 
@@ -1628,6 +1656,23 @@ def _trace_start(start):
         raise ValueError("bilerp_trace: positions must be contiguous, or "
                          "1-D with any element stride")
     return tuple(px.shape), px.numel(), 0, stride
+
+
+def _trace_bf16(fields, minmax, minmax_fields):
+    """True for bfloat16 trace `fields` (the bf16 mode), whose min/max
+    reads their float32 `minmax_fields`; raises where those do not match
+    them or are given without the bf16 mode's min/max."""
+    bf16 = is_bf16("bilerp_trace", *fields)
+    if bf16 and minmax and minmax_fields is None:
+        raise ValueError("bilerp_trace: the min/max of bfloat16 fields reads "
+                         "their float32 fields (minmax_fields)")
+    if minmax_fields is not None and not (
+            bf16 and minmax and len(minmax_fields) == len(fields)
+            and all(m.shape == f.shape and m.dtype == torch.float32
+                    for m, f in zip(minmax_fields, fields))):
+        raise ValueError("bilerp_trace: minmax_fields are the float32 fields "
+                         "of bfloat16 fields' min/max")
+    return bf16
 
 
 def trace_plan(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
@@ -1669,7 +1714,7 @@ def trace_plan(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
 
 def bilerp_trace(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
                  minmax=False, write_pos=True, final_clamp=None,
-                 interleave=False):
+                 interleave=False, minmax_fields=None):
     """A whole CFL-substepped 2D RK3 trace in one launch of the
     bilerp_sample kernel's trace mode: the positions `start` (a pair
     (px, py) of world positions, contiguous or 1-D with a common element
@@ -1683,42 +1728,62 @@ def bilerp_trace(u, v, h, subs, start, fields=(), off=(0.0, 0.0),
     corners. Returns a ``TraceOut``: the foot ((2, *shape), or (*shape, 2)
     with `interleave`; None without `write_pos`), the samples and the
     min/max ((C, *shape) each, or None). ``bilerp_trace_plain`` is the
-    same, operation for operation."""
+    same, operation for operation.
+
+    The bf16 mode: bfloat16 `fields`, the foot samples read; with
+    `minmax`, `minmax_fields` are their float32 fields, whose corners the
+    min/max reads (the JAX package's MacCormack clamp gathers the
+    unrounded field), in the same launch. The velocity stays float32."""
+    fields = list(fields)
+    minmax_fields = None if minmax_fields is None else list(minmax_fields)
+    bf16 = _trace_bf16(fields, minmax, minmax_fields)
     if not _build.on_card(u, "bilerp_trace"):
         return bilerp_trace_plain(u, v, h, subs, start, fields, off, minmax,
-                                  write_pos, final_clamp, interleave)
-    fields = list(fields)
+                                  write_pos, final_clamp, interleave,
+                                  minmax_fields)
     fp, ip, shape = trace_plan(u, v, h, subs, start, fields, off, minmax,
                                write_pos, final_clamp, interleave)
     lattice = isinstance(start, Lattice2D)
     px, py = (None, None) if lattice else start
-    for name, t in [("u", u), ("v", v)] + [
-            (f"fields[{c}]", f) for c, f in enumerate(fields)]:
-        _build.require(t, name)
+    for name, t, dt in [("u", u, None), ("v", v, None)] + [
+            (f"fields[{c}]", f, BF16 if bf16 else None)
+            for c, f in enumerate(fields)] + [
+            (f"minmax_fields[{c}]", f, None)
+            for c, f in enumerate(minmax_fields or ())]:
+        _build.require(t, name, dtype=dt)
     # the positions may be strided: device and type only
-    for t in [v] + fields + ([] if lattice else [px, py]):
-        if t.device != u.device or t.dtype != torch.float32:
-            raise ValueError(f"bilerp_trace: every tensor must be float32 on "
-                             f"{u.device}, got {t.dtype} on {t.device}")
+    pos = [] if lattice else [px, py]
+    for t in [v] + fields + (minmax_fields or []) + pos:
+        if t.device != u.device:
+            raise ValueError(f"bilerp_trace: tensors on {t.device} and "
+                             f"{u.device}")
+    if any(p.dtype != torch.float32 for p in pos):
+        raise ValueError("bilerp_trace: the positions must be float32")
     n, C = ip[2], len(fields)
     out = trace_outputs(shape, C, minmax, write_pos, interleave, u.device)
     if n == 0:
         return out
     ptr = trace_pointers(out, n, interleave)
-    fn = _build.function("bilerp_sample", "gfs_bilerp_trace", _TRACE_ARGS)
+    mm = ([struct.pack(f"{C}Q", *[f.data_ptr() for f in minmax_fields])
+           if minmax_fields else None] if bf16 else [])
+    fn = (_build.function("bilerp_sample", "gfs_bilerp_trace_bf16",
+                          _TRACE_BF16_ARGS) if bf16 else
+          _build.function("bilerp_sample", "gfs_bilerp_trace", _TRACE_ARGS))
     with _build.current(u):
         err = fn(u.data_ptr(), v.data_ptr(), v.shape[0], u.shape[1],
                  _TRACE_FP.pack(*fp), _TRACE_IP.pack(*ip),
                  None if lattice else px.data_ptr(),
                  None if lattice else py.data_ptr(), ptr[0], ptr[1],
                  struct.pack(f"{C}Q", *[f.data_ptr() for f in fields])
-                 if C else None, *ptr[2:], _build.stream(u))
+                 if C else None, *mm, *ptr[2:], _build.stream(u))
     _build.check(err, "bilerp_trace")
     bilerp_trace.launches += 1
+    bilerp_trace.bf16_launches += bf16
     return out
 
 
 bilerp_trace.launches = 0
+bilerp_trace.bf16_launches = 0
 
 
 def trace_outputs(shape, C, minmax, write_pos, interleave, device):

@@ -23,6 +23,14 @@ step's ``interp_overflow``, as the JAX package's sink does. The marches'
 kernels count the nodes they clamped to a slab's edge into the port's
 own ``Smoke3DState.slab_clamped`` (the JAX package's sharded march
 reports nothing to its sink).
+
+The bf16 mode (``EngineMode.interp_bf16``): the samplers take the fields
+rounded to bfloat16 (the slab launches read them as the JAX package's
+per-shard bf16 windows); the forward march reads the rounded faces in
+every stage, its first substep from the identity too (the JAX sharded
+march samples its bf16 MAC pack and has no identity peel), and the
+backward march reads the float32 faces (JAX forms its DMC velocities in
+XLA from the float32 slabs).
 """
 
 from __future__ import annotations
@@ -42,14 +50,15 @@ MAP_HALO = 2
 
 
 class Sampling:
-    """The sharded routing of one step: the mesh, the halo and the
-    step's counts (device tensors): ``counts`` of the samples past the
+    """The sharded routing of one step: the mesh, the halo, whether the
+    slab paths round to bfloat16 (``bf16``: ``EngineMode.slab_bf16``) and
+    the step's counts (device tensors): ``counts`` of the samples past the
     halo contract (JAX's sink, summed by ``overflow``), ``clamped`` of the
     march nodes clamped to a slab's edge (the port's own, summed by
     ``clamped_nodes``)."""
 
-    def __init__(self, mesh, halo):
-        self.mesh, self.halo = mesh, int(halo)
+    def __init__(self, mesh, halo, bf16=False):
+        self.mesh, self.halo, self.bf16 = mesh, int(halo), bool(bf16)
         self.counts, self.clamped = [], []
 
     @classmethod
@@ -66,7 +75,7 @@ class Sampling:
             mesh = sharding.make_mesh(int(mesh),
                                       devices=[device] * int(mesh))
         sharding.check_placement(mesh, device, "EngineMode.sharded_sampling")
-        return cls(mesh, halo)
+        return cls(mesh, halo, engine_mode.slab_bf16)
 
     def divides(self, nz):
         """True when a z extent splits into the mesh's slabs with the halo
@@ -170,7 +179,7 @@ def sample3_fast_sharded(field, px, py, pz, h, off, mesh, *, halo=8,
 
 
 def _velocity_slabs(u, v, w, mesh, halo):
-    """Each slab's velocity: the L = nzl + 2*halo cell planes (at most nk)
+    """Each slab's faces: the L = nzl + 2*halo cell planes (at most nk)
     from s0 = clip(z0 - halo, 0, nk - L), w one face plane more, on the
     slab's device; and the slab's (z0, s0)."""
     nk = u.shape[2]
@@ -187,7 +196,8 @@ def _velocity_slabs(u, v, w, mesh, halo):
 
 
 def update_mapping_3d_sharded(mapping, grid, u, v, w, cfldt, dt, mesh,
-                              halo=8, from_identity=False, counts=None):
+                              halo=8, from_identity=False, counts=None,
+                              window=None):
     """The backward (DMC) then forward (RK3) march with z-sharded maps:
     the counterpart of ``bimocq.mapping.update_mapping_3d``.
 
@@ -203,7 +213,13 @@ def update_mapping_3d_sharded(mapping, grid, u, v, w, cfldt, dt, mesh,
     march bit for bit while no node leaves its slab. (The JAX package's
     sharded march takes its generic path instead and agrees with its
     single-device march to 1e-5.) Nodes clamped to a slab's edge are
-    counted into `counts` when given."""
+    counted into `counts` when given.
+
+    `window` (the bf16 mode): the bfloat16 faces (``advect.window_faces``)
+    that the forward march reads in all three stages of every substep;
+    its lattice-mode first substep from the identity samples stage 1 from
+    them too, widened to float32. The backward march reads the float32
+    faces."""
     ni, nj, nk = grid.shape_c
     h = grid.h
     _check_geometry(nk, mesh, halo, "update_mapping_3d_sharded")
@@ -239,13 +255,17 @@ def update_mapping_3d_sharded(mapping, grid, u, v, w, cfldt, dt, mesh,
     bwd = gather_z(maps, home)
 
     # forward map: RK3 substeps of the positions, slab by slab
+    if window is not None:
+        vel = _velocity_slabs(*window, mesh, halo)
     sign = 1.0 if dt >= 0 else -1.0
     clamp = advect._clamp_grid(grid)
     subs = advect.substeps(cfldt, abs(dt))
     if from_identity and subs:
         sh = advect._sh(subs[0], h, sign)
-        pos = [interp_fast.rk3_substep_lattice(*f, (0, 0, 0), sh, clamp,
-                                               slab(s0, z0), ov)
+        pos = [interp_fast.rk3_substep_lattice(
+                   *f, (0, 0, 0), sh, clamp, slab(s0, z0), ov,
+                   stage1=None if window is None else [
+                       interp_fast.widen(x) for x in f])
                for (f, z0, s0), ov in zip(vel, ovs)]
         subs = subs[1:]
     elif from_identity:

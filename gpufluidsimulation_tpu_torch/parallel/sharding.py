@@ -149,23 +149,25 @@ def sharded_step(solver, mesh: Mesh, halo_smoother: bool = True,
     ``sharded_sampling=(mesh, halo)``, else ``()``); None means on when
     the mesh's devices are cards and off on the CPU, as the JAX package
     turns it on for accelerator backends. The state lives on the mesh's
-    home device (``shard_state``), which must be the solver's."""
+    home device (``shard_state``), which must be the solver's. In the bf16
+    mode (``EngineMode.interp_bf16``) the scoped mode rounds the slab
+    paths alone (``config.SLABS``): the slab samplers and the forward
+    march as ``parallel/sharded_interp.py`` says, every other sample in
+    float32, as the JAX package's sharded step turns its single-device
+    window samplers off."""
     from gpufluidsimulation_tpu_torch.solvers import smoke3d
 
     check_placement(mesh, solver.device, "sharded_step")
-    if getattr(solver.cfg.engine_mode, "interp_bf16", None):
-        raise NotImplementedError(
-            "interp_bf16=True in sharded_step: the bf16 mode of the slab "
-            "kernels is not ported")
     step_fn = smoke3d._STEPS[solver.cfg.scheme]
     ctx = solver.ctx
     if halo_smoother and ctx is not None and not solver.cfg.boundaries:
         ctx = ShardedMGContext(solver.grid.shape_c, solver.cfg.bc, mesh)
     if fast_sampling is None:
         fast_sampling = all(d.type == "cuda" for d in mesh.devices)
+    mode = solver.cfg.engine_mode or config.EngineMode()
     mode = dataclasses.replace(
-        solver.cfg.engine_mode or config.EngineMode(),
-        sharded_sampling=(mesh, int(halo)) if fast_sampling else ())
+        mode, sharded_sampling=(mesh, int(halo)) if fast_sampling else (),
+        interp_bf16=config.SLABS if mode.slab_bf16 else mode.interp_bf16)
     cfg = dataclasses.replace(solver.cfg, engine_mode=mode)
     base = solver._base_flags
 

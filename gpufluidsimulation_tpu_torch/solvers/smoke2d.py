@@ -29,6 +29,15 @@ branches) and give the step's CFL number.
 In 2D the external force changes v alone and nothing is emitted, so the
 force deltas of u, rho and T are zero by construction: the JAX step's
 accumulates of them add exact zeros and are not evaluated here.
+
+The bf16 mode (``EngineMode(interp_bf16=True)``, the JAX package's bf16
+field windows): every field sample of the grid schemes (the
+semi-Lagrangian samples, MacCormack's and BFECC's, the BiMocq pull-back,
+correction and accumulate) reads the field's bfloat16 rounding, as the
+JAX package's ``sample2_lattice(..., values=True)`` does; the velocity
+samples, the map marches, MacCormack's corner min/max and the particle
+schemes' transfers (the JAX package's exact ``sample2`` on particle
+positions) read float32, so a particle step is the float32 step.
 """
 
 from __future__ import annotations
@@ -135,11 +144,11 @@ def check_supported(cfg: Smoke2DConfig) -> None:
                                                       config.EngineMode):
         raise NotImplementedError(f"engine_mode {cfg.engine_mode!r} (the "
                                   "port's config.EngineMode only)")
-    if cfg.engine_mode is not None and cfg.engine_mode.interp_bf16:
-        raise NotImplementedError(
-            "interp_bf16=True in the 2D solver: the bf16 mode of "
-            "bilerp_sample, whose samples the JAX package rounds, is not "
-            "ported")
+
+
+def _bf16(cfg: Smoke2DConfig) -> bool:
+    """The bf16 mode (``EngineMode.interp_bf16``)."""
+    return cfg.engine_mode is not None and cfg.engine_mode.bf16
 
 
 def init_state(cfg: Smoke2DConfig, device=None) -> Smoke2DState:
@@ -225,13 +234,14 @@ def _step_highorder(cfg, g, ctx, s, dt, multi):
     mv = _host_max_vel(s.u, s.v)
     cfldt = np.float32(np.float32(g.h) / mv)
     subs = len(substeps(cfldt, dt))
+    bf16 = _bf16(cfg)
     if cfg.advect_levelset:
-        (rho,) = multi(g, "c", [s.rho], s.u, s.v, cfldt, dt)
+        (rho,) = multi(g, "c", [s.rho], s.u, s.v, cfldt, dt, bf16)
         return dataclasses.replace(s, rho=rho, frame=s.frame + 1,
                                    substeps=subs)
-    rho, T = multi(g, "c", [s.rho, s.T], s.u, s.v, cfldt, dt)
-    (u,) = multi(g, "u", [s.u], s.u, s.v, cfldt, dt)
-    (v,) = multi(g, "v", [s.v], s.u, s.v, cfldt, dt)
+    rho, T = multi(g, "c", [s.rho, s.T], s.u, s.v, cfldt, dt, bf16)
+    (u,) = multi(g, "u", [s.u], s.u, s.v, cfldt, dt, bf16)
+    (v,) = multi(g, "v", [s.v], s.u, s.v, cfldt, dt, bf16)
     u, v, iters, res = _buoyancy_project(cfg, g, ctx, u, v, rho, T, dt)
     return dataclasses.replace(
         s, u=u, v=v, rho=rho, T=T, frame=s.frame + 1, cfl=_cfl(mv, dt, g.h),
@@ -250,23 +260,24 @@ def _step_reflection(cfg, g, ctx, s, dt):
     mv = _host_max_vel(s.u, s.v)
     cfldt = np.float32(np.float32(g.h) / mv)
     subs = len(substeps(cfldt, dt))
+    bf16 = _bf16(cfg)
     if cfg.advect_levelset:
         (rho,) = advect.maccormack_multi_2d(g, "c", [s.rho], s.u, s.v, cfldt,
-                                            dt)
+                                            dt, bf16)
         return dataclasses.replace(s, rho=rho, frame=s.frame + 1,
                                    substeps=subs)
     rho, T = advect.maccormack_multi_2d(g, "c", [s.rho, s.T], s.u, s.v,
-                                        cfldt, dt)
+                                        cfldt, dt, bf16)
     half = np.float32(np.float32(0.5) * dt)
-    u = advect.maccormack_2d(g, "u", s.u, s.u, s.v, cfldt, half)
-    v = advect.maccormack_2d(g, "v", s.v, s.u, s.v, cfldt, half)
+    u = advect.maccormack_2d(g, "u", s.u, s.u, s.v, cfldt, half, bf16)
+    v = advect.maccormack_2d(g, "v", s.v, s.u, s.v, cfldt, half, bf16)
     v = forces.buoyancy_2d(v, rho, T, cfg.alpha, cfg.beta, half)
     u_save, v_save = u, v
     u, v, it1, res1 = _project(cfg, g, ctx, u, v)
     ru = 2.0 * u - u_save
     rv = 2.0 * v - v_save
-    u = advect.maccormack_2d(g, "u", ru, ru, rv, cfldt, half)
-    v = advect.maccormack_2d(g, "v", rv, ru, rv, cfldt, half)
+    u = advect.maccormack_2d(g, "u", ru, ru, rv, cfldt, half, bf16)
+    v = advect.maccormack_2d(g, "v", rv, ru, rv, cfldt, half, bf16)
     v = forces.buoyancy_2d(v, rho, T, cfg.alpha, cfg.beta, half)
     u, v, it2, res2 = _project(cfg, g, ctx, u, v)
     return dataclasses.replace(
@@ -285,6 +296,7 @@ def _step_bimocq(cfg, g, ctx, s, dt):
     cfldt = np.float32(np.float32(g.h) / mv)
     lvl = cfg.advect_levelset
     blend = cfg.blend_coeff
+    bf16 = _bf16(cfg)
 
     # un-average the reflection blend of the previous frame
     u0, v0 = ((s.u_temp, s.v_temp) if not lvl and s.frame != 0
@@ -294,30 +306,30 @@ def _step_bimocq(cfg, g, ctx, s, dt):
     scalar_map = mp.update_mapping_2d(s.scalar_map, g, u0, v0, cfldt, dt)
 
     semi_rho, semi_T = advect.semilag_multi_2d(g, "c", [s.rho, s.T], u0, v0,
-                                               cfldt, dt)
+                                               cfldt, dt, bf16)
     if not lvl:
-        semi_u = advect.semilag_2d(g, "u", u0, u0, v0, None, cfldt, dt)
-        semi_v = advect.semilag_2d(g, "v", v0, u0, v0, None, cfldt, dt)
+        semi_u = advect.semilag_2d(g, "u", u0, u0, v0, None, cfldt, dt, bf16)
+        semi_v = advect.semilag_2d(g, "v", v0, u0, v0, None, cfldt, dt, bf16)
         u = mp.advect_bimocq_2d(g, "u", semi_u, s.u_init, s.u_origin, s.du,
                                 s.du_prev, vel_map.bwd, vel_map.bwd_prev,
-                                blend)
+                                blend, bf16)
         v = mp.advect_bimocq_2d(g, "v", semi_v, s.v_init, s.v_origin, s.dv,
                                 s.dv_prev, vel_map.bwd, vel_map.bwd_prev,
-                                blend)
+                                blend, bf16)
         u = mp.correct_2d(g, "u", u, s.u_init, s.du, vel_map.fwd,
-                          vel_map.bwd)
+                          vel_map.bwd, bf16)
         v = mp.correct_2d(g, "v", v, s.v_init, s.dv, vel_map.fwd,
-                          vel_map.bwd)
+                          vel_map.bwd, bf16)
     else:
         u, v = u0, v0
     rho, T = mp.advect_bimocq_multi_2d(
         g, "c", [semi_rho, semi_T], [s.rho_init, s.T_init],
         [s.rho_orig, s.T_orig], [s.drho, s.dT], [s.drho_prev, s.dT_prev],
-        scalar_map.bwd, scalar_map.bwd_prev, blend)
+        scalar_map.bwd, scalar_map.bwd_prev, blend, bf16)
     if not lvl:
         rho, T = mp.correct_multi_2d(g, "c", [rho, T], [s.rho_init, s.T_init],
                                      [s.drho, s.dT], scalar_map.fwd,
-                                     scalar_map.bwd)
+                                     scalar_map.bwd, bf16)
 
     v_before = v
     v = forces.buoyancy_2d(v, rho, T, cfg.alpha, cfg.beta, dt)
@@ -350,10 +362,10 @@ def _step_bimocq(cfg, g, ctx, s, dt):
     if not lvl:
         du_proj, dv_proj = u - u_save, v - v_save
         (du,) = mp.accumulate_multi_2d(
-            g, "u", [(du, [(du_proj, proj_coeff)])], vel_map.fwd)
+            g, "u", [(du, [(du_proj, proj_coeff)])], vel_map.fwd, bf16)
         (dv,) = mp.accumulate_multi_2d(
             g, "v", [(dv, [(dv_temp, 1.0), (dv_proj, proj_coeff)])],
-            vel_map.fwd)
+            vel_map.fwd, bf16)
 
     # velocity remap (resampleVelBuffer)
     u_init, v_init, u_origin, v_origin = s.u_init, s.v_init, s.u_origin, \
@@ -366,9 +378,9 @@ def _step_bimocq(cfg, g, ctx, s, dt):
         u_init, v_init = u, v
         du_prev, dv_prev = du, dv
         du = mp.accumulate_2d(g, "u", torch.zeros_like(du), du_proj,
-                              vel_map.fwd, proj_coeff)
+                              vel_map.fwd, proj_coeff, bf16)
         dv = mp.accumulate_2d(g, "v", torch.zeros_like(dv), dv_proj,
-                              vel_map.fwd, proj_coeff)
+                              vel_map.fwd, proj_coeff, bf16)
         total_resample += 1
 
     # scalar remap (resampleRhoBuffer)

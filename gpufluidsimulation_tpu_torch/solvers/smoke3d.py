@@ -270,7 +270,6 @@ def check_supported(cfg: Smoke3DConfig) -> None:
         raise NotImplementedError(
             "the PyTorch port does not run this configuration; "
             "unsupported: " + "; ".join(problems))
-    _bf16(cfg)     # raises for the bf16 mode's unported paths
 
 
 def _aux_dead(cfg: Smoke3DConfig) -> bool:
@@ -282,8 +281,9 @@ def _aux_dead(cfg: Smoke3DConfig) -> bool:
 
 
 def _bf16(cfg: Smoke3DConfig) -> bool:
-    """The bf16 mode (``EngineMode.interp_bf16``); raises with vol9 or a
-    sharded mesh."""
+    """The bf16 mode of the single-device samplers (``EngineMode.bf16``;
+    the slab paths read ``EngineMode.slab_bf16`` through their
+    routing)."""
     return cfg.engine_mode is not None and cfg.engine_mode.bf16
 
 

@@ -553,16 +553,23 @@ def test_whole_steps_match_jax_bf16(tmp_path_factory, scheme, steps):
 
 def test_convert_carries_interp_bf16():
     """``convert`` carries interp_bf16 across where the JAX package's
-    window samplers run (fast_interp None or True, or under a mesh) and
-    drops it where its exact engine rounds nothing (fast_interp False)."""
+    window samplers run (fast_interp None or True), drops it where its
+    exact engine rounds nothing (fast_interp False), and under a mesh
+    with fast_interp False, where only the slab samplers and the sharded
+    march round, gives the slab paths' value (``config.SLABS``), but not
+    in the exact volume form, which samples whole."""
     for fast, want in ((None, True), (True, True), (False, None)):
         em = convert._engine_mode(dict(fast_interp=fast, interp_bf16=True))
         assert em.interp_bf16 is want, fast
     em = convert._engine_mode(dict(interp_bf16=False))
     assert em.interp_bf16 is False and not em.bf16
-    em = convert._engine_mode(dict(fast_interp=False, interp_bf16=True,
-                                   sharded_sampling=(_Mesh(2), 2)))
-    assert em.interp_bf16 is True
+    mesh = dict(fast_interp=False, interp_bf16=True,
+                sharded_sampling=(_Mesh(2), 2))
+    em = convert._engine_mode(mesh)
+    assert em.interp_bf16 == tconfig.SLABS
+    assert em.slab_bf16 and not em.bf16
+    em = convert._engine_mode(dict(mesh, volume_exact=True))
+    assert em.interp_bf16 is None
 
 
 class _Mesh:
@@ -578,33 +585,86 @@ def _vortex(mode, **kw):
         **kw)
 
 
+def _spy_dtypes(seen):
+    """Record the field dtypes that the 3D and 2D samplers' plain versions
+    read, until the returned function restores them."""
+    saved = [(name, getattr(interp_fast, name)) for name in (
+        "trilerp_sample_plain", "vol9_exact_plain", "bilerp_sample_plain")]
+
+    def spy(fn):
+        def call(fields, *a, **k):
+            seen.update({f.dtype for f in fields})
+            return fn(fields, *a, **k)
+        return call
+
+    for name, fn in saved:
+        setattr(interp_fast, name, spy(fn))
+
+    def restore():
+        for name, fn in saved:
+            setattr(interp_fast, name, fn)
+    return restore
+
+
 @pytest.mark.parametrize("path", ["vol9", "sharded_mode", "sharded_step",
-                                  "2d"])
-def test_unported_bf16_paths_raise(path):
-    """vol9, a sharded mesh, ``sharded_step`` and the 2D solver raise
-    NotImplementedError naming interp_bf16: none computes float32 where
-    the JAX package would round."""
-    with pytest.raises(NotImplementedError, match="interp_bf16"):
-        if path == "vol9":
-            smoke3d.Smoke3D(_vortex(tconfig.EngineMode(
-                volume_vol9=True, interp_bf16=True)), device="cpu")
-        elif path == "sharded_mode":
-            smoke3d.Smoke3D(_vortex(tconfig.EngineMode(
-                sharded_sampling=(2, 2), interp_bf16=True)), device="cpu")
-        elif path == "sharded_step":
-            from gpufluidsimulation_tpu_torch.parallel import sharding
+                                  "2d", "vol9_under_a_mesh"])
+def test_bf16_paths_step(path):
+    """The bf16 mode builds and steps on the CPU where the port once
+    refused it (vol9, a sharded mesh, ``sharded_step``, the 2D solver),
+    its samplers reading bfloat16 (vol9: its fixup's composition too;
+    ``sharded_step``: its slab samplers, ``config.SLABS``); vol9 under a
+    mesh still raises, in the bf16 mode as in float32, as the JAX
+    package refuses it."""
+    from gpufluidsimulation_tpu_torch.parallel import sharding
+    from gpufluidsimulation_tpu_torch.solvers import smoke2d
 
-            solver = smoke3d.Smoke3D(_vortex(tconfig.EngineMode(
-                interp_bf16=True)), device="cpu")
-            sharding.sharded_step(solver, sharding.make_mesh(
-                2, devices=["cpu"] * 2), halo=2)
-        else:
-            from gpufluidsimulation_tpu_torch.solvers import smoke2d
-
+    if path == "vol9_under_a_mesh":
+        for bf16 in (True, None):
+            cfg = _vortex(tconfig.EngineMode(
+                volume_vol9=True, sharded_sampling=(2, 2), interp_bf16=bf16),
+                scheme=Scheme.BIMOCQ)
+            solver = smoke3d.Smoke3D(cfg, device="cpu")
+            with pytest.raises(ValueError, match="vol9.*not sharded"):
+                solver.step(solver.init_state())
+        return
+    seen = set()
+    restore = _spy_dtypes(seen)
+    try:
+        if path == "2d":
             cfg = smoke2d.Smoke2DConfig(
-                ni=16, nj=16, L=1.0,
+                ni=16, nj=16, L=1.0, scheme=Scheme.BIMOCQ,
                 engine_mode=tconfig.EngineMode(interp_bf16=True))
-            smoke2d.Smoke2D(cfg, device="cpu")
+            solver = smoke2d.Smoke2D(cfg, device="cpu")
+            st = solver.init_state()
+            st = dataclasses.replace(st, u=_t(_noise(
+                tuple(st.u.shape), 80, 0.05)), rho=_t(np.abs(_noise(
+                    tuple(st.rho.shape), 81))))
+            st = solver.step(st, 0.05)
+            out = (st.u, st.rho)
+        else:
+            mode = {"vol9": dict(volume_vol9=True),
+                    "sharded_mode": dict(sharded_sampling=(2, 2)),
+                    "sharded_step": {}}[path]
+            cfg = _vortex(tconfig.EngineMode(interp_bf16=True, **mode),
+                          scheme=Scheme.BIMOCQ, dt=0.02)
+            solver = smoke3d.Smoke3D(cfg, device="cpu")
+            step, st = solver.step, solver.init_state()
+            if path == "sharded_step":
+                mesh = sharding.make_mesh(2, devices=["cpu"] * 2)
+                step = sharding.sharded_step(solver, mesh, halo=2,
+                                             fast_sampling=True)
+                st = sharding.shard_state(st, mesh)
+            st = dataclasses.replace(st, **{
+                k: _t(_smooth(tuple(getattr(st, k).shape), 70 + i, 0.05))
+                for i, k in enumerate(("u", "v", "w"))})
+            for _ in range(2):
+                st = step(st)
+            assert st.interp_overflow == 0 and st.slab_clamped == 0
+            out = (st.u, st.rho)
+    finally:
+        restore()
+    assert all(bool(torch.isfinite(t).all()) for t in out)
+    assert torch.bfloat16 in seen, path
 
 
 @pytest.mark.parametrize("scheme", [Scheme.BIMOCQ, Scheme.SEMILAG,
